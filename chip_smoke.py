@@ -1,0 +1,457 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (kmbart_tpu_torch) on one NVIDIA GPU.
+
+Run from the repository root:  python3 chip_smoke.py
+
+Phases, each printing one JSON line; any failure raises and exits non-zero:
+  1. device   the card's name and power limit (needs a CUDA device);
+  2. build    nvcc builds the four kernels from kmbart_tpu_torch/csrc;
+  3. kernels  each kernel against its plain PyTorch version on the card, at
+              the generation path's shapes and at an edge shape, with the
+              median times of both from CUDA events; a planted-tie top-k;
+  4. generate beam-5 VCG generation at BART-base width (config/vcg_base.json,
+              random weights from a seed, batch 64): every kernel must have
+              launched, outputs finite, and the encoder output and first-step
+              log-probs close to the plain path's on the card;
+  5. cli      ``python -m kmbart_tpu_torch.vcg_generate --device cuda`` on a
+              fixture dataset.
+The last line is {"ok": true, "device": {...}}.
+"""
+
+import contextlib
+import json
+import math
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+# stated tolerances (see _bf16_tol): kernel vs plain version on one card
+BF16_ULPS = 2            # bf16 outputs: the two differ in fp32 summation order only
+ES_RTOL = 1e-5           # vocab exp-sums (fp32, summation order)
+ENC_ULPS = 8             # full-width encoder output: 6 layers of <= 2-ulp kernel
+                         # differences compounded through layer norm, in bf16
+                         # ulps of the output's largest magnitude
+LOGPROB_ATOL = 0.1       # first-step log-probs through the 6-layer decoder
+
+
+def emit(phase, **fields):
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def _bf16_tol(ref):
+    scale = max(1.0, float(ref.abs().max()))
+    return BF16_ULPS * 2.0 ** (math.floor(math.log2(scale)) - 7)
+
+
+def _time_ms(torch, fn, iters=20, warmup=3):
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def _check(name, err, tol):
+    if not err <= tol:  # also catches NaN
+        raise AssertionError(f"{name}: max error {err} above tolerance {tol}")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def check_kernels(torch, dev):
+    from kmbart_tpu_torch.ops import beam_attention as ba
+    from kmbart_tpu_torch.ops import ffn, train_attention as ta, vocab_stats as vs
+    from kmbart_tpu_torch.ops.topk import top_k
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, std=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
+
+    results = {}
+
+    # K1: encoder self-attention (B 64, T 72, D 768, 12 heads); edges: tiny
+    # widths with padding, and causal
+    def k1(B, T, D, H, pad, causal, timed):
+        q, k, v = randn(B, T, D), randn(B, T, D), randn(B, T, D)
+        mask = torch.ones((B, T), dtype=torch.long, device=dev)
+        if pad:
+            mask[1::2, T - pad:] = 0
+        kw = dict(num_heads=H, causal=causal)
+        out = ta.train_attention_flat(q, k, v, mask, **kw)
+        ref = ta.train_attention_plain(q, k, v, mask, **kw)
+        err = float((out.float() - ref.float()).abs().max())
+        tol = _bf16_tol(ref.float())
+        _check(f"train_attention {B}x{T}x{D} causal={causal}", err, tol)
+        res = {"shape": [B, T, D, H], "pad": pad, "causal": causal,
+               "max_abs_err": err, "tol": tol}
+        if timed:
+            res["ms"] = _time_ms(torch, lambda: ta.train_attention_flat(q, k, v, mask, **kw))
+            res["plain_ms"] = _time_ms(torch, lambda: ta.train_attention_plain(q, k, v, mask, **kw))
+        return res
+
+    results["train_attention"] = [k1(64, 72, 768, 12, 0, False, True),
+                                  k1(3, 16, 32, 4, 5, False, False),
+                                  k1(3, 16, 32, 4, 5, True, False)]
+
+    # K2: encoder FFN rows (64 x 72) and decoder-step rows (64 x 5); edge:
+    # tiny widths with a ragged row count
+    def k2(N, D, F, timed):
+        x = randn(N, D)
+        w1, w2 = randn(F, D, std=0.02), randn(D, F, std=0.02)
+        b1 = randn(F, std=0.02, dtype=torch.float32)
+        b2 = randn(D, std=0.02, dtype=torch.float32)
+        out = ffn.fused_ffn(x, w1, b1, w2, b2)
+        ref = ffn.fused_ffn_plain(x, w1, b1, w2, b2)
+        err = float((out.float() - ref.float()).abs().max())
+        tol = _bf16_tol(ref.float())
+        _check(f"fused_ffn {N}x{D}x{F}", err, tol)
+        res = {"shape": [N, D, F], "max_abs_err": err, "tol": tol}
+        if timed:
+            res["ms"] = _time_ms(torch, lambda: ffn.fused_ffn(x, w1, b1, w2, b2))
+            res["plain_ms"] = _time_ms(torch, lambda: ffn.fused_ffn_plain(x, w1, b1, w2, b2))
+        return res
+
+    results["ffn"] = [k2(64 * 72, 768, 3072, True), k2(64 * 5, 768, 3072, True),
+                      k2(37, 32, 64, False)]
+
+    # K3: decoder self-attention, B 64, K 5, T 32, D 768, 12 heads, at the
+    # last position with branching ancestry; edges: cache_index 0, tiny widths
+    def k3(B, K, T, D, H, cache_index, timed):
+        q = randn(B * K, D) * (D // H) ** -0.5
+        kc, vc = randn(B, K, T, D), randn(B, K, T, D)
+        anc = torch.randint(0, K, (B * K, T), generator=g, device=dev, dtype=torch.int32)
+        kw = dict(num_beams=K, num_heads=H)
+        out = ba.beam_gather_attention(q, kc, vc, anc, cache_index, **kw)
+        ref = ba.beam_gather_attention_plain(q, kc, vc, anc, cache_index, **kw)
+        err = float((out - ref).abs().max())
+        tol = _bf16_tol(ref)   # P is rounded to bf16 on both sides
+        _check(f"beam_gather_attention ci={cache_index}", err, tol)
+        res = {"shape": [B, K, T, D, H], "cache_index": cache_index,
+               "max_abs_err": err, "tol": tol}
+        if timed:
+            res["ms"] = _time_ms(torch, lambda: ba.beam_gather_attention(q, kc, vc, anc, cache_index, **kw))
+            res["plain_ms"] = _time_ms(torch, lambda: ba.beam_gather_attention_plain(q, kc, vc, anc, cache_index, **kw))
+        return res
+
+    results["beam_attention"] = [k3(64, 5, 32, 768, 12, 31, True),
+                                 k3(64, 5, 32, 768, 12, 0, False),
+                                 k3(3, 5, 12, 32, 4, 6, False)]
+
+    # K4: [B*K, V] = [320, 50320] logits (ragged tail chunk); edge: forced
+    # rows that are -inf except one column (49 all--inf chunks per row)
+    def k4(R, V, forced, timed):
+        x = randn(R, V, std=4.0, dtype=torch.float32)
+        if forced:
+            keep = torch.arange(V, device=dev) == 2
+            x = torch.where(keep[None, :], x, -math.inf)
+        cm, es = vs.chunk_stats(x)
+        rcm, res_ = vs.chunk_stats_plain(x)
+        if not (torch.equal(cm, rcm) and torch.isfinite(es).all()):
+            raise AssertionError("chunk_stats: chunk maxima differ or exp-sums not finite")
+        rel = float(((es - res_).abs() / res_.clamp(min=1e-30)).max())
+        _check(f"chunk_stats {R}x{V} forced={forced}", rel, ES_RTOL)
+        lse = vs.logsumexp_from_stats(cm, es)
+        if forced and not torch.equal(lse, x[:, 2]):
+            raise AssertionError("chunk_stats: forced-row logsumexp is not the kept logit")
+        finite = torch.isfinite(rcm)  # equal -inf maxima already checked
+        err = max(float((cm - rcm)[finite].abs().max()), float((es - res_).abs().max()))
+        out = {"shape": [R, V], "forced": forced, "max_abs_err": err,
+               "es_max_rel_err": rel, "tol": ES_RTOL}
+        if timed:
+            out["ms"] = _time_ms(torch, lambda: vs.chunk_stats(x))
+            out["plain_ms"] = _time_ms(torch, lambda: vs.chunk_stats_plain(x))
+        return out
+
+    results["vocab_stats"] = [k4(320, 50320, False, True), k4(8, 50320, True, False)]
+
+    # planted ties: the top-k must list equal values lowest index first
+    x = torch.randn((4, 50320), generator=g, device=dev)
+    x[0, [40000, 123, 4567]] = 9.0
+    x[1, :] = 1.25
+    x[2, [7, 50319]] = 5.0
+    x[3, ::7] = -math.inf
+    _, idx = top_k(x, 10)
+    expect_first = [[123, 4567, 40000], list(range(10)), [7, 50319]]
+    for row, want in enumerate(expect_first):
+        got = idx[row, :len(want)].tolist()
+        if got != want:
+            raise AssertionError(f"top_k tie order row {row}: {got} != {want}")
+    results["topk_ties"] = "lowest index first"
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 4: full-width generation
+# ---------------------------------------------------------------------------
+
+def random_jax_params(cfg, seed):
+    """Random weights in the JAX package's params.npz layout ("/"-joined
+    pytree paths, [in, out] kernels, layers stacked on a leading axis)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    d, std = cfg.d_model, cfg.init_std
+
+    def w(*shape):
+        return (rng.standard_normal(shape, dtype=np.float32) * std)
+
+    def ln(prefix, *lead):
+        return {f"{prefix}/scale": 1.0 + w(*lead, d) * 5, f"{prefix}/bias": w(*lead, d)}
+
+    n_pos = cfg.max_position_embeddings + cfg.extra_pos_embeddings
+    p = {"model/shared": w(cfg.vocab_size, d), "final_logits_bias": w(cfg.vocab_size)}
+    for side in ("encoder", "decoder"):
+        base = f"model/{side}"
+        L = cfg.encoder_layers if side == "encoder" else cfg.decoder_layers
+        f = cfg.encoder_ffn_dim if side == "encoder" else cfg.decoder_ffn_dim
+        p[f"{base}/embed_positions"] = w(n_pos, d)
+        p.update(ln(f"{base}/layernorm_embedding"))
+        lp = f"{base}/layers"
+        for attn in ("self_attn",) + (("encoder_attn",) if side == "decoder" else ()):
+            for proj in "qkvo":
+                p[f"{lp}/{attn}/{proj}_kernel"] = w(L, d, d)
+                p[f"{lp}/{attn}/{proj}_bias"] = w(L, d)
+            p.update(ln(f"{lp}/{attn}_layer_norm", L))
+        p.update({f"{lp}/fc1_kernel": w(L, d, f), f"{lp}/fc1_bias": w(L, f),
+                  f"{lp}/fc2_kernel": w(L, f, d), f"{lp}/fc2_bias": w(L, d)})
+        p.update(ln(f"{lp}/final_layer_norm", L))
+    p["model/encoder/embed_images/kernel"] = w(cfg.image_feature_size, d)
+    p["model/encoder/embed_images/bias"] = w(d)
+    return p
+
+
+def write_checkpoint(path, cfg, seed):
+    import numpy as np
+    os.makedirs(path, exist_ok=True)
+    cfg.save_json(os.path.join(path, "config.json"))
+    np.savez(os.path.join(path, "params.npz"), **random_jax_params(cfg, seed))
+
+
+@contextlib.contextmanager
+def plain_path():
+    """Route the model's four kernel call sites to the plain versions, to
+    hold the kernel path against the plain path on the same card."""
+    from kmbart_tpu_torch.generation import beam
+    from kmbart_tpu_torch.models import bart
+    from kmbart_tpu_torch.ops import attention, beam_attention, ffn, train_attention, vocab_stats
+    swaps = [(attention, "train_attention_flat", train_attention.train_attention_plain),
+             (bart, "fused_ffn", ffn.fused_ffn_plain),
+             (bart, "beam_gather_attention", beam_attention.beam_gather_attention_plain),
+             (beam, "chunk_stats", vocab_stats.chunk_stats_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def run_generate(torch, dev, card):
+    import numpy as np
+    from kmbart_tpu_torch import MultiModalBartConfig
+    from kmbart_tpu_torch.checkpoint.io import load_pretrained
+    from kmbart_tpu_torch.generation.api import generate
+    from kmbart_tpu_torch.models import bart
+    from kmbart_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    cfg = MultiModalBartConfig.from_json(os.path.join(REPO, "config", "vcg_base.json"))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_checkpoint(tmp, cfg, seed=0)
+        _, model, _ = load_pretrained(tmp, device=dev)
+        load_s = time.perf_counter() - t0
+
+    B, T = 64, 72   # bench.py's decode batch: 72 tokens, rows 1-30 image slots
+    rng = np.random.default_rng(0)
+    ids = rng.integers(4, 50000, (B, T))
+    ids[:, 1:31] = cfg.img_feat_id
+    input_ids = torch.as_tensor(ids, device=dev)
+    mask = torch.ones((B, T), dtype=torch.long, device=dev)
+    feats = torch.as_tensor(rng.normal(size=(B, cfg.max_img_num, cfg.image_feature_size)),
+                            dtype=torch.float32, device=dev)
+    batch = {"input_ids": input_ids, "attention_mask": mask, "image_features": feats}
+
+    def gen():
+        # the user-level entry point; it returns host tokens trimmed to the
+        # HF output width, so the device work is done when it returns
+        out = generate(model, cfg, batch, num_beams=5, max_length=32, early_stopping=True)
+        return np.pad(out, ((0, 0), (0, 32 - out.shape[1])),
+                      constant_values=cfg.pad_token_id), out.shape[1]
+
+    gen()  # warm-up: cuBLAS handles, allocator
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out, width = gen()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the main path: {missing}")
+    steps = launches["beam_attention"] // cfg.decoder_layers
+    if out.shape != (B, 32) or not (1 <= width <= 32) or out.min() < 0 \
+            or out.max() >= cfg.vocab_size:
+        raise AssertionError(f"bad generate output {tuple(out.shape)} width {width}")
+
+    with torch.no_grad():
+        def first_step():
+            enc = bart.encode(model.model, cfg, input_ids, feats, mask)
+            caches = bart.init_decode_cache_layers(model.model, cfg, enc, 32, num_beams=5)
+            anc = torch.zeros((B * 5, 32), dtype=torch.int32, device=dev)
+            prev = torch.full((B * 5, 1), cfg.decoder_start_token_id, device=dev)
+            h = bart.decode_step_stationary(model.model, cfg, prev, caches, 0, anc, mask,
+                                            num_beams=5)
+            logits = bart.lm_logits(model.model, cfg, h, model.final_logits_bias)
+            return enc.float(), torch.log_softmax(logits[:, 0], dim=-1)
+
+        enc_k, lp_k = first_step()
+        with plain_path():
+            enc_p, lp_p = first_step()
+    if not (torch.isfinite(enc_k).all() and torch.isfinite(lp_k).all()):
+        raise AssertionError("non-finite encoder output or log-probs")
+    enc_err = float((enc_k - enc_p).abs().max())
+    enc_tol = ENC_ULPS / BF16_ULPS * _bf16_tol(enc_p)
+    lp_err = float((lp_k - lp_p).abs().max())
+    _check("encoder output vs plain path", enc_err, enc_tol)
+    _check("first-step log-probs vs plain path", lp_err, LOGPROB_ATOL)
+
+    # end to end, kernel path (K) against plain path (P) in turns K P P K K P
+    # after the plain path's own warm-up; medians of three each
+    def timed(plain):
+        with plain_path() if plain else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            result = gen()
+            return time.perf_counter() - t0, result
+
+    with plain_path():
+        gen()
+    times = {False: [seconds], True: []}
+    for plain in (True, True, False, False, True):
+        dt, result = timed(plain)
+        times[plain].append(dt)
+        if plain:
+            out_p, width_p = result
+    seconds, plain_seconds = (sorted(times[p])[1] for p in (False, True))
+    same_rows = float((out == out_p).all(axis=1).mean())
+
+    emit("generate", card=card, config="config/vcg_base.json", batch=B, enc_len=T,
+         num_beams=5, max_length=32, dtype=cfg.dtype, load_seconds=load_s,
+         steps=steps, width=width, launches=launches,
+         runs_s=times[False], plain_runs_s=times[True],
+         sentences_per_s=B / seconds, ms_per_step=1e3 * seconds / steps,
+         plain_sentences_per_s=B / plain_seconds,
+         plain_ms_per_step=1e3 * plain_seconds / steps, plain_width=width_p,
+         encoder_max_abs_err=enc_err, encoder_mean_abs_err=float((enc_k - enc_p).abs().mean()),
+         encoder_max_abs=float(enc_p.abs().max()), encoder_tol=enc_tol,
+         first_step_logprob_max_abs_err=lp_err, logprob_tol=LOGPROB_ATOL,
+         rows_equal_to_plain=same_rows)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the CLI twin
+# ---------------------------------------------------------------------------
+
+def _load_fixture_module():
+    """tests/fixtures/make_dataset.py, loaded by path (tests/ is not a package)."""
+    import importlib.util
+    path = os.path.join(REPO, "tests", "fixtures", "make_dataset.py")
+    spec = importlib.util.spec_from_file_location("kmbart_fixture_make_dataset", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_cli(card):
+    from kmbart_tpu_torch import MultiModalBartConfig
+    make_dataset = _load_fixture_module().make_dataset
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = make_dataset(os.path.join(tmp, "data"))
+        cfg = MultiModalBartConfig.from_json(paths["config"])
+        ckpt = os.path.join(tmp, "ckpt")
+        write_checkpoint(ckpt, cfg, seed=1)
+        out_file = os.path.join(tmp, "gen.json")
+        cmd = [sys.executable, "-m", "kmbart_tpu_torch.vcg_generate",
+               "--data_dir", paths["vcg"], "--output_file", out_file,
+               "--checkpoint", ckpt, "--tokenizer_dir", paths["tokenizer"],
+               "--num_beams", "5", "--num_gen", "2", "--batch_size", "6",
+               "--max_length", "10", "--device", "cuda"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, timeout=600, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"CLI failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        with open(out_file) as f:
+            gen = json.load(f)
+    if len(gen) != 18 or not all(len(g["generations"]) == 2 for g in gen):
+        raise AssertionError(f"CLI wrote {len(gen)} entries, expected 18 with 2 generations")
+    emit("cli", card=card, entries=len(gen), seconds=seconds, num_beams=5)
+
+
+KERNEL_INFO = {
+    "train_attention": ("kmbart_tpu_torch/csrc/train_attention.cu",
+                        "kmbart_tpu/ops/pallas_train_attention.py:194"),
+    "ffn": ("kmbart_tpu_torch/csrc/ffn.cu", "kmbart_tpu/ops/pallas_ffn.py:160"),
+    "beam_attention": ("kmbart_tpu_torch/csrc/beam_attention.cu",
+                       "kmbart_tpu/ops/pallas_beam_attention.py:214"),
+    "vocab_stats": ("kmbart_tpu_torch/csrc/vocab_stats.cu",
+                    "kmbart_tpu/ops/pallas_vocab_stats.py:60"),
+}
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from kmbart_tpu_torch.ops import _cuda
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader", "-i", "0"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    emit("device", card=card, name=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda)
+
+    t0 = time.perf_counter()
+    _cuda.build()
+    _cuda.lib()
+    emit("build", seconds=time.perf_counter() - t0, nvcc_seconds=_cuda.last_build_seconds)
+
+    kernels = check_kernels(torch, dev)
+    emit("kernels", card=card, **kernels)
+    launches = run_generate(torch, dev, card)
+    run_cli(card)
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+
+    print(card)
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
+         "replaces": KERNEL_INFO[name][1], "launches": launches[name],
+         "max_abs_err": kernels[name][0]["max_abs_err"],
+         "ms": kernels[name][0]["ms"], "plain_ms": kernels[name][0]["plain_ms"]}
+        for name in KERNEL_INFO]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

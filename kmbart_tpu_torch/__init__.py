@@ -1,0 +1,17 @@
+"""KM-BART in PyTorch, with hand-written Hopper kernels.
+
+The port of ``kmbart_tpu`` (JAX on a TPU) to PyTorch and CUDA on an NVIDIA
+H100. It mirrors the JAX package's layout, imports its framework-free
+modules (config, data, logging) and never imports ``jax``. The kernels the
+TPU ran in Pallas are CUDA C++ under ``csrc/``, built with ``nvcc`` at first
+use (ops/_cuda.py); on CPU tensors every kernel wrapper runs its plain
+PyTorch version instead.
+
+Ported so far: VCG conditional generation (greedy and beam search, without
+sampling) and the ``vcg_generate`` CLI (``python -m
+kmbart_tpu_torch.vcg_generate``).
+"""
+
+__version__ = "0.1.0"
+
+from kmbart_tpu.config import MultiModalBartConfig  # noqa: F401

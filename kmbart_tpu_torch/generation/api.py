@@ -1,0 +1,115 @@
+"""Public ``generate`` front end.
+
+Counterpart of kmbart_tpu/generation/api.py (HF 3.0.2
+``GenerationMixin.generate``): option defaulting from the model config,
+the reference's validation asserts, attention-mask construction, one
+encoder pass, and dispatch to the beam or greedy loop, then the trim to the
+HF output width. Everything runs on the model's device.
+"""
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from kmbart_tpu.config import MultiModalBartConfig
+from kmbart_tpu_torch.generation.beam import beam_search_loop
+from kmbart_tpu_torch.generation.decode import greedy_loop
+from kmbart_tpu_torch.models import bart
+
+
+@dataclasses.dataclass(frozen=True)
+class GenerationOptions:
+    max_length: int = 20
+    min_length: int = 0
+    do_sample: bool = False
+    early_stopping: bool = False
+    num_beams: int = 1
+    temperature: float = 1.0
+    top_k: int = 50
+    top_p: float = 1.0
+    repetition_penalty: float = 1.0
+    bad_words_ids: Optional[Tuple[Tuple[int, ...], ...]] = None
+    length_penalty: float = 1.0
+    no_repeat_ngram_size: int = 0
+    num_return_sequences: int = 1
+    use_cache: bool = True
+
+    def validate(self):
+        # the reference's asserts (mixins.py:180-235)
+        assert isinstance(self.max_length, int) and self.max_length > 0
+        assert isinstance(self.min_length, int) and self.min_length >= 0
+        assert isinstance(self.num_beams, int) and self.num_beams > 0
+        assert self.temperature > 0
+        assert isinstance(self.top_k, int) and self.top_k >= 0
+        assert 0 <= self.top_p <= 1
+        assert self.repetition_penalty >= 1.0
+        assert self.length_penalty > 0
+        assert self.no_repeat_ngram_size >= 0
+        assert self.num_return_sequences > 0
+        if not self.do_sample:
+            if self.num_beams == 1:
+                assert self.num_return_sequences == 1, (
+                    "Greedy decoding will always produce the same output for "
+                    "num_beams == 1 and num_return_sequences > 1")
+            else:
+                assert self.num_beams >= self.num_return_sequences, (
+                    "Greedy beam search decoding cannot return more sequences "
+                    "than it has beams")
+
+
+def options_from_config(cfg: MultiModalBartConfig, **overrides) -> GenerationOptions:
+    fields = {f.name for f in dataclasses.fields(GenerationOptions)}
+    base = {k: getattr(cfg, k) for k in fields if hasattr(cfg, k)}
+    base.update({k: v for k, v in overrides.items() if v is not None})
+    if base.get("bad_words_ids"):
+        base["bad_words_ids"] = tuple(tuple(w) for w in base["bad_words_ids"])
+    return GenerationOptions(**base)
+
+
+@torch.no_grad()
+def generate_tokens(model, cfg, input_ids, attention_mask, image_features,
+                    opts: GenerationOptions):
+    """Device-side generate: (tokens [B·R, max_length], HF output width)."""
+    opts.validate()
+    if opts.do_sample:
+        raise NotImplementedError("sampling (do_sample=True) is not ported yet")
+    enc = bart.encode(model.model, cfg, input_ids, image_features, attention_mask)
+    common = dict(
+        max_length=opts.max_length, min_length=opts.min_length,
+        repetition_penalty=opts.repetition_penalty,
+        no_repeat_ngram_size=opts.no_repeat_ngram_size,
+        bad_words_ids=opts.bad_words_ids,
+        pad_token_id=cfg.pad_token_id if cfg.pad_token_id is not None
+        else cfg.eos_token_id,
+        eos_token_id=cfg.eos_token_id,
+        decoder_start_token_id=cfg.decoder_start_token_id
+        if cfg.decoder_start_token_id is not None else cfg.bos_token_id)
+    if opts.num_beams > 1:
+        return beam_search_loop(
+            model, cfg, enc, attention_mask, batch_size=input_ids.shape[0],
+            num_beams=opts.num_beams, length_penalty=opts.length_penalty, early_stopping=opts.early_stopping,
+            num_return_sequences=opts.num_return_sequences, **common)
+    return greedy_loop(model, cfg, enc, attention_mask, **common)
+
+
+def generate(model, cfg: MultiModalBartConfig, batch, *, trim=True, **kwargs):
+    """Generate for a collated batch {"input_ids", optional "attention_mask",
+    "image_features"} (numpy or tensors). Returns an int32 numpy array
+    [B·num_return_sequences, width], batch-major like the reference."""
+    opts = options_from_config(cfg, **kwargs)
+    dev = model.final_logits_bias.device
+    input_ids = torch.as_tensor(batch["input_ids"], device=dev).long()
+    attention_mask = batch.get("attention_mask")
+    if attention_mask is None:
+        attention_mask = ((input_ids != cfg.pad_token_id).long()
+                          if cfg.pad_token_id is not None else torch.ones_like(input_ids))
+    else:
+        attention_mask = torch.as_tensor(attention_mask, device=dev).long()
+    image_features = batch.get("image_features")
+    if image_features is not None:
+        image_features = torch.as_tensor(image_features, device=dev).float()
+    out, eff_len = generate_tokens(model, cfg, input_ids, attention_mask,
+                                   image_features, opts)
+    out = out.to(torch.int32).cpu().numpy()
+    return out[:, :eff_len] if trim else out

@@ -1,0 +1,174 @@
+"""Beam search over the beam-stationary KV cache.
+
+Counterpart of kmbart_tpu/generation/beam.py (HF 3.0.2
+``_generate_beam_search`` semantics: forced BOS/EOS, top-2K candidate
+expansion, EOS candidates of rank < K committed into a best-K hypothesis
+pool, early stopping, finalisation and the HF output width). The JAX
+``while_loop`` becomes a host loop that checks ``done.all()`` once a step.
+
+With every score postprocessor inert (the VCG default) candidates are
+chosen on the raw logits: log_softmax is monotonic per row, so each beam's
+top-2K survivors are the same, and only they are normalised with the row
+logsumexp from the vocab-stats kernel K4. Otherwise the general path takes
+log_softmax, the postprocessors, and the top-2K of the flat [B, K·V]
+scores. Sampling is not ported yet (generation/api.py raises).
+"""
+
+import torch
+
+from kmbart_tpu_torch.generation import logits as lp
+from kmbart_tpu_torch.models import bart
+from kmbart_tpu_torch.ops.topk import top_k
+from kmbart_tpu_torch.ops.vocab_stats import chunk_stats, logsumexp_from_stats
+
+NEG_1E9 = -1e9
+
+
+def _merge_pool(hyp, cand_scores, cand_tokens, cand_lens, K):
+    """Keep the best K of (pool ∪ candidates); -inf score = no candidate.
+    hyp: (tokens [B, K, L], lens [B, K], scores [B, K], count [B], worst [B]).
+    Equivalent to BeamHypotheses.add over the candidates in any order."""
+    hyp_tokens, hyp_lens, hyp_scores, hyp_count, _ = hyp
+    L = hyp_tokens.shape[2]
+    all_scores = torch.cat([hyp_scores, cand_scores], dim=1)
+    all_tokens = torch.cat([hyp_tokens, cand_tokens], dim=1)
+    all_lens = torch.cat([hyp_lens, cand_lens], dim=1)
+    top_scores, top_idx = top_k(all_scores, K)
+    new_tokens = torch.gather(all_tokens, 1, top_idx[..., None].expand(-1, -1, L))
+    new_lens = torch.gather(all_lens, 1, top_idx)
+    n_new = (cand_scores > NEG_1E9 / 2).sum(dim=1)
+    new_count = torch.clamp(hyp_count + n_new, max=K)
+    worst_idx = torch.clamp(new_count - 1, 0, K - 1)
+    new_worst = torch.gather(top_scores, 1, worst_idx[:, None])[:, 0]
+    new_worst = torch.where(new_count > 0, new_worst, 1e9)
+    return new_tokens, new_lens, top_scores, new_count, new_worst
+
+
+def beam_search_loop(model, cfg, enc_hidden, enc_mask, *, batch_size, num_beams,
+                     max_length, min_length, length_penalty, early_stopping,
+                     repetition_penalty, no_repeat_ngram_size, bad_words_ids,
+                     pad_token_id, eos_token_id, decoder_start_token_id,
+                     num_return_sequences):
+    """enc_hidden / enc_mask are per sample (not beam-expanded): a sample's
+    K beams share its encoder states and cross K/V.
+    Returns (tokens [B·num_return_sequences, max_length], HF output width)."""
+    trunk = model.model
+    dev = enc_hidden.device
+    B, K = batch_size, num_beams
+    BK, V, L = B * K, cfg.vocab_size, max_length
+    fast_select = (repetition_penalty == 1.0 and no_repeat_ngram_size == 0
+                   and bad_words_ids is None and min_length == 0)
+
+    tokens = torch.full((BK, L), pad_token_id, dtype=torch.long, device=dev)
+    tokens[:, 0] = decoder_start_token_id
+    caches = bart.init_decode_cache_layers(trunk, cfg, enc_hidden, L, num_beams=K)
+    ancestry = torch.zeros((BK, L), dtype=torch.int32, device=dev)
+    own_slot = (torch.arange(BK, device=dev) % K).to(torch.int32)
+    beam_scores = torch.full((B, K), NEG_1E9, device=dev)
+    beam_scores[:, 0] = 0.0
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    hyp = (torch.full((B, K, L), pad_token_id, dtype=torch.long, device=dev),
+           torch.zeros((B, K), dtype=torch.long, device=dev),
+           torch.full((B, K), NEG_1E9, device=dev),
+           torch.zeros((B,), dtype=torch.long, device=dev),
+           torch.full((B,), 1e9, device=dev))
+    b_idx = torch.arange(B, device=dev)
+    beam_base = (torch.arange(K, device=dev) * V)[None, :, None]
+    parent = torch.arange(BK, device=dev)
+
+    def length_norm(cur_len):
+        c = torch.tensor(float(cur_len), device=dev)
+        return c if length_penalty == 1.0 else c ** length_penalty
+
+    cur_len = 1
+    while cur_len < L and not bool(done.all()):
+        prev = tokens[:, cur_len - 1:cur_len]
+        # resolve each beam's history through its parent's ancestry (the
+        # cache never moves), then claim the own slot for this step's row
+        ancestry = ancestry[parent]
+        ancestry[:, cur_len - 1] = own_slot
+        hidden = bart.decode_step_stationary(trunk, cfg, prev, caches, cur_len - 1,
+                                             ancestry, enc_mask, num_beams=K)
+        logits = bart.lm_logits(trunk, cfg, hidden, model.final_logits_bias)[:, 0, :]
+        logits = lp.maybe_force_bos_eos(logits, cur_len, L, cfg.bos_token_id,
+                                        eos_token_id)
+        if fast_select:
+            cm, es = chunk_stats(logits.contiguous())
+            lse = logsumexp_from_stats(cm, es)
+            row_vals, row_idx = top_k(logits, 2 * K)
+            norm = (row_vals - lse[:, None]) + beam_scores.reshape(BK, 1)
+            flat_idx = (row_idx.reshape(B, K, 2 * K) + beam_base).reshape(B, 2 * K * K)
+            cand_scores, pos = top_k(norm.reshape(B, 2 * K * K), 2 * K)
+            cand_idx = torch.gather(flat_idx, 1, pos)
+        else:
+            scores = torch.log_softmax(logits, dim=-1)
+            scores = lp.postprocess_scores(
+                scores, tokens, cur_len, repetition_penalty=repetition_penalty,
+                no_repeat_ngram_size=no_repeat_ngram_size, bad_words_ids=bad_words_ids,
+                min_length=min_length, eos_token_id=eos_token_id)
+            flat = (scores + beam_scores.reshape(BK, 1)).reshape(B, K * V)
+            cand_scores, cand_idx = top_k(flat, 2 * K)
+
+        cand_beam = cand_idx // V
+        cand_tok = cand_idx % V
+        is_eos = (cand_tok == eos_token_id) if eos_token_id is not None \
+            else torch.zeros_like(cand_tok, dtype=torch.bool)
+        lp_denorm = length_norm(cur_len)
+
+        # ---- commit finished hypotheses (rank < K EOS candidates) ----
+        if eos_token_id is not None:
+            eligible = is_eos[:, :K] & ~done[:, None]
+            hyp_cand_scores = torch.where(eligible, cand_scores[:, :K] / lp_denorm,
+                                          -float("inf"))
+            parent_tokens = torch.gather(tokens.reshape(B, K, L), 1,
+                                         cand_beam[:, :K, None].expand(-1, -1, L))
+            hyp_cand_lens = torch.where(eligible, cur_len, 0)
+            hyp = _merge_pool(hyp, hyp_cand_scores, parent_tokens, hyp_cand_lens, K)
+        hyp_count, worst = hyp[3], hyp[4]
+
+        # ---- the next beam front: the first K non-EOS candidates ----
+        non_eos = ~is_eos
+        slot = torch.cumsum(non_eos.long(), dim=1) - 1
+        take = non_eos & (slot < K)
+        wslot = torch.clamp(slot, 0, K - 1)
+        nb_scores = torch.zeros((B, K), device=dev).scatter_add_(
+            1, wslot, torch.where(take, cand_scores, 0.0))
+        nb_tokens = torch.zeros((B, K), dtype=torch.long, device=dev).scatter_add_(
+            1, wslot, torch.where(take, cand_tok, 0))
+        nb_parents = torch.zeros((B, K), dtype=torch.long, device=dev).scatter_add_(
+            1, wslot, torch.where(take, cand_beam, 0))
+        # done batches emit (0, pad, 0)
+        nb_scores = torch.where(done[:, None], 0.0, nb_scores)
+        nb_tokens = torch.where(done[:, None], pad_token_id, nb_tokens)
+        nb_parents = torch.where(done[:, None], 0, nb_parents)
+
+        best_sum = cand_scores[:, 0]
+        if early_stopping:
+            newly_done = hyp_count >= K
+        else:
+            newly_done = (hyp_count >= K) & (worst >= best_sum / lp_denorm)
+        done = done | newly_done
+
+        parent = (b_idx[:, None] * K + nb_parents).reshape(BK)
+        tokens = tokens[parent]
+        tokens[:, cur_len] = nb_tokens.reshape(BK)
+        beam_scores = nb_scores
+        cur_len += 1
+
+    # ---- finalise: unfinished batches contribute their live beams ----
+    lp_denorm = length_norm(cur_len)
+    final_scores = torch.where(~done[:, None], beam_scores / lp_denorm, -float("inf"))
+    final_lens = torch.where(~done[:, None], cur_len, 0).expand(B, K)
+    hyp = _merge_pool(hyp, final_scores, tokens.reshape(B, K, L), final_lens, K)
+    hyp_tokens, hyp_lens = hyp[0], hyp[1]
+
+    R = num_return_sequences
+    out = hyp_tokens[:, :R].reshape(B * R, L)
+    lens = hyp_lens[:, :R].reshape(B * R)
+    if eos_token_id is not None:
+        pos = torch.arange(L, device=dev)[None, :]
+        append_eos = (pos == lens[:, None]) & (lens[:, None] < L)
+        out = torch.where(append_eos, eos_token_id, out)
+        out = torch.where(pos > lens[:, None], pad_token_id, out)
+    eff_len = min(int(lens.max()) + 1, L)
+    return out, eff_len

@@ -1,0 +1,49 @@
+"""Greedy decode loop.
+
+Counterpart of kmbart_tpu/generation/decode.py (HF 3.0.2
+``_generate_no_beam_search`` without sampling): the raw logits are
+postprocessed in place (no log_softmax, no forced BOS/EOS), the argmax is
+taken, rows pad after their EOS, and the loop stops when every row has
+finished. It runs on the beam-stationary cache with one beam: every
+position lives in slot 0, so the ancestry stays all zeros. Sampling is not
+ported yet (generation/api.py raises).
+"""
+
+import torch
+
+from kmbart_tpu_torch.generation import logits as lp
+from kmbart_tpu_torch.models import bart
+
+
+def greedy_loop(model, cfg, enc_hidden, enc_mask, *, max_length, min_length,
+                repetition_penalty, no_repeat_ngram_size, bad_words_ids, pad_token_id,
+                eos_token_id, decoder_start_token_id):
+    """Returns (tokens [B, max_length], the step count at loop exit, which
+    is the HF output width)."""
+    trunk = model.model
+    dev = enc_hidden.device
+    B, L = enc_hidden.shape[0], max_length
+    tokens = torch.full((B, L), pad_token_id, dtype=torch.long, device=dev)
+    tokens[:, 0] = decoder_start_token_id
+    caches = bart.init_decode_cache_layers(trunk, cfg, enc_hidden, L, num_beams=1)
+    ancestry = torch.zeros((B, L), dtype=torch.int32, device=dev)
+    unfinished = torch.ones((B,), dtype=torch.long, device=dev)
+    cur_len = 1
+    while cur_len < L and bool(unfinished.max() > 0):
+        prev = tokens[:, cur_len - 1:cur_len]
+        hidden = bart.decode_step_stationary(trunk, cfg, prev, caches, cur_len - 1,
+                                             ancestry, enc_mask, num_beams=1)
+        scores = bart.lm_logits(trunk, cfg, hidden, model.final_logits_bias)[:, 0, :]
+        scores = lp.postprocess_scores(
+            scores, tokens, cur_len, repetition_penalty=repetition_penalty,
+            no_repeat_ngram_size=no_repeat_ngram_size, bad_words_ids=bad_words_ids,
+            min_length=min_length, eos_token_id=eos_token_id)
+        next_token = torch.argmax(scores, dim=-1)       # first maximum wins
+        if eos_token_id is not None:
+            to_add = next_token * unfinished + pad_token_id * (1 - unfinished)
+            unfinished = unfinished * (to_add != eos_token_id).long()
+        else:
+            to_add = next_token
+        tokens[:, cur_len] = to_add
+        cur_len += 1
+    return tokens, cur_len

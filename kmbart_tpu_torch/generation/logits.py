@@ -1,0 +1,97 @@
+"""Logits processors for decoding.
+
+Counterpart of kmbart_tpu/generation/logits.py (the non-sampling part):
+``force_token`` and ``maybe_force_bos_eos`` (HF 3.0.2
+adjust_logits_during_generation) and ``postprocess_scores`` with its
+helpers (repetition penalty, no-repeat-ngram, bad words, min-length EOS
+mask). ``tokens`` is the preallocated [B, max_len] buffer and ``cur_len``
+a Python int: the port's decode loops run on the host.
+"""
+
+import torch
+
+NEG_INF = -float("inf")
+
+
+def force_token(scores, token_id):
+    """Set every column except ``token_id`` to -inf."""
+    keep = torch.arange(scores.shape[-1], device=scores.device) == token_id
+    return torch.where(keep[None, :], scores, NEG_INF)
+
+
+def maybe_force_bos_eos(scores, cur_len, max_length, bos_token_id, eos_token_id):
+    if cur_len == 1:
+        scores = force_token(scores, bos_token_id)
+    if eos_token_id is not None and cur_len == max_length - 1:
+        scores = force_token(scores, eos_token_id)
+    return scores
+
+
+def _presence(tokens, cur_len, vocab_size):
+    """presence[b, v] = True iff v appears in tokens[b, :cur_len]."""
+    B = tokens.shape[0]
+    presence = torch.zeros((B, vocab_size), dtype=torch.bool, device=tokens.device)
+    presence.scatter_(1, tokens[:, :cur_len].long(), True)
+    return presence
+
+
+def apply_repetition_penalty(scores, tokens, cur_len, penalty):
+    """Seen tokens get score/p if positive, score*p if negative."""
+    if penalty == 1.0:
+        return scores
+    present = _presence(tokens, cur_len, scores.shape[-1])
+    penalised = torch.where(scores < 0, scores * penalty, scores / penalty)
+    return torch.where(present, penalised, scores)
+
+
+def ban_repeated_ngrams(scores, tokens, cur_len, ngram_size):
+    """Ban every token that would complete an n-gram already present in
+    tokens[:, :cur_len]."""
+    n = ngram_size
+    if n <= 0 or cur_len < n:
+        return scores
+    prefix = tokens[:, :cur_len].long()
+    windows = prefix.unfold(1, n, 1)                         # [B, cur_len-n+1, n]
+    suffix = prefix[:, cur_len - (n - 1):]                   # [B, n-1]
+    match = (windows[:, :, :n - 1] == suffix[:, None, :]).all(dim=-1)
+    ban = torch.zeros(scores.shape, dtype=torch.float32, device=scores.device)
+    ban.scatter_add_(1, windows[:, :, n - 1], match.float())  # any match bans
+    return torch.where(ban > 0, NEG_INF, scores)
+
+
+def apply_bad_words(scores, tokens, cur_len, bad_words_ids):
+    """Ban the last token of each bad-words sequence whose prefix matches
+    the tail of the generated prefix."""
+    if not bad_words_ids:
+        return scores
+    scores = scores.clone()
+    B = tokens.shape[0]
+    for word in bad_words_ids:
+        k = len(word) - 1
+        if k == 0:
+            hit = torch.ones((B,), dtype=torch.bool, device=scores.device)
+        elif cur_len < k:
+            continue
+        else:
+            tail = tokens[:, cur_len - k:cur_len]
+            hit = (tail == torch.as_tensor(word[:-1], device=tokens.device)).all(dim=-1)
+        scores[:, word[-1]] = torch.where(hit, NEG_INF, scores[:, word[-1]])
+    return scores
+
+
+def min_length_eos_mask(scores, cur_len, min_length, eos_token_id):
+    if eos_token_id is None or min_length <= 0 or cur_len >= min_length:
+        return scores
+    scores = scores.clone()
+    scores[:, eos_token_id] = NEG_INF
+    return scores
+
+
+def postprocess_scores(scores, tokens, cur_len, *, repetition_penalty=1.0,
+                       no_repeat_ngram_size=0, bad_words_ids=None, min_length=0,
+                       eos_token_id=None):
+    """HF 3.0.2 postprocess_next_token_scores order."""
+    scores = apply_repetition_penalty(scores, tokens, cur_len, repetition_penalty)
+    scores = ban_repeated_ngrams(scores, tokens, cur_len, no_repeat_ngram_size)
+    scores = apply_bad_words(scores, tokens, cur_len, bad_words_ids)
+    return min_length_eos_mask(scores, cur_len, min_length, eos_token_id)

@@ -1,0 +1,349 @@
+"""BART trunk with the multimodal encoder, in PyTorch.
+
+Counterpart of kmbart_tpu/models/bart.py. The parameters live in
+``nn.Module`` containers whose state-dict names are the HF names that
+``kmbart_tpu.checkpoint.torch_import.pytree_to_state_dict`` emits (``[out,
+in]`` Linear weights, the shared embedding tied into both stacks); the
+computation is plain functions over those modules, with the JAX package's
+mixed-precision policy (ops/layers.py).
+
+Generation runs on the beam-stationary cache: self K/V rows are written
+once into the writer beam's slot, in place, and never moved; the int32
+ancestry says which slot holds each past position for each live beam, and
+the self-attention kernel K3 gathers through it (ops/beam_attention.py).
+"""
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from kmbart_tpu.config import MultiModalBartConfig
+from kmbart_tpu_torch.ops.attention import multi_head_attention, padding_bias
+from kmbart_tpu_torch.ops.beam_attention import beam_gather_attention
+from kmbart_tpu_torch.ops.ffn import fused_ffn
+from kmbart_tpu_torch.ops.ffn import supported as ffn_supported
+from kmbart_tpu_torch.ops.layers import (ACTIVATIONS, dense, layer_norm,
+                                         matmul_f32, scale_as)
+
+
+def compute_dtype(cfg):
+    return getattr(torch, cfg.dtype)
+
+
+# --------------------------------------------------------------------------
+# Parameter containers
+# --------------------------------------------------------------------------
+
+class Attention(nn.Module):
+    def __init__(self, d):
+        super().__init__()
+        self.q_proj = nn.Linear(d, d)
+        self.k_proj = nn.Linear(d, d)
+        self.v_proj = nn.Linear(d, d)
+        self.out_proj = nn.Linear(d, d)
+
+
+class Layer(nn.Module):
+    """An encoder layer, or a decoder layer when ``cross_attn``."""
+
+    def __init__(self, d, ffn_dim, cross_attn):
+        super().__init__()
+        self.self_attn = Attention(d)
+        self.self_attn_layer_norm = nn.LayerNorm(d)
+        if cross_attn:
+            self.encoder_attn = Attention(d)
+            self.encoder_attn_layer_norm = nn.LayerNorm(d)
+        self.fc1 = nn.Linear(d, ffn_dim)
+        self.fc2 = nn.Linear(ffn_dim, d)
+        self.final_layer_norm = nn.LayerNorm(d)
+
+
+class ImageEmbedding(nn.Module):
+    def __init__(self, feat, d):
+        super().__init__()
+        self.linear = nn.Linear(feat, d)
+
+
+class Stack(nn.Module):
+    """Encoder or decoder stack."""
+
+    def __init__(self, cfg, shared, encoder):
+        super().__init__()
+        d = cfg.d_model
+        n_pos = cfg.max_position_embeddings + (
+            0 if cfg.static_position_embeddings else cfg.extra_pos_embeddings)
+        self.embed_tokens = shared
+        self.embed_positions = nn.Embedding(n_pos, d)
+        if encoder:
+            self.embed_images = ImageEmbedding(cfg.image_feature_size, d)
+        if cfg.normalize_embedding:
+            self.layernorm_embedding = nn.LayerNorm(d)
+        n_layers = cfg.encoder_layers if encoder else cfg.decoder_layers
+        ffn_dim = cfg.encoder_ffn_dim if encoder else cfg.decoder_ffn_dim
+        self.layers = nn.ModuleList(Layer(d, ffn_dim, not encoder)
+                                    for _ in range(n_layers))
+        if (cfg.normalize_before if encoder else cfg.add_final_layer_norm):
+            self.layer_norm = nn.LayerNorm(d)
+
+
+class MultiModalBartModel(nn.Module):
+    def __init__(self, cfg: MultiModalBartConfig):
+        super().__init__()
+        self.shared = nn.Embedding(cfg.vocab_size, cfg.d_model)
+        self.encoder = Stack(cfg, self.shared, encoder=True)
+        self.decoder = Stack(cfg, self.shared, encoder=False)
+
+
+def _sinusoidal_table(n_pos, dim):
+    """SinusoidalPositionalEmbedding weights (HF 3.0.2 layout: sin | cos)."""
+    position = np.arange(n_pos)[:, None]
+    div = np.exp(np.arange(0, dim, 2) * -(math.log(10000.0) / dim))
+    out = np.zeros((n_pos, dim), dtype=np.float32)
+    sentinel = dim // 2 if dim % 2 == 0 else (dim // 2) + 1
+    out[:, :sentinel] = np.sin(position * div)
+    out[:, sentinel:] = np.cos(position * div)
+    return torch.from_numpy(out)
+
+
+@torch.no_grad()
+def init_bart_params_(model: MultiModalBartModel, cfg, generator):
+    """Initialise in place like ``init_bart_params`` (bart.py:88):
+    normal(0, init_std) weights and embeddings, zero biases, identity layer
+    norms, a zero pad row; sinusoidal positions when static. The numbers
+    differ from the JAX package's (another generator), the distribution
+    does not."""
+    std = cfg.init_std
+    for mod in model.modules():
+        if isinstance(mod, (nn.Linear, nn.Embedding)):
+            mod.weight.normal_(0.0, std, generator=generator)
+            if getattr(mod, "bias", None) is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, nn.LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+    if cfg.pad_token_id is not None:
+        model.shared.weight[cfg.pad_token_id] = 0.0
+    if cfg.static_position_embeddings:
+        table = _sinusoidal_table(cfg.max_position_embeddings, cfg.d_model)
+        model.encoder.embed_positions.weight.copy_(table)
+        model.decoder.embed_positions.weight.copy_(table)
+
+
+# --------------------------------------------------------------------------
+# Embeddings
+# --------------------------------------------------------------------------
+
+def _ln(x, ln):
+    return layer_norm(x, ln.weight, ln.bias, ln.eps)
+
+
+def embed_multimodal(model, cfg, input_ids, image_features, dtype):
+    """Token embeddings with projected ROI features spliced into the rows
+    whose id is ``img_feat_id`` or ``cls_token_id``: the i-th such position
+    of row b takes ``image_features[b, i]`` (cumsum slot, clipped)."""
+    tok = model.shared.weight[input_ids]
+    if image_features is None:
+        return tok
+    mask = (input_ids == cfg.img_feat_id) | (input_ids == cfg.cls_token_id)
+    lin = model.encoder.embed_images.linear
+    img = dense(image_features, lin.weight, lin.bias, dtype)        # [B, N, D]
+    slot = torch.cumsum(mask.long(), dim=1) - 1
+    slot = slot.clamp(0, image_features.shape[1] - 1)
+    gathered = torch.take_along_dim(img, slot[..., None], dim=1)
+    return torch.where(mask[..., None], gathered, tok)
+
+
+def _positions(table, length, offset, start=0):
+    if start + length + offset > table.shape[0]:
+        raise ValueError(
+            f"sequence length {start + length} exceeds max_position_embeddings "
+            f"{table.shape[0] - offset}")
+    return table[start + offset:start + offset + length]
+
+
+def _pos_offset(cfg):
+    return 0 if cfg.static_position_embeddings else cfg.extra_pos_embeddings
+
+
+def _embed_scale(cfg):
+    return math.sqrt(cfg.d_model) if cfg.scale_embedding else 1.0
+
+
+def _encoder_embed(model, cfg, input_ids, image_features):
+    dtype = compute_dtype(cfg)
+    T = input_ids.shape[1]
+    x = embed_multimodal(model, cfg, input_ids, image_features, dtype) * _embed_scale(cfg)
+    x = x + _positions(model.encoder.embed_positions.weight, T, _pos_offset(cfg))[None]
+    if cfg.normalize_embedding:
+        x = _ln(x, model.encoder.layernorm_embedding)
+    return x.to(dtype)
+
+
+def _decoder_embed(model, cfg, token_ids, pos_start):
+    dtype = compute_dtype(cfg)
+    x = model.shared.weight[token_ids] * _embed_scale(cfg)
+    x = x + _positions(model.decoder.embed_positions.weight, token_ids.shape[1],
+                       _pos_offset(cfg), start=pos_start)[None]
+    if cfg.normalize_embedding:
+        x = _ln(x, model.decoder.layernorm_embedding)
+    return x.to(dtype)
+
+
+# --------------------------------------------------------------------------
+# Layers
+# --------------------------------------------------------------------------
+
+def _residual_ffn(x, layer, cfg, dtype):
+    residual = x
+    d = x.shape[-1]
+    f = layer.fc1.weight.shape[0]
+    if (cfg.activation_function == "gelu" and dtype == torch.bfloat16
+            and ffn_supported(d, f)):
+        # fused kernel K2: the [rows, ffn_dim] activations stay on chip
+        h = fused_ffn(x.to(dtype).contiguous(), layer.fc1.weight.to(dtype),
+                      layer.fc1.bias, layer.fc2.weight.to(dtype), layer.fc2.bias)
+    else:
+        h = dense(x, layer.fc1.weight, layer.fc1.bias, dtype)
+        h = ACTIVATIONS[cfg.activation_function](h)
+        h = dense(h, layer.fc2.weight, layer.fc2.bias, dtype)
+    return _ln(residual + h, layer.final_layer_norm)
+
+
+def _encoder_layer(x, layer, key_mask, cfg, dtype):
+    h = multi_head_attention(layer.self_attn, x, key_mask=key_mask,
+                             num_heads=cfg.encoder_attention_heads, dtype=dtype)
+    x = _ln(x + h, layer.self_attn_layer_norm)
+    return _residual_ffn(x, layer, cfg, dtype)
+
+
+def _decoder_layer(x, layer, enc_hidden, cfg, dtype, self_key_mask, cross_key_mask):
+    H = cfg.decoder_attention_heads
+    h = multi_head_attention(layer.self_attn, x, key_mask=self_key_mask,
+                             num_heads=H, dtype=dtype, causal=True)
+    x = _ln(x + h, layer.self_attn_layer_norm)
+    h = multi_head_attention(layer.encoder_attn, x, kv_hidden=enc_hidden,
+                             key_mask=cross_key_mask, num_heads=H, dtype=dtype)
+    x = _ln(x + h, layer.encoder_attn_layer_norm)
+    return _residual_ffn(x, layer, cfg, dtype)
+
+
+# --------------------------------------------------------------------------
+# Encoder / decoder
+# --------------------------------------------------------------------------
+
+def encode(model, cfg, input_ids, image_features=None, attention_mask=None):
+    """Multimodal encoder forward: [B, T, D] in the compute dtype."""
+    dtype = compute_dtype(cfg)
+    x = _encoder_embed(model, cfg, input_ids, image_features)
+    for layer in model.encoder.layers:
+        x = _encoder_layer(x, layer, attention_mask, cfg, dtype)
+    if cfg.normalize_before:
+        x = _ln(x, model.encoder.layer_norm)
+    return x
+
+
+def decode(model, cfg, decoder_input_ids, enc_hidden, enc_attention_mask=None,
+           decoder_attention_mask=None):
+    """Teacher-forced decoder forward: [B, T, D] in the compute dtype."""
+    dtype = compute_dtype(cfg)
+    x = _decoder_embed(model, cfg, decoder_input_ids, 0)
+    for layer in model.decoder.layers:
+        x = _decoder_layer(x, layer, enc_hidden, cfg, dtype,
+                           decoder_attention_mask, enc_attention_mask)
+    if cfg.add_final_layer_norm:
+        x = _ln(x, model.decoder.layer_norm)
+    return x
+
+
+def forward(model, cfg, input_ids, image_features=None, attention_mask=None,
+            decoder_input_ids=None, decoder_attention_mask=None):
+    """Trunk forward: (decoder_hidden, encoder_hidden)."""
+    enc = encode(model, cfg, input_ids, image_features, attention_mask)
+    dec = decode(model, cfg, decoder_input_ids, enc, enc_attention_mask=attention_mask,
+                 decoder_attention_mask=decoder_attention_mask)
+    return dec, enc
+
+
+def lm_logits(model, cfg, hidden, final_logits_bias=None):
+    """Tied LM head: hidden @ shared.T (+ final_logits_bias), fp32 logits."""
+    logits = matmul_f32(hidden, model.shared.weight, compute_dtype(cfg))
+    if final_logits_bias is not None:
+        logits = logits + final_logits_bias.reshape(-1).float()
+    return logits
+
+
+def shift_tokens_right(input_ids, pad_token_id):
+    """HF 3.0.2 BART shift: wrap the last non-pad token to position 0."""
+    T = input_ids.shape[1]
+    idx = torch.argmax((input_ids != pad_token_id).flip(1).int(), dim=1)
+    last = T - 1 - idx
+    out = torch.roll(input_ids, 1, dims=1)
+    out[:, 0] = torch.gather(input_ids, 1, last[:, None])[:, 0]
+    return out
+
+
+# --------------------------------------------------------------------------
+# Incremental decode over the beam-stationary cache
+# --------------------------------------------------------------------------
+
+def init_decode_cache_layers(model, cfg, enc_hidden, max_len, num_beams):
+    """Per-layer decode cache: a list of L dicts {self_k, self_v
+    [B, num_beams, max_len, D] zeros; cross_k, cross_v [B, Tenc, D]
+    projected once from the encoder output}, in the compute dtype."""
+    dtype = compute_dtype(cfg)
+    B, _, D = enc_hidden.shape
+    caches = []
+    for layer in model.decoder.layers:
+        ea = layer.encoder_attn
+        caches.append({
+            "self_k": torch.zeros((B, num_beams, max_len, D), dtype=dtype,
+                                  device=enc_hidden.device),
+            "self_v": torch.zeros((B, num_beams, max_len, D), dtype=dtype,
+                                  device=enc_hidden.device),
+            "cross_k": dense(enc_hidden, ea.k_proj.weight, ea.k_proj.bias, dtype),
+            "cross_v": dense(enc_hidden, ea.v_proj.weight, ea.v_proj.bias, dtype),
+        })
+    return caches
+
+
+def decode_step_stationary(model, cfg, token_ids, caches, cache_index, ancestry,
+                           enc_attention_mask=None, num_beams=1):
+    """One incremental decoder step over the beam-stationary cache.
+
+    token_ids [B·K, 1]; caches from ``init_decode_cache_layers`` (updated
+    in place); cache_index: this step's position; ancestry int32 [B·K, T]
+    with this step's own slot already written at cache_index.
+    Returns hidden [B·K, 1, D] in the compute dtype.
+    """
+    dtype = compute_dtype(cfg)
+    H = cfg.decoder_attention_heads
+    B, K, _, D = caches[0]["self_k"].shape
+    x = _decoder_embed(model, cfg, token_ids, cache_index)
+    cross_bias = (None if enc_attention_mask is None
+                  else padding_bias(enc_attention_mask))
+    for layer, cache in zip(model.decoder.layers, caches):
+        sa = layer.self_attn
+        w = torch.cat([sa.q_proj.weight, sa.k_proj.weight, sa.v_proj.weight])
+        b = torch.cat([sa.q_proj.bias, sa.k_proj.bias, sa.v_proj.bias])
+        q, k_new, v_new = dense(x, w, b, dtype).chunk(3, dim=-1)    # [BK, 1, D]
+        q_flat = scale_as(q[:, 0, :], (D // H) ** -0.5).contiguous()
+        # In place, where the JAX package returns a new buffer from
+        # dynamic_update_slice (bart.py:612-617): each step writes only its
+        # own row per beam slot, so the cache is never copied.
+        cache["self_k"][:, :, cache_index] = k_new.reshape(B, K, D)
+        cache["self_v"][:, :, cache_index] = v_new.reshape(B, K, D)
+        attn = beam_gather_attention(q_flat, cache["self_k"], cache["self_v"],
+                                     ancestry, cache_index, num_beams=num_beams,
+                                     num_heads=H)
+        h = dense(attn[:, None, :], sa.out_proj.weight, sa.out_proj.bias, dtype)
+        x = _ln(x + h, layer.self_attn_layer_norm)
+        h = multi_head_attention(layer.encoder_attn, x, bias=cross_bias, num_heads=H,
+                                 dtype=dtype, cross_cache={"k": cache["cross_k"],
+                                                           "v": cache["cross_v"]})
+        x = _ln(x + h, layer.encoder_attn_layer_norm)
+        x = _residual_ffn(x, layer, cfg, dtype)
+    if cfg.add_final_layer_norm:
+        x = _ln(x, model.decoder.layer_norm)
+    return x

@@ -1,0 +1,134 @@
+"""Build and bind the hand-written Hopper kernels in ``kmbart_tpu_torch/csrc``.
+
+The CUDA C++ sources expose a plain C interface, so they build with one
+``nvcc`` call into a shared library in seconds (no PyTorch headers) and are
+bound with ``ctypes``. The build runs at first use, from the sources in the
+package, into ``kmbart_tpu_torch/_build/`` (ignored by git); the library's
+name carries a digest of the sources and flags, so an edit rebuilds.
+
+Nothing here runs at import time: a machine without ``nvcc`` or a card
+imports the package and uses the kernels' plain PyTorch versions on CPU
+tensors.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+# element-type codes of csrc/common.cuh
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "kmb_train_attention_fwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                     _F, _I, _P]),
+    "kmb_train_attention_smem_bytes": (ctypes.c_size_t, [_I, _I]),
+    "kmb_ffn_fwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "kmb_beam_attention": (_I, [_P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
+                                _I, _P]),
+    "kmb_vocab_stats": (_I, [_P, _P, _P, _I, _I, _I, _P]),
+    "kmb_error_string": (ctypes.c_char_p, [_I]),
+    "kmb_set_device": (_I, [_I]),
+}
+
+_lib = None
+last_build_seconds = None
+
+
+def _sources():
+    return sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+                  if f.endswith((".cu", ".cuh")))
+
+
+def _nvcc():
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the port's CUDA "
+                       "kernels are built from source at first use")
+
+
+def build():
+    """Compile csrc/*.cu into the shared library unless an up-to-date one
+    exists; returns its path."""
+    global last_build_seconds
+    srcs = _sources()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in srcs:
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + f.read())
+    out = os.path.join(BUILD_DIR, f"libkmbart_kernels-{digest.hexdigest()[:16]}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[s for s in srcs if s.endswith(".cu")]]
+    start = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    last_build_seconds = time.perf_counter() - start
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)  # atomic: concurrent builders never see half a file
+    return out
+
+
+def lib():
+    """The bound kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(build())
+        for name, (restype, argtypes) in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.restype = restype
+            fn.argtypes = argtypes
+        _lib = handle
+    return _lib
+
+
+def prepare(device):
+    """Bind the library and point its runtime at ``device``; returns
+    (library, stream handle) for a launch on PyTorch's current stream."""
+    handle = lib()
+    check(handle.kmb_set_device(device.index or 0), "cudaSetDevice")
+    return handle, torch.cuda.current_stream(device).cuda_stream
+
+
+def check(err, what):
+    if err != 0:
+        msg = lib().kmb_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def dtype_code(t):
+    try:
+        return DTYPE_CODES[t.dtype]
+    except KeyError:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}") from None
+
+
+def require_cuda(name, *tensors):
+    """Wrapper guard: every tensor on one CUDA device and contiguous."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: kernel takes contiguous tensors")
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    return dev

@@ -1,0 +1,106 @@
+"""K3: beam-stationary decode self-attention.
+
+Counterpart of kmbart_tpu/ops/pallas_beam_attention.py. The self K/V cache
+[B, K, T, D] is beam-stationary: a row is written once into the writer
+beam's slot and never moved, and the int32 ``ancestry`` [B·K, T] says which
+slot of the same sample holds position t's K/V for each live beam. Query
+beam r attends position t <= cache_index through slot ancestry[r, t]. As in
+the JAX reference (``beam_gather_attention_reference``), q, K, V and P are
+rounded to bf16 whatever the cache dtype; scores, softmax and the PV sum
+are fp32, and the output is fp32 [B·K, D].
+
+The kernel (``csrc/beam_attention.cu``) reads the ancestry directly and
+gathers each beam's cache_index + 1 ancestor rows; the TPU kernel scored
+every (slot, position) pair and masked them with the one-hot ``sel`` that
+``build_selection_mask`` builds. The plain version keeps the TPU form (the
+one-hot mask and -1e9 fill), so the two are held against each other.
+
+``beam_gather_attention`` is the wrapper: on CPU tensors it runs
+``beam_gather_attention_plain``, on CUDA tensors it launches the kernel or
+raises.
+"""
+
+import torch
+
+from kmbart_tpu_torch.ops import _cuda
+
+NEG_INF = -1e9
+
+
+def build_selection_mask(ancestry, num_beams, cache_index, num_heads):
+    """One-hot ancestor-selection mask, as the TPU kernel consumes it:
+    bf16 [B, K·T, K·H] with sel[b, j·T+t, q·H+h] = 1 iff
+    ancestry[b·K+q, t] == j and t <= cache_index."""
+    BK, T = ancestry.shape
+    K = num_beams
+    B = BK // K
+    anc = ancestry.reshape(B, K, T)                                  # [B, q, t]
+    j = torch.arange(K, dtype=ancestry.dtype, device=ancestry.device)
+    sel = anc.transpose(1, 2)[:, None, :, :] == j[None, :, None, None]  # [B, j, t, q]
+    t_ok = torch.arange(T, device=ancestry.device) <= cache_index
+    sel = sel & t_ok[None, None, :, None]
+    sel = sel.reshape(B, K * T, K, 1).expand(B, K * T, K, num_heads)
+    return sel.reshape(B, K * T, K * num_heads).to(torch.bfloat16)
+
+
+def beam_gather_attention_plain(q, k_cache, v_cache, ancestry, cache_index, *,
+                                num_beams, num_heads):
+    """Plain PyTorch version of the kernel, on any device.
+
+    q [B·K, D] already scaled by head_dim**-0.5; k_cache, v_cache
+    [B, K, T, D]; ancestry int [B·K, T]; cache_index: the newest valid
+    position. Returns fp32 [B·K, D].
+    """
+    B, K, T, D = k_cache.shape
+    H = num_heads
+    hd = D // H
+    bf16 = torch.bfloat16
+    sel = build_selection_mask(ancestry, K, cache_index, H)
+    qh = q.reshape(B, K, H, hd).to(bf16).float()
+    kh = k_cache.reshape(B, K, T, H, hd).to(bf16).float()
+    vh = v_cache.reshape(B, K, T, H, hd).to(bf16).float()
+    s_all = torch.einsum("bqhd,bjthd->bqhjt", qh, kh)                # [B, q, H, j, T]
+    sel_q = sel.reshape(B, K, T, K, H).permute(0, 3, 4, 1, 2)        # [B, q, h, j, t]
+    scores = torch.where(sel_q > 0, s_all, NEG_INF).reshape(B, K, H, K * T)
+    m = scores.amax(dim=-1, keepdim=True)
+    e = torch.exp(scores - m)
+    probs = (e / e.sum(dim=-1, keepdim=True)).reshape(B, K, H, K, T)
+    out = torch.einsum("bqhjt,bjthd->bqhd", probs.to(bf16).float(), vh)
+    return out.reshape(B * K, D)
+
+
+def beam_gather_attention(q, k_cache, v_cache, ancestry, cache_index, *,
+                          num_beams, num_heads):
+    """Beam-stationary decode self-attention; same contract as
+    ``beam_gather_attention_plain`` (the kernel wants int32 ancestry)."""
+    if q.device.type == "cpu":
+        return beam_gather_attention_plain(q, k_cache, v_cache, ancestry,
+                                           cache_index, num_beams=num_beams,
+                                           num_heads=num_heads)
+    dev = _cuda.require_cuda("beam_gather_attention", q, k_cache, v_cache, ancestry)
+    B, K, T, D = k_cache.shape
+    H = num_heads
+    if (K != num_beams or v_cache.shape != k_cache.shape or q.shape != (B * K, D)
+            or ancestry.shape != (B * K, T) or D % H):
+        raise ValueError(f"beam_gather_attention: shapes q {tuple(q.shape)}, cache "
+                         f"{tuple(k_cache.shape)}, ancestry {tuple(ancestry.shape)}")
+    if ancestry.dtype != torch.int32:
+        raise TypeError("beam_gather_attention kernel takes int32 ancestry")
+    if k_cache.dtype != v_cache.dtype:
+        raise TypeError("beam_gather_attention: k and v cache dtypes differ")
+    if not 0 <= cache_index < T:
+        raise ValueError(f"cache_index {cache_index} outside [0, {T})")
+    if H > 32:
+        raise ValueError("beam_gather_attention kernel takes at most 32 heads")
+    q_code, c_code = _cuda.dtype_code(q), _cuda.dtype_code(k_cache)
+    out = torch.empty((B * K, D), dtype=torch.float32, device=dev)
+    lib, stream = _cuda.prepare(dev)
+    _cuda.check(lib.kmb_beam_attention(
+        q.data_ptr(), q_code, k_cache.data_ptr(), v_cache.data_ptr(), c_code,
+        ancestry.data_ptr(), out.data_ptr(), B, K, T, D, H, int(cache_index),
+        stream), "beam_gather_attention")
+    beam_gather_attention.launches += 1
+    return out
+
+
+beam_gather_attention.launches = 0

@@ -1,0 +1,85 @@
+"""Batch generation CLI of the port: ``python -m kmbart_tpu_torch.vcg_generate``.
+
+Twin of the root ``vcg_generate.py``: decode a VCG split with greedy or
+beam settings and dump ``[{index, task_type, generations}]`` JSON. It
+takes the same flags, with ``--device`` (default ``cuda``) in place of
+``--cpu``; sampling is not ported yet.
+"""
+
+import argparse
+import json
+from datetime import datetime
+
+from kmbart_tpu.data.collation import Collator
+from kmbart_tpu.data.datasets import VCGDataset
+from kmbart_tpu.data.loader import DataLoader
+from kmbart_tpu.data.tokenization import ConditionTokenizer
+from kmbart_tpu.utils.logger import Logger
+from kmbart_tpu_torch.checkpoint.io import load_pretrained
+from kmbart_tpu_torch.cli_common import (add_common_model_args, add_hardware_args,
+                                         resolve_device)
+from kmbart_tpu_torch.generation.driver import generate_text
+
+
+def main(args):
+    device = resolve_device(args.device)
+    logger = Logger(log_file=args.log_dir)
+    logger.info('Loading model...')
+
+    tokenizer = ConditionTokenizer(assets_dir=args.tokenizer_dir)
+    cfg, model, report = load_pretrained(args.checkpoint, device=device, seed=args.seed)
+    for line in report:
+        logger.info(line)
+    logger.info('Loaded model from "{}" onto {}'.format(args.checkpoint, device))
+
+    logger.info('Loading data...')
+    collate_fn = Collator(tokenizer, has_label=False, max_img_num=cfg.max_img_num,
+                          image_feature_size=cfg.image_feature_size)
+    dataset = VCGDataset(args.data_dir, split=args.split, use_image=args.use_image,
+                         use_event=args.use_event, eval_mode=True)
+    loader = DataLoader(dataset, batch_size=args.batch_size, collate_fn=collate_fn,
+                        num_workers=args.num_workers)
+
+    start = datetime.now()
+    logger.info('Start generation', pad=True)
+    generated = generate_text(model, cfg, loader, tokenizer, args, logger=logger,
+                              log_interval=1)
+    logger.info('Generation complete in: ' + str(datetime.now() - start), pad=True)
+
+    logger.info('Saving results...')
+    with open(args.output_file, 'w') as outfile:
+        json.dump(generated, outfile)
+    logger.info('Saved results in "{}"'.format(args.output_file))
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument('--data_dir', required=True, type=str,
+                        help='path to load data, output_dir of prepare_vcg')
+    parser.add_argument('--output_file', required=True, type=str,
+                        help='file to save the generated result')
+    add_common_model_args(parser)
+    parser.add_argument('--split', default='val', type=str,
+                        help='generate for which split')
+    parser.add_argument('--model', type=str, default='base',
+                        help='base or large bart (informational)')
+    parser.add_argument('--num_gen', default=1, type=int,
+                        help='number of generated sentence')
+    parser.add_argument('--num_beams', default=1, type=int,
+                        help='level of beam search')
+    parser.add_argument('--max_length', default=30, type=int,
+                        help='max decode length')
+    parser.add_argument('--do_sample', action='store_true',
+                        help='use nucleus sample (not ported yet: raises)')
+    parser.add_argument('--top_p', default=1.0, type=float)
+    parser.add_argument('--top_k', default=0, type=int)
+    add_hardware_args(parser)
+    parser.set_defaults(use_event=True, use_image=True)
+    args = parser.parse_args(argv)
+    if args.checkpoint is None:
+        raise ValueError('--checkpoint is required')
+    return args
+
+
+if __name__ == '__main__':
+    main(parse_args())
