@@ -4,17 +4,30 @@
 Run from the repository root:  python3 chip_smoke.py
 
 Phases, each printing one JSON line; any failure raises and exits non-zero:
-  1. device   the card's name and power limit (needs a CUDA device);
-  2. build    nvcc builds the four kernels from kmbart_tpu_torch/csrc;
-  3. kernels  each kernel against its plain PyTorch version on the card, at
-              the generation path's shapes and at an edge shape, with the
-              median times of both from CUDA events; a planted-tie top-k;
-  4. generate beam-5 VCG generation at BART-base width (config/vcg_base.json,
-              random weights from a seed, batch 64): every kernel must have
-              launched, outputs finite, and the encoder output and first-step
-              log-probs close to the plain path's on the card;
-  5. cli      ``python -m kmbart_tpu_torch.vcg_generate --device cuda`` on a
-              fixture dataset.
+  1. device    the card's name and power limit (needs a CUDA device);
+  2. build     nvcc builds the eight kernels from kmbart_tpu_torch/csrc;
+  3. kernels   each kernel against its plain PyTorch version on the card, at
+               the generation and fine-tune paths' shapes and at edge shapes,
+               with the median times of both from CUDA events; a planted-tie
+               top-k;
+  4. generate  beam-5 VCG generation at BART-base width (config/vcg_base.json,
+               random weights from a seed, batch 64): every generation kernel
+               must have launched, outputs finite, and the encoder output and
+               first-step log-probs close to the plain path's on the card;
+  5. cli       ``python -m kmbart_tpu_torch.vcg_generate --device cuda`` on a
+               fixture dataset;
+  6. train     fine-tuning at full width and depth (batch 128, 72 encoder and
+               40 decoder tokens): one step at dropout 0 on the kernel path
+               and on the plain path (loss and per-leaf gradient norms close),
+               then ten AdamW steps on one batch with the config's dropout
+               (every fine-tune kernel launched the expected number of times
+               per step, the loss finite and falling), with ms/step, samples/s
+               and peak device memory, then the step on the plain path in
+               turns with the kernel path, and a torch.profiler trace of
+               three steps (device-busy share, top device kernels);
+  7. train_cli ``python -m kmbart_tpu_torch.vcg_train --device cuda`` trains one
+               epoch on the fixture dataset, and the generate twin decodes
+               from its model0/.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -36,6 +49,16 @@ ENC_ULPS = 8             # full-width encoder output: 6 layers of <= 2-ulp kerne
                          # differences compounded through layer norm, in bf16
                          # ulps of the output's largest magnitude
 LOGPROB_ATOL = 0.1       # first-step log-probs through the 6-layer decoder
+# kernel path vs plain path through a whole fine-tune step (bf16, 12 layers
+# of <= 2-ulp kernel differences, compounded through layer norms and the
+# 50320-way softmax)
+TRAIN_LOSS_RTOL = 2e-3
+TRAIN_GRAD_NORM_RTOL = 5e-2
+# launches per fine-tune step: K1 over 6 encoder self + 6 decoder self +
+# 6 cross attentions, K2 over 12 FFNs, K7/K8 once
+TRAIN_LAUNCHES = {"train_attention": 18, "train_attention_bwd": 18, "ffn": 12,
+                  "ffn_bwd": 12, "lm_ce_fwd": 1, "lm_ce_bwd": 1}
+GENERATE_KERNELS = ("train_attention", "ffn", "beam_attention", "vocab_stats")
 
 
 def emit(phase, **fields):
@@ -71,9 +94,13 @@ def _check(name, err, tol):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def _max_err(got, ref):
+    return float((got.float() - ref.float()).abs().max())
+
+
 def check_kernels(torch, dev):
     from kmbart_tpu_torch.ops import beam_attention as ba
-    from kmbart_tpu_torch.ops import ffn, train_attention as ta, vocab_stats as vs
+    from kmbart_tpu_torch.ops import ffn, lm_ce, train_attention as ta, vocab_stats as vs
     from kmbart_tpu_torch.ops.topk import top_k
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -147,6 +174,116 @@ def check_kernels(torch, dev):
             res["ms"] = _time_ms(torch, lambda: ba.beam_gather_attention(q, kc, vc, anc, cache_index, **kw))
             res["plain_ms"] = _time_ms(torch, lambda: ba.beam_gather_attention_plain(q, kc, vc, anc, cache_index, **kw))
         return res
+
+    # K1 backward at the fine-tune shapes (B 128): encoder self 72x72 with
+    # padded keys, decoder self 40x40 causal, cross 40x72; edges: tiny widths
+    def k1b(B, Tq, Tk, D, H, pad, causal, timed):
+        q, k, v, g = randn(B, Tq, D), randn(B, Tk, D), randn(B, Tk, D), randn(B, Tq, D)
+        mask = torch.ones((B, Tk), dtype=torch.long, device=dev)
+        if pad:
+            mask[1::2, Tk - pad:] = 0
+        kw = dict(num_heads=H, causal=causal)
+        outs = ta.train_attention_bwd(q, k, v, mask, g, **kw)
+        refs = ta.train_attention_bwd_plain(q, k, v, mask, g, **kw)
+        res = {"shape": [B, Tq, Tk, D, H], "pad": pad, "causal": causal}
+        errs = []
+        for name, out, ref in zip(("dq", "dk", "dv"), outs, refs):
+            err, tol = _max_err(out, ref), _bf16_tol(ref.float())
+            _check(f"train_attention_bwd {name} {B}x{Tq}x{Tk} causal={causal}", err, tol)
+            res[f"{name}_err"], res[f"{name}_tol"] = err, tol
+            errs.append(err)
+        res["max_abs_err"] = max(errs)
+        if timed:
+            res["ms"] = _time_ms(torch, lambda: ta.train_attention_bwd(q, k, v, mask, g, **kw))
+            res["plain_ms"] = _time_ms(
+                torch, lambda: ta.train_attention_bwd_plain(q, k, v, mask, g, **kw))
+        return res
+
+    results["train_attention_bwd"] = [k1b(128, 72, 72, 768, 12, 9, False, True),
+                                      k1b(128, 40, 40, 768, 12, 7, True, True),
+                                      k1b(128, 40, 72, 768, 12, 9, False, True),
+                                      k1b(3, 16, 16, 32, 4, 5, False, False),
+                                      k1b(3, 16, 16, 32, 4, 5, True, False),
+                                      k1b(3, 8, 16, 32, 4, 5, False, False)]
+
+    # K2 forward with the pre-activation out, at the fine-tune rows (128 x 72
+    # encoder, 128 x 40 decoder)
+    def k2a(N, D, F):
+        x = randn(N, D)
+        w1, w2 = randn(F, D, std=0.02), randn(D, F, std=0.02)
+        b1 = randn(F, std=0.02, dtype=torch.float32)
+        b2 = randn(D, std=0.02, dtype=torch.float32)
+        y, a = ffn.fused_ffn(x, w1, b1, w2, b2, with_a=True)
+        ry, ra = ffn.fused_ffn_plain(x, w1, b1, w2, b2, with_a=True)
+        res = {"shape": [N, D, F], "with_a": True}
+        for name, out, ref in (("y", y, ry), ("a", a, ra)):
+            err, tol = _max_err(out, ref), _bf16_tol(ref.float())
+            _check(f"fused_ffn with_a {name} {N}x{D}x{F}", err, tol)
+            res[f"{name}_err"], res[f"{name}_tol"] = err, tol
+        res["max_abs_err"] = max(res["y_err"], res["a_err"])
+        return res
+
+    results["ffn"] += [k2a(128 * 72, 768, 3072), k2a(128 * 40, 768, 3072)]
+
+    # K2 backward at the fine-tune rows; edge: tiny widths, ragged rows
+    def k2b(N, D, F, timed):
+        g, a = randn(N, D), randn(N, F)
+        w1, w2 = randn(F, D, std=0.02), randn(D, F, std=0.02)
+        outs = ffn.fused_ffn_bwd(g, a, w1, w2)
+        refs = ffn.fused_ffn_bwd_plain(g, a, w1, w2)
+        res = {"shape": [N, D, F]}
+        for name, out, ref in zip(("da", "dx"), outs, refs):
+            err, tol = _max_err(out, ref), _bf16_tol(ref.float())
+            _check(f"fused_ffn_bwd {name} {N}x{D}x{F}", err, tol)
+            res[f"{name}_err"], res[f"{name}_tol"] = err, tol
+        res["max_abs_err"] = max(res["da_err"], res["dx_err"])
+        if timed:
+            res["ms"] = _time_ms(torch, lambda: ffn.fused_ffn_bwd(g, a, w1, w2))
+            res["plain_ms"] = _time_ms(torch, lambda: ffn.fused_ffn_bwd_plain(g, a, w1, w2))
+        return res
+
+    results["ffn_bwd"] = [k2b(128 * 72, 768, 3072, True), k2b(128 * 40, 768, 3072, True),
+                          k2b(37, 32, 64, False)]
+
+    # K7 and K8 at the fine-tune head (N 128 x 40 = 5120 rows, V 50320, D 768,
+    # ragged last vocab tile); edge: ragged rows and a small ragged vocab
+    def k78(N, V, D, timed):
+        h = randn(N, D)
+        w = randn(V, D, std=0.02)
+        fbias = randn(V, std=0.02, dtype=torch.float32)
+        labels = torch.randint(0, V, (N,), generator=g, device=dev, dtype=torch.int32)
+        logits, m, se, ll = lm_ce.lm_ce_fwd(h, w, fbias, labels)
+        rl, rm, rse, rll = lm_ce.lm_ce_fwd_plain(h, w, fbias, labels)
+        tol = _bf16_tol(rl.float())
+        fwd = {"shape": [N, V, D], "logits_err": _max_err(logits, rl),
+               "lse_err": _max_err(torch.log(se) + m, torch.log(rse) + rm),
+               "ll_err": _max_err(ll, rll), "tol": tol}
+        for key in ("logits_err", "lse_err", "ll_err"):
+            _check(f"lm_ce_fwd {key} {N}x{V}", fwd[key], tol)
+        fwd["max_abs_err"] = max(fwd["logits_err"], fwd["lse_err"], fwd["ll_err"])
+        valid = torch.rand((N,), generator=g, device=dev) > 0.1
+        scale = (valid.float() / valid.sum().clamp(min=1)).contiguous()
+        inv_se = (1.0 / se).contiguous()
+        bargs = (logits, w, m, inv_se, scale, labels)
+        dl, dh = lm_ce.lm_ce_bwd(*bargs)
+        rdl, rdh = lm_ce.lm_ce_bwd_plain(*bargs)
+        bwd = {"shape": [N, V, D]}
+        for name, out, ref in (("dlogits", dl, rdl), ("dh", dh, rdh)):
+            err, tol = _max_err(out, ref), _bf16_tol(ref.float())
+            _check(f"lm_ce_bwd {name} {N}x{V}", err, tol)
+            bwd[f"{name}_err"], bwd[f"{name}_tol"] = err, tol
+        bwd["max_abs_err"] = max(bwd["dlogits_err"], bwd["dh_err"])
+        if timed:
+            fwd["ms"] = _time_ms(torch, lambda: lm_ce.lm_ce_fwd(h, w, fbias, labels), iters=10)
+            fwd["plain_ms"] = _time_ms(torch, lambda: lm_ce.lm_ce_fwd_plain(h, w, fbias, labels),
+                                       iters=10)
+            bwd["ms"] = _time_ms(torch, lambda: lm_ce.lm_ce_bwd(*bargs), iters=10)
+            bwd["plain_ms"] = _time_ms(torch, lambda: lm_ce.lm_ce_bwd_plain(*bargs), iters=10)
+        return fwd, bwd
+
+    head = [k78(5120, 50320, 768, True), k78(24, 1100, 128, False)]
+    results["lm_ce_fwd"] = [f for f, _ in head]
+    results["lm_ce_bwd"] = [b for _, b in head]
 
     results["beam_attention"] = [k3(64, 5, 32, 768, 12, 31, True),
                                  k3(64, 5, 32, 768, 12, 0, False),
@@ -243,13 +380,18 @@ def write_checkpoint(path, cfg, seed):
 
 @contextlib.contextmanager
 def plain_path():
-    """Route the model's four kernel call sites to the plain versions, to
-    hold the kernel path against the plain path on the same card."""
+    """Route every kernel call site of the model (both directions) to the
+    plain versions, to hold the kernel path against the plain path on the
+    same card."""
     from kmbart_tpu_torch.generation import beam
     from kmbart_tpu_torch.models import bart
-    from kmbart_tpu_torch.ops import attention, beam_attention, ffn, train_attention, vocab_stats
-    swaps = [(attention, "train_attention_flat", train_attention.train_attention_plain),
-             (bart, "fused_ffn", ffn.fused_ffn_plain),
+    from kmbart_tpu_torch.ops import beam_attention, ffn, lm_ce, train_attention, vocab_stats
+    swaps = [(train_attention, "train_attention_flat", train_attention.train_attention_plain),
+             (train_attention, "train_attention_bwd", train_attention.train_attention_bwd_plain),
+             (ffn, "fused_ffn", ffn.fused_ffn_plain),
+             (ffn, "fused_ffn_bwd", ffn.fused_ffn_bwd_plain),
+             (lm_ce, "lm_ce_fwd", lm_ce.lm_ce_fwd_plain),
+             (lm_ce, "lm_ce_bwd", lm_ce.lm_ce_bwd_plain),
              (bart, "beam_gather_attention", beam_attention.beam_gather_attention_plain),
              (beam, "chunk_stats", vocab_stats.chunk_stats_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
@@ -299,7 +441,7 @@ def run_generate(torch, dev, card):
     t0 = time.perf_counter()
     out, width = gen()
     seconds = time.perf_counter() - t0
-    launches = launch_counts()
+    launches = {k: n for k, n in launch_counts().items() if k in GENERATE_KERNELS}
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
@@ -404,14 +546,217 @@ def run_cli(card):
     emit("cli", card=card, entries=len(gen), seconds=seconds, num_beams=5)
 
 
+
+# ---------------------------------------------------------------------------
+# phase 6: full-width fine-tuning
+# ---------------------------------------------------------------------------
+
+def _train_batch(torch, cfg, dev, B=128, T_enc=72, T_dec=40, seed=0):
+    """bench.py's fine-tune batch: 72 encoder tokens with rows 1-30 image
+    slots, 40 decoder tokens, labels the decoder tokens."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(4, 50000, (B, T_enc))
+    ids[:, 1:31] = cfg.img_feat_id
+    dec = rng.integers(4, 50000, (B, T_dec))
+    t = lambda a: torch.as_tensor(a, device=dev)
+    return {"input_ids": t(ids), "attention_mask": t(np.ones((B, T_enc), np.int64)),
+            "image_features": t(rng.normal(size=(B, cfg.max_img_num, cfg.image_feature_size))
+                                .astype(np.float32)),
+            "decoder_input_ids": t(dec), "decoder_attention_mask": t(np.ones((B, T_dec),
+                                                                            np.int64)),
+            "labels": t(dec.copy())}
+
+
+def run_train(torch, dev, card):
+    from kmbart_tpu_torch import MultiModalBartConfig
+    from kmbart_tpu_torch.checkpoint.io import jax_leaf_groups, load_pretrained
+    from kmbart_tpu_torch.models.conditional import conditional_loss
+    from kmbart_tpu_torch.ops import launch_counts, reset_launch_counts
+    from kmbart_tpu_torch.parallel.train_step import build_train_step
+    from kmbart_tpu_torch.training.adamw import AdamW
+    from kmbart_tpu_torch.training.state import TrainState, model_tensors
+
+    cfg = MultiModalBartConfig.from_json(os.path.join(REPO, "config", "vcg_base.json"))
+    with tempfile.TemporaryDirectory() as tmp:
+        write_checkpoint(tmp, cfg, seed=0)
+        _, model, _ = load_pretrained(tmp, device=dev)
+    batch = _train_batch(torch, cfg, dev)
+    B = batch["input_ids"].shape[0]
+    groups = jax_leaf_groups(cfg)
+
+    # (i) one step's loss and gradients at dropout 0, kernel path against
+    # plain path, with per-leaf gradient norms
+    cfg0 = cfg.replace(dropout=0.0, attention_dropout=0.0, activation_dropout=0.0)
+
+    def loss_and_norms():
+        model.zero_grad(set_to_none=True)
+        loss, _ = conditional_loss(model, cfg0, batch, train=True,
+                                   generator=torch.Generator(device=dev).manual_seed(0))
+        loss.backward()
+        tensors = model_tensors(model)
+        norms = {}
+        for key, names in groups.items():
+            sq = [tensors[n].grad.float().square().sum() for n in names
+                  if tensors[n].grad is not None]
+            norms[key] = float(torch.stack(sq).sum().sqrt()) if sq else 0.0
+        model.zero_grad(set_to_none=True)
+        return float(loss.detach()), norms
+
+    loss_k, norms_k = loss_and_norms()
+    with plain_path():
+        loss_p, norms_p = loss_and_norms()
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    _check("fine-tune loss, kernel vs plain path (relative)", loss_rel, TRAIN_LOSS_RTOL)
+    grad_rel = {k: abs(norms_k[k] - norms_p[k]) / norms_p[k] for k in norms_p if norms_p[k] > 0}
+    worst = max(grad_rel, key=grad_rel.get)
+    _check(f"per-leaf gradient norm, kernel vs plain path (relative, {worst})",
+           grad_rel[worst], TRAIN_GRAD_NORM_RTOL)
+    if not all(math.isfinite(v) for v in norms_k.values()):
+        raise AssertionError("non-finite gradient norm on the kernel path")
+
+    # (ii) ten AdamW steps on the fixed batch with the config's dropout
+    def loss_fn(m, b, generator):
+        loss, _ = conditional_loss(m, cfg, b, train=True, generator=generator)
+        return loss, {}
+
+    optimizer = AdamW(lr=1e-4, groups=groups)
+    state = TrainState.create(model, optimizer)
+    step = build_train_step(loss_fn, optimizer)
+    n_steps = 10
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, times = [], []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, 0)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"])
+    launches = {k: n for k, n in launch_counts().items() if k in TRAIN_LAUNCHES}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(x) for x in losses]
+    per_step = {k: n / n_steps for k, n in launches.items()}
+    if per_step != {k: float(n) for k, n in TRAIN_LAUNCHES.items()}:
+        raise AssertionError(f"launches per step {per_step}, expected {TRAIN_LAUNCHES}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"fine-tune losses not finite and falling: {losses}")
+    if float(metrics["skipped"]) != 0.0:
+        raise AssertionError("the non-finite guard skipped a step")
+    timed = sorted(times[2:])          # the first steps warm the allocator and cuBLAS
+    median = timed[len(timed) // 2]
+
+    # the same step on the plain path, in turns with the kernel path
+    # (K P P K, three steps each, after one plain warm-up step)
+    def steps(plain, n=3):
+        nonlocal state
+        out = []
+        with plain_path() if plain else contextlib.nullcontext():
+            for _ in range(n):
+                t0 = time.perf_counter()
+                state, _ = step(state, batch, 0)
+                torch.cuda.synchronize()
+                out.append(time.perf_counter() - t0)
+        return out
+
+    steps(True, 1)
+    turns = {False: [], True: []}
+    for plain in (False, True, True, False):
+        turns[plain] += steps(plain)
+    k_med, p_med = (sorted(turns[p])[len(turns[p]) // 2] for p in (False, True))
+    profile = _profile_steps(torch, lambda: step(state, batch, 0))
+    emit("train", card=card, config="config/vcg_base.json", batch=B, enc_len=72, dec_len=40,
+         dtype=cfg.dtype, dropout=cfg.dropout, lr=1e-4, losses=losses,
+         loss_kernel_path=loss_k, loss_plain_path=loss_p, loss_rel_err=loss_rel,
+         loss_rtol=TRAIN_LOSS_RTOL, grad_norm_max_rel_err=grad_rel[worst],
+         grad_norm_worst_leaf=worst, grad_norm_rtol=TRAIN_GRAD_NORM_RTOL,
+         grad_norm_rel_errs=grad_rel, launches=launches, launches_per_step=per_step,
+         step_s=times, ms_per_step=1e3 * median, samples_per_s=B / median,
+         peak_memory_gb=peak_gb, turns_kernel_s=turns[False], turns_plain_s=turns[True],
+         turns_kernel_ms_per_step=1e3 * k_med, turns_plain_ms_per_step=1e3 * p_med)
+    emit("train_profile", card=card, **profile)
+    return launches
+
+
+def _profile_steps(torch, run_step, n=3):
+    """Device-busy share and the top device kernels over ``n`` steps under
+    torch.profiler (kernels run on one stream, so their device times add up
+    without overlap)."""
+    from torch.profiler import ProfilerActivity, profile
+    run_step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            run_step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    from torch.autograd import DeviceType
+    dev = lambda e: e.self_device_time_total
+    # device kernels only: a host op's entry repeats its kernels' time
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and dev(e) > 0]
+    busy_ms = sum(dev(e) for e in events) / 1e3
+    top = sorted(events, key=dev, reverse=True)[:15]
+    return {"steps": n, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / wall_ms,
+            "top_device_ops": [{"name": e.key[:80], "calls": e.count,
+                                "ms_per_step": dev(e) / 1e3 / n,
+                                "share": dev(e) / 1e3 / busy_ms} for e in top]}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the fine-tune CLI twin
+# ---------------------------------------------------------------------------
+
+def run_train_cli(card):
+    make_dataset = _load_fixture_module().make_dataset
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = make_dataset(os.path.join(tmp, "data"))
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        cmd = [sys.executable, "-m", "kmbart_tpu_torch.vcg_train",
+               "--data_dir", paths["vcg"], "--checkpoint_dir", ckpt_dir,
+               "--model_config", paths["config"], "--tokenizer_dir", paths["tokenizer"],
+               "--epochs", "1", "--batch_size", "6", "--validate_loss", "--device", "cuda"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, timeout=600, capture_output=True, text=True)
+        train_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"train CLI failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        (run,) = os.listdir(ckpt_dir)
+        model0 = os.path.join(ckpt_dir, run, "model0")
+        for name in ("config.json", "params.npz", "training_data.npz"):
+            if not os.path.exists(os.path.join(model0, name)):
+                raise AssertionError(f"train CLI wrote no model0/{name}")
+        out_file = os.path.join(tmp, "gen.json")
+        cmd = [sys.executable, "-m", "kmbart_tpu_torch.vcg_generate",
+               "--data_dir", paths["vcg"], "--output_file", out_file, "--checkpoint", model0,
+               "--tokenizer_dir", paths["tokenizer"], "--num_beams", "2", "--batch_size", "6",
+               "--max_length", "10", "--device", "cuda"]
+        proc = subprocess.run(cmd, cwd=REPO, timeout=600, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"generate from model0 failed ({proc.returncode}):\n"
+                               f"{proc.stderr[-4000:]}")
+        with open(out_file) as f:
+            gen = json.load(f)
+    if len(gen) != 18:
+        raise AssertionError(f"generate from model0 wrote {len(gen)} entries, expected 18")
+    emit("train_cli", card=card, train_seconds=train_s, generated_entries=len(gen))
+
 KERNEL_INFO = {
     "train_attention": ("kmbart_tpu_torch/csrc/train_attention.cu",
                         "kmbart_tpu/ops/pallas_train_attention.py:194"),
+    "train_attention_bwd": ("kmbart_tpu_torch/csrc/train_attention.cu",
+                            "kmbart_tpu/ops/pallas_train_attention.py:223"),
     "ffn": ("kmbart_tpu_torch/csrc/ffn.cu", "kmbart_tpu/ops/pallas_ffn.py:160"),
+    "ffn_bwd": ("kmbart_tpu_torch/csrc/ffn.cu", "kmbart_tpu/ops/pallas_ffn.py:190"),
     "beam_attention": ("kmbart_tpu_torch/csrc/beam_attention.cu",
                        "kmbart_tpu/ops/pallas_beam_attention.py:214"),
     "vocab_stats": ("kmbart_tpu_torch/csrc/vocab_stats.cu",
                     "kmbart_tpu/ops/pallas_vocab_stats.py:60"),
+    "lm_ce_fwd": ("kmbart_tpu_torch/csrc/lm_ce.cu", "kmbart_tpu/ops/pallas_lm_ce.py:250"),
+    "lm_ce_bwd": ("kmbart_tpu_torch/csrc/lm_ce.cu", "kmbart_tpu/ops/pallas_lm_ce.py:289"),
 }
 
 
@@ -438,6 +783,8 @@ def main():
     emit("kernels", card=card, **kernels)
     launches = run_generate(torch, dev, card)
     run_cli(card)
+    launches.update(run_train(torch, dev, card))
+    run_train_cli(card)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 

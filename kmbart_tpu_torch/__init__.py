@@ -8,8 +8,11 @@ use (ops/_cuda.py); on CPU tensors every kernel wrapper runs its plain
 PyTorch version instead.
 
 Ported so far: VCG conditional generation (greedy and beam search, without
-sampling) and the ``vcg_generate`` CLI (``python -m
-kmbart_tpu_torch.vcg_generate``).
+sampling) with the ``vcg_generate`` CLI (``python -m
+kmbart_tpu_torch.vcg_generate``), and VCG fine-tuning (the loss, AdamW,
+the train step, the epoch and validation loops, checkpoints in the JAX
+package's format) with the ``vcg_train`` CLI (``python -m
+kmbart_tpu_torch.vcg_train``).
 """
 
 __version__ = "0.1.0"

@@ -1,16 +1,19 @@
-"""Checkpoints: JAX-layout parameters to the port's state dict, and the
-loader for a checkpoint directory.
+"""Checkpoints in the JAX package's format, both ways.
 
-Counterpart of kmbart_tpu/checkpoint/io.py (load side) and of
-``pytree_to_state_dict`` in kmbart_tpu/checkpoint/torch_import.py, which
-this module must match key for key. A directory holds ``config.json`` and
-either ``params.npz`` (the JAX package's format: "/"-joined pytree paths,
-[in, out] kernels, layers stacked on a leading axis) or a reference
-``pytorch_model.bin`` (HF names, [out, in]; names in
-``config.partial_load`` may differ in shape and load their overlapping
-top-left slice, torch_import.py:169).
+Counterpart of kmbart_tpu/checkpoint/io.py and of ``pytree_to_state_dict``
+in kmbart_tpu/checkpoint/torch_import.py, which this module must match key
+for key. A directory holds ``config.json`` and either ``params.npz`` (the
+JAX package's format: "/"-joined pytree paths, [in, out] kernels, layers
+stacked on a leading axis) or a reference ``pytorch_model.bin`` (HF names,
+[out, in]; names in ``config.partial_load`` may differ in shape and load
+their overlapping top-left slice, torch_import.py:169). A train checkpoint
+adds ``training_data.npz``: the AdamW state under the JAX flat keys
+(``step``, ``mu/…``, ``nu/…``, ``leaf_steps/…``) and ``__meta__`` (epoch
+and train step). What the port writes loads in ``kmbart_tpu``, and the
+reverse.
 """
 
+import json
 import os
 
 import numpy as np
@@ -20,6 +23,7 @@ from kmbart_tpu.config import MultiModalBartConfig
 from kmbart_tpu_torch.models.conditional import init_conditional_model
 
 WEIGHTS_NAME = "params.npz"
+TRAINING_DATA_NAME = "training_data.npz"
 TORCH_WEIGHTS_NAME = "pytorch_model.bin"
 CONFIG_NAME = "config.json"
 
@@ -36,60 +40,97 @@ def _flatten(tree, prefix=""):
     return flat
 
 
+def _leaf_map(cfg: MultiModalBartConfig):
+    """[(port name, JAX leaf key, stacked-layer index or None, transpose)]
+    for every tensor of the port's conditional model: HF names on one side,
+    "/"-joined pytree paths with [in, out] kernels stacked over layers on
+    the other."""
+    out = [("model.shared.weight", "model/shared", None, False)]
+    for side in ("encoder", "decoder"):
+        base = f"model/{side}"
+        put = lambda name, key, i=None, t=False: out.append((f"model.{side}.{name}",
+                                                             f"{base}/{key}", i, t))
+        put("embed_positions.weight", "embed_positions")
+        if cfg.normalize_embedding:
+            put("layernorm_embedding.weight", "layernorm_embedding/scale")
+            put("layernorm_embedding.bias", "layernorm_embedding/bias")
+        if cfg.normalize_before if side == "encoder" else cfg.add_final_layer_norm:
+            put("layer_norm.weight", "layer_norm/scale")
+            put("layer_norm.bias", "layer_norm/bias")
+        if side == "encoder":
+            put("embed_images.linear.weight", "embed_images/kernel", t=True)
+            put("embed_images.linear.bias", "embed_images/bias")
+        attns = ("self_attn",) + (("encoder_attn",) if side == "decoder" else ())
+        lns = tuple(f"{a}_layer_norm" for a in attns) + ("final_layer_norm",)
+        n_layers = cfg.encoder_layers if side == "encoder" else cfg.decoder_layers
+        for i in range(n_layers):
+            for attn in attns:
+                for proj, ours in _PROJ:
+                    put(f"layers.{i}.{attn}.{proj}.weight", f"layers/{attn}/{ours}_kernel", i, True)
+                    put(f"layers.{i}.{attn}.{proj}.bias", f"layers/{attn}/{ours}_bias", i)
+            for ln in lns:
+                put(f"layers.{i}.{ln}.weight", f"layers/{ln}/scale", i)
+                put(f"layers.{i}.{ln}.bias", f"layers/{ln}/bias", i)
+            for fc in ("fc1", "fc2"):
+                put(f"layers.{i}.{fc}.weight", f"layers/{fc}_kernel", i, True)
+                put(f"layers.{i}.{fc}.bias", f"layers/{fc}_bias", i)
+    out.append(("final_logits_bias", "final_logits_bias", None, False))
+    return out
+
+
+def jax_leaf_groups(cfg: MultiModalBartConfig):
+    """{JAX leaf key: [port names]}: the tensors that make up each leaf of
+    the JAX parameter pytree (one per layer for a stacked leaf)."""
+    groups = {}
+    for name, key, _, _ in _leaf_map(cfg):
+        groups.setdefault(key, []).append(name)
+    return groups
+
+
 def params_from_jax(flat, cfg: MultiModalBartConfig):
     """JAX parameters -> the port's state dict (torch tensors, fp32).
 
     ``flat``: the "/"-joined keys of ``params.npz`` or the nested pytree,
     with numpy (or array-like) leaves. Kernels are transposed from
-    [in, out] to [out, in] and the stacked layer axis is unstacked.
+    [in, out] to [out, in] and the stacked layer axis is unstacked. Leaves
+    the source does not hold are left out. The same map converts any
+    pytree shaped like the parameters (AdamW moments).
     """
     if any(isinstance(v, dict) for v in flat.values()):
         flat = _flatten(flat)
     p = {k: np.asarray(v) for k, v in flat.items()}
     sd = {}
-
-    def put(name, arr):
+    for name, key, i, transpose in _leaf_map(cfg):
+        if key not in p:
+            continue
+        arr = p[key] if i is None else p[key][i]
+        arr = arr.T if transpose else arr
+        if name == "final_logits_bias":
+            arr = arr.reshape(1, -1)
         sd[name] = torch.from_numpy(np.array(arr, dtype=np.float32))
-
-    put("model.shared.weight", p["model/shared"])
-    sd["model.encoder.embed_tokens.weight"] = sd["model.shared.weight"]
-    sd["model.decoder.embed_tokens.weight"] = sd["model.shared.weight"]
-    for side in ("encoder", "decoder"):
-        base = f"model/{side}"
-        n_layers = cfg.encoder_layers if side == "encoder" else cfg.decoder_layers
-        put(f"model.{side}.embed_positions.weight", p[f"{base}/embed_positions"])
-        if f"{base}/layernorm_embedding/scale" in p:
-            put(f"model.{side}.layernorm_embedding.weight",
-                p[f"{base}/layernorm_embedding/scale"])
-            put(f"model.{side}.layernorm_embedding.bias",
-                p[f"{base}/layernorm_embedding/bias"])
-        if f"{base}/layer_norm/scale" in p:
-            put(f"model.{side}.layer_norm.weight", p[f"{base}/layer_norm/scale"])
-            put(f"model.{side}.layer_norm.bias", p[f"{base}/layer_norm/bias"])
-        if side == "encoder":
-            put("model.encoder.embed_images.linear.weight",
-                p[f"{base}/embed_images/kernel"].T)
-            put("model.encoder.embed_images.linear.bias", p[f"{base}/embed_images/bias"])
-        lp = f"{base}/layers"
-        attns = ("self_attn",) + (("encoder_attn",) if side == "decoder" else ())
-        lns = (("self_attn_layer_norm",)
-               + (("encoder_attn_layer_norm",) if side == "decoder" else ())
-               + ("final_layer_norm",))
-        for i in range(n_layers):
-            t = f"model.{side}.layers.{i}"
-            for attn in attns:
-                for proj, ours in _PROJ:
-                    put(f"{t}.{attn}.{proj}.weight", p[f"{lp}/{attn}/{ours}_kernel"][i].T)
-                    put(f"{t}.{attn}.{proj}.bias", p[f"{lp}/{attn}/{ours}_bias"][i])
-            for ln in lns:
-                put(f"{t}.{ln}.weight", p[f"{lp}/{ln}/scale"][i])
-                put(f"{t}.{ln}.bias", p[f"{lp}/{ln}/bias"][i])
-            for fc in ("fc1", "fc2"):
-                put(f"{t}.{fc}.weight", p[f"{lp}/{fc}_kernel"][i].T)
-                put(f"{t}.{fc}.bias", p[f"{lp}/{fc}_bias"][i])
-    if "final_logits_bias" in p:
-        put("final_logits_bias", p["final_logits_bias"].reshape(1, -1))
+    if "model.shared.weight" in sd:
+        for tied in _TIED_COPIES:
+            sd[tied] = sd["model.shared.weight"]
     return sd
+
+
+def params_to_jax(state_dict, cfg: MultiModalBartConfig):
+    """The inverse of ``params_from_jax``: the port's tensors (a state dict,
+    or any {port name: tensor} such as AdamW moments) -> {"/"-joined JAX
+    key: fp32 numpy array}, layers stacked, kernels [in, out]."""
+    stacks = {}
+    flat = {}
+    for name, key, i, transpose in _leaf_map(cfg):
+        arr = state_dict[name].detach().float().cpu().numpy()
+        arr = arr.T if transpose else arr
+        if name == "final_logits_bias":
+            arr = arr.reshape(-1)
+        if i is None:
+            flat[key] = arr
+        else:
+            stacks.setdefault(key, []).append(arr)
+    flat.update({k: np.stack(v) for k, v in stacks.items()})
+    return flat
 
 
 def _partial_copy(dst, src):
@@ -152,3 +193,50 @@ def load_pretrained(path, config=None, device="cpu", seed=0):
         sd = torch.load(binpath, map_location="cpu", weights_only=True)
     report = load_state_dict(model, sd, config.partial_load)
     return config, model.to(device).eval(), report
+
+
+def save_pretrained(path, cfg: MultiModalBartConfig, model):
+    """config.json + params.npz in the JAX layout."""
+    os.makedirs(path, exist_ok=True)
+    cfg.save_json(os.path.join(path, CONFIG_NAME))
+    np.savez(os.path.join(path, WEIGHTS_NAME), **params_to_jax(model.state_dict(), cfg))
+
+
+def save_training_data(path, cfg: MultiModalBartConfig, opt_state=None, epoch=None, step=None):
+    """training_data.npz with the keys ``kmbart_tpu.checkpoint.io`` writes
+    for a TrainState's AdamW state (moments stacked per JAX leaf)."""
+    os.makedirs(path, exist_ok=True)
+    flat = {}
+    if opt_state is not None:
+        flat["step"] = opt_state.step.cpu().numpy().astype(np.int32)
+        for field in ("mu", "nu"):
+            for k, v in params_to_jax(getattr(opt_state, field), cfg).items():
+                flat[f"{field}/{k}"] = v
+        for k, v in (opt_state.leaf_steps or {}).items():
+            flat[f"leaf_steps/{k}"] = v.cpu().numpy().astype(np.int32)
+    meta = {"epoch": epoch, "step": step}
+    flat["__meta__"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+    np.savez(os.path.join(path, TRAINING_DATA_NAME), **flat)
+
+
+def load_training_data(path, cfg: MultiModalBartConfig, device="cpu"):
+    """Returns {"opt_state": AdamWState or None, "epoch", "step"}. A state
+    without per-leaf steps (an older JAX checkpoint) seeds every leaf's
+    step from the global one, as the JAX loader does."""
+    from kmbart_tpu_torch.training.adamw import AdamWState
+    with np.load(os.path.join(path, TRAINING_DATA_NAME)) as data:
+        flat = dict(data)
+    meta = json.loads(bytes(flat.pop("__meta__")).decode())
+    out = {"epoch": meta.get("epoch"), "step": meta.get("step"), "opt_state": None}
+    if not flat:
+        return out
+    split = lambda prefix: {k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)}
+    moments = [{n: t.to(device) for n, t in params_from_jax(split(f"{f}/"), cfg).items()
+                if n not in _TIED_COPIES} for f in ("mu", "nu")]
+    step = torch.as_tensor(np.asarray(flat["step"], np.int32), device=device)
+    leaf = split("leaf_steps/") or {k: flat["step"] for k in jax_leaf_groups(cfg)}
+    leaf_steps = {k: torch.as_tensor(np.asarray(v, np.int32), device=device)
+                  for k, v in leaf.items()}
+    out["opt_state"] = AdamWState(step=step, mu=moments[0], nu=moments[1],
+                                  leaf_steps=leaf_steps)
+    return out

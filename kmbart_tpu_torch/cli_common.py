@@ -1,15 +1,20 @@
 """Shared CLI plumbing for the port's entry points.
 
 Counterpart of the parts of kmbart_tpu/cli_common.py that a one-device
-PyTorch run needs: the model/data path flags, the loader flags, and
-``--device`` in place of ``--cpu``. The TPU mesh flags (model/pipeline
-parallelism, multihost, ZeRO-1) have no counterpart yet.
+PyTorch run needs: the model/data path flags, the dropout overrides, the
+loader flags, ``--device`` in place of ``--cpu``, the model build with a
+checkpoint overlay, and the train checkpoint. The TPU mesh flags (model,
+sequence and pipeline parallelism, multihost, ZeRO-1, sharded checkpoints)
+have no counterpart yet.
 """
 
 import argparse
+import json
 import os
 
 import torch
+
+from kmbart_tpu.config import MultiModalBartConfig
 
 
 def add_common_model_args(parser: argparse.ArgumentParser):
@@ -27,13 +32,29 @@ def add_common_model_args(parser: argparse.ArgumentParser):
                         help='not to use image features')
 
 
-def add_hardware_args(parser):
+def add_dropout_args(parser):
+    parser.add_argument('--dropout', default=None, type=float,
+                        help='dropout rate for the transformer. This overwrites the model config')
+    parser.add_argument('--classif_dropout', default=None, type=float,
+                        help='dropout rate for the classification layers. This overwrites the model config')
+    parser.add_argument('--attention_dropout', default=None, type=float,
+                        help='dropout rate for the attention layers. This overwrites the model config')
+    parser.add_argument('--activation_dropout', default=None, type=float,
+                        help='dropout rate for the activation layers. This overwrites the model config')
+
+
+def add_hardware_args(parser, train=False):
     parser.add_argument('--device', default='cuda', type=str,
                         help='torch device to run on (cuda, cuda:N or cpu)')
     parser.add_argument('--batch_size', type=int, default=64, help='batch size')
     parser.add_argument('--num_workers', type=int, default=0,
                         help='#workers for data loader')
     parser.add_argument('--seed', type=int, default=42, help='seed for initialisation')
+    if train:
+        parser.add_argument('--grad_accum_steps', default=1, type=int,
+                            help='split each batch into this many micro-batches and '
+                                 'accumulate gradients before the optimizer update '
+                                 '(batch_size must be divisible by it)')
 
 
 def resolve_device(name):
@@ -43,4 +64,49 @@ def resolve_device(name):
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError(f'--device {name} requested but no CUDA device is '
                            'available (pass --device cpu to run on the host)')
+    if device.type == 'cuda' and device.index is None:
+        device = torch.device('cuda', torch.cuda.current_device())
     return device
+
+
+def apply_dropout_overrides(cfg, args):
+    """CLI dropout flags override the JSON config."""
+    overrides = {name: getattr(args, name) for name in
+                 ('dropout', 'attention_dropout', 'classif_dropout', 'activation_dropout')
+                 if getattr(args, name, None) is not None}
+    return cfg.replace(**overrides) if overrides else cfg
+
+
+def load_model_config(args):
+    """--model_config, else the checkpoint's config.json; then the dropout
+    overrides."""
+    if args.model_config is not None:
+        with open(args.model_config) as f:
+            cfg = MultiModalBartConfig.from_dict(json.load(f))
+    elif args.checkpoint:
+        cfg = MultiModalBartConfig.from_json(os.path.join(args.checkpoint, 'config.json'))
+    else:
+        raise ValueError('--model_config and --checkpoint cannot be empty at the same time')
+    return apply_dropout_overrides(cfg, args)
+
+
+def build_model_params(args, cfg, device, logger=None):
+    """A model initialised from ``--seed``, with the checkpoint's weights
+    laid over it (partial-load aware), on ``device``."""
+    from kmbart_tpu_torch.checkpoint.io import load_pretrained
+    from kmbart_tpu_torch.models.conditional import init_conditional_model
+    if args.checkpoint:
+        _, model, report = load_pretrained(args.checkpoint, config=cfg, device=device,
+                                           seed=args.seed)
+        if logger is not None:
+            for line in report:
+                logger.info(line)
+        return model
+    return init_conditional_model(cfg, seed=args.seed, device=device)
+
+
+def save_train_checkpoint(path, cfg, state, epoch):
+    """config.json + params.npz + training_data.npz in the JAX layout."""
+    from kmbart_tpu_torch.checkpoint.io import save_pretrained, save_training_data
+    save_pretrained(path, cfg, state.params)
+    save_training_data(path, cfg, opt_state=state.opt_state, epoch=epoch, step=state.step)

@@ -1,0 +1,336 @@
+// K7 and K8: the tied LM head fused with the ignore-index cross-entropy,
+// mode "fwdbwd" of kmbart_tpu/ops/pallas_lm_ce.py.
+//
+// K7 replaces _fwd_project_stats_call (pallas_lm_ce.py:250, body
+// _fwd_project_stats_kernel :193):
+//   logits[n, v] = bf16(sum_d h[n, d] W[v, d] + bias[v])       fp32 accumulation
+//   m[n]  = max_v logits,  se[n] = sum_v exp(logits - m),  ll[n] = logits[n, label[n]]
+// with the statistics taken on the bf16-rounded logits, as on the TPU.
+// K8 replaces _bwd_call (pallas_lm_ce.py:289, body _bwd_kernel :53):
+//   dlogits[n, v] = bf16(scale[n] (exp(logits - m[n]) inv_se[n] - [v == label[n]]))
+//   dh[n, :]      = bf16(sum_v dlogits[n, v] W[v, :])
+// Labels arrive already made safe (-100 -> 0); the valid mask is in scale.
+// dW = dlogits^T h stays a library matmul outside (pallas_lm_ce.py:426-431).
+//
+// What bounds them on an H100: each is one GEMM of 2 x N x V x D FLOP (396
+// GFLOP at N 5120, V 50320, D 768), so tensor-core FLOPs; the logits and
+// dlogits are 515 MB each in bf16 (0.15 ms of HBM time each at 3.35 TB/s).
+// The TPU walked the vocab sequentially and carried (m, se, ll) and the dh
+// accumulator in VMEM across grid steps. Hopper has no ordered grid, so:
+//   K7 tiles the [N, V] product into 64 x 128 blocks (wmma, K = D in steps
+//      of 32 through shared memory); each block writes its bf16 logits and
+//      one partial (max, exp-sum, label logit) per row, and a second pass
+//      merges a row's partials in a fixed order (as K4 does);
+//   K8 is a GEMM over K = V whose A operand is made on the fly: each block
+//      reads a [64, 32] logits tile, forms dlogits in shared memory (the
+//      blocks of the first D tile also write it out), and folds it into a
+//      64 x 128 tile of dh. When the tiles alone cannot fill the card the V
+//      walk is split over blockIdx.z into fp32 partials summed in a fixed
+//      order, so the result is deterministic.
+// The ragged vocab tail (50320 = 393 x 128 + 16) is masked: W rows past V
+// load as zero, and those columns take no part in the statistics and get
+// zero dlogits, as _masked_w (:93-102) and the NEG floor do on the TPU.
+// This first version is wmma (mma.sync) without a TMA/wgmma pipeline.
+#include <mma.h>
+
+#include <type_traits>
+
+#include "common.cuh"
+
+using namespace nvcuda;
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+constexpr int BM = 64;            // rows of the output tile
+constexpr int BN = 128;           // columns of the output tile
+constexpr int BK = 32;            // depth of one shared-memory step
+constexpr int NWARP = 8;          // 2 x 4 warps, 32 x 32 outputs each
+constexpr int LDA = BK + 8;       // A tile [BM][LDA]
+constexpr int LDB_T = BK + 8;     // K7: W tile [BN][LDB_T] (column-major B)
+constexpr int LDB_R = BN + 8;     // K8: W tile [BK][LDB_R] (row-major B)
+constexpr int LDC = BN + 4;       // fp32 epilogue tile [BM][LDC]
+
+constexpr size_t A_BYTES = sizeof(bf16) * BM * LDA;
+constexpr size_t B_BYTES = sizeof(bf16) * BN * LDB_T > sizeof(bf16) * BK * LDB_R
+                               ? sizeof(bf16) * BN * LDB_T
+                               : sizeof(bf16) * BK * LDB_R;
+constexpr size_t C_BYTES = sizeof(float) * BM * LDC;
+constexpr size_t SMEM_BYTES = A_BYTES + B_BYTES + C_BYTES;
+
+typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
+
+// one BK step of the warp's 32 x 32 tile: A from a_s, B from b_s
+template <typename BLayout>
+__device__ __forceinline__ void mma_step(const bf16* a_s, const bf16* b_s, Acc (&acc)[2][2],
+                                         int wm, int wn) {
+#pragma unroll
+  for (int kk = 0; kk < BK; kk += 16) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> fb[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      wmma::load_matrix_sync(fa[i], a_s + (wm * 32 + i * 16) * LDA + kk, LDA);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if constexpr (std::is_same<BLayout, wmma::col_major>::value)
+        wmma::load_matrix_sync(fb[j], b_s + (wn * 32 + j * 16) * LDB_T + kk, LDB_T);
+      else
+        wmma::load_matrix_sync(fb[j], b_s + kk * LDB_R + wn * 32 + j * 16, LDB_R);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+  }
+}
+
+__device__ __forceinline__ void store_acc(float* c_s, Acc (&acc)[2][2], int wm, int wn) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(c_s + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16, acc[i][j],
+                              LDC, wmma::mem_row_major);
+}
+
+__device__ __forceinline__ uint4 load16(const bf16* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+// K7: grid (ceil(V / BN), ceil(N / BM)); partial stats [N, n_vtiles]
+__global__ void __launch_bounds__(NWARP * 32)
+lm_ce_fwd_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
+                 const float* __restrict__ bias, const int* __restrict__ labels,
+                 bf16* __restrict__ logits, float* __restrict__ part_m,
+                 float* __restrict__ part_se, float* __restrict__ part_ll, int N, int V,
+                 int D) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* a_s = reinterpret_cast<bf16*>(smem);
+  bf16* b_s = reinterpret_cast<bf16*>(smem + A_BYTES);
+  float* c_s = reinterpret_cast<float*>(smem + A_BYTES + B_BYTES);
+  const int tile = blockIdx.x, v0 = tile * BN, r0 = blockIdx.y * BM;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp / 4, wn = warp % 4;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+
+  Acc acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  for (int k0 = 0; k0 < D; k0 += BK) {
+    {  // h tile: 64 rows x 32 = 256 chunks of 8
+      const int row = tid / 4, c8 = (tid % 4) * 8;
+      const int n = r0 + row;
+      *reinterpret_cast<uint4*>(a_s + row * LDA + c8) =
+          n < N ? load16(h + (size_t)n * D + k0 + c8) : zero;
+    }
+#pragma unroll
+    for (int c = tid; c < BN * BK / 8; c += NWARP * 32) {  // W tile: 128 rows x 32
+      const int row = c / 4, c8 = (c % 4) * 8;
+      const int v = v0 + row;
+      *reinterpret_cast<uint4*>(b_s + row * LDB_T + c8) =
+          v < V ? load16(w + (size_t)v * D + k0 + c8) : zero;  // rows past V are zero
+    }
+    __syncthreads();
+    mma_step<wmma::col_major>(a_s, b_s, acc, wm, wn);
+    __syncthreads();
+  }
+  store_acc(c_s, acc, wm, wn);
+  __syncthreads();
+
+  const int n_vtiles = gridDim.x;
+  for (int row = warp; row < BM; row += NWARP) {
+    const int n = r0 + row;
+    if (n >= N) break;
+    const int label = labels[n];
+    float vals[BN / 32];
+    float tmax = -INFINITY, ll = 0.f;
+#pragma unroll
+    for (int e = 0; e < BN / 32; ++e) {
+      const int c = lane + 32 * e, v = v0 + c;
+      vals[e] = -INFINITY;
+      if (v < V) {
+        const bf16 l16 = __float2bfloat16(c_s[row * LDC + c] + bias[v]);
+        logits[(size_t)n * V + v] = l16;
+        vals[e] = __bfloat162float(l16);
+        tmax = fmaxf(tmax, vals[e]);
+        if (v == label) ll = vals[e];
+      }
+    }
+    tmax = warp_max(tmax);  // v0 < V, so every tile has a valid column
+    float se = 0.f;
+#pragma unroll
+    for (int e = 0; e < BN / 32; ++e)
+      if (v0 + lane + 32 * e < V) se += expf(vals[e] - tmax);
+    se = warp_sum(se);
+    ll = warp_sum(ll);  // at most one lane holds the label
+    if (lane == 0) {
+      const size_t p = (size_t)n * n_vtiles + tile;
+      part_m[p] = tmax;
+      part_se[p] = se;
+      part_ll[p] = ll;
+    }
+  }
+}
+
+// merges a row's per-tile partials in a fixed order: a warp per row
+__global__ void lm_ce_merge_kernel(const float* __restrict__ part_m,
+                                   const float* __restrict__ part_se,
+                                   const float* __restrict__ part_ll, float* __restrict__ m,
+                                   float* __restrict__ se, float* __restrict__ ll, int N,
+                                   int n_vtiles) {
+  const int n = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (n >= N) return;
+  const float* pm = part_m + (size_t)n * n_vtiles;
+  const float* ps = part_se + (size_t)n * n_vtiles;
+  const float* pl = part_ll + (size_t)n * n_vtiles;
+  float mx = -INFINITY;
+  for (int t = lane; t < n_vtiles; t += 32) mx = fmaxf(mx, pm[t]);
+  mx = warp_max(mx);
+  float s = 0.f, l = 0.f;
+  for (int t = lane; t < n_vtiles; t += 32) {
+    s += ps[t] * expf(pm[t] - mx);
+    l += pl[t];
+  }
+  s = warp_sum(s);
+  l = warp_sum(l);
+  if (lane == 0) {
+    m[n] = mx;
+    se[n] = s;
+    ll[n] = l;
+  }
+}
+
+// K8: grid (D / BN, ceil(N / BM), nsplit), D % BN == 0; the V walk of split z covers
+// BK-steps [z * steps_per_split, (z + 1) * steps_per_split)
+__global__ void __launch_bounds__(NWARP * 32)
+lm_ce_bwd_kernel(const bf16* __restrict__ logits, const bf16* __restrict__ w,
+                 const float* __restrict__ m, const float* __restrict__ inv_se,
+                 const float* __restrict__ scale, const int* __restrict__ labels,
+                 bf16* __restrict__ dlogits, bf16* __restrict__ dh, float* __restrict__ partial,
+                 int N, int V, int D, int steps_per_split) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* a_s = reinterpret_cast<bf16*>(smem);
+  bf16* b_s = reinterpret_cast<bf16*>(smem + A_BYTES);
+  float* c_s = reinterpret_cast<float*>(smem + A_BYTES + B_BYTES);
+  const int d0 = blockIdx.x * BN, r0 = blockIdx.y * BM, split = blockIdx.z;
+  const bool write_dl = blockIdx.x == 0;
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int wm = warp / 4, wn = warp % 4;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+
+  // this thread's row of the dlogits tile and its statistics
+  const int a_row = tid / 4, a_c8 = (tid % 4) * 8;
+  const int n = r0 + a_row;
+  float rm = 0.f, rinv = 0.f, rscale = 0.f;
+  int rlabel = -1;
+  if (n < N) {
+    rm = m[n];
+    rinv = inv_se[n];
+    rscale = scale[n];
+    rlabel = labels[n];
+  }
+
+  Acc acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  const int n_steps = (V + BK - 1) / BK;
+  const int s0 = split * steps_per_split;
+  const int s1 = min(n_steps, s0 + steps_per_split);
+  for (int step = s0; step < s1; ++step) {
+    const int v0 = step * BK;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int v = v0 + a_c8 + e;
+      bf16 d16 = __float2bfloat16(0.f);
+      if (n < N && v < V) {
+        const size_t i = (size_t)n * V + v;
+        const float p = expf(__bfloat162float(logits[i]) - rm) * rinv;
+        d16 = __float2bfloat16(rscale * (p - (v == rlabel ? 1.f : 0.f)));
+        if (write_dl) dlogits[i] = d16;
+      }
+      a_s[a_row * LDA + a_c8 + e] = d16;
+    }
+#pragma unroll
+    for (int c = tid; c < BK * BN / 8; c += NWARP * 32) {  // W tile: 32 rows x 128
+      const int k = c / (BN / 8), c8 = (c % (BN / 8)) * 8;
+      const int v = v0 + k;
+      *reinterpret_cast<uint4*>(b_s + k * LDB_R + c8) =
+          v < V ? load16(w + (size_t)v * D + d0 + c8) : zero;  // rows past V are zero
+    }
+    __syncthreads();
+    mma_step<wmma::row_major>(a_s, b_s, acc, wm, wn);
+    __syncthreads();
+  }
+  store_acc(c_s, acc, wm, wn);
+  __syncthreads();
+  for (int i = tid; i < BM * BN; i += NWARP * 32) {
+    const int row = i / BN, c = i % BN;
+    const int nn = r0 + row;
+    if (nn >= N) continue;
+    const size_t o = (size_t)nn * D + d0 + c;
+    if (partial != nullptr)
+      partial[(size_t)split * N * D + o] = c_s[row * LDC + c];
+    else
+      dh[o] = __float2bfloat16(c_s[row * LDC + c]);
+  }
+}
+
+__global__ void lm_ce_finalize_kernel(const float* __restrict__ partial, bf16* __restrict__ dh,
+                                      size_t n, int nsplit) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int p = 0; p < nsplit; ++p) s += partial[p * n + i];
+  dh[i] = __float2bfloat16(s);
+}
+
+}  // namespace
+
+// part_*: fp32 [N, ceil(V / 128)] scratch; m, se, ll: fp32 [N]
+KMB_EXPORT int kmb_lm_ce_fwd(const void* h, const void* w, const void* bias,
+                             const void* labels, void* logits, void* part_m, void* part_se,
+                             void* part_ll, void* m, void* se, void* ll, int N, int V, int D,
+                             void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = kmb_allow_smem(lm_ce_fwd_kernel, SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  const int n_vtiles = (V + BN - 1) / BN;
+  lm_ce_fwd_kernel<<<dim3(n_vtiles, (N + BM - 1) / BM), NWARP * 32, SMEM_BYTES, s>>>(
+      (const bf16*)h, (const bf16*)w, (const float*)bias, (const int*)labels, (bf16*)logits,
+      (float*)part_m, (float*)part_se, (float*)part_ll, N, V, D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  lm_ce_merge_kernel<<<(N + 7) / 8, 256, 0, s>>>((const float*)part_m, (const float*)part_se,
+                                                  (const float*)part_ll, (float*)m,
+                                                  (float*)se, (float*)ll, N, n_vtiles);
+  return cudaGetLastError();
+}
+
+// partial: fp32 [nsplit, N, D] scratch when nsplit > 1, else unused.
+KMB_EXPORT int kmb_lm_ce_bwd(const void* logits, const void* w, const void* m,
+                             const void* inv_se, const void* scale, const void* labels,
+                             void* dlogits, void* dh, void* partial, int N, int V, int D,
+                             int nsplit, int steps_per_split, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = kmb_allow_smem(lm_ce_bwd_kernel, SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  float* part = nsplit > 1 ? (float*)partial : nullptr;
+  lm_ce_bwd_kernel<<<dim3(D / BN, (N + BM - 1) / BM, nsplit), NWARP * 32, SMEM_BYTES, s>>>(
+      (const bf16*)logits, (const bf16*)w, (const float*)m, (const float*)inv_se,
+      (const float*)scale, (const int*)labels, (bf16*)dlogits, (bf16*)dh, part, N, V, D,
+      steps_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || nsplit == 1) return err;
+  const size_t n = (size_t)N * D;
+  lm_ce_finalize_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(part, (bf16*)dh, n,
+                                                                    nsplit);
+  return cudaGetLastError();
+}

@@ -7,6 +7,11 @@ in]`` Linear weights, the shared embedding tied into both stacks); the
 computation is plain functions over those modules, with the JAX package's
 mixed-precision policy (ops/layers.py).
 
+Training threads ``train`` and a ``torch.Generator`` through ``encode``,
+``decode`` and ``forward``: dropout runs at every site the JAX package has
+(embeddings, attention probs, both residual branches, the activation,
+LayerDrop), drawing from the one generator in a fixed order.
+
 Generation runs on the beam-stationary cache: self K/V rows are written
 once into the writer beam's slot, in place, and never moved; the int32
 ancestry says which slot holds each past position for each live beam, and
@@ -22,9 +27,9 @@ from torch import nn
 from kmbart_tpu.config import MultiModalBartConfig
 from kmbart_tpu_torch.ops.attention import multi_head_attention, padding_bias
 from kmbart_tpu_torch.ops.beam_attention import beam_gather_attention
-from kmbart_tpu_torch.ops.ffn import fused_ffn
+from kmbart_tpu_torch.ops.ffn import ffn
 from kmbart_tpu_torch.ops.ffn import supported as ffn_supported
-from kmbart_tpu_torch.ops.layers import (ACTIVATIONS, dense, layer_norm,
+from kmbart_tpu_torch.ops.layers import (ACTIVATIONS, dense, dropout, layer_norm,
                                          matmul_f32, scale_as)
 
 
@@ -142,7 +147,10 @@ def _ln(x, ln):
 def embed_multimodal(model, cfg, input_ids, image_features, dtype):
     """Token embeddings with projected ROI features spliced into the rows
     whose id is ``img_feat_id`` or ``cls_token_id``: the i-th such position
-    of row b takes ``image_features[b, i]`` (cumsum slot, clipped)."""
+    of row b takes ``image_features[b, i]`` (cumsum slot, clipped).
+
+    The lookup is a plain index, not ``nn.Embedding(padding_idx=...)``: the
+    pad row gets a gradient, as ``jnp.take`` gives it one in JAX."""
     tok = model.shared.weight[input_ids]
     if image_features is None:
         return tok
@@ -171,107 +179,134 @@ def _embed_scale(cfg):
     return math.sqrt(cfg.d_model) if cfg.scale_embedding else 1.0
 
 
-def _encoder_embed(model, cfg, input_ids, image_features):
+def _encoder_embed(model, cfg, input_ids, image_features, train=False, generator=None):
     dtype = compute_dtype(cfg)
     T = input_ids.shape[1]
     x = embed_multimodal(model, cfg, input_ids, image_features, dtype) * _embed_scale(cfg)
     x = x + _positions(model.encoder.embed_positions.weight, T, _pos_offset(cfg))[None]
     if cfg.normalize_embedding:
         x = _ln(x, model.encoder.layernorm_embedding)
-    return x.to(dtype)
+    return dropout(x, cfg.dropout, generator, train).to(dtype)
 
 
-def _decoder_embed(model, cfg, token_ids, pos_start):
+def _decoder_embed(model, cfg, token_ids, pos_start, train=False, generator=None):
     dtype = compute_dtype(cfg)
     x = model.shared.weight[token_ids] * _embed_scale(cfg)
     x = x + _positions(model.decoder.embed_positions.weight, token_ids.shape[1],
                        _pos_offset(cfg), start=pos_start)[None]
     if cfg.normalize_embedding:
         x = _ln(x, model.decoder.layernorm_embedding)
-    return x.to(dtype)
+    return dropout(x, cfg.dropout, generator, train).to(dtype)
 
 
 # --------------------------------------------------------------------------
 # Layers
 # --------------------------------------------------------------------------
 
-def _residual_ffn(x, layer, cfg, dtype):
+def _residual_ffn(x, layer, cfg, dtype, train=False, generator=None):
     residual = x
     d = x.shape[-1]
     f = layer.fc1.weight.shape[0]
     if (cfg.activation_function == "gelu" and dtype == torch.bfloat16
-            and ffn_supported(d, f)):
-        # fused kernel K2: the [rows, ffn_dim] activations stay on chip
-        h = fused_ffn(x.to(dtype).contiguous(), layer.fc1.weight.to(dtype),
-                      layer.fc1.bias, layer.fc2.weight.to(dtype), layer.fc2.bias)
+            and ffn_supported(d, f)
+            and not (train and cfg.activation_dropout > 0.0)):
+        # fused kernel K2 (forward and backward): the [rows, ffn_dim]
+        # activations stay on chip (pallas_ffn.py:320-339 gates the same)
+        h = ffn(x.to(dtype).contiguous(), layer.fc1.weight, layer.fc1.bias,
+                layer.fc2.weight, layer.fc2.bias)
     else:
         h = dense(x, layer.fc1.weight, layer.fc1.bias, dtype)
         h = ACTIVATIONS[cfg.activation_function](h)
+        h = dropout(h, cfg.activation_dropout, generator, train)
         h = dense(h, layer.fc2.weight, layer.fc2.bias, dtype)
+    h = dropout(h, cfg.dropout, generator, train)
     return _ln(residual + h, layer.final_layer_norm)
 
 
-def _encoder_layer(x, layer, key_mask, cfg, dtype):
+def _encoder_layer(x, layer, key_mask, cfg, dtype, train=False, generator=None):
+    drop = dict(dropout_rate=cfg.attention_dropout, generator=generator, train=train)
     h = multi_head_attention(layer.self_attn, x, key_mask=key_mask,
-                             num_heads=cfg.encoder_attention_heads, dtype=dtype)
+                             num_heads=cfg.encoder_attention_heads, dtype=dtype, **drop)
+    h = dropout(h, cfg.dropout, generator, train)
     x = _ln(x + h, layer.self_attn_layer_norm)
-    return _residual_ffn(x, layer, cfg, dtype)
+    return _residual_ffn(x, layer, cfg, dtype, train, generator)
 
 
-def _decoder_layer(x, layer, enc_hidden, cfg, dtype, self_key_mask, cross_key_mask):
+def _decoder_layer(x, layer, enc_hidden, cfg, dtype, self_key_mask, cross_key_mask,
+                   train=False, generator=None):
     H = cfg.decoder_attention_heads
+    drop = dict(dropout_rate=cfg.attention_dropout, generator=generator, train=train)
     h = multi_head_attention(layer.self_attn, x, key_mask=self_key_mask,
-                             num_heads=H, dtype=dtype, causal=True)
+                             num_heads=H, dtype=dtype, causal=True, **drop)
+    h = dropout(h, cfg.dropout, generator, train)
     x = _ln(x + h, layer.self_attn_layer_norm)
     h = multi_head_attention(layer.encoder_attn, x, kv_hidden=enc_hidden,
-                             key_mask=cross_key_mask, num_heads=H, dtype=dtype)
+                             key_mask=cross_key_mask, num_heads=H, dtype=dtype, **drop)
+    h = dropout(h, cfg.dropout, generator, train)
     x = _ln(x + h, layer.encoder_attn_layer_norm)
-    return _residual_ffn(x, layer, cfg, dtype)
+    return _residual_ffn(x, layer, cfg, dtype, train, generator)
+
+
+def _layer_dropped(p, generator, train):
+    """HF LayerDrop (bart.py:285-290): skip a layer with probability p when
+    training. The draw is read on the host, so it costs a sync, and only
+    when p > 0 (VCG's configs have 0)."""
+    if not train or p == 0.0 or generator is None:
+        return False
+    return bool(torch.rand((), generator=generator, device=generator.device) < p)
 
 
 # --------------------------------------------------------------------------
 # Encoder / decoder
 # --------------------------------------------------------------------------
 
-def encode(model, cfg, input_ids, image_features=None, attention_mask=None):
+def encode(model, cfg, input_ids, image_features=None, attention_mask=None, *,
+           train=False, generator=None):
     """Multimodal encoder forward: [B, T, D] in the compute dtype."""
     dtype = compute_dtype(cfg)
-    x = _encoder_embed(model, cfg, input_ids, image_features)
+    x = _encoder_embed(model, cfg, input_ids, image_features, train, generator)
     for layer in model.encoder.layers:
-        x = _encoder_layer(x, layer, attention_mask, cfg, dtype)
+        if not _layer_dropped(cfg.encoder_layerdrop, generator, train):
+            x = _encoder_layer(x, layer, attention_mask, cfg, dtype, train, generator)
     if cfg.normalize_before:
         x = _ln(x, model.encoder.layer_norm)
     return x
 
 
 def decode(model, cfg, decoder_input_ids, enc_hidden, enc_attention_mask=None,
-           decoder_attention_mask=None):
+           decoder_attention_mask=None, *, train=False, generator=None):
     """Teacher-forced decoder forward: [B, T, D] in the compute dtype."""
     dtype = compute_dtype(cfg)
-    x = _decoder_embed(model, cfg, decoder_input_ids, 0)
+    x = _decoder_embed(model, cfg, decoder_input_ids, 0, train, generator)
     for layer in model.decoder.layers:
-        x = _decoder_layer(x, layer, enc_hidden, cfg, dtype,
-                           decoder_attention_mask, enc_attention_mask)
+        if not _layer_dropped(cfg.decoder_layerdrop, generator, train):
+            x = _decoder_layer(x, layer, enc_hidden, cfg, dtype, decoder_attention_mask,
+                               enc_attention_mask, train, generator)
     if cfg.add_final_layer_norm:
         x = _ln(x, model.decoder.layer_norm)
     return x
 
 
 def forward(model, cfg, input_ids, image_features=None, attention_mask=None,
-            decoder_input_ids=None, decoder_attention_mask=None):
+            decoder_input_ids=None, decoder_attention_mask=None, *, train=False,
+            generator=None):
     """Trunk forward: (decoder_hidden, encoder_hidden)."""
-    enc = encode(model, cfg, input_ids, image_features, attention_mask)
+    enc = encode(model, cfg, input_ids, image_features, attention_mask, train=train,
+                 generator=generator)
     dec = decode(model, cfg, decoder_input_ids, enc, enc_attention_mask=attention_mask,
-                 decoder_attention_mask=decoder_attention_mask)
+                 decoder_attention_mask=decoder_attention_mask, train=train,
+                 generator=generator)
     return dec, enc
 
 
-def lm_logits(model, cfg, hidden, final_logits_bias=None):
-    """Tied LM head: hidden @ shared.T (+ final_logits_bias), fp32 logits."""
+def lm_logits(model, cfg, hidden, final_logits_bias=None, logits_dtype=torch.float32):
+    """Tied LM head: hidden @ shared.T (+ final_logits_bias, which gets no
+    gradient: a buffer, as in transformers 3.0.2), rounded to
+    ``logits_dtype`` (fp32 for decoding, the compute dtype for the loss)."""
     logits = matmul_f32(hidden, model.shared.weight, compute_dtype(cfg))
     if final_logits_bias is not None:
-        logits = logits + final_logits_bias.reshape(-1).float()
-    return logits
+        logits = logits + final_logits_bias.detach().reshape(-1).float()
+    return logits.to(logits_dtype)
 
 
 def shift_tokens_right(input_ids, pad_token_id):

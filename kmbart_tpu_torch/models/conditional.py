@@ -1,15 +1,20 @@
-"""Conditional-generation model: the trunk plus the tied LM head's bias.
+"""Conditional-generation model: the trunk plus the tied LM head's bias,
+and its training loss.
 
-Counterpart of kmbart_tpu/models/conditional.py (parameters only; the loss
-comes with the fine-tuning port). ``final_logits_bias`` is a buffer, as in
-transformers 3.0.2, shaped [1, vocab] like its state-dict entry.
+Counterpart of kmbart_tpu/models/conditional.py. ``final_logits_bias`` is a
+buffer, as in transformers 3.0.2, shaped [1, vocab] like its state-dict
+entry.
 """
+
+from collections.abc import Mapping
 
 import torch
 from torch import nn
 
 from kmbart_tpu.config import MultiModalBartConfig
+from kmbart_tpu_torch.models import bart
 from kmbart_tpu_torch.models.bart import MultiModalBartModel, init_bart_params_
+from kmbart_tpu_torch.models.heads import lm_cross_entropy
 
 
 class MultiModalBartForConditionalGeneration(nn.Module):
@@ -25,3 +30,41 @@ def init_conditional_model(cfg: MultiModalBartConfig, seed=0, device="cpu"):
     model = MultiModalBartForConditionalGeneration(cfg)
     init_bart_params_(model.model, cfg, torch.Generator().manual_seed(seed))
     return model.to(device).eval()
+
+
+class _LazyAux(Mapping):
+    """``{"logits": ...}`` computed on first access. Under jit JAX drops the
+    unused aux logits; eager PyTorch would pay a second vocab-wide
+    projection each step, so the port computes them only when asked."""
+
+    def __init__(self, compute):
+        self._compute, self._logits = compute, None
+
+    def __getitem__(self, key):
+        if key != "logits":
+            raise KeyError(key)
+        if self._logits is None:
+            self._logits = self._compute()
+        return self._logits
+
+    def __iter__(self):
+        return iter(("logits",))
+
+    def __len__(self):
+        return 1
+
+
+def conditional_loss(model, cfg, batch, *, train=False, generator=None):
+    """CE loss on ``batch["labels"]`` (-100 ignored), dropout drawn from
+    ``generator`` when ``train``. Returns (loss, aux) where ``aux["logits"]``
+    are the LM logits in the compute dtype, computed on access."""
+    hidden, _ = bart.forward(
+        model.model, cfg, batch["input_ids"], batch.get("image_features"),
+        batch.get("attention_mask"), decoder_input_ids=batch["decoder_input_ids"],
+        decoder_attention_mask=batch.get("decoder_attention_mask"), train=train,
+        generator=generator)
+    loss, _ = lm_cross_entropy(model.model, cfg, hidden, model.final_logits_bias,
+                               batch["labels"])
+    return loss, _LazyAux(lambda: bart.lm_logits(
+        model.model, cfg, hidden, model.final_logits_bias,
+        logits_dtype=bart.compute_dtype(cfg)))

@@ -1,15 +1,19 @@
-"""Tensor ops of the port. Four of them wrap hand-written Hopper kernels
+"""Tensor ops of the port. Eight of them wrap hand-written Hopper kernels
 (``csrc/``); each wrapper counts its kernel launches in ``.launches``."""
 
 
 def kernel_wrappers():
-    """{name: wrapper} for the four kernels of the generation path."""
+    """{name: wrapper} for the kernels: K1 and K2 forward and backward, K3
+    and K4 of the generation path, K7 and K8 of the fine-tune loss."""
     from kmbart_tpu_torch.ops.beam_attention import beam_gather_attention
-    from kmbart_tpu_torch.ops.ffn import fused_ffn
-    from kmbart_tpu_torch.ops.train_attention import train_attention_flat
+    from kmbart_tpu_torch.ops.ffn import fused_ffn, fused_ffn_bwd
+    from kmbart_tpu_torch.ops.lm_ce import lm_ce_bwd, lm_ce_fwd
+    from kmbart_tpu_torch.ops.train_attention import train_attention_bwd, train_attention_flat
     from kmbart_tpu_torch.ops.vocab_stats import chunk_stats
-    return {"train_attention": train_attention_flat, "ffn": fused_ffn,
-            "beam_attention": beam_gather_attention, "vocab_stats": chunk_stats}
+    return {"train_attention": train_attention_flat, "train_attention_bwd": train_attention_bwd,
+            "ffn": fused_ffn, "ffn_bwd": fused_ffn_bwd,
+            "beam_attention": beam_gather_attention, "vocab_stats": chunk_stats,
+            "lm_ce_fwd": lm_ce_fwd, "lm_ce_bwd": lm_ce_bwd}
 
 
 def launch_counts():

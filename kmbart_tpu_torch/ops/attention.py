@@ -3,22 +3,23 @@
 Counterpart of kmbart_tpu/ops/attention.py: queries scaled by
 head_dim**-0.5 before the QK product, additive -1e9 masking, softmax in
 fp32, then the output projection; matmul operands in the compute dtype with
-fp32 accumulation.
+fp32 accumulation; attention-prob dropout when training.
 
 Self-attention and cross-attention without a cache, under a key-padding or
-causal mask, go through the fused kernel K1 (ops/train_attention.py) when
-the whole score row fits on chip (Tq, Tk <= 256); the JAX package does the
-same on the TPU (ops/attention.py:110-130). Longer sequences take the JAX
-package's flash kernel there (pallas_attention.py), which is not ported:
-on a CUDA device they raise. Decode-time cross-attention over precomputed
+causal mask, go through the fused kernel K1 (ops/train_attention.py,
+forward and backward) when the whole score row fits on chip (Tq, Tk <= 256)
+and no attention-prob dropout is active; the JAX package does the same on
+the TPU (ops/attention.py:110-130, pallas_train_attention.py:420).
+Longer sequences take the JAX package's flash kernel there
+(pallas_attention.py), which is not ported: on a CUDA device they raise. Decode-time cross-attention over precomputed
 K/V folds a sample's beam group into the query axis, so each sample's
 encoder K/V is read once rather than once per beam.
 """
 
 import torch
 
-from kmbart_tpu_torch.ops.layers import dense, scale_as
-from kmbart_tpu_torch.ops.train_attention import supported, train_attention_flat
+from kmbart_tpu_torch.ops.layers import dense, dropout, scale_as
+from kmbart_tpu_torch.ops.train_attention import supported, train_attention
 
 NEG_INF = -1e9
 FLASH_MIN_SCORES = 128 * 128  # kmbart_tpu/ops/pallas_attention.py gate
@@ -34,17 +35,18 @@ def merge_heads(x):
     return x.reshape(b, t, h * hd)
 
 
-def attention_core(q, k, v, bias=None, *, dtype=torch.bfloat16):
+def attention_core(q, k, v, bias=None, *, dropout_rate=0.0, generator=None,
+                   train=False, dtype=torch.bfloat16):
     """Scaled dot-product attention. q [B, Tq, H, hd]; k, v [B, Tk, H, hd];
     bias additive fp32 broadcastable to [B, H, Tq, Tk]. Scores and softmax
-    in fp32 from operands rounded to ``dtype``; returns [B, Tq, H, hd] in
-    ``dtype``."""
+    in fp32 from operands rounded to ``dtype``, dropout on the fp32 probs;
+    returns [B, Tq, H, hd] in ``dtype``."""
     hd = q.shape[-1]
     q = scale_as(q, hd ** -0.5).to(dtype).float()
     s = torch.einsum("bqhd,bkhd->bhqk", q, k.to(dtype).float())
     if bias is not None:
         s = s + bias
-    probs = torch.softmax(s, dim=-1)
+    probs = dropout(torch.softmax(s, dim=-1), dropout_rate, generator, train)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(dtype).float(),
                        v.to(dtype).float())
     return out.to(dtype)
@@ -64,15 +66,18 @@ def causal_bias(q_len, k_len, device):
 
 def multi_head_attention(attn, hidden, kv_hidden=None, bias=None, *, num_heads,
                          dtype=torch.bfloat16, cross_cache=None, key_mask=None,
-                         causal=False):
+                         causal=False, dropout_rate=0.0, generator=None, train=False):
     """Attention block: projections, core, output projection.
 
     attn: a module with ``q_proj``, ``k_proj``, ``v_proj``, ``out_proj``
     (``nn.Linear``, [out, in] weights). kv_hidden: source of K/V for
     cross-attention (default: ``hidden``). cross_cache: precomputed flat
     cross K/V {"k", "v": [B, Tk, D]} for a decode step, whose batch may
-    divide the query batch (beam search). Returns [B, Tq, D] in ``dtype``.
+    divide the query batch (beam search). ``dropout_rate`` applies to the
+    attention probs when ``train``, drawing from ``generator``. Returns
+    [B, Tq, D] in ``dtype``.
     """
+    core = dict(dropout_rate=dropout_rate, generator=generator, train=train, dtype=dtype)
     if kv_hidden is None and cross_cache is None:
         # self-attention: one fused QKV matmul instead of three
         w = torch.cat([attn.q_proj.weight, attn.k_proj.weight, attn.v_proj.weight])
@@ -87,16 +92,17 @@ def multi_head_attention(attn, hidden, kv_hidden=None, bias=None, *, num_heads,
         return (dense(src, attn.k_proj.weight, attn.k_proj.bias, dtype),
                 dense(src, attn.v_proj.weight, attn.v_proj.bias, dtype))
 
-    if bias is None and cross_cache is None and (key_mask is not None or causal):
+    if (bias is None and cross_cache is None and (key_mask is not None or causal)
+            and not (train and dropout_rate > 0.0)):
         Tq = hidden.shape[1]
         Tk = Tq if kv_hidden is None else kv_hidden.shape[1]
         hd = hidden.shape[-1] // num_heads
         if supported(Tq, Tk, hd) and (Tq == Tk or not causal):
             if k_flat is None:
                 k_flat, v_flat = project_kv()
-            out = train_attention_flat(q_flat.contiguous(), k_flat.contiguous(),
-                                       v_flat.contiguous(), key_mask,
-                                       num_heads=num_heads, causal=causal)
+            out = train_attention(q_flat.contiguous(), k_flat.contiguous(),
+                                  v_flat.contiguous(), key_mask,
+                                  num_heads=num_heads, causal=causal)
             return dense(out, attn.out_proj.weight, attn.out_proj.bias, dtype)
         if hidden.is_cuda and Tq * Tk >= FLASH_MIN_SCORES:
             raise NotImplementedError(
@@ -113,7 +119,7 @@ def multi_head_attention(attn, hidden, kv_hidden=None, bias=None, *, num_heads,
             bq, tq, nh, hd = q.shape
             assert tq == 1, "grouped cross-attention requires Tq == 1"
             q = q.reshape(bq // group, group, nh, hd)
-            out = attention_core(q, k, v, bias, dtype=dtype).reshape(bq, 1, nh, hd)
+            out = attention_core(q, k, v, bias, **core).reshape(bq, 1, nh, hd)
             return dense(merge_heads(out), attn.out_proj.weight,
                          attn.out_proj.bias, dtype)
     else:
@@ -126,5 +132,5 @@ def multi_head_attention(attn, hidden, kv_hidden=None, bias=None, *, num_heads,
         bias = 0.0 if key_mask is None else padding_bias(key_mask)
         if causal:
             bias = bias + causal_bias(q.shape[1], k.shape[1], q.device)
-    out = attention_core(q, k, v, bias, dtype=dtype)
+    out = attention_core(q, k, v, bias, **core)
     return dense(merge_heads(out), attn.out_proj.weight, attn.out_proj.bias, dtype)

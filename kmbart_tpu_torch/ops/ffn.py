@@ -1,14 +1,20 @@
-"""K2: fused FFN forward, y = gelu(x @ W1ᵀ + b1) @ W2ᵀ + b2.
+"""K2: fused FFN, y = gelu(x @ W1ᵀ + b1) @ W2ᵀ + b2, forward and backward.
 
-Counterpart of kmbart_tpu/ops/pallas_ffn.py (forward only; the backward
-comes with the fine-tuning port). The kernel is ``csrc/ffn.cu``; its source
-note says what bounds it on an H100 and how the design answers that.
+Counterpart of kmbart_tpu/ops/pallas_ffn.py. Both kernels are in
+``csrc/ffn.cu``; their source notes say what bounds them on an H100 and how
+the design answers that.
 
-``fused_ffn`` is the wrapper: on CPU tensors it runs ``fused_ffn_plain``,
+``fused_ffn`` wraps the forward: on CPU tensors it runs ``fused_ffn_plain``,
 on CUDA tensors it launches the kernel or raises. Both round where the
 composite dense → gelu → dense does: a = bf16(x@W1ᵀ + b1), h = bf16(gelu(a))
-with exact erf in fp32, y = bf16(h@W2ᵀ + b2), fp32 accumulation throughout.
-Weights are ``fc1.weight`` [F, D] and ``fc2.weight`` [D, F].
+with exact erf in fp32, y = bf16(h@W2ᵀ + b2), fp32 accumulation throughout;
+with ``with_a`` they also return the bf16 ``a`` (the backward's residual).
+``fused_ffn_bwd`` wraps the backward (da = bf16(g@W2 · gelu′(a)),
+dx = bf16(da@W1)) the same way, and ``ffn`` is the differentiable op the
+model calls: its backward runs the kernel and leaves the weight and bias
+gradients to library products and reductions, as pallas_ffn.py:288-303
+leaves them to XLA. Weights are ``fc1.weight`` [F, D] and ``fc2.weight``
+[D, F].
 """
 
 import math
@@ -16,8 +22,10 @@ import math
 import torch
 
 from kmbart_tpu_torch.ops import _cuda
+from kmbart_tpu_torch.ops.layers import mm_f32
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
+_INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 ROW_TILE = 32     # csrc/ffn.cu BM
 F_TILE = 64       # csrc/ffn.cu BF
 MAX_D = 1024      # the [32, D] fp32 accumulator lives in registers
@@ -27,15 +35,21 @@ def _gelu_f32(z):
     return z * 0.5 * (1.0 + torch.erf(z * _INV_SQRT2))
 
 
-def fused_ffn_plain(x, w1, b1, w2, b2):
+def _dgelu_f32(z):
+    # d/dz [z Phi(z)] = Phi(z) + z phi(z)
+    return 0.5 * (1.0 + torch.erf(z * _INV_SQRT2)) + z * _INV_SQRT_2PI * torch.exp(-0.5 * z * z)
+
+
+def fused_ffn_plain(x, w1, b1, w2, b2, with_a=False):
     """Plain PyTorch version of the kernel, on any device. x [..., D] bf16;
     w1 [F, D], w2 [D, F] (any float dtype, rounded to bf16); b1 [F], b2 [D]
-    fp32. Returns bf16 [..., D]."""
+    fp32. Returns bf16 [..., D], and the bf16 [..., F] pre-activation when
+    ``with_a``."""
     bf16 = torch.bfloat16
-    a = x.to(bf16).float() @ w1.to(bf16).float().t() + b1.float()
-    h = _gelu_f32(a.to(bf16).float()).to(bf16)
-    y = h.float() @ w2.to(bf16).float().t() + b2.float()
-    return y.to(bf16)
+    a = (x.to(bf16).float() @ w1.to(bf16).float().t() + b1.float()).to(bf16)
+    h = _gelu_f32(a.float()).to(bf16)
+    y = (h.float() @ w2.to(bf16).float().t() + b2.float()).to(bf16)
+    return (y, a) if with_a else y
 
 
 def supported(d, f):
@@ -52,11 +66,11 @@ def _splits(n_rows, n_tiles, device):
     return -(-n_tiles // per), per
 
 
-def fused_ffn(x, w1, b1, w2, b2):
+def fused_ffn(x, w1, b1, w2, b2, with_a=False):
     """Fused FFN; same contract as ``fused_ffn_plain`` except that on a CUDA
     device the weights must already be bf16 and the biases fp32."""
     if x.device.type == "cpu":
-        return fused_ffn_plain(x, w1, b1, w2, b2)
+        return fused_ffn_plain(x, w1, b1, w2, b2, with_a=with_a)
     dev = _cuda.require_cuda("fused_ffn", x, w1, b1, w2, b2)
     D = x.shape[-1]
     F = w1.shape[0]
@@ -73,18 +87,106 @@ def fused_ffn(x, w1, b1, w2, b2):
     xf = x.reshape(-1, D)
     N = xf.shape[0]
     y = torch.empty_like(xf)
-    if N == 0:
-        return y.reshape(x.shape)
-    nsplit, per = _splits(N, F // F_TILE, dev)
-    partial = (torch.empty((nsplit, N, D), dtype=torch.float32, device=dev)
-               if nsplit > 1 else y)
-    lib, stream = _cuda.prepare(dev)
-    _cuda.check(lib.kmb_ffn_fwd(
-        xf.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        y.data_ptr(), partial.data_ptr(), N, D, F, nsplit, per, stream),
-        "fused_ffn")
-    fused_ffn.launches += 1
-    return y.reshape(x.shape)
+    a = torch.empty((N, F), dtype=torch.bfloat16, device=dev) if with_a else None
+    if N > 0:
+        nsplit, per = _splits(N, F // F_TILE, dev)
+        partial = (torch.empty((nsplit, N, D), dtype=torch.float32, device=dev)
+                   if nsplit > 1 else None)
+        lib, stream = _cuda.prepare(dev)
+        _cuda.check(lib.kmb_ffn_fwd(
+            xf.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            y.data_ptr(), _ptr(partial), _ptr(a), N, D, F, nsplit, per, stream),
+            "fused_ffn")
+        fused_ffn.launches += 1
+    y = y.reshape(x.shape)
+    return (y, a.reshape(*x.shape[:-1], F)) if with_a else y
 
 
 fused_ffn.launches = 0
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def fused_ffn_bwd_plain(g, a, w1, w2):
+    """Plain PyTorch version of the backward kernel, on any device.
+    g [N, D] and a [N, F] bf16; w1 [F, D], w2 [D, F] rounded to bf16.
+    Returns (da [N, F], dx [N, D]), both bf16."""
+    bf16 = torch.bfloat16
+    dh = g.to(bf16).float() @ w2.to(bf16).float()
+    da = (dh * _dgelu_f32(a.float())).to(bf16)
+    dx = (da.float() @ w1.to(bf16).float()).to(bf16)
+    return da, dx
+
+
+def fused_ffn_bwd(g, a, w1, w2):
+    """Backward of ``fused_ffn`` for the input; same contract as
+    ``fused_ffn_bwd_plain`` except that on a CUDA device every operand must
+    already be bf16."""
+    if g.device.type == "cpu":
+        return fused_ffn_bwd_plain(g, a, w1, w2)
+    dev = _cuda.require_cuda("fused_ffn_bwd", g, a, w1, w2)
+    N, D = g.shape
+    F = w1.shape[0]
+    if a.shape != (N, F) or w1.shape != (F, D) or w2.shape != (D, F):
+        raise ValueError(f"fused_ffn_bwd: shapes g {tuple(g.shape)}, a {tuple(a.shape)}, "
+                         f"w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}")
+    if not supported(D, F):
+        raise ValueError(f"fused_ffn_bwd kernel takes D % 16 == 0, D <= {MAX_D}, "
+                         f"F % {F_TILE} == 0; got D {D}, F {F}")
+    if not (g.dtype == a.dtype == w1.dtype == w2.dtype == torch.bfloat16):
+        raise TypeError("fused_ffn_bwd kernel takes bf16 g, a and weights")
+    da = torch.empty_like(a)
+    dx = torch.empty_like(g)
+    if N == 0:
+        return da, dx
+    nsplit, per = _splits(N, F // F_TILE, dev)
+    partial = (torch.empty((nsplit, N, D), dtype=torch.float32, device=dev)
+               if nsplit > 1 else None)
+    lib, stream = _cuda.prepare(dev)
+    _cuda.check(lib.kmb_ffn_bwd(
+        g.data_ptr(), a.data_ptr(), w1.data_ptr(), w2.data_ptr(), da.data_ptr(),
+        dx.data_ptr(), _ptr(partial), N, D, F, nsplit, per, stream), "fused_ffn_bwd")
+    fused_ffn_bwd.launches += 1
+    return da, dx
+
+
+fused_ffn_bwd.launches = 0
+
+
+class _FusedFFN(torch.autograd.Function):
+    # the module-level kernel wrappers are looked up at call time, so a
+    # caller can route both directions to the plain versions
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        bf16 = torch.bfloat16
+        w1c, w2c = w1.to(bf16), w2.to(bf16)
+        y, a = fused_ffn(x, w1c, b1, w2c, b2, with_a=True)
+        ctx.save_for_backward(x, a, w1c, w2c)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, a, w1c, w2c = ctx.saved_tensors
+        D, F = x.shape[-1], a.shape[-1]
+        x2, a2 = x.reshape(-1, D), a.reshape(-1, F)
+        g16 = g.reshape(-1, D).to(torch.bfloat16).contiguous()
+        da, dx = fused_ffn_bwd(g16, a2, w1c, w2c)
+        # weight and bias gradients in fp32 (the parameters' dtype), from
+        # bf16 operands with fp32 accumulation, as pallas_ffn.py:294-302
+        h = _gelu_f32(a2.float()).to(torch.bfloat16)
+        dw2 = mm_f32(g16.t(), h)
+        dw1 = mm_f32(da.t(), x2.to(torch.bfloat16))
+        db2 = g16.float().sum(dim=0)
+        db1 = da.float().sum(dim=0)
+        return dx.reshape(x.shape).to(x.dtype), dw1, db1, dw2, db2
+
+
+def ffn(x, w1, b1, w2, b2):
+    """Differentiable fused FFN on the fp32 parameters (bf16 compute); the
+    forward alone when no gradient is needed."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1, b1, w2, b2)):
+        return _FusedFFN.apply(x, w1, b1, w2, b2)
+    return fused_ffn(x, w1.to(torch.bfloat16), b1, w2.to(torch.bfloat16), b2)

@@ -1,15 +1,19 @@
-"""K1: fused multi-head attention forward on the flat QKV projections.
+"""K1: fused multi-head attention on the flat QKV projections, forward and
+backward.
 
-Counterpart of kmbart_tpu/ops/pallas_train_attention.py (forward only; the
-backward comes with the fine-tuning port). The kernel is
-``csrc/train_attention.cu``; its source note says what bounds it on an
-H100 and how the design answers that.
+Counterpart of kmbart_tpu/ops/pallas_train_attention.py. Both kernels are
+in ``csrc/train_attention.cu``; their source notes say what bounds them on
+an H100 and how the design answers that.
 
-``train_attention_flat`` is the wrapper: on CPU tensors it runs
+``train_attention_flat`` wraps the forward: on CPU tensors it runs
 ``train_attention_plain``, on CUDA tensors it launches the kernel or
 raises. Both compute, per head, softmax(q·scale @ kᵀ + key bias, causal
 mask) @ v with the TPU kernel's roundings: q·scale and P rounded to the
 input dtype, scores, softmax and the PV sum in fp32.
+``train_attention_bwd`` wraps the backward the same way
+(``train_attention_bwd_plain`` on the CPU), and ``train_attention`` is the
+differentiable op the model calls: forward K1, backward the K1 backward,
+as the JAX package's custom VJP pairs them (:368-381).
 """
 
 import torch
@@ -103,3 +107,108 @@ def train_attention_flat(q_flat, k_flat, v_flat, key_mask, *, num_heads,
 
 
 train_attention_flat.launches = 0
+
+
+def train_attention_bwd_plain(q_flat, k_flat, v_flat, key_mask, g_flat, *, num_heads,
+                              causal=False):
+    """Plain PyTorch version of the backward kernel, on any device: the
+    recompute-softmax backward of pallas_train_attention.py:76-156 with its
+    roundings (g and ds rounded to the input dtype, P rounded for dv, dq
+    scaled in fp32 and then rounded, dk taken against the rounded q·scale).
+    Returns (dq, dk, dv) in the input dtype."""
+    B, Tq, D = q_flat.shape
+    Tk = k_flat.shape[1]
+    H = num_heads
+    hd = D // H
+    dt = q_flat.dtype
+    q = _scaled(q_flat, hd).float().reshape(B, Tq, H, hd)
+    k = k_flat.to(dt).float().reshape(B, Tk, H, hd)
+    v = v_flat.to(dt).float().reshape(B, Tk, H, hd)
+    g = g_flat.to(dt).float().reshape(B, Tq, H, hd)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    s = s + _key_bias(key_mask, B, Tk, q.device)[:, None, None, :]
+    if causal:
+        allowed = (torch.arange(Tk, device=q.device)[None, :]
+                   <= torch.arange(Tq, device=q.device)[:, None])
+        s = torch.where(allowed, s, NEG_INF)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    dp = torch.einsum("bqhd,bkhd->bhqk", g, v)
+    ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True))).to(dt).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k) * hd ** -0.5
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), g)
+    return (dq.reshape(B, Tq, D).to(dt), dk.reshape(B, Tk, D).to(dt),
+            dv.reshape(B, Tk, D).to(dt))
+
+
+def train_attention_bwd(q_flat, k_flat, v_flat, key_mask, g_flat, *, num_heads,
+                        causal=False):
+    """Backward of ``train_attention_flat``; same contract as
+    ``train_attention_bwd_plain``. CUDA tensors launch the kernel (g must
+    already be in the input dtype)."""
+    if q_flat.device.type == "cpu":
+        return train_attention_bwd_plain(q_flat, k_flat, v_flat, key_mask, g_flat,
+                                         num_heads=num_heads, causal=causal)
+    dev = _cuda.require_cuda("train_attention_bwd", q_flat, k_flat, v_flat, g_flat)
+    B, Tq, D = q_flat.shape
+    Tk = k_flat.shape[1]
+    hd = D // num_heads
+    if (k_flat.shape != (B, Tk, D) or v_flat.shape != k_flat.shape
+            or g_flat.shape != q_flat.shape or D % num_heads):
+        raise ValueError(f"train_attention_bwd: shapes q {tuple(q_flat.shape)}, "
+                         f"k {tuple(k_flat.shape)}, v {tuple(v_flat.shape)}, "
+                         f"g {tuple(g_flat.shape)}")
+    if not supported(Tq, Tk, hd):
+        raise ValueError(f"train_attention_bwd kernel takes Tq, Tk <= {MAX_LEN} "
+                         f"and head_dim % 8 == 0, got {Tq}, {Tk}, {hd}")
+    if causal and Tq != Tk:
+        raise ValueError("train_attention_bwd: causal needs Tq == Tk")
+    if not (q_flat.dtype == k_flat.dtype == v_flat.dtype == g_flat.dtype):
+        raise TypeError("train_attention_bwd: q, k, v, g dtypes differ")
+    code = _cuda.dtype_code(q_flat)
+    lib, stream = _cuda.prepare(dev)
+    if lib.kmb_train_attention_bwd_smem_bytes(Tq, Tk, hd, code) > 227 * 1024:
+        raise ValueError(f"train_attention_bwd: q, k, v, g of {Tq}/{Tk} x {hd} do not "
+                         "fit in shared memory")
+    bias = _key_bias(key_mask, B, Tk, dev).contiguous()
+    scale_q = float(torch.tensor(hd ** -0.5, dtype=q_flat.dtype))
+    dq, dk, dv = torch.empty_like(q_flat), torch.empty_like(k_flat), torch.empty_like(v_flat)
+    _cuda.check(lib.kmb_train_attention_bwd(
+        q_flat.data_ptr(), k_flat.data_ptr(), v_flat.data_ptr(), bias.data_ptr(),
+        g_flat.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Tq, Tk, D,
+        num_heads, int(causal), scale_q, hd ** -0.5, code, stream), "train_attention_bwd")
+    train_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+train_attention_bwd.launches = 0
+
+
+class _TrainAttention(torch.autograd.Function):
+    # the module-level names are looked up at call time, so a caller can
+    # route both directions to the plain versions (chip_smoke.py does)
+
+    @staticmethod
+    def forward(ctx, q_flat, k_flat, v_flat, key_mask, num_heads, causal):
+        ctx.save_for_backward(q_flat, k_flat, v_flat, key_mask)
+        ctx.num_heads, ctx.causal = num_heads, causal
+        return train_attention_flat(q_flat, k_flat, v_flat, key_mask,
+                                    num_heads=num_heads, causal=causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        q_flat, k_flat, v_flat, key_mask = ctx.saved_tensors
+        dq, dk, dv = train_attention_bwd(q_flat, k_flat, v_flat, key_mask,
+                                         g.to(q_flat.dtype).contiguous(),
+                                         num_heads=ctx.num_heads, causal=ctx.causal)
+        return dq, dk, dv, None, None, None
+
+
+def train_attention(q_flat, k_flat, v_flat, key_mask, *, num_heads, causal=False):
+    """Differentiable fused attention (``train_attention_flat``'s contract);
+    without autograd it is the forward alone."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q_flat, k_flat, v_flat)):
+        return _TrainAttention.apply(q_flat, k_flat, v_flat, key_mask, num_heads, causal)
+    return train_attention_flat(q_flat, k_flat, v_flat, key_mask, num_heads=num_heads,
+                                causal=causal)

@@ -1,0 +1,101 @@
+"""AdamW as the JAX package writes it (kmbart_tpu/training/adamw.py), not
+``torch.optim.AdamW``.
+
+The parity target is the ``transformers.AdamW`` the reference trains with:
+betas (0.9, 0.999), eps 1e-6 added to sqrt(v) (not to sqrt(v̂)), bias
+correction on the step size, decoupled weight decay with the uncorrected
+lr, an ``ok`` flag that turns the whole update into a no-op (the
+non-finite guard), and with ``skip_unused`` no update at all for a leaf
+whose gradient is exactly zero, with its own step count.
+
+A JAX leaf is one array, and a stacked one holds a weight of every layer
+(``encoder/layers/fc1_kernel``); the port holds one tensor per layer. So
+the optimizer works on *groups*: {JAX leaf key: [port tensor names]}. The
+"used" test and the step count are kept per group, so the two states hold
+the same numbers and convert both ways (checkpoint/io.py). Moments are
+kept per port tensor, in fp32.
+
+Everything runs on the tensors' device with no host sync: ``ok`` and the
+per-group "used" flags stay device booleans. Parameters are updated in
+place (JAX returns new arrays); moments are new tensors each step.
+"""
+
+from typing import NamedTuple, Optional
+
+import torch
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor              # int32 scalar: updates taken (for logging)
+    mu: dict                        # port tensor name -> first moment (fp32)
+    nu: dict                        # port tensor name -> second moment (fp32)
+    leaf_steps: Optional[dict]      # group key -> int32 scalar (HF per-param t)
+
+
+class AdamW:
+    """``opt = AdamW(lr, groups=...); state = opt.init(params);
+    state = opt.update(grads, state, params)``. ``params`` and ``grads``
+    are {name: tensor} (a gradient may be None: a zero gradient); ``groups``
+    defaults to one group per name."""
+
+    def __init__(self, lr, b1=0.9, b2=0.999, eps=1e-6, weight_decay=0.0,
+                 correct_bias=True, skip_unused=True, groups=None):
+        self.lr, self.b1, self.b2 = lr, b1, b2
+        self.eps, self.weight_decay = eps, weight_decay
+        self.correct_bias = correct_bias
+        self.skip_unused = skip_unused
+        self.groups = groups
+
+    def groups_for(self, params):
+        return self.groups if self.groups is not None else {n: [n] for n in params}
+
+    def init(self, params):
+        dev = next(iter(params.values())).device
+        zero = lambda: torch.zeros((), dtype=torch.int32, device=dev)
+        return AdamWState(
+            step=zero(),
+            mu={n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()},
+            nu={n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()},
+            leaf_steps={k: zero() for k in self.groups_for(params)})
+
+    @torch.no_grad()
+    def update(self, grads, state, params, lr=None, ok=None):
+        """Update ``params`` in place; return the new state."""
+        lr = self.lr if lr is None else lr
+        b1, b2, eps = self.b1, self.b2, self.eps
+        step = state.step + (1 if ok is None else ok.to(torch.int32))
+        per_leaf = self.skip_unused and state.leaf_steps is not None
+        mu, nu = dict(state.mu), dict(state.nu)
+        leaf_steps = None if state.leaf_steps is None else dict(state.leaf_steps)
+        for key, names in self.groups_for(params).items():
+            gs = [torch.zeros_like(params[n], dtype=torch.float32) if grads.get(n) is None
+                  else grads[n].float() for n in names]
+            if per_leaf:
+                used = torch.stack([(g != 0).any() for g in gs]).any()
+                if ok is not None:
+                    used = used & ok
+                leaf_steps[key] = state.leaf_steps[key] + used.to(torch.int32)
+                t = leaf_steps[key].float()
+            else:
+                used = ok
+                t = step.float()
+            if self.correct_bias:
+                # t == 0 only where the update is discarded below
+                t = t.clamp(min=1.0)
+                step_size = lr * torch.sqrt(1.0 - b2 ** t) / (1.0 - b1 ** t)
+            else:
+                step_size = lr
+            for name, g in zip(names, gs):
+                p, m, v = params[name], state.mu[name], state.nu[name]
+                new_m = b1 * m + (1.0 - b1) * g
+                new_v = b2 * v + (1.0 - b2) * torch.square(g)
+                new_p = p - step_size * new_m / (torch.sqrt(new_v) + eps)
+                if self.weight_decay > 0.0:
+                    new_p = new_p - lr * self.weight_decay * p
+                if used is not None:
+                    new_p = torch.where(used, new_p, p)
+                    new_m = torch.where(used, new_m, m)
+                    new_v = torch.where(used, new_v, v)
+                p.copy_(new_p)
+                mu[name], nu[name] = new_m, new_v
+        return AdamWState(step=step, mu=mu, nu=nu, leaf_steps=leaf_steps)

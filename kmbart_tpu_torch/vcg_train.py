@@ -1,0 +1,184 @@
+"""VCG fine-tuning CLI of the port: ``python -m kmbart_tpu_torch.vcg_train``.
+
+Twin of the root ``vcg_train.py``: fine-tune the conditional-generation
+model on VCG with per-epoch ``model{N}/`` checkpoints (optionally every
+``--save_every_steps`` steps too), optional validation loss and generation
+score, a sample decode every 100 steps, and TensorBoard scalars. It takes
+the same flags, with ``--device`` (default ``cuda``) in place of ``--cpu``;
+the TPU mesh flags (model, sequence and pipeline parallelism, multihost,
+ZeRO-1, sharded checkpoints) are not accepted. Checkpoints are in the JAX
+package's format, so either package resumes the other's.
+"""
+
+import argparse
+import json
+import os
+from datetime import datetime
+
+import numpy as np
+
+from kmbart_tpu.data.collation import Collator
+from kmbart_tpu.data.datasets import VCGDataset
+from kmbart_tpu.data.loader import DataLoader, ShardedSampler
+from kmbart_tpu.data.tokenization import ConditionTokenizer
+from kmbart_tpu.utils.logger import Logger
+from kmbart_tpu_torch.checkpoint.io import jax_leaf_groups, load_training_data
+from kmbart_tpu_torch.cli_common import (add_common_model_args, add_dropout_args,
+                                         add_hardware_args, build_model_params,
+                                         load_model_config, resolve_device,
+                                         save_train_checkpoint)
+from kmbart_tpu_torch.generation.api import generate
+from kmbart_tpu_torch.models.conditional import conditional_loss
+from kmbart_tpu_torch.parallel.train_step import build_eval_step, build_train_step
+from kmbart_tpu_torch.training.adamw import AdamW
+from kmbart_tpu_torch.training.state import TrainState
+from kmbart_tpu_torch.training.trainer import run_epoch
+from kmbart_tpu_torch.training.validation import validate_generation_score, validate_loss
+
+
+def main(args):
+    device = resolve_device(args.device)
+    if args.batch_size % args.grad_accum_steps:
+        raise ValueError(f'batch_size={args.batch_size} must be divisible by '
+                         f'grad_accum_steps={args.grad_accum_steps}')
+    timestamp = datetime.now().strftime("%Y-%m-%d-%H-%M-%S")
+    checkpoint_path = os.path.join(args.checkpoint_dir, timestamp)
+    tb_writer = None
+    log_dir = os.path.join(args.log_dir, timestamp) if args.log_dir else None
+    if log_dir is not None:
+        os.makedirs(log_dir, exist_ok=True)
+        from kmbart_tpu.utils.tb import SummaryWriter
+        tb_writer = SummaryWriter(log_dir=log_dir)
+    logger = Logger(log_file=os.path.join(log_dir, 'log.txt') if log_dir else None)
+
+    os.makedirs(checkpoint_path, exist_ok=True)
+    logger.info('Made checkpoint directory: "{}"'.format(checkpoint_path))
+    logger.info('Running on {}'.format(device), pad=True)
+    for k, v in vars(args).items():
+        logger.info('{}: {}'.format(k, v))
+
+    logger.info('Loading model...')
+    tokenizer = ConditionTokenizer(assets_dir=args.tokenizer_dir)
+    cfg = load_model_config(args)
+    model = build_model_params(args, cfg, device, logger)
+    optimizer = AdamW(lr=args.lr, groups=jax_leaf_groups(cfg))
+    state = TrainState.create(model, optimizer)
+
+    epoch = 0
+    if args.continue_training:
+        td = load_training_data(args.checkpoint, cfg, device=device)
+        epoch = td['epoch'] + 1
+        if td['opt_state'] is not None:
+            state = state._replace(opt_state=td['opt_state'], step=int(td['step'] or 0))
+
+    logger.info('Loading data...')
+    collate_fn = Collator(tokenizer, has_label=True, max_img_num=cfg.max_img_num,
+                          image_feature_size=cfg.image_feature_size,
+                          num_mrm_labels=cfg.num_labels,
+                          rng=np.random.default_rng(args.seed))
+    collate_fn_gen = Collator(tokenizer, has_label=False, max_img_num=cfg.max_img_num,
+                              image_feature_size=cfg.image_feature_size)
+    train_dataset = VCGDataset(args.data_dir, split='train', use_image=args.use_image,
+                               use_event=args.use_event)
+    train_loader = DataLoader(
+        train_dataset, batch_size=args.batch_size, collate_fn=collate_fn,
+        sampler=ShardedSampler(len(train_dataset), shuffle=True, seed=args.seed),
+        num_workers=args.num_workers, drop_last=True)
+    val_dataset = VCGDataset(args.data_dir, split='val', use_image=args.use_image,
+                             use_event=args.use_event)
+    val_loader = DataLoader(val_dataset, batch_size=args.batch_size, collate_fn=collate_fn,
+                            num_workers=args.num_workers,
+                            sampler=ShardedSampler(len(val_dataset), shuffle=False))
+    gen_dataset = VCGDataset(args.data_dir, split='val', use_image=args.use_image,
+                             use_event=args.use_event, eval_mode=True)
+    gen_loader = DataLoader(gen_dataset, batch_size=args.batch_size,
+                            collate_fn=collate_fn_gen, num_workers=args.num_workers)
+    with open(os.path.join(args.data_dir, 'val_ref.json')) as f:
+        val_ref = json.load(f)
+
+    def loss_fn(m, b, generator):
+        loss, _ = conditional_loss(m, cfg, b, train=True, generator=generator)
+        return loss, {}
+
+    def eval_loss_fn(m, b, generator):
+        loss, _ = conditional_loss(m, cfg, b, train=False)
+        return loss, {}
+
+    train_step = build_train_step(loss_fn, optimizer, grad_accum_steps=args.grad_accum_steps)
+    eval_step = build_eval_step(eval_loss_fn)
+
+    def callback(step, epoch, state, logger, **kwargs):
+        if args.save_every_steps and (step + 1) % args.save_every_steps == 0:
+            path = os.path.join(checkpoint_path, 'step{}'.format(state.step))
+            save_train_checkpoint(path, cfg, state, epoch)
+            logger.info('Saved mid-epoch checkpoint at "{}"'.format(path))
+        if (step + 1) % 100 == 0:
+            inputs = collate_fn([train_dataset[0]])
+            out = generate(state.params, cfg,
+                           {'input_ids': inputs['input_ids'],
+                            'attention_mask': inputs['attention_mask'],
+                            'image_features': inputs['image_features']},
+                           max_length=args.max_length)
+            ans = tokenizer.decode(out[0], skip_special_tokens=True)
+            event = tokenizer.decode(inputs['input_ids'][0], skip_special_tokens=True)
+            logger.info('Input ({} image): "{}"'.format(
+                'with' if args.use_image else 'without', event))
+            logger.info('Generated: "{}"'.format(ans))
+
+    logger.info('Start training', pad=True)
+    start = datetime.now()
+    while epoch < args.epochs:
+        logger.info('Epoch {}'.format(epoch + 1), pad=True)
+        train_loader.set_epoch(epoch)
+        state, _ = run_epoch(epoch, state, train_step, train_loader, args.seed,
+                             device=device, epochs=args.epochs, logger=logger,
+                             callback=callback, log_interval=1, tb_writer=tb_writer,
+                             tb_interval=1)
+
+        logger.info('Validating Epoch {}'.format(epoch + 1), pad=True)
+        if args.validate_loss:
+            validate_loss(epoch, state.params, eval_step, val_loader, device=device,
+                          logger=logger, tb_writer=tb_writer)
+        if args.validate_score:
+            validate_generation_score(epoch, state.params, cfg, gen_loader, val_ref,
+                                      tokenizer, args, logger=logger, tb_writer=tb_writer)
+
+        current = os.path.join(checkpoint_path, 'model{}'.format(epoch))
+        save_train_checkpoint(current, cfg, state, epoch)
+        logger.info('Saved checkpoint at "{}"'.format(checkpoint_path))
+        epoch += 1
+    logger.info('Training complete in: ' + str(datetime.now() - start), pad=True)
+    return checkpoint_path
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument('--data_dir', required=True, type=str,
+                        help='path to load data, output_dir of prepare_vcg')
+    parser.add_argument('--checkpoint_dir', required=True, type=str,
+                        help='where to save the checkpoint')
+    add_common_model_args(parser)
+    parser.add_argument('--epochs', default=40, type=int)
+    parser.add_argument('--lr', default=1e-5, type=float)
+    parser.add_argument('--num_gen', default=1, type=int,
+                        help='number of generated sentence on validation.')
+    parser.add_argument('--num_beams', default=1, type=int,
+                        help='level of beam search on validation')
+    parser.add_argument('--max_length', default=30, type=int,
+                        help='max decode length')
+    parser.add_argument('--continue_training', action='store_true')
+    parser.add_argument('--save_every_steps', default=0, type=int,
+                        help='also checkpoint every N steps (0 = per-epoch only)')
+    parser.add_argument('--validate_loss', action='store_true')
+    parser.add_argument('--validate_score', action='store_true')
+    add_dropout_args(parser)
+    add_hardware_args(parser, train=True)
+    parser.set_defaults(use_event=True, use_image=True)
+    args = parser.parse_args(argv)
+    if args.checkpoint is None and args.model_config is None:
+        raise ValueError('--model_config and --checkpoint cannot be empty at the same time')
+    return args
+
+
+if __name__ == '__main__':
+    main(parse_args())
