@@ -5,11 +5,12 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases, each printing one JSON line; any failure raises and exits non-zero:
   1. device    the card's name and power limit (needs a CUDA device);
-  2. build     nvcc builds the eight kernels from kmbart_tpu_torch/csrc;
+  2. build     nvcc builds the eleven kernels from kmbart_tpu_torch/csrc (one
+               nvcc per source, all started together);
   3. kernels   each kernel against its plain PyTorch version on the card, at
-               the generation and fine-tune paths' shapes and at edge shapes,
-               with the median times of both from CUDA events; a planted-tie
-               top-k;
+               the generation, fine-tune and pretraining paths' shapes and at
+               edge shapes, with the median times of both from CUDA events; a
+               planted-tie top-k;
   4. generate  beam-5 VCG generation at BART-base width (config/vcg_base.json,
                random weights from a seed, batch 64): every generation kernel
                must have launched, outputs finite, and the encoder output and
@@ -27,7 +28,25 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                three steps (device-busy share, top device kernels);
   7. train_cli ``python -m kmbart_tpu_torch.vcg_train --device cuda`` trains one
                epoch on the fixture dataset, and the generate twin decodes
-               from its model0/.
+               from its model0/;
+  8. pretrain  multi-task pretraining at full width and depth
+               (config/pretrain_base.json, batch 128 at the collator's default
+               lengths: 96 encoder and 72 decoder tokens, 30 image slots, 80
+               relation pairs, rows present in all four heads), in LM-CE mode
+               "fwdbwd" and in mode "nomat": one step at dropout 0 on the
+               kernel path and on the plain path (the five losses and per-leaf
+               gradient norms close), nomat against fwdbwd, then ten AdamW
+               steps with the config's dropout in each mode (launches per step
+               exact, loss finite and falling, ms/step, samples/s, peak
+               memory), then the two modes in turns and a torch.profiler
+               trace of three "fwdbwd" steps;
+  9. pretrain_long  the same at --lm_max_len 224 (296 encoder and 272 decoder
+               tokens, batch 32), where every attention goes to the flash
+               kernel K11 and none to K1: kernel path against plain path at
+               dropout 0, then three steps;
+ 10. pretrain_cli  ``python -m kmbart_tpu_torch.pretrain --device cuda`` trains
+               one epoch on the fixture's coco, vg, vcg and reason datasets, and
+               the vcg_train twin fine-tunes one epoch from its model0/.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -59,6 +78,25 @@ TRAIN_GRAD_NORM_RTOL = 5e-2
 TRAIN_LAUNCHES = {"train_attention": 18, "train_attention_bwd": 18, "ffn": 12,
                   "ffn_bwd": 12, "lm_ce_fwd": 1, "lm_ce_bwd": 1}
 GENERATE_KERNELS = ("train_attention", "ffn", "beam_attention", "vocab_stats")
+# K11's fp32 output against its plain version: both sum the same fp32 terms
+# in another order (a score is a 64-term dot product, the kernel rescales
+# its running sums once per 64-key tile), so a weight p_j differs by a few
+# ulps of its score's magnitude and the output, a convex combination of v
+# rows, by at most that relative error times max|v|; 2e-5 of max|v| is the
+# worst case of hd·ε·Σ|q_d k_d| at these widths (the JAX flash tests use
+# the same 2e-5)
+FLASH_RTOL = 2e-5
+# launches per pretraining step at 96/72 tokens (K1 as in fine-tuning; the
+# LM-CE pair by mode) and at 296/272 tokens (every attention on K11, whose
+# backward is the plain math, as in the JAX package)
+PRETRAIN_LAUNCHES = {
+    "fwdbwd": {**TRAIN_LAUNCHES, "lm_ce_fwd_stats": 0, "lm_ce_recompute_bwd": 0,
+               "flash_attention": 0},
+    "nomat": {**TRAIN_LAUNCHES, "lm_ce_fwd": 0, "lm_ce_bwd": 0, "lm_ce_fwd_stats": 1,
+              "lm_ce_recompute_bwd": 1, "flash_attention": 0},
+}
+PRETRAIN_LONG_LAUNCHES = {**PRETRAIN_LAUNCHES["fwdbwd"], "train_attention": 0,
+                          "train_attention_bwd": 0, "flash_attention": 18}
 
 
 def emit(phase, **fields):
@@ -100,6 +138,7 @@ def _max_err(got, ref):
 
 def check_kernels(torch, dev):
     from kmbart_tpu_torch.ops import beam_attention as ba
+    from kmbart_tpu_torch.ops import flash_attention as fa
     from kmbart_tpu_torch.ops import ffn, lm_ce, train_attention as ta, vocab_stats as vs
     from kmbart_tpu_torch.ops.topk import top_k
 
@@ -285,6 +324,82 @@ def check_kernels(torch, dev):
     results["lm_ce_fwd"] = [f for f, _ in head]
     results["lm_ce_bwd"] = [b for _, b in head]
 
+    # K9 and K10 ("nomat") at the pretraining head (N 128 x 72 = 9216 rows,
+    # V 50320, D 768); edge: ragged rows and a small ragged vocab
+    def k910(N, V, D, timed):
+        h = randn(N, D)
+        w = randn(V, D, std=0.02)
+        fbias = randn(V, std=0.02, dtype=torch.float32)
+        labels = torch.randint(0, V, (N,), generator=g, device=dev, dtype=torch.int32)
+        m, se, ll = lm_ce.lm_ce_fwd_stats(h, w, fbias, labels)
+        rl, rm, rse, rll = lm_ce.lm_ce_fwd_plain(h, w, fbias, labels)
+        tol = _bf16_tol(rl.float())
+        fwd = {"shape": [N, V, D], "lse_err": _max_err(torch.log(se) + m, torch.log(rse) + rm),
+               "ll_err": _max_err(ll, rll), "tol": tol}
+        for key in ("lse_err", "ll_err"):
+            _check(f"lm_ce_fwd_stats {key} {N}x{V}", fwd[key], tol)
+        fwd["max_abs_err"] = max(fwd["lse_err"], fwd["ll_err"])
+        valid = torch.rand((N,), generator=g, device=dev) > 0.1
+        scale = (valid.float() / valid.sum().clamp(min=1)).contiguous()
+        bargs = (h, w, fbias, m, (1.0 / se).contiguous(), scale, labels)
+        dl, dh = lm_ce.lm_ce_recompute_bwd(*bargs)
+        rdl, rdh = lm_ce.lm_ce_recompute_bwd_plain(*bargs)
+        bwd = {"shape": [N, V, D]}
+        for name, out, ref in (("dlogits", dl, rdl), ("dh", dh, rdh)):
+            err, tol = _max_err(out, ref), _bf16_tol(ref.float())
+            _check(f"lm_ce_recompute_bwd {name} {N}x{V}", err, tol)
+            bwd[f"{name}_err"], bwd[f"{name}_tol"] = err, tol
+        bwd["max_abs_err"] = max(bwd["dlogits_err"], bwd["dh_err"])
+        if timed:
+            fwd["ms"] = _time_ms(torch, lambda: lm_ce.lm_ce_fwd_stats(h, w, fbias, labels),
+                                 iters=10)
+            fwd["plain_ms"] = _time_ms(
+                torch, lambda: lm_ce.lm_ce_fwd_stats_plain(h, w, fbias, labels), iters=10)
+            bwd["ms"] = _time_ms(torch, lambda: lm_ce.lm_ce_recompute_bwd(*bargs), iters=10)
+            bwd["plain_ms"] = _time_ms(torch, lambda: lm_ce.lm_ce_recompute_bwd_plain(*bargs),
+                                       iters=10)
+            # the "fwdbwd" pair at the same shape, for the mode comparison
+            fwd["k7_ms"] = _time_ms(torch, lambda: lm_ce.lm_ce_fwd(h, w, fbias, labels),
+                                    iters=10)
+            logits = lm_ce.lm_ce_fwd(h, w, fbias, labels)[0]
+            bwd["k8_ms"] = _time_ms(
+                torch, lambda: lm_ce.lm_ce_bwd(logits, w, m, bargs[4], scale, labels),
+                iters=10)
+        return fwd, bwd
+
+    nomat = [k910(9216, 50320, 768, True), k910(24, 1100, 128, False)]
+    results["lm_ce_fwd_stats"] = [f for f, _ in nomat]
+    results["lm_ce_recompute_bwd"] = [b for _, b in nomat]
+
+    # K11 at the long-caption pretraining shapes (B 32, 12 heads): encoder
+    # self 296 with padded keys, decoder causal 272, cross 272 x 296; edges:
+    # a ragged 264 (not a multiple of the 64-row tiles), causal and padded,
+    # and tiny lengths
+    def k11(B, Tq, Tk, D, H, pad, causal, timed):
+        q, k, v = randn(B, Tq, D), randn(B, Tk, D), randn(B, Tk, D)
+        mask = torch.ones((B, Tk), dtype=torch.long, device=dev)
+        if pad:
+            mask[1::2, Tk - pad:] = 0
+        kw = dict(num_heads=H, causal=causal)
+        out = fa.flash_attention(q, k, v, mask, **kw)
+        ref = fa.flash_attention_plain(q, k, v, mask, **kw)
+        err = _max_err(out, ref)
+        tol = FLASH_RTOL * max(1.0, float(v.float().abs().max()))
+        _check(f"flash_attention {B}x{Tq}x{Tk} causal={causal}", err, tol)
+        res = {"shape": [B, Tq, Tk, D, H], "pad": pad, "causal": causal,
+               "max_abs_err": err, "tol": tol}
+        if timed:
+            res["ms"] = _time_ms(torch, lambda: fa.flash_attention(q, k, v, mask, **kw))
+            res["plain_ms"] = _time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, mask,
+                                                                               **kw))
+        return res
+
+    results["flash_attention"] = [k11(32, 296, 296, 768, 12, 9, False, True),
+                                  k11(32, 272, 272, 768, 12, 7, True, True),
+                                  k11(32, 272, 296, 768, 12, 9, False, True),
+                                  k11(3, 264, 264, 768, 12, 5, True, False),
+                                  k11(2, 24, 40, 32, 4, 5, False, False)]
+
     results["beam_attention"] = [k3(64, 5, 32, 768, 12, 31, True),
                                  k3(64, 5, 32, 768, 12, 0, False),
                                  k3(3, 5, 12, 32, 4, 6, False)]
@@ -336,9 +451,10 @@ def check_kernels(torch, dev):
 # phase 4: full-width generation
 # ---------------------------------------------------------------------------
 
-def random_jax_params(cfg, seed):
+def random_jax_params(cfg, seed, heads=False):
     """Random weights in the JAX package's params.npz layout ("/"-joined
-    pytree paths, [in, out] kernels, layers stacked on a leading axis)."""
+    pytree paths, [in, out] kernels, layers stacked on a leading axis); with
+    ``heads``, the pretraining model's three classification heads too."""
     import numpy as np
     rng = np.random.default_rng(seed)
     d, std = cfg.d_model, cfg.init_std
@@ -368,14 +484,20 @@ def random_jax_params(cfg, seed):
         p.update(ln(f"{lp}/final_layer_norm", L))
     p["model/encoder/embed_images/kernel"] = w(cfg.image_feature_size, d)
     p["model/encoder/embed_images/bias"] = w(d)
+    if heads:
+        for name, d_in, n_out in (("mrm_head", d, cfg.num_labels),
+                                  ("attribute_head", d, cfg.num_attributes),
+                                  ("relation_head", 2 * d, cfg.num_relations)):
+            p.update({f"{name}/dense_kernel": w(d_in, d), f"{name}/dense_bias": w(d),
+                      f"{name}/out_kernel": w(d, n_out), f"{name}/out_bias": w(n_out)})
     return p
 
 
-def write_checkpoint(path, cfg, seed):
+def write_checkpoint(path, cfg, seed, heads=False):
     import numpy as np
     os.makedirs(path, exist_ok=True)
     cfg.save_json(os.path.join(path, "config.json"))
-    np.savez(os.path.join(path, "params.npz"), **random_jax_params(cfg, seed))
+    np.savez(os.path.join(path, "params.npz"), **random_jax_params(cfg, seed, heads))
 
 
 @contextlib.contextmanager
@@ -386,12 +508,16 @@ def plain_path():
     from kmbart_tpu_torch.generation import beam
     from kmbart_tpu_torch.models import bart
     from kmbart_tpu_torch.ops import beam_attention, ffn, lm_ce, train_attention, vocab_stats
+    from kmbart_tpu_torch.ops import flash_attention
     swaps = [(train_attention, "train_attention_flat", train_attention.train_attention_plain),
              (train_attention, "train_attention_bwd", train_attention.train_attention_bwd_plain),
              (ffn, "fused_ffn", ffn.fused_ffn_plain),
              (ffn, "fused_ffn_bwd", ffn.fused_ffn_bwd_plain),
              (lm_ce, "lm_ce_fwd", lm_ce.lm_ce_fwd_plain),
              (lm_ce, "lm_ce_bwd", lm_ce.lm_ce_bwd_plain),
+             (lm_ce, "lm_ce_fwd_stats", lm_ce.lm_ce_fwd_stats_plain),
+             (lm_ce, "lm_ce_recompute_bwd", lm_ce.lm_ce_recompute_bwd_plain),
+             (flash_attention, "flash_attention", flash_attention.flash_attention_plain),
              (bart, "beam_gather_attention", beam_attention.beam_gather_attention_plain),
              (beam, "chunk_stats", vocab_stats.chunk_stats_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
@@ -568,6 +694,29 @@ def _train_batch(torch, cfg, dev, B=128, T_enc=72, T_dec=40, seed=0):
             "labels": t(dec.copy())}
 
 
+def _leaf_norms(torch, model, groups):
+    """{JAX leaf key: the norm of its tensors' gradients} (0 without one)."""
+    from kmbart_tpu_torch.training.state import model_tensors
+    tensors = model_tensors(model)
+    norms = {}
+    for key, names in groups.items():
+        sq = [tensors[n].grad.float().square().sum() for n in names
+              if tensors[n].grad is not None]
+        norms[key] = float(torch.stack(sq).sum().sqrt()) if sq else 0.0
+    return norms
+
+
+def _max_rel(name, got, want, rtol):
+    """The largest relative difference over the keys with a nonzero
+    reference, checked against ``rtol``; returns (differences, worst key)."""
+    rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in want if want[k] != 0}
+    worst = max(rel, key=rel.get)
+    _check(f"{name} (relative, {worst})", rel[worst], rtol)
+    if not all(math.isfinite(v) for v in got.values()):
+        raise AssertionError(f"{name}: non-finite values")
+    return rel, worst
+
+
 def run_train(torch, dev, card):
     from kmbart_tpu_torch import MultiModalBartConfig
     from kmbart_tpu_torch.checkpoint.io import jax_leaf_groups, load_pretrained
@@ -575,7 +724,7 @@ def run_train(torch, dev, card):
     from kmbart_tpu_torch.ops import launch_counts, reset_launch_counts
     from kmbart_tpu_torch.parallel.train_step import build_train_step
     from kmbart_tpu_torch.training.adamw import AdamW
-    from kmbart_tpu_torch.training.state import TrainState, model_tensors
+    from kmbart_tpu_torch.training.state import TrainState
 
     cfg = MultiModalBartConfig.from_json(os.path.join(REPO, "config", "vcg_base.json"))
     with tempfile.TemporaryDirectory() as tmp:
@@ -594,12 +743,7 @@ def run_train(torch, dev, card):
         loss, _ = conditional_loss(model, cfg0, batch, train=True,
                                    generator=torch.Generator(device=dev).manual_seed(0))
         loss.backward()
-        tensors = model_tensors(model)
-        norms = {}
-        for key, names in groups.items():
-            sq = [tensors[n].grad.float().square().sum() for n in names
-                  if tensors[n].grad is not None]
-            norms[key] = float(torch.stack(sq).sum().sqrt()) if sq else 0.0
+        norms = _leaf_norms(torch, model, groups)
         model.zero_grad(set_to_none=True)
         return float(loss.detach()), norms
 
@@ -744,6 +888,284 @@ def run_train_cli(card):
         raise AssertionError(f"generate from model0 wrote {len(gen)} entries, expected 18")
     emit("train_cli", card=card, train_seconds=train_s, generated_entries=len(gen))
 
+# ---------------------------------------------------------------------------
+# phases 8-10: multi-task pretraining
+# ---------------------------------------------------------------------------
+
+def _pretrain_batch(torch, cfg, dev, B, T_enc, T_dec, R=80, seed=0):
+    """A batch shaped as the pretraining collator makes it: encoder rows
+    1-30 image slots, a fifth of them masked regions (cls tokens, which keep
+    their ROI feature), the odd rows' last 6 encoder tokens padded; the
+    decoder's image span at rows 1-30 with the same cls tokens, labels -100
+    on that span except at the masked regions, which carry the detector's
+    soft labels; attributes on about half the image slots; 10 relation
+    pairs a row among R."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    N = cfg.max_img_num
+    ids = rng.integers(4, 50000, (B, T_enc))
+    ids[:, 1:1 + N] = cfg.img_feat_id
+    masked = rng.random((B, N)) < 0.2
+    ids[:, 1:1 + N][masked] = cfg.cls_token_id
+    attention_mask = np.ones((B, T_enc), np.int64)
+    attention_mask[1::2, -6:] = 0
+    dec = rng.integers(4, 50000, (B, T_dec))
+    dec[:, 1:1 + N] = ids[:, 1:1 + N]
+    labels = rng.integers(4, 50000, (B, T_dec))
+    labels[:, 1:1 + N] = np.where(masked, cfg.cls_token_id, -100)
+    attribute_mask = np.zeros((B, T_dec), np.float32)
+    attribute_mask[:, 1:1 + N] = rng.random((B, N)) < 0.5
+    relation_mask = np.zeros((B, R), bool)
+    relation_mask[:, :10] = True
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    soft = torch.softmax(2.0 * torch.randn((B, T_dec, cfg.num_labels), generator=gen,
+                                           device=dev), dim=-1)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    return {"input_ids": t(ids), "attention_mask": t(attention_mask),
+            "image_features": t(rng.normal(size=(B, N, cfg.image_feature_size))
+                                .astype(np.float32)),
+            "decoder_input_ids": t(dec), "decoder_attention_mask": t(np.ones((B, T_dec),
+                                                                            np.int64)),
+            "labels": t(labels), "mrm_soft_labels": soft,
+            "mrm_mask": t(labels == cfg.cls_token_id),
+            "attribute_labels": t(rng.integers(0, cfg.num_attributes, (B, T_dec))),
+            "attribute_mask": t(attribute_mask),
+            "relation_pairs": t(rng.integers(1, 1 + N, (B, R, 2))),
+            "relation_labels": t(rng.integers(0, cfg.num_relations, (B, R))),
+            "relation_mask": t(relation_mask)}
+
+
+def _pretrain_setup(torch, dev, seed):
+    from kmbart_tpu_torch import MultiModalBartConfig
+    from kmbart_tpu_torch.checkpoint.io import jax_leaf_groups, load_pretrained
+    from kmbart_tpu_torch.models.pretraining import init_pretraining_model
+    cfg = MultiModalBartConfig.from_json(os.path.join(REPO, "config", "pretrain_base.json"))
+    with tempfile.TemporaryDirectory() as tmp:
+        write_checkpoint(tmp, cfg, seed, heads=True)
+        _, model, report = load_pretrained(tmp, device=dev, init_model_fn=init_pretraining_model)
+    if report:
+        raise AssertionError(f"pretraining checkpoint did not load whole: {report}")
+    return cfg, model, jax_leaf_groups(cfg, heads=True)
+
+
+@contextlib.contextmanager
+def _ce_mode(mode):
+    """KMBART_FUSED_CE_MODE set to ``mode`` (the LM loss reads it per call)."""
+    saved = os.environ.get("KMBART_FUSED_CE_MODE")
+    os.environ["KMBART_FUSED_CE_MODE"] = mode
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["KMBART_FUSED_CE_MODE"]
+        else:
+            os.environ["KMBART_FUSED_CE_MODE"] = saved
+
+
+def _losses_and_norms(torch, model, cfg, batch, groups):
+    """One step at dropout 0: the five losses and per-leaf gradient norms."""
+    from kmbart_tpu_torch.models.pretraining import pretraining_loss
+    cfg0 = cfg.replace(dropout=0.0, attention_dropout=0.0, activation_dropout=0.0,
+                       classif_dropout=0.0)
+    model.zero_grad(set_to_none=True)
+    total, aux = pretraining_loss(model, cfg0, batch, train=True)
+    total.backward()
+    norms = _leaf_norms(torch, model, groups)
+    model.zero_grad(set_to_none=True)
+    return {k: float(v.detach()) for k, v in aux["losses"].items()}, norms
+
+
+def _pretrain_paths(torch, model, cfg, batch, groups):
+    """The kernel path against the plain path at dropout 0: the five losses
+    and per-leaf gradient norms of each, and their relative differences."""
+    lk, nk = _losses_and_norms(torch, model, cfg, batch, groups)
+    with plain_path():
+        lp, np_ = _losses_and_norms(torch, model, cfg, batch, groups)
+    loss_rel, loss_worst = _max_rel("pretraining losses, kernel vs plain path", lk, lp,
+                                    TRAIN_LOSS_RTOL)
+    grad_rel, grad_worst = _max_rel("per-leaf gradient norm, kernel vs plain path", nk, np_,
+                                    TRAIN_GRAD_NORM_RTOL)
+    return {"losses_kernel_path": lk, "losses_plain_path": lp,
+            "loss_max_rel_err": loss_rel[loss_worst], "loss_worst": loss_worst,
+            "grad_norm_max_rel_err": grad_rel[grad_worst], "grad_norm_worst_leaf": grad_worst,
+            "_norms": nk}
+
+
+def _pretrain_steps(torch, state, step, batch, n, expect_launches, what):
+    """``n`` train steps on one batch: launches per step against
+    ``expect_launches``, losses finite and falling; returns (state, stats)."""
+    from kmbart_tpu_torch.ops import launch_counts, reset_launch_counts
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, times, heads = [], [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, 0)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"])
+        heads.append({k: metrics[k] for k in ("lm_loss", "mrm_loss", "attribute_loss",
+                                              "relation_loss")})
+    counts = launch_counts()
+    per_step = {k: counts[k] / n for k in expect_launches}
+    if per_step != {k: float(v) for k, v in expect_launches.items()}:
+        raise AssertionError(f"{what}: launches per step {per_step}, expected "
+                             f"{expect_launches}")
+    losses = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{what}: losses not finite and falling: {losses}")
+    if float(metrics["skipped"]) != 0.0:
+        raise AssertionError(f"{what}: the non-finite guard skipped a step")
+    timed = sorted(times[2:] if n > 4 else times[1:])
+    median = timed[len(timed) // 2]
+    return state, {"losses": losses, "head_losses_last": {k: float(v) for k, v in
+                                                          heads[-1].items()},
+                   "launches": {k: counts[k] for k in expect_launches},
+                   "launches_per_step": per_step, "step_s": times, "ms_per_step": 1e3 * median,
+                   "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _pretrain_step_fn(cfg, groups, lr=1e-4):
+    from kmbart_tpu_torch.models.pretraining import pretraining_loss
+    from kmbart_tpu_torch.parallel.train_step import build_train_step
+    from kmbart_tpu_torch.training.adamw import AdamW
+
+    def loss_fn(m, b, generator):
+        loss, aux = pretraining_loss(m, cfg, b, train=True, generator=generator)
+        return loss, {k: v for k, v in aux["losses"].items() if k != "loss"}
+
+    optimizer = AdamW(lr=lr, groups=groups)
+    return optimizer, build_train_step(loss_fn, optimizer)
+
+
+def run_pretrain(torch, dev, card):
+    """Phase 8; returns the launch counts of the nomat run."""
+    from kmbart_tpu_torch.training.state import TrainState
+    cfg, model, groups = _pretrain_setup(torch, dev, seed=0)
+    B, T_enc, T_dec = 128, 96, 72   # the collator's lengths at the CLI defaults
+    batch = _pretrain_batch(torch, cfg, dev, B, T_enc, T_dec)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+
+    # (i) kernel path against plain path at dropout 0, in each mode; (ii)
+    # nomat against fwdbwd on the kernel path
+    paths = {}
+    for mode in ("fwdbwd", "nomat"):
+        with _ce_mode(mode):
+            paths[mode] = _pretrain_paths(torch, model, cfg, batch, groups)
+    modes_loss_rel, modes_loss_worst = _max_rel(
+        "pretraining losses, nomat vs fwdbwd", paths["nomat"]["losses_kernel_path"],
+        paths["fwdbwd"]["losses_kernel_path"], TRAIN_LOSS_RTOL)
+    modes_grad_rel, modes_grad_worst = _max_rel(
+        "per-leaf gradient norm, nomat vs fwdbwd", paths["nomat"].pop("_norms"),
+        paths["fwdbwd"]["_norms"], TRAIN_GRAD_NORM_RTOL)
+    # the same fwdbwd step once more: the run-to-run spread of the gradients
+    # (atomic scatter-adds in the embedding and gather backwards)
+    with _ce_mode("fwdbwd"):
+        _, again = _losses_and_norms(torch, model, cfg, batch, groups)
+    repeat_rel, repeat_worst = _max_rel("per-leaf gradient norm, fwdbwd repeated", again,
+                                        paths["fwdbwd"].pop("_norms"), TRAIN_GRAD_NORM_RTOL)
+
+    # (iii) ten AdamW steps in each mode from the same weights, config dropout
+    runs, launches = {}, None
+    for mode in ("fwdbwd", "nomat"):
+        model.load_state_dict(init)
+        optimizer, step = _pretrain_step_fn(cfg, groups)
+        state = TrainState.create(model, optimizer)
+        with _ce_mode(mode):
+            state, runs[mode] = _pretrain_steps(torch, state, step, batch, 10,
+                                                PRETRAIN_LAUNCHES[mode], f"pretrain {mode}")
+        runs[mode]["samples_per_s"] = B / (runs[mode]["ms_per_step"] / 1e3)
+        if mode == "nomat":
+            launches = runs[mode]["launches"]
+    # (iv) the two modes in turns (F N N F, three steps each) on one state
+    turns = {"fwdbwd": [], "nomat": []}
+    for mode in ("fwdbwd", "nomat", "nomat", "fwdbwd"):
+        with _ce_mode(mode):
+            for _ in range(3):
+                t0 = time.perf_counter()
+                state, _ = step(state, batch, 0)
+                torch.cuda.synchronize()
+                turns[mode].append(time.perf_counter() - t0)
+    turn_ms = {m: 1e3 * sorted(v)[len(v) // 2] for m, v in turns.items()}
+    with _ce_mode("fwdbwd"):
+        profile = _profile_steps(torch, lambda: step(state, batch, 0))
+    emit("pretrain", card=card, config="config/pretrain_base.json", batch=B, enc_len=T_enc,
+         dec_len=T_dec, image_slots=cfg.max_img_num, relation_pairs=80, dtype=cfg.dtype,
+         dropout=cfg.dropout, lr=1e-4, paths=paths,
+         nomat_vs_fwdbwd_loss_max_rel_err=modes_loss_rel[modes_loss_worst],
+         nomat_vs_fwdbwd_grad_norm_max_rel_err=modes_grad_rel[modes_grad_worst],
+         nomat_vs_fwdbwd_grad_norm_worst_leaf=modes_grad_worst,
+         fwdbwd_repeat_grad_norm_max_rel_err=repeat_rel[repeat_worst],
+         fwdbwd_repeat_grad_norm_worst_leaf=repeat_worst, runs=runs,
+         turns_s=turns, turns_ms_per_step=turn_ms)
+    emit("pretrain_profile", card=card, mode="fwdbwd", **profile)
+    return launches
+
+
+def run_pretrain_long(torch, dev, card):
+    """Phase 9; returns the launch counts of its steps."""
+    from kmbart_tpu_torch.training.state import TrainState
+    cfg, model, groups = _pretrain_setup(torch, dev, seed=1)
+    # the collator's lengths at --lm_max_len 224: encoder round8(1 + 32 + 22
+    # + 226 + 8) = 296, decoder round8(32 + 224 + 1 + 8) = 272
+    B, T_enc, T_dec = 32, 296, 272
+    batch = _pretrain_batch(torch, cfg, dev, B, T_enc, T_dec, seed=1)
+    with _ce_mode("fwdbwd"):
+        paths = _pretrain_paths(torch, model, cfg, batch, groups)
+        paths.pop("_norms")
+        optimizer, step = _pretrain_step_fn(cfg, groups)
+        state = TrainState.create(model, optimizer)
+        state, run = _pretrain_steps(torch, state, step, batch, 4, PRETRAIN_LONG_LAUNCHES,
+                                     "pretrain_long")
+    run["samples_per_s"] = B / (run["ms_per_step"] / 1e3)
+    emit("pretrain_long", card=card, config="config/pretrain_base.json", batch=B,
+         enc_len=T_enc, dec_len=T_dec, lm_max_len=224, dtype=cfg.dtype, paths=paths, **run)
+    return run["launches"]
+
+
+def run_pretrain_cli(card):
+    """Phase 10: the pretrain twin on the fixture, then a fine-tune epoch of
+    the vcg_train twin from its model0/."""
+    make_dataset = _load_fixture_module().make_dataset
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = make_dataset(os.path.join(tmp, "data"))
+        ckpt_dir, ft_dir = os.path.join(tmp, "ckpt"), os.path.join(tmp, "ft")
+        cmd = [sys.executable, "-m", "kmbart_tpu_torch.pretrain",
+               "--dataset", "coco_train", paths["coco"], "--dataset", "vg_train", paths["vg"],
+               "--dataset", "vcg_train", paths["vcg"],
+               "--dataset", "coco_reason_train", paths["reason"],
+               "--checkpoint_dir", ckpt_dir, "--model_config", paths["config"],
+               "--tokenizer_dir", paths["tokenizer"], "--epochs", "1", "--batch_size", "8",
+               "--max_img_num", "4", "--lr", "1e-3", "--device", "cuda"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, timeout=600, capture_output=True, text=True)
+        pretrain_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"pretrain CLI failed ({proc.returncode}):\n"
+                               f"{proc.stderr[-4000:]}")
+        (run,) = os.listdir(ckpt_dir)
+        model0 = os.path.join(ckpt_dir, run, "model0")
+        for name in ("config.json", "params.npz", "training_data.npz"):
+            if not os.path.exists(os.path.join(model0, name)):
+                raise AssertionError(f"pretrain CLI wrote no model0/{name}")
+        cmd = [sys.executable, "-m", "kmbart_tpu_torch.vcg_train",
+               "--data_dir", paths["vcg"], "--checkpoint_dir", ft_dir, "--checkpoint", model0,
+               "--tokenizer_dir", paths["tokenizer"], "--epochs", "1", "--batch_size", "6",
+               "--device", "cuda"]
+        proc = subprocess.run(cmd, cwd=REPO, timeout=600, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"vcg_train from model0 failed ({proc.returncode}):\n"
+                               f"{proc.stderr[-4000:]}")
+        if "unused checkpoint keys: 12" not in proc.stdout:
+            raise AssertionError("vcg_train did not drop the 12 head tensors of model0")
+        (ft_run,) = os.listdir(ft_dir)
+        if not os.path.exists(os.path.join(ft_dir, ft_run, "model0", "params.npz")):
+            raise AssertionError("vcg_train from model0 wrote no model0/params.npz")
+    emit("pretrain_cli", card=card, pretrain_seconds=pretrain_s,
+         finetune_from_model0="ok, 12 head tensors dropped")
+
+
 KERNEL_INFO = {
     "train_attention": ("kmbart_tpu_torch/csrc/train_attention.cu",
                         "kmbart_tpu/ops/pallas_train_attention.py:194"),
@@ -757,6 +1179,12 @@ KERNEL_INFO = {
                     "kmbart_tpu/ops/pallas_vocab_stats.py:60"),
     "lm_ce_fwd": ("kmbart_tpu_torch/csrc/lm_ce.cu", "kmbart_tpu/ops/pallas_lm_ce.py:250"),
     "lm_ce_bwd": ("kmbart_tpu_torch/csrc/lm_ce.cu", "kmbart_tpu/ops/pallas_lm_ce.py:289"),
+    "lm_ce_fwd_stats": ("kmbart_tpu_torch/csrc/lm_ce.cu",
+                        "kmbart_tpu/ops/pallas_lm_ce.py:348"),
+    "lm_ce_recompute_bwd": ("kmbart_tpu_torch/csrc/lm_ce.cu",
+                            "kmbart_tpu/ops/pallas_lm_ce.py:317"),
+    "flash_attention": ("kmbart_tpu_torch/csrc/flash_attention.cu",
+                        "kmbart_tpu/ops/pallas_attention.py:62"),
 }
 
 
@@ -785,6 +1213,12 @@ def main():
     run_cli(card)
     launches.update(run_train(torch, dev, card))
     run_train_cli(card)
+    # K9 and K10 are counted on the nomat pretraining run, K11 on the long one
+    nomat = run_pretrain(torch, dev, card)
+    launches.update({k: nomat[k] for k in ("lm_ce_fwd_stats", "lm_ce_recompute_bwd")})
+    torch.cuda.empty_cache()
+    launches["flash_attention"] = run_pretrain_long(torch, dev, card)["flash_attention"]
+    run_pretrain_cli(card)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 

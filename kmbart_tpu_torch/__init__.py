@@ -12,7 +12,10 @@ sampling) with the ``vcg_generate`` CLI (``python -m
 kmbart_tpu_torch.vcg_generate``), and VCG fine-tuning (the loss, AdamW,
 the train step, the epoch and validation loops, checkpoints in the JAX
 package's format) with the ``vcg_train`` CLI (``python -m
-kmbart_tpu_torch.vcg_train``).
+kmbart_tpu_torch.vcg_train``), and multi-task pretraining (the pretraining
+heads and losses, the LM loss with or without stored logits, the flash
+attention for long captions) with the ``pretrain`` CLI (``python -m
+kmbart_tpu_torch.pretrain``).
 """
 
 __version__ = "0.1.0"

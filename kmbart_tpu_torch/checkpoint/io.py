@@ -6,7 +6,9 @@ for key. A directory holds ``config.json`` and either ``params.npz`` (the
 JAX package's format: "/"-joined pytree paths, [in, out] kernels, layers
 stacked on a leading axis) or a reference ``pytorch_model.bin`` (HF names,
 [out, in]; names in ``config.partial_load`` may differ in shape and load
-their overlapping top-left slice, torch_import.py:169). A train checkpoint
+their overlapping top-left slice, torch_import.py:169). The pretraining
+model's three classification heads are leaves of their own
+(``mrm_head/dense_kernel`` and the like). A train checkpoint
 adds ``training_data.npz``: the AdamW state under the JAX flat keys
 (``step``, ``mu/…``, ``nu/…``, ``leaf_steps/…``) and ``__meta__`` (epoch
 and train step). What the port writes loads in ``kmbart_tpu``, and the
@@ -29,6 +31,7 @@ CONFIG_NAME = "config.json"
 
 _PROJ = (("q_proj", "q"), ("k_proj", "k"), ("v_proj", "v"), ("out_proj", "o"))
 _TIED_COPIES = ("model.encoder.embed_tokens.weight", "model.decoder.embed_tokens.weight")
+_HEADS = ("mrm_head", "attribute_head", "relation_head")
 
 
 def _flatten(tree, prefix=""):
@@ -40,9 +43,10 @@ def _flatten(tree, prefix=""):
     return flat
 
 
-def _leaf_map(cfg: MultiModalBartConfig):
+def _leaf_map(cfg: MultiModalBartConfig, heads=False):
     """[(port name, JAX leaf key, stacked-layer index or None, transpose)]
-    for every tensor of the port's conditional model: HF names on one side,
+    for every tensor of the port's conditional model, and with ``heads``
+    of the pretraining model's classification heads: HF names on one side,
     "/"-joined pytree paths with [in, out] kernels stacked over layers on
     the other."""
     out = [("model.shared.weight", "model/shared", None, False)]
@@ -75,14 +79,24 @@ def _leaf_map(cfg: MultiModalBartConfig):
                 put(f"layers.{i}.{fc}.weight", f"layers/{fc}_kernel", i, True)
                 put(f"layers.{i}.{fc}.bias", f"layers/{fc}_bias", i)
     out.append(("final_logits_bias", "final_logits_bias", None, False))
+    if heads:
+        for head in _HEADS:
+            for ours, theirs in (("dense", "dense"), ("out_proj", "out")):
+                out.append((f"{head}.{ours}.weight", f"{head}/{theirs}_kernel", None, True))
+                out.append((f"{head}.{ours}.bias", f"{head}/{theirs}_bias", None, False))
     return out
 
 
-def jax_leaf_groups(cfg: MultiModalBartConfig):
+def _has_heads(names):
+    return any(n.startswith(_HEADS) for n in names)
+
+
+def jax_leaf_groups(cfg: MultiModalBartConfig, heads=False):
     """{JAX leaf key: [port names]}: the tensors that make up each leaf of
-    the JAX parameter pytree (one per layer for a stacked leaf)."""
+    the JAX parameter pytree (one per layer for a stacked leaf); with
+    ``heads``, also one leaf per tensor of the pretraining heads."""
     groups = {}
-    for name, key, _, _ in _leaf_map(cfg):
+    for name, key, _, _ in _leaf_map(cfg, heads):
         groups.setdefault(key, []).append(name)
     return groups
 
@@ -93,14 +107,15 @@ def params_from_jax(flat, cfg: MultiModalBartConfig):
     ``flat``: the "/"-joined keys of ``params.npz`` or the nested pytree,
     with numpy (or array-like) leaves. Kernels are transposed from
     [in, out] to [out, in] and the stacked layer axis is unstacked. Leaves
-    the source does not hold are left out. The same map converts any
-    pytree shaped like the parameters (AdamW moments).
+    the source does not hold are left out (a conditional model's
+    parameters have no heads). The same map converts any pytree shaped like
+    the parameters (AdamW moments).
     """
     if any(isinstance(v, dict) for v in flat.values()):
         flat = _flatten(flat)
     p = {k: np.asarray(v) for k, v in flat.items()}
     sd = {}
-    for name, key, i, transpose in _leaf_map(cfg):
+    for name, key, i, transpose in _leaf_map(cfg, heads=True):
         if key not in p:
             continue
         arr = p[key] if i is None else p[key][i]
@@ -117,10 +132,11 @@ def params_from_jax(flat, cfg: MultiModalBartConfig):
 def params_to_jax(state_dict, cfg: MultiModalBartConfig):
     """The inverse of ``params_from_jax``: the port's tensors (a state dict,
     or any {port name: tensor} such as AdamW moments) -> {"/"-joined JAX
-    key: fp32 numpy array}, layers stacked, kernels [in, out]."""
+    key: fp32 numpy array}, layers stacked, kernels [in, out]; the heads
+    when the tensors hold them."""
     stacks = {}
     flat = {}
-    for name, key, i, transpose in _leaf_map(cfg):
+    for name, key, i, transpose in _leaf_map(cfg, _has_heads(state_dict)):
         arr = state_dict[name].detach().float().cpu().numpy()
         arr = arr.T if transpose else arr
         if name == "final_logits_bias":
@@ -176,12 +192,19 @@ def load_state_dict(model, sd, partial_load=()):
     return report
 
 
-def load_pretrained(path, config=None, device="cpu", seed=0):
-    """Load a checkpoint directory. Returns (config, model, report_lines);
-    the model is in eval mode on ``device``."""
+def load_pretrained(path, config=None, device="cpu", seed=0,
+                    init_model_fn=init_conditional_model):
+    """Load a checkpoint directory into ``init_model_fn(config, seed)``
+    (``init_conditional_model`` or ``init_pretraining_model``), as the JAX
+    ``load_pretrained(path, init_params_fn, strict=False)`` does: weights
+    the checkpoint lacks keep their initialisation (a fine-tune checkpoint
+    in the pretraining model: its heads) and weights the model lacks are
+    dropped (a pretraining checkpoint in the conditional model). Returns
+    (config, model, report_lines); the model is in eval mode on
+    ``device``."""
     if config is None:
         config = MultiModalBartConfig.from_json(os.path.join(path, CONFIG_NAME))
-    model = init_conditional_model(config, seed=seed)
+    model = init_model_fn(config, seed=seed)
     npz = os.path.join(path, WEIGHTS_NAME)
     if os.path.exists(npz):
         with np.load(npz) as data:
@@ -234,7 +257,8 @@ def load_training_data(path, cfg: MultiModalBartConfig, device="cpu"):
     moments = [{n: t.to(device) for n, t in params_from_jax(split(f"{f}/"), cfg).items()
                 if n not in _TIED_COPIES} for f in ("mu", "nu")]
     step = torch.as_tensor(np.asarray(flat["step"], np.int32), device=device)
-    leaf = split("leaf_steps/") or {k: flat["step"] for k in jax_leaf_groups(cfg)}
+    leaf = split("leaf_steps/") or {
+        k: flat["step"] for k in jax_leaf_groups(cfg, heads=_has_heads(moments[0]))}
     leaf_steps = {k: torch.as_tensor(np.asarray(v, np.int32), device=device)
                   for k, v in leaf.items()}
     out["opt_state"] = AdamWState(step=step, mu=moments[0], nu=moments[1],

@@ -2,8 +2,8 @@
 
 Counterpart of the parts of kmbart_tpu/cli_common.py that a one-device
 PyTorch run needs: the model/data path flags, the dropout overrides, the
-loader flags, ``--device`` in place of ``--cpu``, the model build with a
-checkpoint overlay, and the train checkpoint. The TPU mesh flags (model,
+loader flags, ``--device`` in place of ``--cpu``, the model build (either
+model) with a checkpoint overlay, and the train checkpoint. The TPU mesh flags (model,
 sequence and pipeline parallelism, multihost, ZeRO-1, sharded checkpoints)
 have no counterpart yet.
 """
@@ -57,6 +57,21 @@ def add_hardware_args(parser, train=False):
                                  '(batch_size must be divisible by it)')
 
 
+def add_pretraining_args(parser):
+    """The multi-task flags of the root ``pretrain.py`` (:271-289)."""
+    parser.add_argument('--no_mrm', dest='mrm_enabled', action='store_false',
+                        help='do not use masked region modelling')
+    parser.add_argument('--no_ap', dest='ap_enabled', action='store_false',
+                        help='do not use attribute prediction (VG only)')
+    parser.add_argument('--no_rp', dest='rp_enabled', action='store_false',
+                        help='do not use relation prediction')
+    parser.add_argument('--max_img_num', type=int, default=30)
+    parser.add_argument('--lm_max_len', type=int, default=30)
+    parser.add_argument('--mrm_probability', type=float, default=0.2)
+    parser.add_argument('--mlm_probability', type=float, default=0.2)
+    parser.set_defaults(mrm_enabled=True, rp_enabled=True, ap_enabled=True)
+
+
 def resolve_device(name):
     """The requested device; a CUDA device without a card raises (there is
     no quiet switch to the CPU)."""
@@ -90,19 +105,20 @@ def load_model_config(args):
     return apply_dropout_overrides(cfg, args)
 
 
-def build_model_params(args, cfg, device, logger=None):
-    """A model initialised from ``--seed``, with the checkpoint's weights
-    laid over it (partial-load aware), on ``device``."""
+def build_model_params(args, cfg, init_model_fn, device, logger=None):
+    """``init_model_fn(cfg, seed=--seed)`` (``init_conditional_model`` or
+    ``init_pretraining_model``) with the checkpoint's weights laid over it
+    (partial-load aware; weights the checkpoint lacks keep their
+    initialisation), on ``device``."""
     from kmbart_tpu_torch.checkpoint.io import load_pretrained
-    from kmbart_tpu_torch.models.conditional import init_conditional_model
     if args.checkpoint:
         _, model, report = load_pretrained(args.checkpoint, config=cfg, device=device,
-                                           seed=args.seed)
+                                           seed=args.seed, init_model_fn=init_model_fn)
         if logger is not None:
             for line in report:
                 logger.info(line)
         return model
-    return init_conditional_model(cfg, seed=args.seed, device=device)
+    return init_model_fn(cfg, seed=args.seed, device=device)
 
 
 def save_train_checkpoint(path, cfg, state, epoch):

@@ -1,5 +1,6 @@
-// K7 and K8: the tied LM head fused with the ignore-index cross-entropy,
-// mode "fwdbwd" of kmbart_tpu/ops/pallas_lm_ce.py.
+// K7, K8, K9 and K10: the tied LM head fused with the ignore-index
+// cross-entropy, modes "fwdbwd" (K7 + K8) and "nomat" (K9 + K10) of
+// kmbart_tpu/ops/pallas_lm_ce.py.
 //
 // K7 replaces _fwd_project_stats_call (pallas_lm_ce.py:250, body
 // _fwd_project_stats_kernel :193):
@@ -9,24 +10,39 @@
 // K8 replaces _bwd_call (pallas_lm_ce.py:289, body _bwd_kernel :53):
 //   dlogits[n, v] = bf16(scale[n] (exp(logits - m[n]) inv_se[n] - [v == label[n]]))
 //   dh[n, :]      = bf16(sum_v dlogits[n, v] W[v, :])
+// K9 replaces _fwd_stats_call (pallas_lm_ce.py:348, body _fwd_stats_kernel
+// :146): K7's statistics without the [N, V] logits ever reaching memory.
+// K10 replaces _recompute_bwd_call (pallas_lm_ce.py:317, body
+// _recompute_bwd_kernel :105): K8's outputs with each logits tile recomputed
+// from (h, W, bias) instead of read.
 // Labels arrive already made safe (-100 -> 0); the valid mask is in scale.
 // dW = dlogits^T h stays a library matmul outside (pallas_lm_ce.py:426-431).
 //
 // What bounds them on an H100: each is one GEMM of 2 x N x V x D FLOP (396
-// GFLOP at N 5120, V 50320, D 768), so tensor-core FLOPs; the logits and
-// dlogits are 515 MB each in bf16 (0.15 ms of HBM time each at 3.35 TB/s).
-// The TPU walked the vocab sequentially and carried (m, se, ll) and the dh
-// accumulator in VMEM across grid steps. Hopper has no ordered grid, so:
+// GFLOP at N 5120, V 50320, D 768; 712 at the pretraining head's N 9216), so
+// tensor-core FLOPs; the logits and dlogits are 515 MB each in bf16 at N 5120
+// (0.15 ms of HBM time each at 3.35 TB/s). The TPU walked the vocab
+// sequentially and carried (m, se, ll) and the dh accumulator in VMEM across
+// grid steps. Hopper has no ordered grid, so:
 //   K7 tiles the [N, V] product into 64 x 128 blocks (wmma, K = D in steps
 //      of 32 through shared memory); each block writes its bf16 logits and
 //      one partial (max, exp-sum, label logit) per row, and a second pass
 //      merges a row's partials in a fixed order (as K4 does);
+//   K9 is the same kernel without the logits store;
 //   K8 is a GEMM over K = V whose A operand is made on the fly: each block
 //      reads a [64, 32] logits tile, forms dlogits in shared memory (the
 //      blocks of the first D tile also write it out), and folds it into a
 //      64 x 128 tile of dh. When the tiles alone cannot fill the card the V
 //      walk is split over blockIdx.z into fp32 partials summed in a fixed
-//      order, so the result is deterministic.
+//      order, so the result is deterministic;
+//   K10 cannot keep the TPU's [tn, D] fp32 dh accumulator on chip (768 fp32
+//      columns per row tile) and recomputing a logits tile once per 128-wide
+//      D tile would repeat the projection six times. So it runs in two
+//      passes: K7's projection with an epilogue that forms dlogits and writes
+//      them in bf16 (the dW product needs them anyway, :446-451), then K8's
+//      GEMM reading those dlogits as its A operand. The price against one
+//      fused pass is a second read of the dlogits, N x V x 2 bytes (0.93 GB,
+//      about 0.3 ms at N 9216).
 // The ragged vocab tail (50320 = 393 x 128 + 16) is masked: W rows past V
 // load as zero, and those columns take no part in the statistics and get
 // zero dlogits, as _masked_w (:93-102) and the NEG floor do on the TPU.
@@ -98,13 +114,22 @@ __device__ __forceinline__ uint4 load16(const bf16* p) {
   return *reinterpret_cast<const uint4*>(p);
 }
 
-// K7: grid (ceil(V / BN), ceil(N / BM)); partial stats [N, n_vtiles]
+// epilogues of the projection kernel
+enum { kLogitsStats = 0,   // K7: bf16 logits and per-tile statistics
+       kStatsOnly = 1,     // K9: per-tile statistics only
+       kDlogits = 2 };     // K10, first pass: dlogits from the recomputed logits
+
+// grid (ceil(V / BN), ceil(N / BM)); partial stats [N, n_vtiles]. ``out`` is
+// the logits (kLogitsStats) or the dlogits (kDlogits); m, inv_se, scale are
+// read by kDlogits only.
+template <int kMode>
 __global__ void __launch_bounds__(NWARP * 32)
-lm_ce_fwd_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
-                 const float* __restrict__ bias, const int* __restrict__ labels,
-                 bf16* __restrict__ logits, float* __restrict__ part_m,
-                 float* __restrict__ part_se, float* __restrict__ part_ll, int N, int V,
-                 int D) {
+lm_ce_project_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
+                     const float* __restrict__ bias, const int* __restrict__ labels,
+                     bf16* __restrict__ out, float* __restrict__ part_m,
+                     float* __restrict__ part_se, float* __restrict__ part_ll,
+                     const float* __restrict__ m, const float* __restrict__ inv_se,
+                     const float* __restrict__ scale, int N, int V, int D) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* a_s = reinterpret_cast<bf16*>(smem);
   bf16* b_s = reinterpret_cast<bf16*>(smem + A_BYTES);
@@ -146,6 +171,19 @@ lm_ce_fwd_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
     const int n = r0 + row;
     if (n >= N) break;
     const int label = labels[n];
+    if constexpr (kMode == kDlogits) {
+      const float rm = m[n], rinv = inv_se[n], rscale = scale[n];
+#pragma unroll
+      for (int e = 0; e < BN / 32; ++e) {
+        const int c = lane + 32 * e, v = v0 + c;
+        if (v < V) {
+          const float lf = __bfloat162float(__float2bfloat16(c_s[row * LDC + c] + bias[v]));
+          const float p = expf(lf - rm) * rinv;
+          out[(size_t)n * V + v] = __float2bfloat16(rscale * (p - (v == label ? 1.f : 0.f)));
+        }
+      }
+      continue;
+    }
     float vals[BN / 32];
     float tmax = -INFINITY, ll = 0.f;
 #pragma unroll
@@ -154,7 +192,7 @@ lm_ce_fwd_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
       vals[e] = -INFINITY;
       if (v < V) {
         const bf16 l16 = __float2bfloat16(c_s[row * LDC + c] + bias[v]);
-        logits[(size_t)n * V + v] = l16;
+        if constexpr (kMode == kLogitsStats) out[(size_t)n * V + v] = l16;
         vals[e] = __bfloat162float(l16);
         tmax = fmaxf(tmax, vals[e]);
         if (v == label) ll = vals[e];
@@ -206,7 +244,10 @@ __global__ void lm_ce_merge_kernel(const float* __restrict__ part_m,
 }
 
 // K8: grid (D / BN, ceil(N / BM), nsplit), D % BN == 0; the V walk of split z covers
-// BK-steps [z * steps_per_split, (z + 1) * steps_per_split)
+// BK-steps [z * steps_per_split, (z + 1) * steps_per_split). kFromLogits forms the
+// A operand from the logits and the statistics (K8); otherwise ``logits`` already
+// holds the dlogits (K10's second pass) and m, inv_se, scale, labels are unused.
+template <bool kFromLogits>
 __global__ void __launch_bounds__(NWARP * 32)
 lm_ce_bwd_kernel(const bf16* __restrict__ logits, const bf16* __restrict__ w,
                  const float* __restrict__ m, const float* __restrict__ inv_se,
@@ -218,7 +259,7 @@ lm_ce_bwd_kernel(const bf16* __restrict__ logits, const bf16* __restrict__ w,
   bf16* b_s = reinterpret_cast<bf16*>(smem + A_BYTES);
   float* c_s = reinterpret_cast<float*>(smem + A_BYTES + B_BYTES);
   const int d0 = blockIdx.x * BN, r0 = blockIdx.y * BM, split = blockIdx.z;
-  const bool write_dl = blockIdx.x == 0;
+  const bool write_dl = kFromLogits && blockIdx.x == 0;
   const int tid = threadIdx.x, warp = tid / 32;
   const int wm = warp / 4, wn = warp % 4;
   const uint4 zero = make_uint4(0, 0, 0, 0);
@@ -228,7 +269,7 @@ lm_ce_bwd_kernel(const bf16* __restrict__ logits, const bf16* __restrict__ w,
   const int n = r0 + a_row;
   float rm = 0.f, rinv = 0.f, rscale = 0.f;
   int rlabel = -1;
-  if (n < N) {
+  if (kFromLogits && n < N) {
     rm = m[n];
     rinv = inv_se[n];
     rscale = scale[n];
@@ -252,9 +293,13 @@ lm_ce_bwd_kernel(const bf16* __restrict__ logits, const bf16* __restrict__ w,
       bf16 d16 = __float2bfloat16(0.f);
       if (n < N && v < V) {
         const size_t i = (size_t)n * V + v;
-        const float p = expf(__bfloat162float(logits[i]) - rm) * rinv;
-        d16 = __float2bfloat16(rscale * (p - (v == rlabel ? 1.f : 0.f)));
-        if (write_dl) dlogits[i] = d16;
+        if constexpr (kFromLogits) {
+          const float p = expf(__bfloat162float(logits[i]) - rm) * rinv;
+          d16 = __float2bfloat16(rscale * (p - (v == rlabel ? 1.f : 0.f)));
+          if (write_dl) dlogits[i] = d16;
+        } else {
+          d16 = logits[i];
+        }
       }
       a_s[a_row * LDA + a_c8 + e] = d16;
     }
@@ -292,39 +337,41 @@ __global__ void lm_ce_finalize_kernel(const float* __restrict__ partial, bf16* _
   dh[i] = __float2bfloat16(s);
 }
 
-}  // namespace
-
-// part_*: fp32 [N, ceil(V / 128)] scratch; m, se, ll: fp32 [N]
-KMB_EXPORT int kmb_lm_ce_fwd(const void* h, const void* w, const void* bias,
-                             const void* labels, void* logits, void* part_m, void* part_se,
-                             void* part_ll, void* m, void* se, void* ll, int N, int V, int D,
-                             void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = kmb_allow_smem(lm_ce_fwd_kernel, SMEM_BYTES);
+template <int kMode>
+cudaError_t launch_project(const void* h, const void* w, const void* bias, const void* labels,
+                           void* out, void* part_m, void* part_se, void* part_ll,
+                           const void* m, const void* inv_se, const void* scale, int N, int V,
+                           int D, cudaStream_t s) {
+  cudaError_t err = kmb_allow_smem(lm_ce_project_kernel<kMode>, SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  const int n_vtiles = (V + BN - 1) / BN;
-  lm_ce_fwd_kernel<<<dim3(n_vtiles, (N + BM - 1) / BM), NWARP * 32, SMEM_BYTES, s>>>(
-      (const bf16*)h, (const bf16*)w, (const float*)bias, (const int*)labels, (bf16*)logits,
-      (float*)part_m, (float*)part_se, (float*)part_ll, N, V, D);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  lm_ce_merge_kernel<<<(N + 7) / 8, 256, 0, s>>>((const float*)part_m, (const float*)part_se,
-                                                  (const float*)part_ll, (float*)m,
-                                                  (float*)se, (float*)ll, N, n_vtiles);
+  lm_ce_project_kernel<kMode><<<dim3((V + BN - 1) / BN, (N + BM - 1) / BM), NWARP * 32,
+                                 SMEM_BYTES, s>>>(
+      (const bf16*)h, (const bf16*)w, (const float*)bias, (const int*)labels, (bf16*)out,
+      (float*)part_m, (float*)part_se, (float*)part_ll, (const float*)m,
+      (const float*)inv_se, (const float*)scale, N, V, D);
   return cudaGetLastError();
 }
 
-// partial: fp32 [nsplit, N, D] scratch when nsplit > 1, else unused.
-KMB_EXPORT int kmb_lm_ce_bwd(const void* logits, const void* w, const void* m,
-                             const void* inv_se, const void* scale, const void* labels,
-                             void* dlogits, void* dh, void* partial, int N, int V, int D,
-                             int nsplit, int steps_per_split, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = kmb_allow_smem(lm_ce_bwd_kernel, SMEM_BYTES);
+cudaError_t launch_merge(const void* part_m, const void* part_se, const void* part_ll,
+                         void* m, void* se, void* ll, int N, int V, cudaStream_t s) {
+  lm_ce_merge_kernel<<<(N + 7) / 8, 256, 0, s>>>((const float*)part_m, (const float*)part_se,
+                                                  (const float*)part_ll, (float*)m,
+                                                  (float*)se, (float*)ll, N,
+                                                  (V + BN - 1) / BN);
+  return cudaGetLastError();
+}
+
+template <bool kFromLogits>
+cudaError_t launch_dh(const void* a, const void* w, const void* m, const void* inv_se,
+                      const void* scale, const void* labels, void* dlogits, void* dh,
+                      void* partial, int N, int V, int D, int nsplit, int steps_per_split,
+                      cudaStream_t s) {
+  cudaError_t err = kmb_allow_smem(lm_ce_bwd_kernel<kFromLogits>, SMEM_BYTES);
   if (err != cudaSuccess) return err;
   float* part = nsplit > 1 ? (float*)partial : nullptr;
-  lm_ce_bwd_kernel<<<dim3(D / BN, (N + BM - 1) / BM, nsplit), NWARP * 32, SMEM_BYTES, s>>>(
-      (const bf16*)logits, (const bf16*)w, (const float*)m, (const float*)inv_se,
+  lm_ce_bwd_kernel<kFromLogits><<<dim3(D / BN, (N + BM - 1) / BM, nsplit), NWARP * 32,
+                                   SMEM_BYTES, s>>>(
+      (const bf16*)a, (const bf16*)w, (const float*)m, (const float*)inv_se,
       (const float*)scale, (const int*)labels, (bf16*)dlogits, (bf16*)dh, part, N, V, D,
       steps_per_split);
   err = cudaGetLastError();
@@ -333,4 +380,55 @@ KMB_EXPORT int kmb_lm_ce_bwd(const void* logits, const void* w, const void* m,
   lm_ce_finalize_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(part, (bf16*)dh, n,
                                                                     nsplit);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// K7. part_*: fp32 [N, ceil(V / 128)] scratch; m, se, ll: fp32 [N]
+KMB_EXPORT int kmb_lm_ce_fwd(const void* h, const void* w, const void* bias,
+                             const void* labels, void* logits, void* part_m, void* part_se,
+                             void* part_ll, void* m, void* se, void* ll, int N, int V, int D,
+                             void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = launch_project<kLogitsStats>(h, w, bias, labels, logits, part_m, part_se,
+                                                 part_ll, nullptr, nullptr, nullptr, N, V, D,
+                                                 s);
+  if (err != cudaSuccess) return err;
+  return launch_merge(part_m, part_se, part_ll, m, se, ll, N, V, s);
+}
+
+// K9: K7 without the logits
+KMB_EXPORT int kmb_lm_ce_fwd_stats(const void* h, const void* w, const void* bias,
+                                   const void* labels, void* part_m, void* part_se,
+                                   void* part_ll, void* m, void* se, void* ll, int N, int V,
+                                   int D, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = launch_project<kStatsOnly>(h, w, bias, labels, nullptr, part_m, part_se,
+                                               part_ll, nullptr, nullptr, nullptr, N, V, D, s);
+  if (err != cudaSuccess) return err;
+  return launch_merge(part_m, part_se, part_ll, m, se, ll, N, V, s);
+}
+
+// K8. partial: fp32 [nsplit, N, D] scratch when nsplit > 1, else unused.
+KMB_EXPORT int kmb_lm_ce_bwd(const void* logits, const void* w, const void* m,
+                             const void* inv_se, const void* scale, const void* labels,
+                             void* dlogits, void* dh, void* partial, int N, int V, int D,
+                             int nsplit, int steps_per_split, void* stream) {
+  return launch_dh<true>(logits, w, m, inv_se, scale, labels, dlogits, dh, partial, N, V, D,
+                         nsplit, steps_per_split, (cudaStream_t)stream);
+}
+
+// K10: the dlogits from the recomputed logits, then K8's dh GEMM over them.
+// partial as for K8.
+KMB_EXPORT int kmb_lm_ce_recompute_bwd(const void* h, const void* w, const void* bias,
+                                       const void* m, const void* inv_se, const void* scale,
+                                       const void* labels, void* dlogits, void* dh,
+                                       void* partial, int N, int V, int D, int nsplit,
+                                       int steps_per_split, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = launch_project<kDlogits>(h, w, bias, labels, dlogits, nullptr, nullptr,
+                                             nullptr, m, inv_se, scale, N, V, D, s);
+  if (err != cudaSuccess) return err;
+  return launch_dh<false>(dlogits, w, nullptr, nullptr, nullptr, nullptr, nullptr, dh, partial,
+                          N, V, D, nsplit, steps_per_split, s);
 }

@@ -33,14 +33,17 @@ def init_conditional_model(cfg: MultiModalBartConfig, seed=0, device="cpu"):
 
 
 class _LazyAux(Mapping):
-    """``{"logits": ...}`` computed on first access. Under jit JAX drops the
-    unused aux logits; eager PyTorch would pay a second vocab-wide
-    projection each step, so the port computes them only when asked."""
+    """``{"logits": ..., **items}`` with the logits computed on first access.
+    Under jit JAX drops the unused aux logits; eager PyTorch would pay a
+    second vocab-wide projection each step, so the port computes them only
+    when asked."""
 
-    def __init__(self, compute):
-        self._compute, self._logits = compute, None
+    def __init__(self, compute, **items):
+        self._compute, self._logits, self._items = compute, None, items
 
     def __getitem__(self, key):
+        if key in self._items:
+            return self._items[key]
         if key != "logits":
             raise KeyError(key)
         if self._logits is None:
@@ -48,10 +51,10 @@ class _LazyAux(Mapping):
         return self._logits
 
     def __iter__(self):
-        return iter(("logits",))
+        return iter(("logits", *self._items))
 
     def __len__(self):
-        return 1
+        return 1 + len(self._items)
 
 
 def conditional_loss(model, cfg, batch, *, train=False, generator=None):

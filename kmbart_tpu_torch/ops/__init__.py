@@ -1,19 +1,24 @@
-"""Tensor ops of the port. Eight of them wrap hand-written Hopper kernels
+"""Tensor ops of the port. Eleven of them wrap hand-written Hopper kernels
 (``csrc/``); each wrapper counts its kernel launches in ``.launches``."""
 
 
 def kernel_wrappers():
     """{name: wrapper} for the kernels: K1 and K2 forward and backward, K3
-    and K4 of the generation path, K7 and K8 of the fine-tune loss."""
+    and K4 of the generation path, K7 and K8 (mode "fwdbwd") and K9 and K10
+    (mode "nomat") of the LM loss, K11 for long sequences."""
     from kmbart_tpu_torch.ops.beam_attention import beam_gather_attention
     from kmbart_tpu_torch.ops.ffn import fused_ffn, fused_ffn_bwd
-    from kmbart_tpu_torch.ops.lm_ce import lm_ce_bwd, lm_ce_fwd
+    from kmbart_tpu_torch.ops.flash_attention import flash_attention
+    from kmbart_tpu_torch.ops.lm_ce import (lm_ce_bwd, lm_ce_fwd, lm_ce_fwd_stats,
+                                            lm_ce_recompute_bwd)
     from kmbart_tpu_torch.ops.train_attention import train_attention_bwd, train_attention_flat
     from kmbart_tpu_torch.ops.vocab_stats import chunk_stats
     return {"train_attention": train_attention_flat, "train_attention_bwd": train_attention_bwd,
             "ffn": fused_ffn, "ffn_bwd": fused_ffn_bwd,
             "beam_attention": beam_gather_attention, "vocab_stats": chunk_stats,
-            "lm_ce_fwd": lm_ce_fwd, "lm_ce_bwd": lm_ce_bwd}
+            "lm_ce_fwd": lm_ce_fwd, "lm_ce_bwd": lm_ce_bwd,
+            "lm_ce_fwd_stats": lm_ce_fwd_stats, "lm_ce_recompute_bwd": lm_ce_recompute_bwd,
+            "flash_attention": flash_attention}
 
 
 def launch_counts():

@@ -1,10 +1,11 @@
 """Build and bind the hand-written Hopper kernels in ``kmbart_tpu_torch/csrc``.
 
-The CUDA C++ sources expose a plain C interface, so they build with one
-``nvcc`` call into a shared library in seconds (no PyTorch headers) and are
-bound with ``ctypes``. The build runs at first use, from the sources in the
-package, into ``kmbart_tpu_torch/_build/`` (ignored by git); the library's
-name carries a digest of the sources and flags, so an edit rebuilds.
+The CUDA C++ sources expose a plain C interface, so they build without
+PyTorch's headers: one ``nvcc`` per source, all started together, then one
+link into a shared library, bound with ``ctypes``. The build runs at first
+use, from the sources in the package, into ``kmbart_tpu_torch/_build/``
+(ignored by git); the library's name carries a digest of the sources and
+flags, so an edit rebuilds.
 
 Nothing here runs at import time: a machine without ``nvcc`` or a card
 imports the package and uses the kernels' plain PyTorch versions on CPU
@@ -24,8 +25,8 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 # element-type codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -41,8 +42,11 @@ _SIGNATURES = {
     "kmb_ffn_bwd": (_I, [_P] * 7 + [_I] * 5 + [_P]),
     "kmb_lm_ce_fwd": (_I, [_P] * 11 + [_I] * 3 + [_P]),
     "kmb_lm_ce_bwd": (_I, [_P] * 9 + [_I] * 5 + [_P]),
+    "kmb_lm_ce_fwd_stats": (_I, [_P] * 10 + [_I] * 3 + [_P]),
+    "kmb_lm_ce_recompute_bwd": (_I, [_P] * 10 + [_I] * 5 + [_P]),
     "kmb_beam_attention": (_I, [_P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _P]),
+    "kmb_flash_attention": (_I, [_P] * 5 + [_I] * 6 + [_F, _I, _P]),
     "kmb_vocab_stats": (_I, [_P, _P, _P, _I, _I, _I, _P]),
     "kmb_error_string": (ctypes.c_char_p, [_I]),
     "kmb_set_device": (_I, [_I]),
@@ -79,16 +83,31 @@ def build():
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[s for s in srcs if s.endswith(".cu")]]
-    start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    last_build_seconds = time.perf_counter() - start
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: concurrent builders never see half a file
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        nvcc = _nvcc()
+        cus = [s for s in srcs if s.endswith(".cu")]
+        objs = [os.path.join(work, os.path.basename(s)[:-3] + ".o") for s in cus]
+        start = time.perf_counter()
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for src, obj in zip(cus, objs)]
+        errors = []
+        for src, proc in zip(cus, procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{os.path.basename(src)} ({proc.returncode}):\n{err}")
+        if errors:
+            raise RuntimeError("nvcc failed: " + "\n".join(errors))
+        tmp = os.path.join(work, "lib.so")
+        proc = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        last_build_seconds = time.perf_counter() - start
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 

@@ -6,23 +6,27 @@ fp32, then the output projection; matmul operands in the compute dtype with
 fp32 accumulation; attention-prob dropout when training.
 
 Self-attention and cross-attention without a cache, under a key-padding or
-causal mask, go through the fused kernel K1 (ops/train_attention.py,
-forward and backward) when the whole score row fits on chip (Tq, Tk <= 256)
-and no attention-prob dropout is active; the JAX package does the same on
-the TPU (ops/attention.py:110-130, pallas_train_attention.py:420).
-Longer sequences take the JAX package's flash kernel there
-(pallas_attention.py), which is not ported: on a CUDA device they raise. Decode-time cross-attention over precomputed
-K/V folds a sample's beam group into the query axis, so each sample's
-encoder K/V is read once rather than once per beam.
+causal mask and with no attention-prob dropout active, go where the JAX
+package sends them on the TPU (ops/attention.py:110-130 and 186-197): to
+the fused kernel K1 (ops/train_attention.py, forward and backward) when the
+whole score row fits on chip (Tq, Tk <= 256) and there are at most 12
+heads (pallas_train_attention.py:420-433); otherwise to the flash kernel
+K11 (ops/flash_attention.py) when Tq·Tk >= 128² and the lengths and
+head_dim are multiples of 8; otherwise to the composite. Decode-time
+cross-attention over precomputed K/V folds a sample's beam group into the
+query axis, so each sample's encoder K/V is read once rather than once per
+beam.
 """
 
 import torch
 
+from kmbart_tpu_torch.ops.flash_attention import flash_self_attention
+from kmbart_tpu_torch.ops.flash_attention import supported as flash_supported
 from kmbart_tpu_torch.ops.layers import dense, dropout, scale_as
 from kmbart_tpu_torch.ops.train_attention import supported, train_attention
 
 NEG_INF = -1e9
-FLASH_MIN_SCORES = 128 * 128  # kmbart_tpu/ops/pallas_attention.py gate
+K1_MAX_HEADS = 12  # pallas_train_attention.py:426: more heads take the other paths
 
 
 def split_heads(x, num_heads):
@@ -97,18 +101,18 @@ def multi_head_attention(attn, hidden, kv_hidden=None, bias=None, *, num_heads,
         Tq = hidden.shape[1]
         Tk = Tq if kv_hidden is None else kv_hidden.shape[1]
         hd = hidden.shape[-1] // num_heads
-        if supported(Tq, Tk, hd) and (Tq == Tk or not causal):
+        fused = None
+        if (supported(Tq, Tk, hd) and num_heads <= K1_MAX_HEADS
+                and (Tq == Tk or not causal)):
+            fused = train_attention
+        elif flash_supported(Tq, Tk, hd, causal):
+            fused = flash_self_attention   # fp32 out; dense rounds it to dtype
+        if fused is not None:
             if k_flat is None:
                 k_flat, v_flat = project_kv()
-            out = train_attention(q_flat.contiguous(), k_flat.contiguous(),
-                                  v_flat.contiguous(), key_mask,
-                                  num_heads=num_heads, causal=causal)
+            out = fused(q_flat.contiguous(), k_flat.contiguous(), v_flat.contiguous(),
+                        key_mask, num_heads=num_heads, causal=causal)
             return dense(out, attn.out_proj.weight, attn.out_proj.bias, dtype)
-        if hidden.is_cuda and Tq * Tk >= FLASH_MIN_SCORES:
-            raise NotImplementedError(
-                "attention over long sequences needs the flash kernel "
-                "(kmbart_tpu/ops/pallas_attention.py flash_attention), "
-                "which is not ported yet")
 
     q = split_heads(q_flat, num_heads)
     if cross_cache is not None:

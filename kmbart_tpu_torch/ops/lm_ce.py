@@ -1,20 +1,28 @@
-"""K7 and K8: the tied LM head fused with the ignore-index cross-entropy.
+"""K7-K10: the tied LM head fused with the ignore-index cross-entropy.
 
-Counterpart of kmbart_tpu/ops/pallas_lm_ce.py in its default mode
-"fwdbwd". The kernels are in ``csrc/lm_ce.cu``; its source note says what
-bounds them on an H100 and how the design answers that.
+Counterpart of kmbart_tpu/ops/pallas_lm_ce.py in its three modes. The
+kernels are in ``csrc/lm_ce.cu``; its source note says what bounds them on
+an H100 and how the design answers that.
 
 ``lm_ce_fwd`` (K7) projects h @ Wᵀ + bias, writes the logits in bf16 and
 returns each row's max, exp-sum and label logit, taken on the rounded
 logits. ``lm_ce_bwd`` (K8) forms dlogits = scale·(softmax − onehot) in
-bf16 from the stored logits and the statistics, and dh = dlogits @ W. On
-CPU tensors both run their plain versions (``lm_ce_fwd_plain``,
-``lm_ce_bwd_plain``); on CUDA tensors they launch the kernel or raise.
-``fused_lm_ce`` is the differentiable loss: dW = dlogitsᵀ @ h is a library
-matmul cast to the bf16 weight dtype (pallas_lm_ce.py:426-431), and
-``final_logits_bias`` gets no gradient. The modes "bwd" and "nomat" of the
-JAX package are not ported.
+bf16 from the stored logits and the statistics, and dh = dlogits @ W.
+``lm_ce_fwd_stats`` (K9) is K7 without the logits: the [N, V] tensor never
+reaches memory. ``lm_ce_recompute_bwd`` (K10) is K8 with each logits tile
+recomputed from (h, W, bias) with the same bf16 rounding. On CPU tensors
+each runs its plain version (``*_plain``); on CUDA tensors it launches its
+kernel or raises.
+
+``fused_lm_ce`` is the differentiable loss, in one of the JAX package's
+modes (pallas_lm_ce.py:385-396): "fwdbwd" (K7 + K8, the default), "nomat"
+(K9 + K10) or "bwd" (the library projection and statistics in PyTorch,
+then K8). dW = dlogitsᵀ @ h is a library matmul cast to the bf16 weight
+dtype (pallas_lm_ce.py:426-431), and ``final_logits_bias`` gets no
+gradient.
 """
+
+import os
 
 import torch
 
@@ -56,18 +64,23 @@ def _check_head(name, w, d, dtype):
         raise TypeError(f"{name} kernel takes bf16 activations and weights")
 
 
+def _check_fwd(name, h, w, fbias, labels):
+    dev = _cuda.require_cuda(name, h, w, fbias, labels)
+    (N, D), V = h.shape, w.shape[0]
+    _check_head(name, w, D, h.dtype)
+    if fbias.shape != (V,) or fbias.dtype != torch.float32:
+        raise ValueError(f"{name}: bias must be fp32 [V]")
+    if labels.shape != (N,) or labels.dtype != torch.int32:
+        raise ValueError(f"{name}: labels must be int32 [N]")
+    return dev, N, V, D
+
+
 def lm_ce_fwd(h, w, fbias, labels):
     """K7; same contract as ``lm_ce_fwd_plain`` except that on a CUDA device
     h and w must be bf16, fbias fp32 and labels int32."""
     if h.device.type == "cpu":
         return lm_ce_fwd_plain(h, w, fbias, labels)
-    dev = _cuda.require_cuda("lm_ce_fwd", h, w, fbias, labels)
-    (N, D), V = h.shape, w.shape[0]
-    _check_head("lm_ce_fwd", w, D, h.dtype)
-    if fbias.shape != (V,) or fbias.dtype != torch.float32:
-        raise ValueError("lm_ce_fwd: bias must be fp32 [V]")
-    if labels.shape != (N,) or labels.dtype != torch.int32:
-        raise ValueError("lm_ce_fwd: labels must be int32 [N]")
+    dev, N, V, D = _check_fwd("lm_ce_fwd", h, w, fbias, labels)
     f32 = dict(dtype=torch.float32, device=dev)
     logits = torch.empty((N, V), dtype=torch.bfloat16, device=dev)
     m, se, ll = (torch.empty(N, **f32) for _ in range(3))
@@ -107,6 +120,23 @@ def _splits(n_blocks, n_steps, device):
     return -(-n_steps // per), per
 
 
+def _check_stats(name, N, m, inv_se, scale, labels):
+    for t in (m, inv_se, scale):
+        if t.shape != (N,) or t.dtype != torch.float32:
+            raise ValueError(f"{name}: statistics must be fp32 [N]")
+    if labels.shape != (N,) or labels.dtype != torch.int32:
+        raise ValueError(f"{name}: labels must be int32 [N]")
+
+
+def _dh_scratch(N, D, V, dev):
+    """(nsplit, steps per split, fp32 partials or None) for the dh GEMM."""
+    n_blocks = (D // TILE_V) * -(-N // TILE_N)
+    nsplit, per = _splits(n_blocks, -(-V // STEP_V), dev)
+    partial = (torch.empty((nsplit, N, D), dtype=torch.float32, device=dev)
+               if nsplit > 1 else None)
+    return nsplit, per, partial
+
+
 def lm_ce_bwd(logits, w, m, inv_se, scale, labels):
     """K8; same contract as ``lm_ce_bwd_plain`` except that on a CUDA device
     logits and w must be bf16, the statistics fp32 and labels int32."""
@@ -118,19 +148,12 @@ def lm_ce_bwd(logits, w, m, inv_se, scale, labels):
     _check_head("lm_ce_bwd", w, D, logits.dtype)
     if logits.shape != (N, V):
         raise ValueError(f"lm_ce_bwd: logits {tuple(logits.shape)} for w {tuple(w.shape)}")
-    for t in (m, inv_se, scale):
-        if t.shape != (N,) or t.dtype != torch.float32:
-            raise ValueError("lm_ce_bwd: statistics must be fp32 [N]")
-    if labels.shape != (N,) or labels.dtype != torch.int32:
-        raise ValueError("lm_ce_bwd: labels must be int32 [N]")
+    _check_stats("lm_ce_bwd", N, m, inv_se, scale, labels)
     dl = torch.empty_like(logits)
     dh = torch.empty((N, D), dtype=torch.bfloat16, device=dev)
     if N == 0:
         return dl, dh
-    n_blocks = (D // TILE_V) * -(-N // TILE_N)
-    nsplit, per = _splits(n_blocks, -(-V // STEP_V), dev)
-    partial = (torch.empty((nsplit, N, D), dtype=torch.float32, device=dev)
-               if nsplit > 1 else None)
+    nsplit, per, partial = _dh_scratch(N, D, V, dev)
     lib, stream = _cuda.prepare(dev)
     _cuda.check(lib.kmb_lm_ce_bwd(
         logits.data_ptr(), w.data_ptr(), m.data_ptr(), inv_se.data_ptr(), scale.data_ptr(),
@@ -144,35 +167,141 @@ def lm_ce_bwd(logits, w, m, inv_se, scale, labels):
 lm_ce_bwd.launches = 0
 
 
+def lm_ce_fwd_stats_plain(h, w, fbias, labels):
+    """Plain PyTorch version of K9, on any device: K7's statistics (m, se,
+    ll [N] fp32) without returning the logits."""
+    return lm_ce_fwd_plain(h, w, fbias, labels)[1:]
+
+
+def lm_ce_fwd_stats(h, w, fbias, labels):
+    """K9; same contract as ``lm_ce_fwd_stats_plain`` except that on a CUDA
+    device h and w must be bf16, fbias fp32 and labels int32. No [N, V]
+    tensor is allocated."""
+    if h.device.type == "cpu":
+        return lm_ce_fwd_stats_plain(h, w, fbias, labels)
+    dev, N, V, D = _check_fwd("lm_ce_fwd_stats", h, w, fbias, labels)
+    f32 = dict(dtype=torch.float32, device=dev)
+    m, se, ll = (torch.empty(N, **f32) for _ in range(3))
+    if N == 0:
+        return m, se, ll
+    n_vtiles = -(-V // TILE_V)
+    parts = [torch.empty((N, n_vtiles), **f32) for _ in range(3)]
+    lib, stream = _cuda.prepare(dev)
+    _cuda.check(lib.kmb_lm_ce_fwd_stats(
+        h.data_ptr(), w.data_ptr(), fbias.data_ptr(), labels.data_ptr(),
+        *(p.data_ptr() for p in parts), m.data_ptr(), se.data_ptr(), ll.data_ptr(),
+        N, V, D, stream), "lm_ce_fwd_stats")
+    lm_ce_fwd_stats.launches += 1
+    return m, se, ll
+
+
+lm_ce_fwd_stats.launches = 0
+
+
+def lm_ce_recompute_bwd_plain(h, w, fbias, m, inv_se, scale, labels):
+    """Plain PyTorch version of K10, on any device: K8 on the logits
+    recomputed as K7 rounds them. Returns (dlogits in h's dtype, dh in w's
+    dtype)."""
+    logits = (h.float() @ w.float().t() + fbias.float()).to(h.dtype)
+    return lm_ce_bwd_plain(logits, w, m, inv_se, scale, labels)
+
+
+def lm_ce_recompute_bwd(h, w, fbias, m, inv_se, scale, labels):
+    """K10; same contract as ``lm_ce_recompute_bwd_plain`` except that on a
+    CUDA device h and w must be bf16, fbias and the statistics fp32 and
+    labels int32. One launch is the dlogits pass and the dh GEMM after it
+    (csrc/lm_ce.cu, K10)."""
+    if h.device.type == "cpu":
+        return lm_ce_recompute_bwd_plain(h, w, fbias, m, inv_se, scale, labels)
+    dev, N, V, D = _check_fwd("lm_ce_recompute_bwd", h, w, fbias, labels)
+    _check_stats("lm_ce_recompute_bwd", N, m, inv_se, scale, labels)
+    dl = torch.empty((N, V), dtype=torch.bfloat16, device=dev)
+    dh = torch.empty((N, D), dtype=torch.bfloat16, device=dev)
+    if N == 0:
+        return dl, dh
+    nsplit, per, partial = _dh_scratch(N, D, V, dev)
+    lib, stream = _cuda.prepare(dev)
+    _cuda.check(lib.kmb_lm_ce_recompute_bwd(
+        h.data_ptr(), w.data_ptr(), fbias.data_ptr(), m.data_ptr(), inv_se.data_ptr(),
+        scale.data_ptr(), labels.data_ptr(), dl.data_ptr(), dh.data_ptr(),
+        None if partial is None else partial.data_ptr(), N, V, D, nsplit, per, stream),
+        "lm_ce_recompute_bwd")
+    lm_ce_recompute_bwd.launches += 1
+    return dl, dh
+
+
+lm_ce_recompute_bwd.launches = 0
+
+MODES = ("fwdbwd", "nomat", "bwd")
+
+
+def _fwd_materialized(h2, w_b, fbias, safe_labels):
+    """Mode "bwd"'s forward (pallas_lm_ce.py:398-406): the library
+    projection rounded to the compute dtype, then the statistics in
+    PyTorch."""
+    logits = (mm_f32(h2, w_b.t()) + fbias).to(h2.dtype)
+    lf = logits.float()
+    m = lf.amax(dim=-1)
+    se = torch.exp(lf - m[:, None]).sum(dim=-1)
+    ll = logits.gather(1, safe_labels.long()[:, None])[:, 0].float()
+    return logits, m, se, ll
+
+
 class _FusedNll(torch.autograd.Function):
     """Sum over valid rows of -log softmax(h Wᵀ + bias)[label]; the
-    counterpart of _fused_nll_fn's "fwdbwd" custom VJP (pallas_lm_ce.py:385).
-    The kernel wrappers are looked up at call time, so a caller can route
-    both directions to the plain versions."""
+    counterpart of _fused_nll_fn's custom VJP (pallas_lm_ce.py:385) in each
+    mode. The kernel wrappers are looked up at call time, so a caller can
+    route both directions to the plain versions."""
 
     @staticmethod
-    def forward(ctx, h2, w_b, fbias, safe_labels, valid):
-        logits, m, se, ll = lm_ce_fwd(h2, w_b, fbias, safe_labels)
-        ctx.save_for_backward(h2, w_b, logits, m, se, safe_labels, valid)
+    def forward(ctx, h2, w_b, fbias, safe_labels, valid, mode):
+        ctx.mode = mode
+        if mode == "nomat":
+            m, se, ll = lm_ce_fwd_stats(h2, w_b, fbias, safe_labels)
+            ctx.save_for_backward(h2, w_b, fbias, m, se, safe_labels, valid)
+        else:
+            fwd = lm_ce_fwd if mode == "fwdbwd" else _fwd_materialized
+            logits, m, se, ll = fwd(h2, w_b, fbias, safe_labels)
+            ctx.save_for_backward(h2, w_b, logits, m, se, safe_labels, valid)
         return torch.where(valid, torch.log(se) + m - ll, 0.0).sum()
 
     @staticmethod
     def backward(ctx, g):
-        h2, w_b, logits, m, se, safe_labels, valid = ctx.saved_tensors
+        h2, w_b, saved, m, se, safe_labels, valid = ctx.saved_tensors
         scale = (g * valid.float()).contiguous()
-        dl, dh = lm_ce_bwd(logits, w_b, m, (1.0 / se).contiguous(), scale, safe_labels)
+        inv_se = (1.0 / se).contiguous()
+        if ctx.mode == "nomat":
+            dl, dh = lm_ce_recompute_bwd(h2, w_b, saved, m, inv_se, scale, safe_labels)
+        else:
+            dl, dh = lm_ce_bwd(saved, w_b, m, inv_se, scale, safe_labels)
         # the cotangent of the rounded W in its dtype, as XLA's dot
         # transpose emits it on the composite path
         dw = mm_f32(dl.t(), h2).to(w_b.dtype)
-        return dh, dw, None, None, None
+        return dh, dw, None, None, None, None
+
+
+def resolve_mode(mode=None, recompute=None):
+    """The mode as pallas_lm_ce.fused_lm_ce picks it (:506-510): ``mode``,
+    else "nomat"/"bwd" from ``recompute``, else ``KMBART_FUSED_CE_MODE``,
+    else "fwdbwd"."""
+    if mode is None:
+        if recompute is not None:
+            mode = "nomat" if recompute else "bwd"
+        else:
+            mode = os.environ.get("KMBART_FUSED_CE_MODE", "fwdbwd")
+    if mode not in MODES:
+        raise ValueError(f"fused_lm_ce: mode {mode!r} is not one of {MODES}")
+    return mode
 
 
 def fused_lm_ce(hidden, shared, final_logits_bias, labels, *, ignore_index=-100,
-                dtype=torch.bfloat16):
+                dtype=torch.bfloat16, recompute=None, mode=None):
     """``lm_logits`` + ``cross_entropy_ignore_index`` in one op. hidden
     [..., D]; shared [V, D] (the fp32 tied embedding); final_logits_bias
-    [V] or [1, V] (no gradient); labels [...]. Returns (mean loss over the
-    valid positions, their count), as the composite path does."""
+    [V] or [1, V] (no gradient); labels [...]. ``mode`` and ``recompute``
+    as ``resolve_mode`` reads them. Returns (mean loss over the valid
+    positions, their count), as the composite path does."""
+    mode = resolve_mode(mode, recompute)
     d = hidden.shape[-1]
     h2 = hidden.reshape(-1, d).to(dtype).contiguous()
     w_b = shared.to(dtype)
@@ -180,6 +309,6 @@ def fused_lm_ce(hidden, shared, final_logits_bias, labels, *, ignore_index=-100,
     valid = labels2 != ignore_index
     safe = torch.where(valid, labels2, 0).to(torch.int32).contiguous()
     fbias = final_logits_bias.detach().reshape(-1).float().contiguous()
-    nll = _FusedNll.apply(h2, w_b, fbias, safe, valid)
+    nll = _FusedNll.apply(h2, w_b, fbias, safe, valid, mode)
     cnt = valid.sum()
     return nll / cnt.clamp(min=1), cnt

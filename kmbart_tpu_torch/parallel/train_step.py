@@ -58,8 +58,8 @@ def build_train_step(loss_fn, optimizer, skip_nonfinite=True, grad_accum_steps=1
         grads = {n: None if t.grad is None else (t.grad if G == 1 else t.grad / G)
                  for n, t in tensors.items()}
         loss = losses[0] if G == 1 else sum(losses) / G
-        metrics = {k: torch.stack([torch.as_tensor(m[k]) for m in per_micro]).float().mean()
-                   for k in per_micro[0]}
+        metrics = {k: torch.stack([torch.as_tensor(m[k]).detach() for m in per_micro])
+                   .float().mean() for k in per_micro[0]}
         ok = None
         if skip_nonfinite:
             finite = [torch.isfinite(loss).reshape(())]

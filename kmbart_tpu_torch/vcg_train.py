@@ -28,7 +28,7 @@ from kmbart_tpu_torch.cli_common import (add_common_model_args, add_dropout_args
                                          load_model_config, resolve_device,
                                          save_train_checkpoint)
 from kmbart_tpu_torch.generation.api import generate
-from kmbart_tpu_torch.models.conditional import conditional_loss
+from kmbart_tpu_torch.models.conditional import conditional_loss, init_conditional_model
 from kmbart_tpu_torch.parallel.train_step import build_eval_step, build_train_step
 from kmbart_tpu_torch.training.adamw import AdamW
 from kmbart_tpu_torch.training.state import TrainState
@@ -60,7 +60,7 @@ def main(args):
     logger.info('Loading model...')
     tokenizer = ConditionTokenizer(assets_dir=args.tokenizer_dir)
     cfg = load_model_config(args)
-    model = build_model_params(args, cfg, device, logger)
+    model = build_model_params(args, cfg, init_conditional_model, device, logger)
     optimizer = AdamW(lr=args.lr, groups=jax_leaf_groups(cfg))
     state = TrainState.create(model, optimizer)
 
