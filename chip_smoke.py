@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (kmbart_tpu_torch) on one NVIDIA GPU.
 
 Run from the repository root:  python3 chip_smoke.py
+(``--kernels-only`` stops after phase 3, to compare kernel builds.)
 
 Phases, each printing one JSON line; any failure raises and exits non-zero:
   1. device    the card's name and power limit (needs a CUDA device);
@@ -9,8 +10,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                nvcc per source, all started together);
   3. kernels   each kernel against its plain PyTorch version on the card, at
                the generation, fine-tune and pretraining paths' shapes and at
-               edge shapes, with the median times of both from CUDA events; a
-               planted-tie top-k;
+               edge shapes (K1 and its backward also on the fused QKV
+               projection's strided chunks, at Tk 256 and ragged lengths),
+               with the device times of both from CUDA events, the bound the
+               card sets for the same work (bytes or FLOPs, each input read
+               once and each output written once), and for the attention
+               kernels the time of one F.scaled_dot_product_attention call
+               on the same data (the port never calls it); a planted-tie
+               top-k;
   4. generate  beam-5 VCG generation at BART-base width (config/vcg_base.json,
                random weights from a seed, batch 64): every generation kernel
                must have launched, outputs finite, and the encoder output and
@@ -47,7 +54,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
  10. pretrain_cli  ``python -m kmbart_tpu_torch.pretrain --device cuda`` trains
                one epoch on the fixture's coco, vg, vcg and reason datasets, and
                the vcg_train twin fine-tunes one epoch from its model0/.
-The last line is {"ok": true, "device": {...}}.
+The line before the last lists every kernel with its launches on the main
+path, its error, its time, its plain version's, its bound and the library
+call's; the last line is {"ok": true, "device": {...}}. The port imports
+nothing of jax or kmbart_tpu, and the script checks that at its end.
 """
 
 import contextlib
@@ -97,6 +107,11 @@ PRETRAIN_LAUNCHES = {
 }
 PRETRAIN_LONG_LAUNCHES = {**PRETRAIN_LAUNCHES["fwdbwd"], "train_attention": 0,
                           "train_attention_bwd": 0, "flash_attention": 18}
+# the least time the card could take (bound_ms): an H100 SXM's published
+# dense peaks (NVIDIA data sheet) at the full 700 W power limit
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12      # tensor cores, bf16 operands
+F32_FLOPS = 67e12        # fp32 outside the tensor cores
 
 
 def emit(phase, **fields):
@@ -108,19 +123,110 @@ def _bf16_tol(ref):
     return BF16_ULPS * 2.0 ** (math.floor(math.log2(scale)) - 7)
 
 
-def _time_ms(torch, fn, iters=20, warmup=3):
+def _events(torch):
+    return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+
+_SLEEP_MS_PER_MCYCLE = []
+
+
+def _time_ms(torch, fn, iters=20, warmup=3, reps=3):
+    """Device time of one call in ms: ``iters`` calls enqueued behind a
+    sleeping kernel that outlasts the host's enqueueing of them, so the
+    events time the device's work and not the host's launch path; the
+    median of ``reps`` such runs. (One call between two events counts the
+    host's part when it is the slower: see ``_call_ms``.)"""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    if not _SLEEP_MS_PER_MCYCLE:
+        start, end = _events(torch)
+        start.record()
+        torch.cuda._sleep(1_000_000)
+        end.record()
+        end.synchronize()
+        _SLEEP_MS_PER_MCYCLE.append(start.elapsed_time(end))
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    cycles = int((1.5 * host_ms + 1.0) / _SLEEP_MS_PER_MCYCLE[0] * 1e6)
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(cycles)
+        start, end = _events(torch)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return sorted(times)[len(times) // 2]
+
+
+def _call_ms(torch, fn, iters=20, warmup=3):
+    """One call between two events, median of ``iters``: the host's launch
+    path and the device's work, whichever is longer (the earlier method,
+    kept to compare with the times recorded by it)."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+        start, end = _events(torch)
         start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return sorted(times)[len(times) // 2]
+
+
+def _bound(nbytes, bf16_flops=0.0, f32_flops=0.0):
+    """{"bound_ms", "bound_by"}: the larger of the bytes over the memory
+    rate and the operations over the peak rate of their type."""
+    mem = nbytes / HBM_BYTES_PER_S
+    ops = bf16_flops / BF16_FLOPS + f32_flops / F32_FLOPS
+    return {"bound_ms": 1e3 * max(mem, ops), "bound_by": "bytes" if mem >= ops else "operations",
+            "bytes": nbytes, "flops": bf16_flops + f32_flops}
+
+
+def _pairs(Tq, Tk, causal):
+    """(query, key) pairs an attention needs: causal keeps j <= i."""
+    return Tq * (Tq + 1) // 2 if causal else Tq * Tk
+
+
+def _sdpa_ms(torch, q, k, v, mask, H, causal, g=None):
+    """library_ms of an attention kernel: one F.scaled_dot_product_attention
+    call on the same data, the key mask (and causal mask) as one additive
+    [B, 1, Tq, Tk] bias in the inputs' dtype; with ``g``, its backward:
+    torch.autograd.grad through that call, the forward outside the timed
+    window."""
+    import torch.nn.functional as F
+    B, Tq, D = q.shape
+    Tk, hd = k.shape[1], D // H
+    bias = torch.where(mask.bool(), 0.0, -1e9)[:, None, None, :].expand(B, 1, Tq, Tk)
+    if causal:
+        keep = (torch.arange(Tk, device=q.device)[None, :]
+                <= torch.arange(Tq, device=q.device)[:, None])
+        bias = torch.where(keep, bias, -1e9)
+    bias = bias.to(q.dtype).contiguous()
+
+    def heads(t, T):   # [B, T, D] (rows may be strided) -> [B, H, T, hd] view
+        return t.detach().view(B, T, H, hd).transpose(1, 2).requires_grad_(g is not None)
+
+    qh, kh, vh = heads(q, Tq), heads(k, Tk), heads(v, Tk)
+
+    def call():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias)
+
+    if g is None:
+        with torch.no_grad():
+            return _time_ms(torch, call)
+    out = call()
+    gh = g.view(B, Tq, H, hd).transpose(1, 2)
+    return _time_ms(torch, lambda: torch.autograd.grad(out, (qh, kh, vh), gh,
+                                                       retain_graph=True))
 
 
 def _check(name, err, tol):
@@ -150,29 +256,73 @@ def check_kernels(torch, dev):
 
     results = {}
 
-    # K1: encoder self-attention (B 64, T 72, D 768, 12 heads); edges: tiny
-    # widths with padding, and causal
-    def k1(B, T, D, H, pad, causal, timed):
-        q, k, v = randn(B, T, D), randn(B, T, D), randn(B, T, D)
-        mask = torch.ones((B, T), dtype=torch.long, device=dev)
+    # K1 and its backward. Main-path shapes (D 768, 12 heads): the generation
+    # encoder (B 64, 72 x 72); fine-tuning at B 128: encoder self 72 x 72
+    # with 9 padded keys, decoder causal 40 x 40 with 7, cross 40 x 72;
+    # pretraining at B 128: encoder self 96 x 96 with 6 padded keys, decoder
+    # causal 72 x 72 with 6, cross 72 x 96 (the decoder's causal attention
+    # also takes its key mask). Self-attention hands K1 the strided chunks
+    # of its fused QKV projection ("fused"), as the model does. Edges: Tk 256
+    # (plain and causal), a ragged 24 x 40, tiny widths (head_dim 8), heads
+    # wider than one 64-column slab (head_dim 128, 72 and 256), and the
+    # float instantiation.
+    def qkv(B, Tq, Tk, D, fused, dtype):
+        if fused:   # row stride 3D, no copy
+            return randn(B, Tq, 3 * D, dtype=dtype).chunk(3, dim=-1)
+        return randn(B, Tq, D, dtype=dtype), randn(B, Tk, D, dtype=dtype), \
+            randn(B, Tk, D, dtype=dtype)
+
+    def key_mask(B, Tk, pad):
+        mask = torch.ones((B, Tk), dtype=torch.long, device=dev)
         if pad:
-            mask[1::2, T - pad:] = 0
+            mask[1::2, Tk - pad:] = 0
+        return mask
+
+    K1_SHAPES = [  # (B, Tq, Tk, D, H, padded keys, causal, fused QKV, timed)
+        (64, 72, 72, 768, 12, 0, False, True, True),
+        (128, 72, 72, 768, 12, 9, False, True, True),
+        (128, 40, 40, 768, 12, 7, True, True, True),
+        (128, 40, 72, 768, 12, 9, False, False, True),
+        (128, 96, 96, 768, 12, 6, False, True, True),
+        (128, 72, 72, 768, 12, 6, True, True, True),
+        (128, 72, 96, 768, 12, 6, False, False, True),
+        (2, 256, 256, 768, 12, 7, False, False, False),
+        (2, 256, 256, 768, 12, 0, True, True, False),
+        (3, 24, 40, 768, 12, 5, False, False, False),
+        (3, 16, 16, 32, 4, 5, False, True, False),
+        (3, 16, 16, 32, 4, 5, True, True, False),
+        (3, 8, 16, 32, 4, 5, False, False, False),
+        (4, 72, 72, 1024, 8, 9, False, True, False),
+        (4, 40, 40, 1024, 8, 7, True, True, False),
+        (3, 24, 40, 288, 4, 5, False, False, False),
+        (2, 72, 72, 1024, 4, 6, True, True, False),
+    ]
+
+    def k1(B, Tq, Tk, D, H, pad, causal, fused, timed, dtype=bf16):
+        q, k, v = qkv(B, Tq, Tk, D, fused, dtype)
+        mask = key_mask(B, Tk, pad)
         kw = dict(num_heads=H, causal=causal)
         out = ta.train_attention_flat(q, k, v, mask, **kw)
         ref = ta.train_attention_plain(q, k, v, mask, **kw)
-        err = float((out.float() - ref.float()).abs().max())
-        tol = _bf16_tol(ref.float())
-        _check(f"train_attention {B}x{T}x{D} causal={causal}", err, tol)
-        res = {"shape": [B, T, D, H], "pad": pad, "causal": causal,
-               "max_abs_err": err, "tol": tol}
+        err, tol = _max_err(out, ref), _bf16_tol(ref.float())
+        _check(f"train_attention {B}x{Tq}x{Tk}x{D} causal={causal} fused={fused} {dtype}",
+               err, tol)
+        res = {"shape": [B, Tq, Tk, D, H], "pad": pad, "causal": causal, "fused_qkv": fused,
+               "dtype": str(dtype).split(".")[-1], "max_abs_err": err, "tol": tol}
         if timed:
             res["ms"] = _time_ms(torch, lambda: ta.train_attention_flat(q, k, v, mask, **kw))
-            res["plain_ms"] = _time_ms(torch, lambda: ta.train_attention_plain(q, k, v, mask, **kw))
+            res["call_ms"] = _call_ms(torch, lambda: ta.train_attention_flat(q, k, v, mask,
+                                                                             **kw))
+            res["plain_ms"] = _time_ms(torch, lambda: ta.train_attention_plain(q, k, v, mask,
+                                                                               **kw))
+            res["library_ms"] = _sdpa_ms(torch, q, k, v, mask, H, causal)
+            res.update(_bound(2 * (2 * B * Tq * D + 2 * B * Tk * D) + 8 * B * Tk,
+                              bf16_flops=4.0 * B * _pairs(Tq, Tk, causal) * D))
         return res
 
-    results["train_attention"] = [k1(64, 72, 768, 12, 0, False, True),
-                                  k1(3, 16, 32, 4, 5, False, False),
-                                  k1(3, 16, 32, 4, 5, True, False)]
+    results["train_attention"] = [k1(*shape) for shape in K1_SHAPES] + [
+        k1(3, 16, 16, 32, 4, 5, True, True, False, dtype=torch.float32),
+        k1(4, 40, 72, 768, 12, 9, False, False, False, dtype=torch.float32)]
 
     # K2: encoder FFN rows (64 x 72) and decoder-step rows (64 x 5); edge:
     # tiny widths with a ragged row count
@@ -190,6 +340,8 @@ def check_kernels(torch, dev):
         if timed:
             res["ms"] = _time_ms(torch, lambda: ffn.fused_ffn(x, w1, b1, w2, b2))
             res["plain_ms"] = _time_ms(torch, lambda: ffn.fused_ffn_plain(x, w1, b1, w2, b2))
+            res.update(_bound(2 * (2 * N * D + 2 * F * D) + 4 * (F + D),
+                              bf16_flops=4.0 * N * D * F))
         return res
 
     results["ffn"] = [k2(64 * 72, 768, 3072, True), k2(64 * 5, 768, 3072, True),
@@ -212,38 +364,44 @@ def check_kernels(torch, dev):
         if timed:
             res["ms"] = _time_ms(torch, lambda: ba.beam_gather_attention(q, kc, vc, anc, cache_index, **kw))
             res["plain_ms"] = _time_ms(torch, lambda: ba.beam_gather_attention_plain(q, kc, vc, anc, cache_index, **kw))
+            pos = cache_index + 1   # the cache positions this step reads
+            res.update(_bound(2 * B * K * D + 2 * 2 * B * K * pos * D + 4 * B * K * pos
+                              + 4 * B * K * D, bf16_flops=4.0 * B * K * pos * D))
         return res
 
-    # K1 backward at the fine-tune shapes (B 128): encoder self 72x72 with
-    # padded keys, decoder self 40x40 causal, cross 40x72; edges: tiny widths
-    def k1b(B, Tq, Tk, D, H, pad, causal, timed):
-        q, k, v, g = randn(B, Tq, D), randn(B, Tk, D), randn(B, Tk, D), randn(B, Tq, D)
-        mask = torch.ones((B, Tk), dtype=torch.long, device=dev)
-        if pad:
-            mask[1::2, Tk - pad:] = 0
+    # K1 backward at K1's shapes (the generation encoder's row is forward
+    # only, so the backward's first row is the fine-tune encoder's)
+    def k1b(B, Tq, Tk, D, H, pad, causal, fused, timed, dtype=bf16):
+        q, k, v = qkv(B, Tq, Tk, D, fused, dtype)
+        g = randn(B, Tq, D, dtype=dtype)
+        mask = key_mask(B, Tk, pad)
         kw = dict(num_heads=H, causal=causal)
         outs = ta.train_attention_bwd(q, k, v, mask, g, **kw)
         refs = ta.train_attention_bwd_plain(q, k, v, mask, g, **kw)
-        res = {"shape": [B, Tq, Tk, D, H], "pad": pad, "causal": causal}
+        res = {"shape": [B, Tq, Tk, D, H], "pad": pad, "causal": causal, "fused_qkv": fused,
+               "dtype": str(dtype).split(".")[-1]}
         errs = []
         for name, out, ref in zip(("dq", "dk", "dv"), outs, refs):
             err, tol = _max_err(out, ref), _bf16_tol(ref.float())
-            _check(f"train_attention_bwd {name} {B}x{Tq}x{Tk} causal={causal}", err, tol)
+            _check(f"train_attention_bwd {name} {B}x{Tq}x{Tk} causal={causal} fused={fused} "
+                   f"{dtype}", err, tol)
             res[f"{name}_err"], res[f"{name}_tol"] = err, tol
             errs.append(err)
         res["max_abs_err"] = max(errs)
         if timed:
-            res["ms"] = _time_ms(torch, lambda: ta.train_attention_bwd(q, k, v, mask, g, **kw))
+            run = lambda: ta.train_attention_bwd(q, k, v, mask, g, **kw)  # noqa: E731
+            res["ms"], res["call_ms"] = _time_ms(torch, run), _call_ms(torch, run)
             res["plain_ms"] = _time_ms(
                 torch, lambda: ta.train_attention_bwd_plain(q, k, v, mask, g, **kw))
+            res["library_ms"] = _sdpa_ms(torch, q, k, v, mask, H, causal, g=g)
+            res.update(_bound(2 * (2 * B * Tq * D + 2 * B * Tk * D + B * Tq * D
+                                   + 2 * B * Tk * D) + 8 * B * Tk,
+                              bf16_flops=10.0 * B * _pairs(Tq, Tk, causal) * D))
         return res
 
-    results["train_attention_bwd"] = [k1b(128, 72, 72, 768, 12, 9, False, True),
-                                      k1b(128, 40, 40, 768, 12, 7, True, True),
-                                      k1b(128, 40, 72, 768, 12, 9, False, True),
-                                      k1b(3, 16, 16, 32, 4, 5, False, False),
-                                      k1b(3, 16, 16, 32, 4, 5, True, False),
-                                      k1b(3, 8, 16, 32, 4, 5, False, False)]
+    results["train_attention_bwd"] = [k1b(*shape) for shape in K1_SHAPES[1:]] + [
+        k1b(3, 16, 16, 32, 4, 5, True, True, False, dtype=torch.float32),
+        k1b(4, 40, 72, 768, 12, 9, False, False, False, dtype=torch.float32)]
 
     # K2 forward with the pre-activation out, at the fine-tune rows (128 x 72
     # encoder, 128 x 40 decoder)
@@ -279,6 +437,8 @@ def check_kernels(torch, dev):
         if timed:
             res["ms"] = _time_ms(torch, lambda: ffn.fused_ffn_bwd(g, a, w1, w2))
             res["plain_ms"] = _time_ms(torch, lambda: ffn.fused_ffn_bwd_plain(g, a, w1, w2))
+            res.update(_bound(2 * (2 * N * D + 2 * N * F + 2 * F * D),
+                              bf16_flops=4.0 * N * D * F))
         return res
 
     results["ffn_bwd"] = [k2b(128 * 72, 768, 3072, True), k2b(128 * 40, 768, 3072, True),
@@ -318,6 +478,10 @@ def check_kernels(torch, dev):
                                        iters=10)
             bwd["ms"] = _time_ms(torch, lambda: lm_ce.lm_ce_bwd(*bargs), iters=10)
             bwd["plain_ms"] = _time_ms(torch, lambda: lm_ce.lm_ce_bwd_plain(*bargs), iters=10)
+            fwd.update(_bound(2 * N * D + 2 * V * D + 4 * V + 4 * N + 2 * N * V + 12 * N,
+                              bf16_flops=2.0 * N * V * D))
+            bwd.update(_bound(2 * 2 * N * V + 2 * V * D + 16 * N + 2 * N * D,
+                              bf16_flops=2.0 * N * V * D))
         return fwd, bwd
 
     head = [k78(5120, 50320, 768, True), k78(24, 1100, 128, False)]
@@ -365,6 +529,10 @@ def check_kernels(torch, dev):
             bwd["k8_ms"] = _time_ms(
                 torch, lambda: lm_ce.lm_ce_bwd(logits, w, m, bargs[4], scale, labels),
                 iters=10)
+            fwd.update(_bound(2 * N * D + 2 * V * D + 4 * V + 4 * N + 12 * N,
+                              bf16_flops=2.0 * N * V * D))
+            bwd.update(_bound(2 * N * D + 2 * V * D + 4 * V + 16 * N + 2 * N * V + 2 * N * D,
+                              bf16_flops=4.0 * N * V * D))
         return fwd, bwd
 
     nomat = [k910(9216, 50320, 768, True), k910(24, 1100, 128, False)]
@@ -392,6 +560,11 @@ def check_kernels(torch, dev):
             res["ms"] = _time_ms(torch, lambda: fa.flash_attention(q, k, v, mask, **kw))
             res["plain_ms"] = _time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, mask,
                                                                                **kw))
+            res["library_ms"] = _sdpa_ms(torch, q, k, v, mask, H, causal)
+            # q·k has bf16 operands; p·v keeps p in fp32 (the CUDA cores)
+            pairs = B * _pairs(Tq, Tk, causal) * D
+            res.update(_bound(2 * (B * Tq * D + 2 * B * Tk * D) + 4 * B * Tk + 4 * B * Tq * D,
+                              bf16_flops=2.0 * pairs, f32_flops=2.0 * pairs))
         return res
 
     results["flash_attention"] = [k11(32, 296, 296, 768, 12, 9, False, True),
@@ -427,6 +600,8 @@ def check_kernels(torch, dev):
         if timed:
             out["ms"] = _time_ms(torch, lambda: vs.chunk_stats(x))
             out["plain_ms"] = _time_ms(torch, lambda: vs.chunk_stats_plain(x))
+            # a max, an exp and a sum for each logit, in fp32
+            out.update(_bound(4 * R * V + 8 * R * cm.shape[1], f32_flops=3.0 * R * V))
         return out
 
     results["vocab_stats"] = [k4(320, 50320, False, True), k4(8, 50320, True, False)]
@@ -635,19 +810,44 @@ def run_generate(torch, dev, card):
 # phase 5: the CLI twin
 # ---------------------------------------------------------------------------
 
-def _load_fixture_module():
-    """tests/fixtures/make_dataset.py, loaded by path (tests/ is not a package)."""
+def make_dataset(out_dir):
+    """The fixture dataset of tests/fixtures/make_dataset.py (its writers,
+    loaded by path: tests/ is not a package) with the tokenizer assets and
+    the tiny config made by the port's own modules, as that script's
+    make_dataset makes them with the JAX package's."""
     import importlib.util
+    import numpy as np
+    from kmbart_tpu_torch.config import tiny_config
+    from kmbart_tpu_torch.data.bpe import build_toy_assets
+    from kmbart_tpu_torch.data.tokenization import ConditionTokenizer
     path = os.path.join(REPO, "tests", "fixtures", "make_dataset.py")
     spec = importlib.util.spec_from_file_location("kmbart_fixture_make_dataset", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    fx = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fx)
+    rng = np.random.default_rng(0)
+    paths = {name: os.path.join(out_dir, name) for name in ("vcg", "coco", "vg", "reason")}
+    for name in paths:
+        os.makedirs(paths[name], exist_ok=True)
+    fx.make_vcg(paths["vcg"], rng)
+    fx.make_coco(paths["coco"], rng)
+    fx.make_vg(paths["vg"], rng)
+    fx.make_reason(paths["reason"], paths["vcg"], rng)
+    paths["tokenizer"] = os.path.join(out_dir, "tokenizer")
+    build_toy_assets(paths["tokenizer"])
+    tok = ConditionTokenizer(assets_dir=paths["tokenizer"])
+    cfg = tiny_config(
+        vocab_size=len(tok) + 8, img_feat_id=tok.img_feat_id, cls_token_id=tok.cls_token_id,
+        pad_token_id=tok.pad_token_id, bos_token_id=tok.bos_token_id,
+        eos_token_id=tok.eos_token_id, decoder_start_token_id=tok.bos_token_id,
+        image_feature_size=fx.FEAT_DIM + fx.BOX_DIM, num_labels=fx.NUM_MRM_LABELS,
+        num_attributes=8, num_relations=8)
+    paths["config"] = os.path.join(out_dir, "config.json")
+    cfg.save_json(paths["config"])
+    return paths
 
 
 def run_cli(card):
     from kmbart_tpu_torch import MultiModalBartConfig
-    make_dataset = _load_fixture_module().make_dataset
 
     with tempfile.TemporaryDirectory() as tmp:
         paths = make_dataset(os.path.join(tmp, "data"))
@@ -843,8 +1043,12 @@ def _profile_steps(torch, run_step, n=3):
               if e.device_type == DeviceType.CUDA and dev(e) > 0]
     busy_ms = sum(dev(e) for e in events) / 1e3
     top = sorted(events, key=dev, reverse=True)[:15]
+    # K1 and K1b over all their instantiations (they may rank below the top)
+    per_step = lambda tag: sum(dev(e) for e in events if tag in e.key) / 1e3 / n
     return {"steps": n, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / wall_ms,
+            "k1_ms_per_step": per_step("attn_fwd_tc"),
+            "k1b_ms_per_step": per_step("attn_bwd_tc"),
             "top_device_ops": [{"name": e.key[:80], "calls": e.count,
                                 "ms_per_step": dev(e) / 1e3 / n,
                                 "share": dev(e) / 1e3 / busy_ms} for e in top]}
@@ -855,7 +1059,6 @@ def _profile_steps(torch, run_step, n=3):
 # ---------------------------------------------------------------------------
 
 def run_train_cli(card):
-    make_dataset = _load_fixture_module().make_dataset
     with tempfile.TemporaryDirectory() as tmp:
         paths = make_dataset(os.path.join(tmp, "data"))
         ckpt_dir = os.path.join(tmp, "ckpt")
@@ -1127,7 +1330,6 @@ def run_pretrain_long(torch, dev, card):
 def run_pretrain_cli(card):
     """Phase 10: the pretrain twin on the fixture, then a fine-tune epoch of
     the vcg_train twin from its model0/."""
-    make_dataset = _load_fixture_module().make_dataset
     with tempfile.TemporaryDirectory() as tmp:
         paths = make_dataset(os.path.join(tmp, "data"))
         ckpt_dir, ft_dir = os.path.join(tmp, "ckpt"), os.path.join(tmp, "ft")
@@ -1167,9 +1369,9 @@ def run_pretrain_cli(card):
 
 
 KERNEL_INFO = {
-    "train_attention": ("kmbart_tpu_torch/csrc/train_attention.cu",
+    "train_attention": ("kmbart_tpu_torch/csrc/train_attention_tc.cuh",
                         "kmbart_tpu/ops/pallas_train_attention.py:194"),
-    "train_attention_bwd": ("kmbart_tpu_torch/csrc/train_attention.cu",
+    "train_attention_bwd": ("kmbart_tpu_torch/csrc/train_attention_tc.cuh",
                             "kmbart_tpu/ops/pallas_train_attention.py:223"),
     "ffn": ("kmbart_tpu_torch/csrc/ffn.cu", "kmbart_tpu/ops/pallas_ffn.py:160"),
     "ffn_bwd": ("kmbart_tpu_torch/csrc/ffn.cu", "kmbart_tpu/ops/pallas_ffn.py:190"),
@@ -1188,7 +1390,13 @@ KERNEL_INFO = {
 }
 
 
-def main():
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="build the kernels, hold each against its plain version, print "
+                         "the kernels phase and stop (no paths driven, no ok line)")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -1209,6 +1417,8 @@ def main():
 
     kernels = check_kernels(torch, dev)
     emit("kernels", card=card, **kernels)
+    if args.kernels_only:
+        return
     launches = run_generate(torch, dev, card)
     run_cli(card)
     launches.update(run_train(torch, dev, card))
@@ -1221,13 +1431,18 @@ def main():
     run_pretrain_cli(card)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
+    loaded = [m for m in sys.modules if m == "kmbart_tpu" or m.startswith("kmbart_tpu.")]
+    if loaded:
+        raise AssertionError(f"modules of kmbart_tpu were imported: {loaded}")
 
     print(card)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
          "replaces": KERNEL_INFO[name][1], "launches": launches[name],
          "max_abs_err": kernels[name][0]["max_abs_err"],
-         "ms": kernels[name][0]["ms"], "plain_ms": kernels[name][0]["plain_ms"]}
+         "ms": kernels[name][0]["ms"], "plain_ms": kernels[name][0]["plain_ms"],
+         "bound_ms": kernels[name][0]["bound_ms"], "bound_by": kernels[name][0]["bound_by"],
+         "library_ms": kernels[name][0].get("library_ms")}
         for name in KERNEL_INFO]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """KM-BART in PyTorch, with hand-written Hopper kernels.
 
 The port of ``kmbart_tpu`` (JAX on a TPU) to PyTorch and CUDA on an NVIDIA
-H100. It mirrors the JAX package's layout, imports its framework-free
-modules (config, data, logging) and never imports ``jax``. The kernels the
+H100. It mirrors the JAX package's layout and imports nothing of it, nor
+``jax``: the framework-free modules (``config``, ``data``, ``eval``,
+``utils``, ``_native``) are its own copies, under the same names. The kernels the
 TPU ran in Pallas are CUDA C++ under ``csrc/``, built with ``nvcc`` at first
 use (ops/_cuda.py); on CPU tensors every kernel wrapper runs its plain
 PyTorch version instead.
@@ -20,4 +21,4 @@ kmbart_tpu_torch.pretrain``).
 
 __version__ = "0.1.0"
 
-from kmbart_tpu.config import MultiModalBartConfig  # noqa: F401
+from kmbart_tpu_torch.config import MultiModalBartConfig  # noqa: F401

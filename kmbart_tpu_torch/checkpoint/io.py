@@ -21,7 +21,7 @@ import os
 import numpy as np
 import torch
 
-from kmbart_tpu.config import MultiModalBartConfig
+from kmbart_tpu_torch.config import MultiModalBartConfig
 from kmbart_tpu_torch.models.conditional import init_conditional_model
 
 WEIGHTS_NAME = "params.npz"

@@ -14,7 +14,7 @@ import os
 
 import torch
 
-from kmbart_tpu.config import MultiModalBartConfig
+from kmbart_tpu_torch.config import MultiModalBartConfig
 
 
 def add_common_model_args(parser: argparse.ArgumentParser):

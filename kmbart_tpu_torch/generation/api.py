@@ -12,7 +12,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from kmbart_tpu.config import MultiModalBartConfig
+from kmbart_tpu_torch.config import MultiModalBartConfig
 from kmbart_tpu_torch.generation.beam import beam_search_loop
 from kmbart_tpu_torch.generation.decode import greedy_loop
 from kmbart_tpu_torch.models import bart

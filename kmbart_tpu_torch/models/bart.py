@@ -24,7 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from kmbart_tpu.config import MultiModalBartConfig
+from kmbart_tpu_torch.config import MultiModalBartConfig
 from kmbart_tpu_torch.ops.attention import multi_head_attention, padding_bias
 from kmbart_tpu_torch.ops.beam_attention import beam_gather_attention
 from kmbart_tpu_torch.ops.ffn import ffn

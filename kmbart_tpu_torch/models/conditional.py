@@ -11,7 +11,7 @@ from collections.abc import Mapping
 import torch
 from torch import nn
 
-from kmbart_tpu.config import MultiModalBartConfig
+from kmbart_tpu_torch.config import MultiModalBartConfig
 from kmbart_tpu_torch.models import bart
 from kmbart_tpu_torch.models.bart import MultiModalBartModel, init_bart_params_
 from kmbart_tpu_torch.models.heads import lm_cross_entropy

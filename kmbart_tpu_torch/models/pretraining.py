@@ -25,7 +25,7 @@ multiplies by one-hot matrices to avoid a scatter-add on the TPU
 import torch
 from torch import nn
 
-from kmbart_tpu.config import MultiModalBartConfig
+from kmbart_tpu_torch.config import MultiModalBartConfig
 from kmbart_tpu_torch.models import bart
 from kmbart_tpu_torch.models.bart import MultiModalBartModel, compute_dtype, init_bart_params_
 from kmbart_tpu_torch.models.conditional import _LazyAux

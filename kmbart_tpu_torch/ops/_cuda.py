@@ -33,10 +33,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "kmb_train_attention_fwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                     _F, _I, _P]),
-    "kmb_train_attention_smem_bytes": (ctypes.c_size_t, [_I, _I]),
-    "kmb_train_attention_bwd": (_I, [_P] * 8 + [_I] * 6 + [_F, _F, _I, _P]),
+    "kmb_train_attention_fwd": (_I, [_P] * 5 + [_I] * 9 + [_F, _I, _P]),
+    "kmb_train_attention_smem_bytes": (ctypes.c_size_t, [_I, _I, _I, _I]),
+    "kmb_train_attention_bwd": (_I, [_P] * 8 + [_I] * 9 + [_F, _F, _I, _P]),
     "kmb_train_attention_bwd_smem_bytes": (ctypes.c_size_t, [_I, _I, _I, _I]),
     "kmb_ffn_fwd": (_I, [_P] * 8 + [_I] * 5 + [_P]),
     "kmb_ffn_bwd": (_I, [_P] * 7 + [_I] * 5 + [_P]),
@@ -145,13 +144,14 @@ def dtype_code(t):
         raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}") from None
 
 
-def require_cuda(name, *tensors):
-    """Wrapper guard: every tensor on one CUDA device and contiguous."""
+def require_cuda(name, *tensors, contiguous=True):
+    """Wrapper guard: every tensor on one CUDA device and, unless the kernel
+    reads by stride (``contiguous=False``), contiguous."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: kernel takes contiguous tensors")
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")

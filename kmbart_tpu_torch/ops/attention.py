@@ -110,8 +110,10 @@ def multi_head_attention(attn, hidden, kv_hidden=None, bias=None, *, num_heads,
         if fused is not None:
             if k_flat is None:
                 k_flat, v_flat = project_kv()
-            out = fused(q_flat.contiguous(), k_flat.contiguous(), v_flat.contiguous(),
-                        key_mask, num_heads=num_heads, causal=causal)
+            if fused is flash_self_attention:
+                q_flat, k_flat, v_flat = (t.contiguous() for t in (q_flat, k_flat, v_flat))
+            # K1 reads the fused QKV chunks by row stride, without a copy
+            out = fused(q_flat, k_flat, v_flat, key_mask, num_heads=num_heads, causal=causal)
             return dense(out, attn.out_proj.weight, attn.out_proj.bias, dtype)
 
     q = split_heads(q_flat, num_heads)

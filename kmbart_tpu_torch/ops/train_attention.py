@@ -2,14 +2,17 @@
 backward.
 
 Counterpart of kmbart_tpu/ops/pallas_train_attention.py. Both kernels are
-in ``csrc/train_attention.cu``; their source notes say what bounds them on
-an H100 and how the design answers that.
+in ``csrc/train_attention_tc.cuh`` (bf16, tensor cores) and
+``csrc/train_attention.cu`` (fp32); the latter's source note says what
+bounds them on an H100 and how the design answers that.
 
 ``train_attention_flat`` wraps the forward: on CPU tensors it runs
 ``train_attention_plain``, on CUDA tensors it launches the kernel or
 raises. Both compute, per head, softmax(q·scale @ kᵀ + key bias, causal
 mask) @ v with the TPU kernel's roundings: q·scale and P rounded to the
-input dtype, scores, softmax and the PV sum in fp32.
+input dtype, scores, softmax and the PV sum in fp32. The kernels read q,
+k and v by row stride, so the chunks of a fused QKV projection go in as
+they are; in bf16 they run on the tensor cores.
 ``train_attention_bwd`` wraps the backward the same way
 (``train_attention_bwd_plain`` on the CPU), and ``train_attention`` is the
 differentiable op the model calls: forward K1, backward the K1 backward,
@@ -28,6 +31,20 @@ def _key_bias(key_mask, B, Tk, device):
     if key_mask is None:
         return torch.zeros((B, Tk), dtype=torch.float32, device=device)
     return torch.where(key_mask.to(device=device).bool(), 0.0, NEG_INF).float()
+
+
+def _kernel_mask(key_mask, B, Tk, device):
+    """The key mask as the kernels read it: [B, Tk] int64 on the device
+    (no copy when it already is), or None for no mask."""
+    if key_mask is None:
+        return None
+    if tuple(key_mask.shape) != (B, Tk):
+        raise ValueError(f"key_mask of shape {tuple(key_mask.shape)}, expected {(B, Tk)}")
+    return key_mask.to(device=device, dtype=torch.int64).contiguous()
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _scaled(q, head_dim):
@@ -68,6 +85,51 @@ def supported(q_len, k_len, head_dim):
     return q_len <= MAX_LEN and k_len <= MAX_LEN and head_dim % 8 == 0
 
 
+def row_stride(t, name):
+    """The row stride of a [B, T, D] tensor whose rows are contiguous and
+    evenly spaced (a chunk of a fused [B, T, 3D] projection has 3D); the
+    bf16 kernels load 16-byte units, so there it must be a multiple of 8
+    elements from a 16-byte aligned start. Raises on any other layout."""
+    B, T, D = t.shape
+    if t.is_contiguous():
+        ld = D
+    else:
+        s0, s1, s2 = t.stride()
+        ld = s1 if T > 1 else s0
+        if s2 != 1 or ld < D or (B > 1 and s0 != T * ld):
+            raise ValueError(f"{name}: the kernel reads rows by stride, got strides "
+                             f"{t.stride()} for shape {tuple(t.shape)}")
+    if t.dtype == torch.bfloat16 and (ld % 8 or t.data_ptr() % 16):
+        raise ValueError(f"{name}: bf16 rows must start 16-byte aligned (row stride "
+                         f"{ld}, address {t.data_ptr()})")
+    return ld
+
+
+def _check_args(name, q_flat, k_flat, v_flat, num_heads, causal, g_flat=None):
+    """Device, shapes, dtypes and layouts the kernels take; returns (device,
+    B, Tq, Tk, D, hd, (ldq, ldk, ldv))."""
+    dev = _cuda.require_cuda(name, q_flat, k_flat, v_flat, contiguous=False)
+    if g_flat is not None and _cuda.require_cuda(name, g_flat) != dev:  # g: contiguous
+        raise ValueError(f"{name}: tensors on {g_flat.device} and {dev}")
+    B, Tq, D = q_flat.shape
+    Tk = k_flat.shape[1]
+    hd = D // num_heads
+    if (k_flat.shape != (B, Tk, D) or v_flat.shape != k_flat.shape or D % num_heads
+            or (g_flat is not None and g_flat.shape != q_flat.shape)):
+        shapes = [tuple(t.shape) for t in (q_flat, k_flat, v_flat, g_flat) if t is not None]
+        raise ValueError(f"{name}: shapes {shapes}")
+    if not supported(Tq, Tk, hd):
+        raise ValueError(f"{name} kernel takes Tq, Tk <= {MAX_LEN} and head_dim % 8 == 0, "
+                         f"got {Tq}, {Tk}, {hd}")
+    if causal and Tq != Tk:
+        raise ValueError(f"{name}: causal needs Tq == Tk")
+    if not (q_flat.dtype == k_flat.dtype == v_flat.dtype
+            and (g_flat is None or g_flat.dtype == q_flat.dtype)):
+        raise TypeError(f"{name}: input dtypes differ")
+    lds = tuple(row_stride(t, name) for t in (q_flat, k_flat, v_flat))
+    return dev, B, Tq, Tk, D, hd, lds
+
+
 def train_attention_flat(q_flat, k_flat, v_flat, key_mask, *, num_heads,
                          causal=False):
     """Fused attention on flat projections; same contract as
@@ -75,32 +137,19 @@ def train_attention_flat(q_flat, k_flat, v_flat, key_mask, *, num_heads,
     if q_flat.device.type == "cpu":
         return train_attention_plain(q_flat, k_flat, v_flat, key_mask,
                                      num_heads=num_heads, causal=causal)
-    dev = _cuda.require_cuda("train_attention_flat", q_flat, k_flat, v_flat)
-    B, Tq, D = q_flat.shape
-    Tk = k_flat.shape[1]
-    hd = D // num_heads
-    if (k_flat.shape != (B, Tk, D) or v_flat.shape != k_flat.shape
-            or D % num_heads):
-        raise ValueError(f"train_attention_flat: shapes {tuple(q_flat.shape)}, "
-                         f"{tuple(k_flat.shape)}, {tuple(v_flat.shape)}")
-    if not supported(Tq, Tk, hd):
-        raise ValueError(f"train_attention_flat kernel takes Tq, Tk <= {MAX_LEN} "
-                         f"and head_dim % 8 == 0, got {Tq}, {Tk}, {hd}")
-    if causal and Tq != Tk:
-        raise ValueError("train_attention_flat: causal needs Tq == Tk")
-    if not (q_flat.dtype == k_flat.dtype == v_flat.dtype):
-        raise TypeError("train_attention_flat: q, k, v dtypes differ")
+    dev, B, Tq, Tk, D, hd, lds = _check_args("train_attention_flat", q_flat, k_flat,
+                                             v_flat, num_heads, causal)
     code = _cuda.dtype_code(q_flat)
     lib, stream = _cuda.prepare(dev)
-    if lib.kmb_train_attention_smem_bytes(Tk, hd) > 227 * 1024:
-        raise ValueError(f"train_attention_flat: K/V of {Tk} x {hd} do not fit "
-                         "in shared memory")
-    bias = _key_bias(key_mask, B, Tk, dev).contiguous()
+    if lib.kmb_train_attention_smem_bytes(Tq, Tk, hd, code) > 227 * 1024:
+        raise ValueError(f"train_attention_flat: {Tq}/{Tk} x {hd} do not fit in shared "
+                         "memory")
+    mask = _kernel_mask(key_mask, B, Tk, dev)
     scale = float(torch.tensor(hd ** -0.5, dtype=q_flat.dtype))
-    out = torch.empty_like(q_flat)
+    out = torch.empty((B, Tq, D), dtype=q_flat.dtype, device=dev)
     _cuda.check(lib.kmb_train_attention_fwd(
-        q_flat.data_ptr(), k_flat.data_ptr(), v_flat.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), B, Tq, Tk, D, num_heads, int(causal), scale, code,
+        q_flat.data_ptr(), k_flat.data_ptr(), v_flat.data_ptr(), _ptr(mask),
+        out.data_ptr(), B, Tq, Tk, D, num_heads, *lds, int(causal), scale, code,
         stream), "train_attention_flat")
     train_attention_flat.launches += 1
     return out
@@ -150,34 +199,22 @@ def train_attention_bwd(q_flat, k_flat, v_flat, key_mask, g_flat, *, num_heads,
     if q_flat.device.type == "cpu":
         return train_attention_bwd_plain(q_flat, k_flat, v_flat, key_mask, g_flat,
                                          num_heads=num_heads, causal=causal)
-    dev = _cuda.require_cuda("train_attention_bwd", q_flat, k_flat, v_flat, g_flat)
-    B, Tq, D = q_flat.shape
-    Tk = k_flat.shape[1]
-    hd = D // num_heads
-    if (k_flat.shape != (B, Tk, D) or v_flat.shape != k_flat.shape
-            or g_flat.shape != q_flat.shape or D % num_heads):
-        raise ValueError(f"train_attention_bwd: shapes q {tuple(q_flat.shape)}, "
-                         f"k {tuple(k_flat.shape)}, v {tuple(v_flat.shape)}, "
-                         f"g {tuple(g_flat.shape)}")
-    if not supported(Tq, Tk, hd):
-        raise ValueError(f"train_attention_bwd kernel takes Tq, Tk <= {MAX_LEN} "
-                         f"and head_dim % 8 == 0, got {Tq}, {Tk}, {hd}")
-    if causal and Tq != Tk:
-        raise ValueError("train_attention_bwd: causal needs Tq == Tk")
-    if not (q_flat.dtype == k_flat.dtype == v_flat.dtype == g_flat.dtype):
-        raise TypeError("train_attention_bwd: q, k, v, g dtypes differ")
+    dev, B, Tq, Tk, D, hd, lds = _check_args("train_attention_bwd", q_flat, k_flat,
+                                             v_flat, num_heads, causal, g_flat)
     code = _cuda.dtype_code(q_flat)
     lib, stream = _cuda.prepare(dev)
     if lib.kmb_train_attention_bwd_smem_bytes(Tq, Tk, hd, code) > 227 * 1024:
         raise ValueError(f"train_attention_bwd: q, k, v, g of {Tq}/{Tk} x {hd} do not "
                          "fit in shared memory")
-    bias = _key_bias(key_mask, B, Tk, dev).contiguous()
+    mask = _kernel_mask(key_mask, B, Tk, dev)
     scale_q = float(torch.tensor(hd ** -0.5, dtype=q_flat.dtype))
-    dq, dk, dv = torch.empty_like(q_flat), torch.empty_like(k_flat), torch.empty_like(v_flat)
+    dq = torch.empty((B, Tq, D), dtype=q_flat.dtype, device=dev)
+    dk, dv = (torch.empty((B, Tk, D), dtype=q_flat.dtype, device=dev) for _ in range(2))
     _cuda.check(lib.kmb_train_attention_bwd(
-        q_flat.data_ptr(), k_flat.data_ptr(), v_flat.data_ptr(), bias.data_ptr(),
+        q_flat.data_ptr(), k_flat.data_ptr(), v_flat.data_ptr(), _ptr(mask),
         g_flat.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Tq, Tk, D,
-        num_heads, int(causal), scale_q, hd ** -0.5, code, stream), "train_attention_bwd")
+        num_heads, *lds, int(causal), scale_q, hd ** -0.5, code, stream),
+        "train_attention_bwd")
     train_attention_bwd.launches += 1
     return dq, dk, dv
 

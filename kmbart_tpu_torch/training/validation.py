@@ -7,7 +7,7 @@ the eval split and scores BLEU-2, METEOR and CIDEr against the reference.
 
 from datetime import datetime
 
-from kmbart_tpu.eval.metrics import compute_metric_inference
+from kmbart_tpu_torch.eval.metrics import compute_metric_inference
 from kmbart_tpu_torch.generation.driver import generate_text
 from kmbart_tpu_torch.training.trainer import to_device
 

@@ -10,11 +10,11 @@ import argparse
 import json
 from datetime import datetime
 
-from kmbart_tpu.data.collation import Collator
-from kmbart_tpu.data.datasets import VCGDataset
-from kmbart_tpu.data.loader import DataLoader
-from kmbart_tpu.data.tokenization import ConditionTokenizer
-from kmbart_tpu.utils.logger import Logger
+from kmbart_tpu_torch.data.collation import Collator
+from kmbart_tpu_torch.data.datasets import VCGDataset
+from kmbart_tpu_torch.data.loader import DataLoader
+from kmbart_tpu_torch.data.tokenization import ConditionTokenizer
+from kmbart_tpu_torch.utils.logger import Logger
 from kmbart_tpu_torch.checkpoint.io import load_pretrained
 from kmbart_tpu_torch.cli_common import (add_common_model_args, add_hardware_args,
                                          resolve_device)

@@ -17,11 +17,11 @@ from datetime import datetime
 
 import numpy as np
 
-from kmbart_tpu.data.collation import Collator
-from kmbart_tpu.data.datasets import VCGDataset
-from kmbart_tpu.data.loader import DataLoader, ShardedSampler
-from kmbart_tpu.data.tokenization import ConditionTokenizer
-from kmbart_tpu.utils.logger import Logger
+from kmbart_tpu_torch.data.collation import Collator
+from kmbart_tpu_torch.data.datasets import VCGDataset
+from kmbart_tpu_torch.data.loader import DataLoader, ShardedSampler
+from kmbart_tpu_torch.data.tokenization import ConditionTokenizer
+from kmbart_tpu_torch.utils.logger import Logger
 from kmbart_tpu_torch.checkpoint.io import jax_leaf_groups, load_training_data
 from kmbart_tpu_torch.cli_common import (add_common_model_args, add_dropout_args,
                                          add_hardware_args, build_model_params,
@@ -47,7 +47,7 @@ def main(args):
     log_dir = os.path.join(args.log_dir, timestamp) if args.log_dir else None
     if log_dir is not None:
         os.makedirs(log_dir, exist_ok=True)
-        from kmbart_tpu.utils.tb import SummaryWriter
+        from kmbart_tpu_torch.utils.tb import SummaryWriter
         tb_writer = SummaryWriter(log_dir=log_dir)
     logger = Logger(log_file=os.path.join(log_dir, 'log.txt') if log_dir else None)
 

@@ -1,18 +1,27 @@
 """Helpers shared by the PyTorch-port parity tests (tests/test_torch_*.py):
-the port's model built from the same JAX parameters, and dtype plumbing."""
+the port's config and model built from the JAX package's, and dtype
+plumbing."""
 
 import jax.numpy as jnp
 import numpy as np
 import torch
 
 from kmbart_tpu_torch.checkpoint.io import load_state_dict, params_from_jax
+from kmbart_tpu_torch.config import MultiModalBartConfig as PortConfig
 from kmbart_tpu_torch.models.conditional import init_conditional_model
 
 BF16_ULP_AT_1 = 2.0 ** -7
 
 
+def port_config(cfg):
+    """The port's config built from the same dict as ``cfg`` (either
+    package's)."""
+    return PortConfig.from_dict(cfg.to_dict())
+
+
 def port_model(params, cfg):
     """The port's model carrying the JAX package's parameters."""
+    cfg = port_config(cfg)
     model = init_conditional_model(cfg)
     load_state_dict(model, params_from_jax(params, cfg))
     return model

@@ -1,7 +1,8 @@
 """PyTorch port, entry point and isolation: the ``vcg_generate`` twin
-writes the same JSON as the root CLI, the package never imports jax, and a
-CUDA request without a card (or a kernel wrapper handed a tensor on another
-device) raises instead of falling back."""
+writes the same JSON as the root CLI, the package imports neither jax nor
+anything of ``kmbart_tpu``, and a CUDA request without a card (or a kernel
+wrapper handed a tensor on another device) raises instead of falling
+back."""
 
 import ast
 import json
@@ -94,10 +95,10 @@ def test_kernel_wrappers_refuse_other_devices():
 
 def test_port_imports_no_jax():
     """A fresh interpreter imports the port, generates on the CPU, and never
-    loads jax."""
+    loads jax or any module of kmbart_tpu."""
     code = (
         "import sys, numpy as np\n"
-        "from kmbart_tpu.config import tiny_config\n"
+        "from kmbart_tpu_torch.config import tiny_config\n"
         "import kmbart_tpu_torch.vcg_generate, kmbart_tpu_torch.cli_common\n"
         "from kmbart_tpu_torch.models.conditional import init_conditional_model\n"
         "from kmbart_tpu_torch.generation.api import generate\n"
@@ -107,6 +108,8 @@ def test_port_imports_no_jax():
         "               max_length=6)\n"
         "assert out.shape[0] == 1\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "bad = [m for m in sys.modules if m == 'kmbart_tpu' or m.startswith('kmbart_tpu.')]\n"
+        "assert not bad, bad\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
@@ -114,28 +117,31 @@ def test_port_imports_no_jax():
     assert proc.stdout.strip() == "ok"
 
 
-# modules of kmbart_tpu that import jax (directly or through their package)
-_JAX_MODULES = ("jax", "jaxlib", "kmbart_tpu.checkpoint", "kmbart_tpu.cli_common",
-                "kmbart_tpu.training", "kmbart_tpu.generation", "kmbart_tpu.models",
-                "kmbart_tpu.ops", "kmbart_tpu.parallel", "kmbart_tpu.serving")
+# the port imports none of these, matched as a whole name or a dotted prefix
+# (so kmbart_tpu_torch does not match kmbart_tpu)
+_JAX_MODULES = ("jax", "jaxlib", "kmbart_tpu")
+
+
+def _port_sources():
+    yield os.path.join(REPO, "chip_smoke.py")
+    for root, _, files in os.walk(PORT):
+        yield from (os.path.join(root, name) for name in files if name.endswith(".py"))
 
 
 def test_no_jax_import_in_source():
+    """No module of the port, and not chip_smoke.py, imports jax or
+    kmbart_tpu."""
     offenders = []
-    for root, _, files in os.walk(PORT):
-        for name in files:
-            if not name.endswith(".py"):
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                mods = [node.module]
+            else:
                 continue
-            path = os.path.join(root, name)
-            with open(path) as f:
-                tree = ast.parse(f.read(), path)
-            for node in ast.walk(tree):
-                if isinstance(node, ast.Import):
-                    mods = [a.name for a in node.names]
-                elif isinstance(node, ast.ImportFrom) and node.module:
-                    mods = [node.module]
-                else:
-                    continue
-                offenders += [f"{path}: {m}" for m in mods
-                              if any(m == j or m.startswith(j + ".") for j in _JAX_MODULES)]
+            offenders += [f"{path}: {m}" for m in mods
+                          if any(m == j or m.startswith(j + ".") for j in _JAX_MODULES)]
     assert not offenders, offenders

@@ -1,6 +1,7 @@
 """PyTorch port, kernels K1 and K3: the plain versions (what the wrappers
 run on CPU tensors) against the JAX package's XLA twins and its Pallas
-kernels in interpret mode, at fp32 and bf16."""
+kernels in interpret mode, at fp32 and bf16; and how K1's wrappers take
+their inputs (row-strided fused QKV chunks, the key mask)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -58,6 +59,54 @@ def test_train_attention_without_mask_equals_all_keep():
     a = ta.train_attention_flat(q, k, v, None, num_heads=4)
     b = ta.train_attention_flat(q, k, v, ones, num_heads=4)
     assert torch.equal(a, b)
+
+
+def test_row_stride_takes_fused_chunks_and_refuses_other_layouts():
+    """The kernels read q, k, v by row stride: the chunks of a fused [B, T,
+    3D] projection go in as they are; other layouts raise."""
+    qkv = torch.zeros((2, 5, 96), dtype=torch.bfloat16)
+    assert [ta.row_stride(t, "t") for t in qkv.chunk(3, dim=-1)] == [96, 96, 96]
+    assert ta.row_stride(torch.zeros((2, 5, 32)), "t") == 32
+    assert ta.row_stride(torch.zeros((1, 1, 32), dtype=torch.bfloat16), "t") == 32
+    with pytest.raises(ValueError, match="by stride"):
+        ta.row_stride(torch.zeros((2, 32, 5)).transpose(1, 2), "t")   # columns strided
+    with pytest.raises(ValueError, match="by stride"):
+        ta.row_stride(torch.zeros((4, 5, 32))[::2], "t")              # batches apart
+    with pytest.raises(ValueError, match="16-byte"):
+        ta.row_stride(torch.zeros((2, 5, 33), dtype=torch.bfloat16)[..., 1:], "t")
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["padding", "causal"])
+def test_train_attention_on_fused_chunks(causal):
+    """Self-attention hands K1 the strided chunks of its fused projection:
+    outputs and the gradient of the fused projection equal those of
+    contiguous copies."""
+    rng = np.random.default_rng(3)
+    mask = torch.ones((2, 8), dtype=torch.long)
+    mask[1, -3:] = 0
+    qkv = to_torch(rng.normal(size=(2, 8, 96)))
+    g = to_torch(rng.normal(size=(2, 8, 32)))
+    outs, grads = [], []
+    for copy in (False, True):
+        x = qkv.clone().requires_grad_()
+        q, k, v = (t.contiguous() if copy else t for t in x.chunk(3, dim=-1))
+        out = ta.train_attention(q, k, v, mask, num_heads=4, causal=causal)
+        out.backward(g)
+        outs.append(out.detach())
+        grads.append(x.grad)
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(grads[0], grads[1])
+
+
+def test_kernel_mask_is_int64_on_the_device():
+    assert ta._kernel_mask(None, 2, 8, "cpu") is None
+    for mask in (torch.ones((2, 8), dtype=torch.bool), torch.ones((2, 8), dtype=torch.int32)):
+        got = ta._kernel_mask(mask, 2, 8, "cpu")
+        assert got.dtype == torch.int64 and got.is_contiguous() and bool((got == 1).all())
+    same = torch.ones((2, 8), dtype=torch.long)
+    assert ta._kernel_mask(same, 2, 8, "cpu") is same    # no copy
+    with pytest.raises(ValueError, match="key_mask of shape"):
+        ta._kernel_mask(torch.ones((2, 7)), 2, 8, "cpu")
 
 
 def _beam_inputs(rng, B, K, T, H, hd):

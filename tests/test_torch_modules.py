@@ -17,6 +17,7 @@ from kmbart_tpu.models.conditional import init_conditional_params
 from kmbart_tpu.ops import layers as jl
 from kmbart_tpu.ops.pallas_beam_attention import build_selection_mask
 from kmbart_tpu_torch.checkpoint.io import load_pretrained, params_from_jax
+from kmbart_tpu_torch.config import tiny_config as port_tiny_config
 from kmbart_tpu_torch.models import bart
 from kmbart_tpu_torch.models.conditional import (MultiModalBartForConditionalGeneration,
                                                  init_conditional_model)
@@ -28,15 +29,16 @@ FP32 = dict(rtol=1e-5, atol=1e-5)  # fp32 end to end: summation order only
 
 @pytest.fixture(scope="module")
 def setup():
-    cfg = tiny_config(dtype="float32", vocab_size=136, normalize_before=True,
-                      add_final_layer_norm=True)
+    fields = dict(dtype="float32", vocab_size=136, normalize_before=True,
+                  add_final_layer_norm=True)
+    cfg, pcfg = tiny_config(**fields), port_tiny_config(**fields)
     params = init_conditional_params(jax.random.PRNGKey(11), cfg)
     # non-trivial layer norms and biases so every parameter shows up
     leaves, tree = jax.tree_util.tree_flatten(params)
     rng = np.random.default_rng(0)
     leaves = [a + rng.normal(size=a.shape).astype(np.float32) * 0.05 for a in leaves]
     params = jax.tree_util.tree_unflatten(tree, [jnp.asarray(a) for a in leaves])
-    return cfg, params, port_model(params, cfg)
+    return cfg, pcfg, params, port_model(params, pcfg)
 
 
 def _batch(cfg, B=3, T=10, seed=1):
@@ -51,7 +53,7 @@ def _batch(cfg, B=3, T=10, seed=1):
 
 
 def test_params_from_jax_matches_pytree_to_state_dict(setup):
-    cfg, params, model = setup
+    cfg, pcfg, params, model = setup
     ref = pytree_to_state_dict(params, cfg)
     # the JAX exporter leaves out the optional final stack norms
     # (normalize_before / add_final_layer_norm); HF names them so
@@ -59,7 +61,7 @@ def test_params_from_jax_matches_pytree_to_state_dict(setup):
              for side in ("encoder", "decoder") for w, n in (("weight", "scale"),
                                                             ("bias", "bias"))}
     for source in (params, _flatten(params)):      # pytree and params.npz keys
-        sd = params_from_jax(source, cfg)
+        sd = params_from_jax(source, pcfg)
         assert sorted(sd) == sorted(list(ref) + list(extra))
         for k, v in {**ref, **extra}.items():
             np.testing.assert_array_equal(sd[k].numpy(), np.asarray(v), err_msg=k)
@@ -92,7 +94,7 @@ def test_layers_match_jax(dtype):
 
 
 def test_encode_decode_forward_logits_match_jax(setup):
-    cfg, params, model = setup
+    cfg, pcfg, params, model = setup
     ids, mask, feats = _batch(cfg)
     dec_ids = np.random.default_rng(3).integers(4, 80, (3, 7)).astype(np.int32)
     dec_mask = np.ones((3, 7), np.int32)
@@ -105,11 +107,11 @@ def test_encode_decode_forward_logits_match_jax(setup):
 
     t = lambda a: torch.from_numpy(np.asarray(a)).long()
     with torch.no_grad():
-        enc = bart.encode(model.model, cfg, t(ids), torch.from_numpy(feats), t(mask))
-        dec, enc2 = bart.forward(model.model, cfg, t(ids), torch.from_numpy(feats), t(mask),
+        enc = bart.encode(model.model, pcfg, t(ids), torch.from_numpy(feats), t(mask))
+        dec, enc2 = bart.forward(model.model, pcfg, t(ids), torch.from_numpy(feats), t(mask),
                                  t(dec_ids), t(dec_mask))
-        logits = bart.lm_logits(model.model, cfg, dec, model.final_logits_bias)
-        dec_only = bart.decode(model.model, cfg, t(dec_ids), enc, t(mask), t(dec_mask))
+        logits = bart.lm_logits(model.model, pcfg, dec, model.final_logits_bias)
+        dec_only = bart.decode(model.model, pcfg, t(dec_ids), enc, t(mask), t(dec_mask))
     np.testing.assert_allclose(to_np(enc), to_np(enc_j), **FP32)
     np.testing.assert_array_equal(to_np(enc2), to_np(enc))
     np.testing.assert_allclose(to_np(dec), to_np(dec_j), **FP32)
@@ -118,17 +120,17 @@ def test_encode_decode_forward_logits_match_jax(setup):
 
 
 def test_encode_without_images_or_mask(setup):
-    cfg, params, model = setup
+    cfg, pcfg, params, model = setup
     ids, _, _ = _batch(cfg, seed=4)
     enc_j = jbart.encode(params["model"], cfg, ids)
     with torch.no_grad():
-        enc = bart.encode(model.model, cfg, torch.from_numpy(ids).long())
+        enc = bart.encode(model.model, pcfg, torch.from_numpy(ids).long())
     np.testing.assert_allclose(to_np(enc), to_np(enc_j), **FP32)
 
 
 def test_decode_steps_stationary_match_jax(setup):
     """Three beam-stationary decode steps with branching ancestry."""
-    cfg, params, model = setup
+    cfg, pcfg, params, model = setup
     ids, mask, feats = _batch(cfg, B=2)
     B, K, L = 2, 3, 6
     jm = params["model"]
@@ -136,8 +138,8 @@ def test_decode_steps_stationary_match_jax(setup):
     caches_j = jbart.init_decode_cache_layers(jm, cfg, enc_j, L, num_beams=K)
     t = lambda a: torch.from_numpy(np.asarray(a)).long()
     with torch.no_grad():
-        enc = bart.encode(model.model, cfg, t(ids), torch.from_numpy(feats), t(mask))
-        caches = bart.init_decode_cache_layers(model.model, cfg, enc, L, num_beams=K)
+        enc = bart.encode(model.model, pcfg, t(ids), torch.from_numpy(feats), t(mask))
+        caches = bart.init_decode_cache_layers(model.model, pcfg, enc, L, num_beams=K)
     rng = np.random.default_rng(5)
     anc = np.zeros((B * K, L), np.int32)
     for step in range(3):
@@ -149,7 +151,7 @@ def test_decode_steps_stationary_match_jax(setup):
         h_j, caches_j = jbart.decode_step_stationary(jm, cfg, tokens, caches_j, step, sel,
                                                      mask, num_beams=K)
         with torch.no_grad():
-            h = bart.decode_step_stationary(model.model, cfg, t(tokens), caches, step,
+            h = bart.decode_step_stationary(model.model, pcfg, t(tokens), caches, step,
                                             torch.from_numpy(anc), t(mask), num_beams=K)
         np.testing.assert_allclose(to_np(h), to_np(h_j), **FP32)
         for mine, theirs in zip(caches, caches_j):
@@ -158,22 +160,22 @@ def test_decode_steps_stationary_match_jax(setup):
 
 
 def test_shift_tokens_right_and_position_check(setup):
-    cfg, _, model = setup
+    _, pcfg, _, model = setup
     ids = np.array([[0, 5, 6, 2, 1, 1], [0, 7, 8, 9, 10, 2]], np.int32)
     want = np.asarray(jbart.shift_tokens_right(jnp.asarray(ids), 1))
     got = bart.shift_tokens_right(torch.from_numpy(ids).long(), 1)
     np.testing.assert_array_equal(got.numpy(), want)
-    too_long = torch.zeros((1, cfg.max_position_embeddings + 1), dtype=torch.long)
+    too_long = torch.zeros((1, pcfg.max_position_embeddings + 1), dtype=torch.long)
     with pytest.raises(ValueError, match="max_position_embeddings"):
-        bart.encode(model.model, cfg, too_long)
+        bart.encode(model.model, pcfg, too_long)
 
 
 def test_load_pretrained_npz_and_torch_bin(setup, tmp_path):
-    cfg, params, _ = setup
+    cfg, pcfg, params, _ = setup
     npz_dir = str(tmp_path / "npz")
     save_pretrained(npz_dir, cfg, jax.tree_util.tree_map(np.asarray, params))
     _, model, _ = load_pretrained(npz_dir)
-    ref = params_from_jax(params, cfg)
+    ref = params_from_jax(params, pcfg)
     for k, v in model.state_dict().items():
         np.testing.assert_array_equal(v.numpy(), np.asarray(ref[k]), err_msg=k)
 
@@ -187,8 +189,8 @@ def test_load_pretrained_npz_and_torch_bin(setup, tmp_path):
         small[k] = small[k][:100].clone()
     small["final_logits_bias"] = small["final_logits_bias"][:, :100].clone()
     torch.save(small, str(bin_dir / "pytorch_model.bin"))
-    pcfg = cfg.replace(partial_load=("model.shared.weight", "final_logits_bias"))
-    pcfg.save_json(str(bin_dir / "config.json"))
+    part = cfg.replace(partial_load=("model.shared.weight", "final_logits_bias"))
+    part.save_json(str(bin_dir / "config.json"))
     _, loaded, report = load_pretrained(str(bin_dir))
     assert any("partially loaded model.shared.weight" in line for line in report)
     sd = loaded.state_dict()
@@ -203,7 +205,7 @@ def test_load_pretrained_npz_and_torch_bin(setup, tmp_path):
 
 
 def test_model_layout_and_static_positions(setup):
-    cfg = setup[0]
+    cfg = setup[1]
     model = MultiModalBartForConditionalGeneration(cfg)
     assert model.model.encoder.embed_tokens is model.model.shared
     assert model.model.decoder.embed_tokens is model.model.shared

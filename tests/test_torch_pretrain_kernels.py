@@ -325,6 +325,34 @@ def test_attention_routing(T, H, route, monkeypatch):
     assert taken == []
 
 
+@pytest.mark.parametrize("hd,H", [(128, 8), (96, 4), (256, 4)])
+def test_attention_routing_wide_heads(hd, H, monkeypatch):
+    """A head wider than BART's 64 goes to K1 up to 12 heads, as the JAX
+    package's gate routes it on the TPU (pallas_train_attention.py:402-441),
+    not to K11 or the composite."""
+    from kmbart_tpu.ops import pallas_train_attention as jpta
+    from kmbart_tpu_torch.ops import train_attention as ta
+    monkeypatch.setattr(jpta.jax, "default_backend", lambda: "tpu")
+    monkeypatch.delenv("KMBART_NO_FUSED_ATTN", raising=False)
+    monkeypatch.delenv("KMBART_FUSED_ATTN_HEADS_MAX", raising=False)
+    T = 72
+    assert ta.supported(T, T, hd)
+    rng = np.random.default_rng(6)
+    D = hd * H
+    attn, _ = _attention_module(rng, D)
+    taken = []
+    monkeypatch.setattr(attention, "train_attention",
+                        lambda *a, **k: taken.append("k1") or torch.zeros(a[0].shape))
+    monkeypatch.setattr(attention, "flash_self_attention",
+                        lambda *a, **k: taken.append("k11") or torch.zeros(a[0].shape))
+    x = torch.from_numpy(rng.normal(size=(1, T, D)).astype(np.float32))
+    for causal in (False, True):
+        assert jpta.train_attention_supported(T, T, hd, H, 0.0, True, causal=causal)
+        attention.multi_head_attention(attn, x, num_heads=H, key_mask=torch.ones(1, T),
+                                       causal=causal, dtype=torch.float32)
+    assert taken == ["k1", "k1"]
+
+
 def test_new_wrappers_refuse_other_devices():
     """Only a CPU tensor selects a plain version; other devices go to the
     kernel launch path, which refuses what it cannot run."""
