@@ -11,17 +11,21 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   3. kernels   each kernel against its plain PyTorch version on the card, at
                the generation, fine-tune and pretraining paths' shapes and at
                edge shapes (K1 and its backward also on the fused QKV
-               projection's strided chunks, at Tk 256 and ragged lengths),
-               with the device times of both from CUDA events, the bound the
-               card sets for the same work (bytes or FLOPs, each input read
-               once and each output written once), and for the attention
-               kernels the time of one F.scaled_dot_product_attention call
-               on the same data (the port never calls it); a planted-tie
-               top-k;
+               projection's strided chunks, at Tk 256 and ragged lengths;
+               K2 and K2b at every training row, ragged rows and a wide
+               FFN), with the device times of both from CUDA events, the
+               bound the card sets for the same work (bytes or FLOPs, each
+               input read once and each output written once), for the
+               attention kernels the time of one
+               F.scaled_dot_product_attention call on the same data and for
+               K2 and K2b the time of their two bf16 torch.mm products (the
+               port never calls either), and K2's and K2b's host time a
+               call; a planted-tie top-k;
   4. generate  beam-5 VCG generation at BART-base width (config/vcg_base.json,
                random weights from a seed, batch 64): every generation kernel
                must have launched, outputs finite, and the encoder output and
                first-step log-probs close to the plain path's on the card;
+               a torch.profiler trace of one call (device-busy share, K2's);
   5. cli       ``python -m kmbart_tpu_torch.vcg_generate --device cuda`` on a
                fixture dataset;
   6. train     fine-tuning at full width and depth (batch 128, 72 encoder and
@@ -32,7 +36,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                per step, the loss finite and falling), with ms/step, samples/s
                and peak device memory, then the step on the plain path in
                turns with the kernel path, and a torch.profiler trace of
-               three steps (device-busy share, top device kernels);
+               three steps (device-busy share, top device kernels, the
+               shares of K1, K1b, K2 and K2b);
   7. train_cli ``python -m kmbart_tpu_torch.vcg_train --device cuda`` trains one
                epoch on the fixture dataset, and the generate twin decodes
                from its model0/;
@@ -134,8 +139,7 @@ def _time_ms(torch, fn, iters=20, warmup=3, reps=3):
     """Device time of one call in ms: ``iters`` calls enqueued behind a
     sleeping kernel that outlasts the host's enqueueing of them, so the
     events time the device's work and not the host's launch path; the
-    median of ``reps`` such runs. (One call between two events counts the
-    host's part when it is the slower: see ``_call_ms``.)"""
+    median of ``reps`` such runs."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -165,21 +169,17 @@ def _time_ms(torch, fn, iters=20, warmup=3, reps=3):
     return sorted(times)[len(times) // 2]
 
 
-def _call_ms(torch, fn, iters=20, warmup=3):
-    """One call between two events, median of ``iters``: the host's launch
-    path and the device's work, whichever is longer (the earlier method,
-    kept to compare with the times recorded by it)."""
-    for _ in range(warmup):
-        fn()
-    times = []
+def _host_us(torch, fn, iters=50):
+    """The host's time to enqueue one call, in microseconds: the mean over
+    ``iters`` calls made without waiting for the device."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for _ in range(iters):
-        start, end = _events(torch)
-        start.record()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return sorted(times)[len(times) // 2]
+    host_us = 1e6 * (time.perf_counter() - t0) / iters
+    torch.cuda.synchronize()
+    return host_us
 
 
 def _bound(nbytes, bf16_flops=0.0, f32_flops=0.0):
@@ -311,8 +311,6 @@ def check_kernels(torch, dev):
                "dtype": str(dtype).split(".")[-1], "max_abs_err": err, "tol": tol}
         if timed:
             res["ms"] = _time_ms(torch, lambda: ta.train_attention_flat(q, k, v, mask, **kw))
-            res["call_ms"] = _call_ms(torch, lambda: ta.train_attention_flat(q, k, v, mask,
-                                                                             **kw))
             res["plain_ms"] = _time_ms(torch, lambda: ta.train_attention_plain(q, k, v, mask,
                                                                                **kw))
             res["library_ms"] = _sdpa_ms(torch, q, k, v, mask, H, causal)
@@ -324,28 +322,47 @@ def check_kernels(torch, dev):
         k1(3, 16, 16, 32, 4, 5, True, True, False, dtype=torch.float32),
         k1(4, 40, 72, 768, 12, 9, False, False, False, dtype=torch.float32)]
 
-    # K2: encoder FFN rows (64 x 72) and decoder-step rows (64 x 5); edge:
-    # tiny widths with a ragged row count
-    def k2(N, D, F, timed):
+    # K2 at the rows its callers give it: generation's encoder (64 x 72) and
+    # decode step (64 x 5) without the pre-activation; with it (the
+    # backward's residual), fine-tuning's encoder (128 x 72, also
+    # pretraining's decoder) and decoder (128 x 40) and pretraining's
+    # encoder (128 x 96); edges: ragged rows at tiny widths, a wide FFN.
+    # Timed rows carry gemm_ms, the two bf16 torch.mm products of the same
+    # shapes (a yardstick the port never calls), and host_us.
+    def k2(N, D, F, timed, with_a=False, path="edge"):
         x = randn(N, D)
         w1, w2 = randn(F, D, std=0.02), randn(D, F, std=0.02)
         b1 = randn(F, std=0.02, dtype=torch.float32)
         b2 = randn(D, std=0.02, dtype=torch.float32)
-        out = ffn.fused_ffn(x, w1, b1, w2, b2)
-        ref = ffn.fused_ffn_plain(x, w1, b1, w2, b2)
-        err = float((out.float() - ref.float()).abs().max())
-        tol = _bf16_tol(ref.float())
-        _check(f"fused_ffn {N}x{D}x{F}", err, tol)
-        res = {"shape": [N, D, F], "max_abs_err": err, "tol": tol}
+        outs = ffn.fused_ffn(x, w1, b1, w2, b2, with_a=with_a)
+        refs = ffn.fused_ffn_plain(x, w1, b1, w2, b2, with_a=with_a)
+        outs, refs = (outs, refs) if with_a else ((outs,), (refs,))
+        res = {"shape": [N, D, F], "with_a": with_a, "path": path}
+        for name, out, ref in zip(("y", "a"), outs, refs):
+            err, tol = _max_err(out, ref), _bf16_tol(ref.float())
+            _check(f"fused_ffn {name} {N}x{D}x{F} with_a={with_a}", err, tol)
+            res[f"{name}_err"], res[f"{name}_tol"] = err, tol
+        res["max_abs_err"] = max(res[f"{name}_err"] for name in ("y", "a")[:len(outs)])
         if timed:
-            res["ms"] = _time_ms(torch, lambda: ffn.fused_ffn(x, w1, b1, w2, b2))
-            res["plain_ms"] = _time_ms(torch, lambda: ffn.fused_ffn_plain(x, w1, b1, w2, b2))
-            res.update(_bound(2 * (2 * N * D + 2 * F * D) + 4 * (F + D),
-                              bf16_flops=4.0 * N * D * F))
+            call = lambda: ffn.fused_ffn(x, w1, b1, w2, b2, with_a=with_a)  # noqa: E731
+            res["ms"] = _time_ms(torch, call)
+            res["plain_ms"] = _time_ms(torch, lambda: ffn.fused_ffn_plain(x, w1, b1, w2, b2,
+                                                                          with_a=with_a))
+            h = randn(N, F)
+            res["gemm_ms"] = _time_ms(torch, lambda: (torch.mm(x, w1.t()), torch.mm(h, w2.t())))
+            res["host_us"] = _host_us(torch, call)
+            res.update(_bound(2 * (2 * N * D + 2 * F * D) + 4 * (F + D)
+                              + (2 * N * F if with_a else 0), bf16_flops=4.0 * N * D * F))
         return res
 
-    results["ffn"] = [k2(64 * 72, 768, 3072, True), k2(64 * 5, 768, 3072, True),
-                      k2(37, 32, 64, False)]
+    results["ffn"] = [k2(64 * 72, 768, 3072, True, path="generate encoder"),
+                      k2(64 * 5, 768, 3072, True, path="generate decode step"),
+                      k2(128 * 72, 768, 3072, True, with_a=True,
+                         path="fine-tune encoder, pretraining decoder"),
+                      k2(128 * 40, 768, 3072, True, with_a=True, path="fine-tune decoder"),
+                      k2(128 * 96, 768, 3072, True, with_a=True, path="pretraining encoder"),
+                      k2(37, 32, 64, False), k2(37, 32, 64, False, with_a=True),
+                      k2(1000, 1024, 4096, False), k2(1000, 1024, 4096, False, with_a=True)]
 
     # K3: decoder self-attention, B 64, K 5, T 32, D 768, 12 heads, at the
     # last position with branching ancestry; edges: cache_index 0, tiny widths
@@ -389,8 +406,7 @@ def check_kernels(torch, dev):
             errs.append(err)
         res["max_abs_err"] = max(errs)
         if timed:
-            run = lambda: ta.train_attention_bwd(q, k, v, mask, g, **kw)  # noqa: E731
-            res["ms"], res["call_ms"] = _time_ms(torch, run), _call_ms(torch, run)
+            res["ms"] = _time_ms(torch, lambda: ta.train_attention_bwd(q, k, v, mask, g, **kw))
             res["plain_ms"] = _time_ms(
                 torch, lambda: ta.train_attention_bwd_plain(q, k, v, mask, g, **kw))
             res["library_ms"] = _sdpa_ms(torch, q, k, v, mask, H, causal, g=g)
@@ -403,46 +419,34 @@ def check_kernels(torch, dev):
         k1b(3, 16, 16, 32, 4, 5, True, True, False, dtype=torch.float32),
         k1b(4, 40, 72, 768, 12, 9, False, False, False, dtype=torch.float32)]
 
-    # K2 forward with the pre-activation out, at the fine-tune rows (128 x 72
-    # encoder, 128 x 40 decoder)
-    def k2a(N, D, F):
-        x = randn(N, D)
-        w1, w2 = randn(F, D, std=0.02), randn(D, F, std=0.02)
-        b1 = randn(F, std=0.02, dtype=torch.float32)
-        b2 = randn(D, std=0.02, dtype=torch.float32)
-        y, a = ffn.fused_ffn(x, w1, b1, w2, b2, with_a=True)
-        ry, ra = ffn.fused_ffn_plain(x, w1, b1, w2, b2, with_a=True)
-        res = {"shape": [N, D, F], "with_a": True}
-        for name, out, ref in (("y", y, ry), ("a", a, ra)):
-            err, tol = _max_err(out, ref), _bf16_tol(ref.float())
-            _check(f"fused_ffn with_a {name} {N}x{D}x{F}", err, tol)
-            res[f"{name}_err"], res[f"{name}_tol"] = err, tol
-        res["max_abs_err"] = max(res["y_err"], res["a_err"])
-        return res
-
-    results["ffn"] += [k2a(128 * 72, 768, 3072), k2a(128 * 40, 768, 3072)]
-
-    # K2 backward at the fine-tune rows; edge: tiny widths, ragged rows
-    def k2b(N, D, F, timed):
+    # K2 backward at the training rows (as K2 with_a); edges: ragged rows at
+    # tiny widths, a wide FFN
+    def k2b(N, D, F, timed, path="edge"):
         g, a = randn(N, D), randn(N, F)
         w1, w2 = randn(F, D, std=0.02), randn(D, F, std=0.02)
         outs = ffn.fused_ffn_bwd(g, a, w1, w2)
         refs = ffn.fused_ffn_bwd_plain(g, a, w1, w2)
-        res = {"shape": [N, D, F]}
+        res = {"shape": [N, D, F], "path": path}
         for name, out, ref in zip(("da", "dx"), outs, refs):
             err, tol = _max_err(out, ref), _bf16_tol(ref.float())
             _check(f"fused_ffn_bwd {name} {N}x{D}x{F}", err, tol)
             res[f"{name}_err"], res[f"{name}_tol"] = err, tol
         res["max_abs_err"] = max(res["da_err"], res["dx_err"])
         if timed:
-            res["ms"] = _time_ms(torch, lambda: ffn.fused_ffn_bwd(g, a, w1, w2))
+            call = lambda: ffn.fused_ffn_bwd(g, a, w1, w2)  # noqa: E731
+            res["ms"] = _time_ms(torch, call)
             res["plain_ms"] = _time_ms(torch, lambda: ffn.fused_ffn_bwd_plain(g, a, w1, w2))
+            res["gemm_ms"] = _time_ms(torch, lambda: (torch.mm(g, w2), torch.mm(a, w1)))
+            res["host_us"] = _host_us(torch, call)
             res.update(_bound(2 * (2 * N * D + 2 * N * F + 2 * F * D),
                               bf16_flops=4.0 * N * D * F))
         return res
 
-    results["ffn_bwd"] = [k2b(128 * 72, 768, 3072, True), k2b(128 * 40, 768, 3072, True),
-                          k2b(37, 32, 64, False)]
+    results["ffn_bwd"] = [k2b(128 * 72, 768, 3072, True,
+                              path="fine-tune encoder, pretraining decoder"),
+                          k2b(128 * 40, 768, 3072, True, path="fine-tune decoder"),
+                          k2b(128 * 96, 768, 3072, True, path="pretraining encoder"),
+                          k2b(37, 32, 64, False), k2b(1000, 1024, 4096, False)]
 
     # K7 and K8 at the fine-tune head (N 128 x 40 = 5120 rows, V 50320, D 768,
     # ragged last vocab tile); edge: ragged rows and a small ragged vocab
@@ -803,6 +807,7 @@ def run_generate(torch, dev, card):
          encoder_max_abs=float(enc_p.abs().max()), encoder_tol=enc_tol,
          first_step_logprob_max_abs_err=lp_err, logprob_tol=LOGPROB_ATOL,
          rows_equal_to_plain=same_rows)
+    emit("generate_profile", card=card, **_profile_steps(torch, gen, n=1))
     return launches
 
 
@@ -1024,9 +1029,10 @@ def run_train(torch, dev, card):
 
 
 def _profile_steps(torch, run_step, n=3):
-    """Device-busy share and the top device kernels over ``n`` steps under
-    torch.profiler (kernels run on one stream, so their device times add up
-    without overlap)."""
+    """Device-busy share and the top device kernels over ``n`` steps (or
+    generate calls) under torch.profiler (kernels run on one stream, so
+    their device times add up without overlap); K1, K1b, K2 and K2b summed
+    over their kernels."""
     from torch.profiler import ProfilerActivity, profile
     run_step()
     torch.cuda.synchronize()
@@ -1043,12 +1049,18 @@ def _profile_steps(torch, run_step, n=3):
               if e.device_type == DeviceType.CUDA and dev(e) > 0]
     busy_ms = sum(dev(e) for e in events) / 1e3
     top = sorted(events, key=dev, reverse=True)[:15]
-    # K1 and K1b over all their instantiations (they may rank below the top)
-    per_step = lambda tag: sum(dev(e) for e in events if tag in e.key) / 1e3 / n
+    # K1 and K1b over all their instantiations (they may rank below the
+    # top); K2 is its two GEMMs and the split-K finalize (a decode step's
+    # only; training rows never split), K2b its two GEMMs
+    per_step = lambda *tags: sum(dev(e) for e in events
+                                 if any(t in e.key for t in tags)) / 1e3 / n
+    k2, k2b = per_step("ffn_fwd_gemm", "ffn_finalize"), per_step("ffn_bwd_gemm")
     return {"steps": n, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / wall_ms,
             "k1_ms_per_step": per_step("attn_fwd_tc"),
             "k1b_ms_per_step": per_step("attn_bwd_tc"),
+            "k2_ms_per_step": k2, "k2_share": k2 * n / busy_ms,
+            "k2b_ms_per_step": k2b, "k2b_share": k2b * n / busy_ms,
             "top_device_ops": [{"name": e.key[:80], "calls": e.count,
                                 "ms_per_step": dev(e) / 1e3 / n,
                                 "share": dev(e) / 1e3 / busy_ms} for e in top]}

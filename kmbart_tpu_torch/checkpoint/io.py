@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from kmbart_tpu_torch.config import MultiModalBartConfig
+from kmbart_tpu_torch.device import resolve_device
 from kmbart_tpu_torch.models.conditional import init_conditional_model
 
 WEIGHTS_NAME = "params.npz"
@@ -192,7 +193,7 @@ def load_state_dict(model, sd, partial_load=()):
     return report
 
 
-def load_pretrained(path, config=None, device="cpu", seed=0,
+def load_pretrained(path, config=None, device="cuda", seed=0,
                     init_model_fn=init_conditional_model):
     """Load a checkpoint directory into ``init_model_fn(config, seed)``
     (``init_conditional_model`` or ``init_pretraining_model``), as the JAX
@@ -200,11 +201,13 @@ def load_pretrained(path, config=None, device="cpu", seed=0,
     the checkpoint lacks keep their initialisation (a fine-tune checkpoint
     in the pretraining model: its heads) and weights the model lacks are
     dropped (a pretraining checkpoint in the conditional model). Returns
-    (config, model, report_lines); the model is in eval mode on
-    ``device``."""
+    (config, model, report_lines); the model is built and loaded on the
+    host, then moved to ``device`` (the card unless the caller passes "cpu";
+    no card raises) in eval mode."""
+    device = resolve_device(device)
     if config is None:
         config = MultiModalBartConfig.from_json(os.path.join(path, CONFIG_NAME))
-    model = init_model_fn(config, seed=seed)
+    model = init_model_fn(config, seed=seed, device="cpu")
     npz = os.path.join(path, WEIGHTS_NAME)
     if os.path.exists(npz):
         with np.load(npz) as data:
@@ -242,11 +245,14 @@ def save_training_data(path, cfg: MultiModalBartConfig, opt_state=None, epoch=No
     np.savez(os.path.join(path, TRAINING_DATA_NAME), **flat)
 
 
-def load_training_data(path, cfg: MultiModalBartConfig, device="cpu"):
-    """Returns {"opt_state": AdamWState or None, "epoch", "step"}. A state
-    without per-leaf steps (an older JAX checkpoint) seeds every leaf's
-    step from the global one, as the JAX loader does."""
+def load_training_data(path, cfg: MultiModalBartConfig, device="cuda"):
+    """Returns {"opt_state": AdamWState or None, "epoch", "step"}, the
+    state's tensors on ``device`` (the card unless the caller passes "cpu";
+    no card raises). A state without per-leaf steps (an older JAX
+    checkpoint) seeds every leaf's step from the global one, as the JAX
+    loader does."""
     from kmbart_tpu_torch.training.adamw import AdamWState
+    device = resolve_device(device)
     with np.load(os.path.join(path, TRAINING_DATA_NAME)) as data:
         flat = dict(data)
     meta = json.loads(bytes(flat.pop("__meta__")).decode())

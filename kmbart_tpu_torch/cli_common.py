@@ -12,8 +12,6 @@ import argparse
 import json
 import os
 
-import torch
-
 from kmbart_tpu_torch.config import MultiModalBartConfig
 
 
@@ -70,18 +68,6 @@ def add_pretraining_args(parser):
     parser.add_argument('--mrm_probability', type=float, default=0.2)
     parser.add_argument('--mlm_probability', type=float, default=0.2)
     parser.set_defaults(mrm_enabled=True, rp_enabled=True, ap_enabled=True)
-
-
-def resolve_device(name):
-    """The requested device; a CUDA device without a card raises (there is
-    no quiet switch to the CPU)."""
-    device = torch.device(name)
-    if device.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError(f'--device {name} requested but no CUDA device is '
-                           'available (pass --device cpu to run on the host)')
-    if device.type == 'cuda' and device.index is None:
-        device = torch.device('cuda', torch.cuda.current_device())
-    return device
 
 
 def apply_dropout_overrides(cfg, args):

@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from kmbart_tpu_torch.config import MultiModalBartConfig
+from kmbart_tpu_torch.device import resolve_device
 from kmbart_tpu_torch.models import bart
 from kmbart_tpu_torch.models.bart import MultiModalBartModel, init_bart_params_
 from kmbart_tpu_torch.models.heads import lm_cross_entropy
@@ -24,9 +25,11 @@ class MultiModalBartForConditionalGeneration(nn.Module):
         self.register_buffer("final_logits_bias", torch.zeros((1, config.vocab_size)))
 
 
-def init_conditional_model(cfg: MultiModalBartConfig, seed=0, device="cpu"):
+def init_conditional_model(cfg: MultiModalBartConfig, seed=0, device="cuda"):
     """A model initialised from ``seed`` (a ``torch.Generator`` on the CPU),
-    then moved to ``device``."""
+    then moved to ``device`` (the card unless the caller passes "cpu"; no
+    card raises)."""
+    device = resolve_device(device)
     model = MultiModalBartForConditionalGeneration(cfg)
     init_bart_params_(model.model, cfg, torch.Generator().manual_seed(seed))
     return model.to(device).eval()

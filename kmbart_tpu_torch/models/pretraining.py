@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from kmbart_tpu_torch.config import MultiModalBartConfig
+from kmbart_tpu_torch.device import resolve_device
 from kmbart_tpu_torch.models import bart
 from kmbart_tpu_torch.models.bart import MultiModalBartModel, compute_dtype, init_bart_params_
 from kmbart_tpu_torch.models.conditional import _LazyAux
@@ -46,11 +47,13 @@ class MultiModalBartForPreTraining(nn.Module):
 
 
 @torch.no_grad()
-def init_pretraining_model(cfg: MultiModalBartConfig, seed=0, device="cpu"):
+def init_pretraining_model(cfg: MultiModalBartConfig, seed=0, device="cuda"):
     """A model initialised from ``seed`` (a ``torch.Generator`` on the CPU),
-    then moved to ``device``: the trunk as ``init_bart_params_``, the heads
-    as ``init_classification_head`` (normal(0, init_std) weights, zero
+    then moved to ``device`` (the card unless the caller passes "cpu"; no
+    card raises): the trunk as ``init_bart_params_``, the heads as
+    ``init_classification_head`` (normal(0, init_std) weights, zero
     biases)."""
+    device = resolve_device(device)
     model = MultiModalBartForPreTraining(cfg)
     gen = torch.Generator().manual_seed(seed)
     init_bart_params_(model.model, cfg, gen)

@@ -37,8 +37,8 @@ _SIGNATURES = {
     "kmb_train_attention_smem_bytes": (ctypes.c_size_t, [_I, _I, _I, _I]),
     "kmb_train_attention_bwd": (_I, [_P] * 8 + [_I] * 9 + [_F, _F, _I, _P]),
     "kmb_train_attention_bwd_smem_bytes": (ctypes.c_size_t, [_I, _I, _I, _I]),
-    "kmb_ffn_fwd": (_I, [_P] * 8 + [_I] * 5 + [_P]),
-    "kmb_ffn_bwd": (_I, [_P] * 7 + [_I] * 5 + [_P]),
+    "kmb_ffn_fwd": (_I, [_P] * 9 + [_I] * 7 + [_P]),
+    "kmb_ffn_bwd": (_I, [_P] * 7 + [_I] * 7 + [_P]),
     "kmb_lm_ce_fwd": (_I, [_P] * 11 + [_I] * 3 + [_P]),
     "kmb_lm_ce_bwd": (_I, [_P] * 9 + [_I] * 5 + [_P]),
     "kmb_lm_ce_fwd_stats": (_I, [_P] * 10 + [_I] * 3 + [_P]),

@@ -15,9 +15,14 @@ model calls: its backward runs the kernel and leaves the weight and bias
 gradients to library products and reductions, as pallas_ffn.py:288-303
 leaves them to XLA. Weights are ``fc1.weight`` [F, D] and ``fc2.weight``
 [D, F].
+
+On the card each direction is two GEMMs (``plan`` lays them out): the
+forward writes h = bf16(gelu(a)) into an [N, F] scratch that the second
+GEMM reads back, the backward writes da and reads it back.
 """
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -26,9 +31,9 @@ from kmbart_tpu_torch.ops.layers import mm_f32
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
-ROW_TILE = 32     # csrc/ffn.cu BM
-F_TILE = 64       # csrc/ffn.cu BF
-MAX_D = 1024      # the [32, D] fp32 accumulator lives in registers
+ROW_TILE = 128    # csrc/ffn.cu BM: output tile rows
+COL_TILE = 128    # csrc/ffn.cu BN: output tile columns
+K_TILE = 64       # csrc/ffn.cu BK: the depth of one pipeline stage
 
 
 def _gelu_f32(z):
@@ -53,17 +58,80 @@ def fused_ffn_plain(x, w1, b1, w2, b2, with_a=False):
 
 
 def supported(d, f):
-    """Widths the kernel takes (the wrapper raises on others)."""
-    return d % 16 == 0 and d <= MAX_D and f % F_TILE == 0
+    """Widths the kernel takes (the wrapper raises on others): any D % 16 and
+    F % 64 (TMA zero-fills the tiles' ragged edges)."""
+    return d % 16 == 0 and f % 64 == 0
 
 
-def _splits(n_rows, n_tiles, device):
-    """Split the F walk when the row tiles alone would leave SMs idle."""
-    row_tiles = -(-n_rows // ROW_TILE)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = max(1, min(n_tiles, sms // row_tiles))
-    per = -(-n_tiles // want)
-    return -(-n_tiles // per), per
+class GemmPlan(NamedTuple):
+    """One GEMM of a K2 or K2b call: [rows, cols] = [rows, depth] @ [depth,
+    cols] in ROW_TILE x COL_TILE output tiles, with the depth walk in
+    ``splits`` parts of ``kper`` K_TILE-deep slices each (the last part may be
+    shorter): split p covers depth [p·kper·K_TILE, min(depth,
+    (p+1)·kper·K_TILE)), and the parts are added in split order. Tile t (of
+    row_tiles·col_tiles·splits; columns fastest, then rows, then splits) is
+    computed by block t % ctas of the persistent grid."""
+    rows: int
+    cols: int
+    depth: int
+    row_tiles: int
+    col_tiles: int
+    splits: int
+    kper: int
+    ctas: int
+
+
+def _gemm_plan(rows, cols, depth, sms, split):
+    row_tiles, col_tiles = -(-rows // ROW_TILE), -(-cols // COL_TILE)
+    ksteps = -(-depth // K_TILE)
+    kper = ksteps
+    if split:
+        # split the depth walk when the output tiles alone would leave SMs idle
+        want = max(1, min(ksteps, sms // (row_tiles * col_tiles)))
+        kper = -(-ksteps // want)
+    splits = -(-ksteps // kper)
+    return GemmPlan(rows, cols, depth, row_tiles, col_tiles, splits, kper,
+                    min(sms, row_tiles * col_tiles * splits))
+
+
+def plan(n, d, f, sms):
+    """The launch plan of one call at N rows, D and F widths, on a card with
+    ``sms`` SMs (one persistent block each): (first GEMM, second GEMM). The
+    first (x @ W1ᵀ or g @ W2, [N, F] over depth D) feeds a nonlinear epilogue
+    and never splits; the second (h @ W2ᵀ or da @ W1, [N, D] over depth F)
+    splits its depth walk into fp32 partials when its tiles alone would
+    leave SMs idle."""
+    return _gemm_plan(n, f, d, sms, False), _gemm_plan(n, d, f, sms, True)
+
+
+_SM_COUNTS = {}
+
+
+def _sm_count(device):
+    if device not in _SM_COUNTS:
+        _SM_COUNTS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SM_COUNTS[device]
+
+
+def _check_widths(name, D, F):
+    if not supported(D, F):
+        raise ValueError(f"{name} kernel takes D % 16 == 0 and F % 64 == 0; got D {D}, F {F}")
+
+
+def _check_aligned(name, *tensors):
+    """TMA reads and the epilogue's paired stores want 16-byte aligned bases."""
+    for t in tensors:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: kernel takes 16-byte aligned tensors")
+
+
+def _launch_args(dev, N, D, F):
+    """The plan's scalars for the C entry points, and the partial-sum
+    scratch of the second GEMM when it splits."""
+    first, second = plan(N, D, F, _sm_count(dev))
+    partial = (torch.empty((second.splits, N, D), dtype=torch.float32, device=dev)
+               if second.splits > 1 else None)
+    return partial, (first.ctas, second.ctas, second.splits, second.kper)
 
 
 def fused_ffn(x, w1, b1, w2, b2, with_a=False):
@@ -77,9 +145,7 @@ def fused_ffn(x, w1, b1, w2, b2, with_a=False):
     if w1.shape != (F, D) or w2.shape != (D, F) or b1.shape != (F,) or b2.shape != (D,):
         raise ValueError(f"fused_ffn: shapes x {tuple(x.shape)}, w1 {tuple(w1.shape)}, "
                          f"b1 {tuple(b1.shape)}, w2 {tuple(w2.shape)}, b2 {tuple(b2.shape)}")
-    if not supported(D, F):
-        raise ValueError(f"fused_ffn kernel takes D % 16 == 0, D <= {MAX_D}, "
-                         f"F % {F_TILE} == 0; got D {D}, F {F}")
+    _check_widths("fused_ffn", D, F)
     if not (x.dtype == w1.dtype == w2.dtype == torch.bfloat16):
         raise TypeError("fused_ffn kernel takes bf16 x and weights")
     if not (b1.dtype == b2.dtype == torch.float32):
@@ -89,13 +155,13 @@ def fused_ffn(x, w1, b1, w2, b2, with_a=False):
     y = torch.empty_like(xf)
     a = torch.empty((N, F), dtype=torch.bfloat16, device=dev) if with_a else None
     if N > 0:
-        nsplit, per = _splits(N, F // F_TILE, dev)
-        partial = (torch.empty((nsplit, N, D), dtype=torch.float32, device=dev)
-                   if nsplit > 1 else None)
+        h = torch.empty((N, F), dtype=torch.bfloat16, device=dev)
+        partial, plan_args = _launch_args(dev, N, D, F)
+        _check_aligned("fused_ffn", xf, w1, b1, w2, b2, y, h, partial, a)
         lib, stream = _cuda.prepare(dev)
         _cuda.check(lib.kmb_ffn_fwd(
             xf.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            y.data_ptr(), _ptr(partial), _ptr(a), N, D, F, nsplit, per, stream),
+            y.data_ptr(), h.data_ptr(), _ptr(partial), _ptr(a), N, D, F, *plan_args, stream),
             "fused_ffn")
         fused_ffn.launches += 1
     y = y.reshape(x.shape)
@@ -132,22 +198,19 @@ def fused_ffn_bwd(g, a, w1, w2):
     if a.shape != (N, F) or w1.shape != (F, D) or w2.shape != (D, F):
         raise ValueError(f"fused_ffn_bwd: shapes g {tuple(g.shape)}, a {tuple(a.shape)}, "
                          f"w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}")
-    if not supported(D, F):
-        raise ValueError(f"fused_ffn_bwd kernel takes D % 16 == 0, D <= {MAX_D}, "
-                         f"F % {F_TILE} == 0; got D {D}, F {F}")
+    _check_widths("fused_ffn_bwd", D, F)
     if not (g.dtype == a.dtype == w1.dtype == w2.dtype == torch.bfloat16):
         raise TypeError("fused_ffn_bwd kernel takes bf16 g, a and weights")
     da = torch.empty_like(a)
     dx = torch.empty_like(g)
     if N == 0:
         return da, dx
-    nsplit, per = _splits(N, F // F_TILE, dev)
-    partial = (torch.empty((nsplit, N, D), dtype=torch.float32, device=dev)
-               if nsplit > 1 else None)
+    partial, plan_args = _launch_args(dev, N, D, F)
+    _check_aligned("fused_ffn_bwd", g, a, w1, w2, da, dx, partial)
     lib, stream = _cuda.prepare(dev)
     _cuda.check(lib.kmb_ffn_bwd(
         g.data_ptr(), a.data_ptr(), w1.data_ptr(), w2.data_ptr(), da.data_ptr(),
-        dx.data_ptr(), _ptr(partial), N, D, F, nsplit, per, stream), "fused_ffn_bwd")
+        dx.data_ptr(), _ptr(partial), N, D, F, *plan_args, stream), "fused_ffn_bwd")
     fused_ffn_bwd.launches += 1
     return da, dx
 

@@ -28,7 +28,8 @@ from kmbart_tpu_torch.checkpoint.io import jax_leaf_groups, load_training_data
 from kmbart_tpu_torch.cli_common import (add_common_model_args, add_dropout_args,
                                          add_hardware_args, add_pretraining_args,
                                          build_model_params, load_model_config,
-                                         resolve_device, save_train_checkpoint)
+                                         save_train_checkpoint)
+from kmbart_tpu_torch.device import resolve_device
 from kmbart_tpu_torch.models.pretraining import (forward_logits, init_pretraining_model,
                                                  pretraining_loss)
 from kmbart_tpu_torch.parallel.train_step import build_train_step

@@ -16,8 +16,8 @@ from kmbart_tpu_torch.data.loader import DataLoader
 from kmbart_tpu_torch.data.tokenization import ConditionTokenizer
 from kmbart_tpu_torch.utils.logger import Logger
 from kmbart_tpu_torch.checkpoint.io import load_pretrained
-from kmbart_tpu_torch.cli_common import (add_common_model_args, add_hardware_args,
-                                         resolve_device)
+from kmbart_tpu_torch.cli_common import add_common_model_args, add_hardware_args
+from kmbart_tpu_torch.device import resolve_device
 from kmbart_tpu_torch.generation.driver import generate_text
 
 

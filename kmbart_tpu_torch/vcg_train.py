@@ -25,8 +25,8 @@ from kmbart_tpu_torch.utils.logger import Logger
 from kmbart_tpu_torch.checkpoint.io import jax_leaf_groups, load_training_data
 from kmbart_tpu_torch.cli_common import (add_common_model_args, add_dropout_args,
                                          add_hardware_args, build_model_params,
-                                         load_model_config, resolve_device,
-                                         save_train_checkpoint)
+                                         load_model_config, save_train_checkpoint)
+from kmbart_tpu_torch.device import resolve_device
 from kmbart_tpu_torch.generation.api import generate
 from kmbart_tpu_torch.models.conditional import conditional_loss, init_conditional_model
 from kmbart_tpu_torch.parallel.train_step import build_eval_step, build_train_step

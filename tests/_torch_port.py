@@ -22,7 +22,7 @@ def port_config(cfg):
 def port_model(params, cfg):
     """The port's model carrying the JAX package's parameters."""
     cfg = port_config(cfg)
-    model = init_conditional_model(cfg)
+    model = init_conditional_model(cfg, device="cpu")
     load_state_dict(model, params_from_jax(params, cfg))
     return model
 

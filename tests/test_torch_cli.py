@@ -103,7 +103,7 @@ def test_port_imports_no_jax():
         "from kmbart_tpu_torch.models.conditional import init_conditional_model\n"
         "from kmbart_tpu_torch.generation.api import generate\n"
         "cfg = tiny_config(dtype='float32')\n"
-        "out = generate(init_conditional_model(cfg), cfg,\n"
+        "out = generate(init_conditional_model(cfg, device='cpu'), cfg,\n"
         "               {'input_ids': np.array([[0, 5, 6, 7, 2]])}, num_beams=2,\n"
         "               max_length=6)\n"
         "assert out.shape[0] == 1\n"

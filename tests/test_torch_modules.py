@@ -174,7 +174,7 @@ def test_load_pretrained_npz_and_torch_bin(setup, tmp_path):
     cfg, pcfg, params, _ = setup
     npz_dir = str(tmp_path / "npz")
     save_pretrained(npz_dir, cfg, jax.tree_util.tree_map(np.asarray, params))
-    _, model, _ = load_pretrained(npz_dir)
+    _, model, _ = load_pretrained(npz_dir, device="cpu")
     ref = params_from_jax(params, pcfg)
     for k, v in model.state_dict().items():
         np.testing.assert_array_equal(v.numpy(), np.asarray(ref[k]), err_msg=k)
@@ -191,7 +191,7 @@ def test_load_pretrained_npz_and_torch_bin(setup, tmp_path):
     torch.save(small, str(bin_dir / "pytorch_model.bin"))
     part = cfg.replace(partial_load=("model.shared.weight", "final_logits_bias"))
     part.save_json(str(bin_dir / "config.json"))
-    _, loaded, report = load_pretrained(str(bin_dir))
+    _, loaded, report = load_pretrained(str(bin_dir), device="cpu")
     assert any("partially loaded model.shared.weight" in line for line in report)
     sd = loaded.state_dict()
     np.testing.assert_array_equal(sd["model.shared.weight"][:100].numpy(),
@@ -201,7 +201,7 @@ def test_load_pretrained_npz_and_torch_bin(setup, tmp_path):
     # a shape mismatch outside partial_load is an error
     cfg.save_json(str(bin_dir / "config.json"))
     with pytest.raises(ValueError, match="size mismatch"):
-        load_pretrained(str(bin_dir))
+        load_pretrained(str(bin_dir), device="cpu")
 
 
 def test_model_layout_and_static_positions(setup):
@@ -213,7 +213,7 @@ def test_model_layout_and_static_positions(setup):
     assert model.model.encoder.layers[0].fc1.weight.shape == (cfg.encoder_ffn_dim, cfg.d_model)
     # static (sinusoidal) positions initialise to the JAX package's table
     scfg = cfg.replace(static_position_embeddings=True)
-    smodel = init_conditional_model(scfg)
+    smodel = init_conditional_model(scfg, device="cpu")
     want = np.asarray(jbart._sinusoidal_table(scfg.max_position_embeddings, scfg.d_model))
     for side in (smodel.model.encoder, smodel.model.decoder):
         np.testing.assert_allclose(side.embed_positions.weight.detach().numpy(), want, rtol=0,

@@ -75,7 +75,7 @@ def test_pretrain_twin_trains_resumes_and_loads_in_jax(data, tmp_path):
         assert td["epoch"] == epoch and td["step"] > 0
         assert int(td["opt_state"].step) == td["step"]
     # and model0 starts a fine-tune run in the port, its heads dropped
-    _, model, report = load_pretrained(model0)
+    _, model, report = load_pretrained(model0, device="cpu")
     assert report == ["unused checkpoint keys: 12"]
     assert not hasattr(model, "mrm_head")
     assert all(torch.isfinite(t).all() for t in model.state_dict().values())

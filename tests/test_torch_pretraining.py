@@ -49,7 +49,7 @@ LR = 1e-3
 
 
 def _port(params, cfg):
-    model = init_pretraining_model(cfg)
+    model = init_pretraining_model(cfg, device="cpu")
     load_state_dict(model, params_from_jax(params, cfg))
     return model
 
@@ -178,7 +178,7 @@ def test_pretraining_loss_zero_masks(tiny_cfg):
     b.update(mrm_soft_labels=np.zeros((B, T, cfg.num_labels), np.float32),
              mrm_mask=np.zeros((B, T), bool), attribute_mask=np.zeros((B, T), np.float32),
              relation_mask=np.zeros((B, 2), bool))
-    model = init_pretraining_model(cfg)
+    model = init_pretraining_model(cfg, device="cpu")
     total, aux = pretraining_loss(model, cfg, _t(b))
     for key in ("mrm_loss", "attribute_loss", "relation_loss"):
         assert float(aux["losses"][key].detach()) == 0.0
@@ -308,8 +308,8 @@ def test_pretraining_checkpoint_round_trips(tiny_cfg, tmp_path):
         np.testing.assert_array_equal(v, mu[k], err_msg=k)
     assert int(td["opt_state"].leaf_steps["mrm_head"]["out_kernel"]) == 1
 
-    _, model, _ = load_pretrained(path, init_model_fn=init_pretraining_model)
-    back = load_training_data(path, cfg)
+    _, model, _ = load_pretrained(path, device="cpu", init_model_fn=init_pretraining_model)
+    back = load_training_data(path, cfg, device="cpu")
     for k, v in model.state_dict().items():
         assert torch.equal(v, state.params.state_dict()[k]), k
     for k, v in back["opt_state"].nu.items():
@@ -318,7 +318,7 @@ def test_pretraining_checkpoint_round_trips(tiny_cfg, tmp_path):
 
     jpath = str(tmp_path / "jax0")
     jax_save_pretrained(jpath, cfg, jax.tree.map(np.asarray, params))
-    _, model, _ = load_pretrained(jpath, init_model_fn=init_pretraining_model)
+    _, model, _ = load_pretrained(jpath, device="cpu", init_model_fn=init_pretraining_model)
     want = _flatten(jax.tree.map(np.asarray, params))
     for k, v in params_to_jax(model.state_dict(), cfg).items():
         np.testing.assert_array_equal(v, want[k], err_msg=k)
@@ -336,8 +336,9 @@ def test_cross_loads_between_models(tiny_cfg, tmp_path):
     jax_save_pretrained(pre, cfg, jax.tree.map(
         np.asarray, init_pretraining_params(jax.random.PRNGKey(2), cfg)))
 
-    fresh = init_pretraining_model(cfg, seed=7)
-    _, model, report = load_pretrained(vcg, init_model_fn=init_pretraining_model, seed=7)
+    fresh = init_pretraining_model(cfg, seed=7, device="cpu")
+    _, model, report = load_pretrained(vcg, device="cpu", init_model_fn=init_pretraining_model,
+                                       seed=7)
     _, jmodel, _ = jax_load_pretrained(vcg, init_pretraining_params, strict=False)
     assert not report
     trunk = {k: v for k, v in _flatten(jmodel).items() if k.startswith("model/")}
@@ -347,8 +348,8 @@ def test_cross_loads_between_models(tiny_cfg, tmp_path):
     for name in ("mrm_head.dense.weight", "relation_head.out_proj.bias"):
         assert torch.equal(model.state_dict()[name], fresh.state_dict()[name])
 
-    _, model, report = load_pretrained(pre)
-    assert type(model) is type(init_conditional_model(cfg))
+    _, model, report = load_pretrained(pre, device="cpu")
+    assert type(model) is type(init_conditional_model(cfg, device="cpu"))
     assert report == ["unused checkpoint keys: 12"]
     _, jmodel, _ = jax_load_pretrained(pre, init_conditional_params, strict=False)
     want = _flatten(jax.tree.map(np.asarray, jmodel))

@@ -329,8 +329,8 @@ def test_port_checkpoint_loads_in_jax(tiny_cfg, tmp_path):
     _assert_states_close(state, jstate, cfg, params=dict(rtol=0, atol=0),
                          mu=dict(rtol=0, atol=0), nu=dict(rtol=0, atol=0))
     # and back into the port, unchanged
-    _, model, _ = load_pretrained(path)
-    back = load_training_data(path, cfg)
+    _, model, _ = load_pretrained(path, device="cpu")
+    back = load_training_data(path, cfg, device="cpu")
     for k, v in model.state_dict().items():
         assert torch.equal(v, state.params.state_dict()[k]), k
     for field in ("mu", "nu"):
@@ -352,8 +352,8 @@ def test_jax_checkpoint_resumes_in_port(tiny_cfg, tmp_path):
     jax_save_training_data(path, opt_state=jax.tree.map(np.asarray, jstate.opt_state),
                            epoch=0, step=int(jstate.step))
 
-    _, model, _ = load_pretrained(path)
-    td = load_training_data(path, cfg)
+    _, model, _ = load_pretrained(path, device="cpu")
+    td = load_training_data(path, cfg, device="cpu")
     opt = AdamW(lr=LR, groups=jax_leaf_groups(cfg))
     state = TrainState(params=model, opt_state=td["opt_state"], step=td["step"])
     step = build_train_step(lambda m, bb, g: (conditional_loss(m, cfg, bb)[0], {}), opt)
