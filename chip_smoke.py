@@ -18,8 +18,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                input read once and each output written once), for the
                attention kernels the time of one
                F.scaled_dot_product_attention call on the same data and for
-               K2 and K2b the time of their two bf16 torch.mm products (the
-               port never calls either), and K2's and K2b's host time a
+               K2, K2b and K7-K10 the time of the bf16 torch.mm products
+               of their GEMMs (the port never calls either), K8's two
+               launches timed alone, K11's error split into what its bf16
+               p terms cost and the rest, and K2's and K2b's host time a
                call; a planted-tie top-k;
   4. generate  beam-5 VCG generation at BART-base width (config/vcg_base.json,
                random weights from a seed, batch 64): every generation kernel
@@ -37,7 +39,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                and peak device memory, then the step on the plain path in
                turns with the kernel path, and a torch.profiler trace of
                three steps (device-busy share, top device kernels, the
-               shares of K1, K1b, K2 and K2b);
+               shares of K1, K1b, K2, K2b, K7 and K8);
   7. train_cli ``python -m kmbart_tpu_torch.vcg_train --device cuda`` trains one
                epoch on the fixture dataset, and the generate twin decodes
                from its model0/;
@@ -55,7 +57,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   9. pretrain_long  the same at --lm_max_len 224 (296 encoder and 272 decoder
                tokens, batch 32), where every attention goes to the flash
                kernel K11 and none to K1: kernel path against plain path at
-               dropout 0, then three steps;
+               dropout 0, then four steps and a torch.profiler trace of
+               three (K11's share);
  10. pretrain_cli  ``python -m kmbart_tpu_torch.pretrain --device cuda`` trains
                one epoch on the fixture's coco, vg, vcg and reason datasets, and
                the vcg_train twin fine-tunes one epoch from its model0/.
@@ -93,13 +96,13 @@ TRAIN_GRAD_NORM_RTOL = 5e-2
 TRAIN_LAUNCHES = {"train_attention": 18, "train_attention_bwd": 18, "ffn": 12,
                   "ffn_bwd": 12, "lm_ce_fwd": 1, "lm_ce_bwd": 1}
 GENERATE_KERNELS = ("train_attention", "ffn", "beam_attention", "vocab_stats")
-# K11's fp32 output against its plain version: both sum the same fp32 terms
-# in another order (a score is a 64-term dot product, the kernel rescales
-# its running sums once per 64-key tile), so a weight p_j differs by a few
-# ulps of its score's magnitude and the output, a convex combination of v
-# rows, by at most that relative error times max|v|; 2e-5 of max|v| is the
-# worst case of hd·ε·Σ|q_d k_d| at these widths (the JAX flash tests use
-# the same 2e-5)
+# K11's fp32 output against its plain version, in units of max|v|: the
+# bf16 kernel multiplies V by p_hi + p_lo (two bf16 terms, within 2^-16 p of
+# the fp32 p), so the output, a convex combination of v rows, moves by at
+# most 2^-16 = 1.5e-5 (the K11 rows' p_split_err measures it); the scores are
+# the same exact products summed in another order (the tensor cores' fp32
+# sums; a few ulps of a score), and the online rescaling adds a few
+# roundings per 64-key tile. 2e-5 is the JAX flash tests' bound, unchanged
 FLASH_RTOL = 2e-5
 # launches per pretraining step at 96/72 tokens (K1 as in fine-tuning; the
 # LM-CE pair by mode) and at 296/272 tokens (every attention on K11, whose
@@ -227,6 +230,27 @@ def _sdpa_ms(torch, q, k, v, mask, H, causal, g=None):
     gh = g.view(B, Tq, H, hd).transpose(1, 2)
     return _time_ms(torch, lambda: torch.autograd.grad(out, (qh, kh, vh), gh,
                                                        retain_graph=True))
+
+
+def _flash_p_terms(torch, fa, q, k, v, mask, terms, *, num_heads, causal):
+    """flash_attention_plain's math with p = exp(s - m) replaced by the sum
+    of its first ``terms`` bf16 terms (fa.p_split); l stays the fp32 sum."""
+    B, Tq, D = q.shape
+    Tk, H = k.shape[1], num_heads
+    hd = D // H
+    qf = q.float().reshape(B, Tq, H, hd) * hd ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, k.float().reshape(B, Tk, H, hd))
+    s = s + fa._key_bias(mask, B, Tk, q.device)[:, None, None, :]
+    if causal:
+        keep = (torch.arange(Tk, device=q.device)[None, :]
+                <= torch.arange(Tq, device=q.device)[:, None])
+        s = torch.where(keep, s, fa.NEG_INF)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True).clamp(min=fa.NEG_INF))
+    l = e.sum(dim=-1).transpose(1, 2)[..., None]
+    hi, lo = fa.p_split(e)
+    p = hi + lo if terms == 2 else hi
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float().reshape(B, Tk, H, hd))
+    return (out / l.clamp(min=1e-30)).reshape(B, Tq, D)
 
 
 def _check(name, err, tol):
@@ -477,16 +501,47 @@ def check_kernels(torch, dev):
             bwd[f"{name}_err"], bwd[f"{name}_tol"] = err, tol
         bwd["max_abs_err"] = max(bwd["dlogits_err"], bwd["dh_err"])
         if timed:
+            # K10 at these rows too (its own path is the pretraining head's)
+            rargs = (h, w, fbias, m, inv_se, scale, labels)
+            for name, out, ref in zip(("dlogits", "dh"), lm_ce.lm_ce_recompute_bwd(*rargs),
+                                      lm_ce.lm_ce_recompute_bwd_plain(*rargs)):
+                err, tol = _max_err(out, ref), _bf16_tol(ref.float())
+                _check(f"lm_ce_recompute_bwd {name} {N}x{V}", err, tol)
+                bwd[f"k10_{name}_err"], bwd[f"k10_{name}_tol"] = err, tol
             fwd["ms"] = _time_ms(torch, lambda: lm_ce.lm_ce_fwd(h, w, fbias, labels), iters=10)
             fwd["plain_ms"] = _time_ms(torch, lambda: lm_ce.lm_ce_fwd_plain(h, w, fbias, labels),
                                        iters=10)
             bwd["ms"] = _time_ms(torch, lambda: lm_ce.lm_ce_bwd(*bargs), iters=10)
             bwd["plain_ms"] = _time_ms(torch, lambda: lm_ce.lm_ce_bwd_plain(*bargs), iters=10)
-            fwd.update(_bound(2 * N * D + 2 * V * D + 4 * V + 4 * N + 2 * N * V + 12 * N,
-                              bf16_flops=2.0 * N * V * D))
-            bwd.update(_bound(2 * 2 * N * V + 2 * V * D + 16 * N + 2 * N * D,
-                              bf16_flops=2.0 * N * V * D))
+            _lm_ce_parts(fwd, bwd, h, w, rdl, bargs)
+            fwd.update(_k7_bound(N, V, D))
+            bwd.update(_k8_bound(N, V, D))
         return fwd, bwd
+
+    def _lm_ce_parts(fwd, bwd, h, w, dl, bargs=None):
+        """Where K7-K10's time goes beside their yardsticks: ``gemm_ms``, one
+        bf16 torch.mm of the same GEMM ([N, D] x [D, V] forward, [N, V] x
+        [V, D] backward; the port calls neither), and, with K8's arguments,
+        the time of K8's two launches alone."""
+        dl = dl.contiguous()
+        fwd["gemm_ms"] = _time_ms(torch, lambda: torch.mm(h, w.t()), iters=10)
+        bwd["gemm_ms"] = _time_ms(torch, lambda: torch.mm(dl, w), iters=10)
+        V = w.shape[0]
+        buf = torch.zeros((dl.shape[0], lm_ce.padded_vocab(V)), dtype=dl.dtype, device=dev)
+        buf[:, :V] = dl
+        bwd["dh_ms"] = _time_ms(torch, lambda: lm_ce.dh_gemm("dh", buf, V, w), iters=10)
+        if bargs is not None:
+            logits, _, m, inv_se, scale, labels = bargs
+            bwd["dlogits_ms"] = _time_ms(
+                torch, lambda: lm_ce.dlogits_pass(logits, m, inv_se, scale, labels), iters=10)
+
+    def _k7_bound(N, V, D):
+        return _bound(2 * N * D + 2 * V * D + 4 * V + 4 * N + 2 * N * V + 12 * N,
+                      bf16_flops=2.0 * N * V * D)
+
+    def _k8_bound(N, V, D):
+        return _bound(2 * 2 * N * V + 2 * V * D + 16 * N + 2 * N * D,
+                      bf16_flops=2.0 * N * V * D)
 
     head = [k78(5120, 50320, 768, True), k78(24, 1100, 128, False)]
     results["lm_ce_fwd"] = [f for f, _ in head]
@@ -526,13 +581,24 @@ def check_kernels(torch, dev):
             bwd["ms"] = _time_ms(torch, lambda: lm_ce.lm_ce_recompute_bwd(*bargs), iters=10)
             bwd["plain_ms"] = _time_ms(torch, lambda: lm_ce.lm_ce_recompute_bwd_plain(*bargs),
                                        iters=10)
-            # the "fwdbwd" pair at the same shape, for the mode comparison
+            # the "fwdbwd" pair at the same shape, for the mode comparison,
+            # with its bounds at these rows
             fwd["k7_ms"] = _time_ms(torch, lambda: lm_ce.lm_ce_fwd(h, w, fbias, labels),
                                     iters=10)
             logits = lm_ce.lm_ce_fwd(h, w, fbias, labels)[0]
-            bwd["k8_ms"] = _time_ms(
-                torch, lambda: lm_ce.lm_ce_bwd(logits, w, m, bargs[4], scale, labels),
-                iters=10)
+            k8args = (logits, w, m, bargs[4], scale, labels)
+            # K8 at the pretraining rows ("fwdbwd" mode): both outputs held
+            # to its plain version, as at the fine-tune rows
+            for name, out, ref in zip(("dlogits", "dh"), lm_ce.lm_ce_bwd(*k8args),
+                                      lm_ce.lm_ce_bwd_plain(*k8args)):
+                err, tol = _max_err(out, ref), _bf16_tol(ref.float())
+                _check(f"lm_ce_bwd {name} {N}x{V}", err, tol)
+                bwd[f"k8_{name}_err"], bwd[f"k8_{name}_tol"] = err, tol
+            bwd["k8_ms"] = _time_ms(torch, lambda: lm_ce.lm_ce_bwd(*k8args), iters=10)
+            fwd["k7_bound_ms"] = _k7_bound(N, V, D)["bound_ms"]
+            bwd["k8_bound_ms"] = _k8_bound(N, V, D)["bound_ms"]
+            _lm_ce_parts(fwd, bwd, h, w, rdl, k8args)
+            bwd["k8_dlogits_ms"] = bwd.pop("dlogits_ms")   # K8's first launch at these rows
             fwd.update(_bound(2 * N * D + 2 * V * D + 4 * V + 4 * N + 12 * N,
                               bf16_flops=2.0 * N * V * D))
             bwd.update(_bound(2 * N * D + 2 * V * D + 4 * V + 16 * N + 2 * N * V + 2 * N * D,
@@ -544,38 +610,66 @@ def check_kernels(torch, dev):
     results["lm_ce_recompute_bwd"] = [b for _, b in nomat]
 
     # K11 at the long-caption pretraining shapes (B 32, 12 heads): encoder
-    # self 296 with padded keys, decoder causal 272, cross 272 x 296; edges:
-    # a ragged 264 (not a multiple of the 64-row tiles), causal and padded,
-    # and tiny lengths
-    def k11(B, Tq, Tk, D, H, pad, causal, timed):
-        q, k, v = randn(B, Tq, D), randn(B, Tk, D), randn(B, Tk, D)
-        mask = torch.ones((B, Tk), dtype=torch.long, device=dev)
-        if pad:
-            mask[1::2, Tk - pad:] = 0
+    # self 296 with padded keys, decoder causal 272, cross 272 x 296, the
+    # two self-attentions also as the strided chunks of their fused QKV
+    # projection ("fused"), as the model hands them over; edges: a ragged
+    # 264 (not a multiple of the 64-row tiles), causal and padded; a causal
+    # 272 whose batch rows 0 and 2 mask key 0 and row 3 every key ("key0":
+    # no tile skipped there, and row 3 averages over all keys); head_dim 128,
+    # 72 and 48 (the mma.sync instantiations) and 8 (tiny lengths); fp32
+    def k11(B, Tq, Tk, D, H, pad, causal, timed, fused=False, key0=False, dtype=bf16):
+        q, k, v = qkv(B, Tq, Tk, D, fused, dtype)
+        mask = key_mask(B, Tk, pad)
+        if key0:
+            mask[0::2, 0] = 0
+            mask[3] = 0
         kw = dict(num_heads=H, causal=causal)
         out = fa.flash_attention(q, k, v, mask, **kw)
         ref = fa.flash_attention_plain(q, k, v, mask, **kw)
         err = _max_err(out, ref)
-        tol = FLASH_RTOL * max(1.0, float(v.float().abs().max()))
-        _check(f"flash_attention {B}x{Tq}x{Tk} causal={causal}", err, tol)
-        res = {"shape": [B, Tq, Tk, D, H], "pad": pad, "causal": causal,
-               "max_abs_err": err, "tol": tol}
+        max_v = max(1.0, float(v.float().abs().max()))
+        tol = FLASH_RTOL * max_v
+        _check(f"flash_attention {B}x{Tq}x{Tk} hd={D // H} causal={causal} fused={fused} "
+               f"key0={key0} {dtype}", err, tol)
+        res = {"shape": [B, Tq, Tk, D, H], "pad": pad, "causal": causal, "fused_qkv": fused,
+               "key0_masked": key0, "dtype": str(dtype).split(".")[-1],
+               "max_abs_err": err, "tol": tol, "err_over_max_v": err / max_v}
+        if dtype == bf16:
+            # the plain math with p replaced by the kernel's two bf16 terms,
+            # and by bf16(p) alone, against the plain version: what the
+            # split costs, apart from the order of the sums
+            res["p_split_err"] = _max_err(_flash_p_terms(torch, fa, q, k, v, mask, 2, **kw), ref)
+            res["p_bf16_err"] = _max_err(_flash_p_terms(torch, fa, q, k, v, mask, 1, **kw), ref)
         if timed:
             res["ms"] = _time_ms(torch, lambda: fa.flash_attention(q, k, v, mask, **kw))
             res["plain_ms"] = _time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, mask,
                                                                                **kw))
             res["library_ms"] = _sdpa_ms(torch, q, k, v, mask, H, causal)
-            # q·k has bf16 operands; p·v keeps p in fp32 (the CUDA cores)
+            # the work: q·k and p·v once each at the bf16 rate (each input
+            # read once, the fp32 output written once)
             pairs = B * _pairs(Tq, Tk, causal) * D
             res.update(_bound(2 * (B * Tq * D + 2 * B * Tk * D) + 4 * B * Tk + 4 * B * Tq * D,
-                              bf16_flops=2.0 * pairs, f32_flops=2.0 * pairs))
+                              bf16_flops=4.0 * pairs))
         return res
 
     results["flash_attention"] = [k11(32, 296, 296, 768, 12, 9, False, True),
                                   k11(32, 272, 272, 768, 12, 7, True, True),
                                   k11(32, 272, 296, 768, 12, 9, False, True),
+                                  k11(32, 296, 296, 768, 12, 9, False, True, fused=True),
+                                  k11(32, 272, 272, 768, 12, 7, True, True, fused=True),
                                   k11(3, 264, 264, 768, 12, 5, True, False),
-                                  k11(2, 24, 40, 32, 4, 5, False, False)]
+                                  k11(4, 272, 272, 768, 12, 7, True, False, fused=True,
+                                      key0=True),
+                                  k11(2, 200, 264, 768, 6, 5, False, False),
+                                  k11(4, 264, 264, 768, 6, 5, True, False, fused=True,
+                                      key0=True),
+                                  k11(2, 200, 264, 576, 8, 5, False, False),
+                                  k11(2, 264, 264, 384, 8, 5, True, False, fused=True),
+                                  k11(2, 24, 40, 32, 4, 5, False, False),
+                                  k11(2, 200, 264, 768, 12, 5, False, False,
+                                      dtype=torch.float32),
+                                  k11(4, 272, 272, 768, 12, 7, True, False, key0=True,
+                                      dtype=torch.float32)]
 
     results["beam_attention"] = [k3(64, 5, 32, 768, 12, 31, True),
                                  k3(64, 5, 32, 768, 12, 0, False),
@@ -1031,8 +1125,8 @@ def run_train(torch, dev, card):
 def _profile_steps(torch, run_step, n=3):
     """Device-busy share and the top device kernels over ``n`` steps (or
     generate calls) under torch.profiler (kernels run on one stream, so
-    their device times add up without overlap); K1, K1b, K2 and K2b summed
-    over their kernels."""
+    their device times add up without overlap); K1, K1b, K2, K2b, K7, K8 and
+    K11 summed over their kernels."""
     from torch.profiler import ProfilerActivity, profile
     run_step()
     torch.cuda.synchronize()
@@ -1055,12 +1149,20 @@ def _profile_steps(torch, run_step, n=3):
     per_step = lambda *tags: sum(dev(e) for e in events
                                  if any(t in e.key for t in tags)) / 1e3 / n
     k2, k2b = per_step("ffn_fwd_gemm", "ffn_finalize"), per_step("ffn_bwd_gemm")
+    # K7 (mode "fwdbwd": the projection and the merge), K8 (its two
+    # launches and the split-K finalize), K11
+    k7 = per_step("lm_ce_project_kernel<0>", "lm_ce_merge_kernel")
+    k8 = per_step("lm_ce_dlogits_kernel", "lm_ce_dh_")
+    k11 = per_step("flash_attention_wg", "flash_attention_tc")
     return {"steps": n, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / wall_ms,
             "k1_ms_per_step": per_step("attn_fwd_tc"),
             "k1b_ms_per_step": per_step("attn_bwd_tc"),
             "k2_ms_per_step": k2, "k2_share": k2 * n / busy_ms,
             "k2b_ms_per_step": k2b, "k2b_share": k2b * n / busy_ms,
+            "k7_ms_per_step": k7, "k7_share": k7 * n / busy_ms,
+            "k8_ms_per_step": k8, "k8_share": k8 * n / busy_ms,
+            "k11_ms_per_step": k11, "k11_share": k11 * n / busy_ms,
             "top_device_ops": [{"name": e.key[:80], "calls": e.count,
                                 "ms_per_step": dev(e) / 1e3 / n,
                                 "share": dev(e) / 1e3 / busy_ms} for e in top]}
@@ -1333,9 +1435,11 @@ def run_pretrain_long(torch, dev, card):
         state = TrainState.create(model, optimizer)
         state, run = _pretrain_steps(torch, state, step, batch, 4, PRETRAIN_LONG_LAUNCHES,
                                      "pretrain_long")
+        profile = _profile_steps(torch, lambda: step(state, batch, 0))
     run["samples_per_s"] = B / (run["ms_per_step"] / 1e3)
     emit("pretrain_long", card=card, config="config/pretrain_base.json", batch=B,
          enc_len=T_enc, dec_len=T_dec, lm_max_len=224, dtype=cfg.dtype, paths=paths, **run)
+    emit("pretrain_long_profile", card=card, mode="fwdbwd", **profile)
     return run["launches"]
 
 

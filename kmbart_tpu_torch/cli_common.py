@@ -2,8 +2,10 @@
 
 Counterpart of the parts of kmbart_tpu/cli_common.py that a one-device
 PyTorch run needs: the model/data path flags, the dropout overrides, the
-loader flags, ``--device`` in place of ``--cpu``, the model build (either
-model) with a checkpoint overlay, and the train checkpoint. The TPU mesh flags (model,
+loader flags, ``--device`` (``--cpu`` is the JAX spelling of ``--device
+cpu``), ``--amp`` (a no-op, as there) and ``--debug_nans``, the model build
+(either model) with a checkpoint overlay, and the train checkpoint. The TPU
+mesh flags (model,
 sequence and pipeline parallelism, multihost, ZeRO-1, sharded checkpoints)
 have no counterpart yet.
 """
@@ -12,7 +14,10 @@ import argparse
 import json
 import os
 
+import torch
+
 from kmbart_tpu_torch.config import MultiModalBartConfig
+from kmbart_tpu_torch.device import resolve_device
 
 
 def add_common_model_args(parser: argparse.ArgumentParser):
@@ -44,6 +49,13 @@ def add_dropout_args(parser):
 def add_hardware_args(parser, train=False):
     parser.add_argument('--device', default='cuda', type=str,
                         help='torch device to run on (cuda, cuda:N or cpu)')
+    parser.add_argument('--cpu', dest='device', action='store_const', const='cpu',
+                        help='run on host CPU (the same as --device cpu)')
+    parser.add_argument('--amp', action='store_true',
+                        help='kept for reference-CLI compatibility (bf16 is always on)')
+    parser.add_argument('--debug_nans', action='store_true',
+                        help="enable autograd's anomaly detection (numerical-fault "
+                             "detector; slow, for debugging only)")
     parser.add_argument('--batch_size', type=int, default=64, help='batch size')
     parser.add_argument('--num_workers', type=int, default=0,
                         help='#workers for data loader')
@@ -68,6 +80,15 @@ def add_pretraining_args(parser):
     parser.add_argument('--mrm_probability', type=float, default=0.2)
     parser.add_argument('--mlm_probability', type=float, default=0.2)
     parser.set_defaults(mrm_enabled=True, rp_enabled=True, ap_enabled=True)
+
+
+def setup_device(args):
+    """``--debug_nans`` turns on ``torch.autograd.set_detect_anomaly``, the
+    counterpart of ``jax_debug_nans``; returns the device of ``--device``
+    (or ``--cpu``)."""
+    if getattr(args, 'debug_nans', False):
+        torch.autograd.set_detect_anomaly(True)
+    return resolve_device(args.device)
 
 
 def apply_dropout_overrides(cfg, args):

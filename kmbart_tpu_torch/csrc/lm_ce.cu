@@ -20,38 +20,49 @@
 //
 // What bounds them on an H100: each is one GEMM of 2 x N x V x D FLOP (396
 // GFLOP at N 5120, V 50320, D 768; 712 at the pretraining head's N 9216), so
-// tensor-core FLOPs; the logits and dlogits are 515 MB each in bf16 at N 5120
-// (0.15 ms of HBM time each at 3.35 TB/s). The TPU walked the vocab
-// sequentially and carried (m, se, ll) and the dh accumulator in VMEM across
-// grid steps. Hopper has no ordered grid, so:
+// tensor-core FLOPs (0.40 and 0.72 ms at 989 TFLOP/s); the logits and
+// dlogits are 515 MB each in bf16 at N 5120 (0.15 ms of HBM time each at
+// 3.35 TB/s). The TPU walked the vocab sequentially and carried (m, se, ll)
+// and the dh accumulator in VMEM across grid steps. Hopper has no ordered
+// grid, so:
 //   K7 tiles the [N, V] product into 64 x 128 blocks (wmma, K = D in steps
 //      of 32 through shared memory); each block writes its bf16 logits and
 //      one partial (max, exp-sum, label logit) per row, and a second pass
 //      merges a row's partials in a fixed order (as K4 does);
 //   K9 is the same kernel without the logits store;
-//   K8 is a GEMM over K = V whose A operand is made on the fly: each block
-//      reads a [64, 32] logits tile, forms dlogits in shared memory (the
-//      blocks of the first D tile also write it out), and folds it into a
-//      64 x 128 tile of dh. When the tiles alone cannot fill the card the V
-//      walk is split over blockIdx.z into fp32 partials summed in a fixed
-//      order, so the result is deterministic;
+//   K8 is two launches. An elementwise pass reads the logits once (16-byte
+//      loads where V % 8 == 0) and writes the dlogits, which the dW product
+//      needs anyway: 2 x N x V x 2 bytes, 1.03 GB at N 5120 (0.31 ms at
+//      3.35 TB/s). Then dh = dlogits @ W on the persistent wgmma + TMA main
+//      loop of wgmma_gemm.cuh (K2b's B2 GEMM: A = dlogits K-major, B = W
+//      [V, D] read MN-major, K = V, the plain bf16 epilogue), which runs
+//      near the tensor cores' rate, where a wmma tile without a copy
+//      pipeline reached about 50 TFLOP/s. TMA wants a row pitch of a
+//      multiple of 16 bytes, so the dlogits live in an [N, ceil(V / 8) x 8]
+//      buffer with zero pad columns
+//      (the wrapper returns the [:, :V] view); the GEMM's map of them is V
+//      wide, and TMA zero-fills the ragged last K slice (50320 = 786 x 64 +
+//      16) of both operands. The output is 128 x 128 tiles walked columns
+//      first, so the six D tiles of a row block read each dlogits slice
+//      together (from L2 for five of them). When the tiles alone leave SMs
+//      idle, the plan (ops/lm_ce.py dh_plan) splits the V walk into fp32
+//      partials added in split order, so the result is deterministic;
 //   K10 cannot keep the TPU's [tn, D] fp32 dh accumulator on chip (768 fp32
 //      columns per row tile) and recomputing a logits tile once per 128-wide
 //      D tile would repeat the projection six times. So it runs in two
 //      passes: K7's projection with an epilogue that forms dlogits and writes
-//      them in bf16 (the dW product needs them anyway, :446-451), then K8's
-//      GEMM reading those dlogits as its A operand. The price against one
-//      fused pass is a second read of the dlogits, N x V x 2 bytes (0.93 GB,
-//      about 0.3 ms at N 9216).
+//      them in bf16 into K8's padded buffer (the dW product needs them
+//      anyway, :446-451), then K8's dh GEMM. The price against one fused
+//      pass is a second read of the dlogits, N x V x 2 bytes (0.93 GB, about
+//      0.3 ms at N 9216).
 // The ragged vocab tail (50320 = 393 x 128 + 16) is masked: W rows past V
 // load as zero, and those columns take no part in the statistics and get
 // zero dlogits, as _masked_w (:93-102) and the NEG floor do on the TPU.
-// This first version is wmma (mma.sync) without a TMA/wgmma pipeline.
+// K7, K9 and K10's first pass are still wmma (mma.sync) tiles without a
+// TMA/wgmma pipeline.
 #include <mma.h>
 
-#include <type_traits>
-
-#include "common.cuh"
+#include "wgmma_gemm.cuh"
 
 using namespace nvcuda;
 
@@ -63,37 +74,29 @@ constexpr int BN = 128;           // columns of the output tile
 constexpr int BK = 32;            // depth of one shared-memory step
 constexpr int NWARP = 8;          // 2 x 4 warps, 32 x 32 outputs each
 constexpr int LDA = BK + 8;       // A tile [BM][LDA]
-constexpr int LDB_T = BK + 8;     // K7: W tile [BN][LDB_T] (column-major B)
-constexpr int LDB_R = BN + 8;     // K8: W tile [BK][LDB_R] (row-major B)
+constexpr int LDB_T = BK + 8;     // W tile [BN][LDB_T] (column-major B)
 constexpr int LDC = BN + 4;       // fp32 epilogue tile [BM][LDC]
 
 constexpr size_t A_BYTES = sizeof(bf16) * BM * LDA;
-constexpr size_t B_BYTES = sizeof(bf16) * BN * LDB_T > sizeof(bf16) * BK * LDB_R
-                               ? sizeof(bf16) * BN * LDB_T
-                               : sizeof(bf16) * BK * LDB_R;
+constexpr size_t B_BYTES = sizeof(bf16) * BN * LDB_T;
 constexpr size_t C_BYTES = sizeof(float) * BM * LDC;
 constexpr size_t SMEM_BYTES = A_BYTES + B_BYTES + C_BYTES;
 
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
 
-// one BK step of the warp's 32 x 32 tile: A from a_s, B from b_s
-template <typename BLayout>
+// one BK step of the warp's 32 x 32 tile: A from a_s, B (column-major) from b_s
 __device__ __forceinline__ void mma_step(const bf16* a_s, const bf16* b_s, Acc (&acc)[2][2],
                                          int wm, int wn) {
 #pragma unroll
   for (int kk = 0; kk < BK; kk += 16) {
     wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> fb[2];
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i)
       wmma::load_matrix_sync(fa[i], a_s + (wm * 32 + i * 16) * LDA + kk, LDA);
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      if constexpr (std::is_same<BLayout, wmma::col_major>::value)
-        wmma::load_matrix_sync(fb[j], b_s + (wn * 32 + j * 16) * LDB_T + kk, LDB_T);
-      else
-        wmma::load_matrix_sync(fb[j], b_s + kk * LDB_R + wn * 32 + j * 16, LDB_R);
-    }
+    for (int j = 0; j < 2; ++j)
+      wmma::load_matrix_sync(fb[j], b_s + (wn * 32 + j * 16) * LDB_T + kk, LDB_T);
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -120,8 +123,8 @@ enum { kLogitsStats = 0,   // K7: bf16 logits and per-tile statistics
        kDlogits = 2 };     // K10, first pass: dlogits from the recomputed logits
 
 // grid (ceil(V / BN), ceil(N / BM)); partial stats [N, n_vtiles]. ``out`` is
-// the logits (kLogitsStats) or the dlogits (kDlogits); m, inv_se, scale are
-// read by kDlogits only.
+// the logits [N, V] (kLogitsStats) or the dlogits [N, ldo] with zero pad
+// columns [V, ldo) (kDlogits); m, inv_se, scale are read by kDlogits only.
 template <int kMode>
 __global__ void __launch_bounds__(NWARP * 32)
 lm_ce_project_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
@@ -129,7 +132,7 @@ lm_ce_project_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
                      bf16* __restrict__ out, float* __restrict__ part_m,
                      float* __restrict__ part_se, float* __restrict__ part_ll,
                      const float* __restrict__ m, const float* __restrict__ inv_se,
-                     const float* __restrict__ scale, int N, int V, int D) {
+                     const float* __restrict__ scale, int N, int V, int D, int ldo) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* a_s = reinterpret_cast<bf16*>(smem);
   bf16* b_s = reinterpret_cast<bf16*>(smem + A_BYTES);
@@ -160,7 +163,7 @@ lm_ce_project_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
           v < V ? load16(w + (size_t)v * D + k0 + c8) : zero;  // rows past V are zero
     }
     __syncthreads();
-    mma_step<wmma::col_major>(a_s, b_s, acc, wm, wn);
+    mma_step(a_s, b_s, acc, wm, wn);
     __syncthreads();
   }
   store_acc(c_s, acc, wm, wn);
@@ -179,7 +182,9 @@ lm_ce_project_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
         if (v < V) {
           const float lf = __bfloat162float(__float2bfloat16(c_s[row * LDC + c] + bias[v]));
           const float p = expf(lf - rm) * rinv;
-          out[(size_t)n * V + v] = __float2bfloat16(rscale * (p - (v == label ? 1.f : 0.f)));
+          out[(size_t)n * ldo + v] = __float2bfloat16(rscale * (p - (v == label ? 1.f : 0.f)));
+        } else if (v < ldo) {
+          out[(size_t)n * ldo + v] = __float2bfloat16(0.f);
         }
       }
       continue;
@@ -243,112 +248,65 @@ __global__ void lm_ce_merge_kernel(const float* __restrict__ part_m,
   }
 }
 
-// K8: grid (D / BN, ceil(N / BM), nsplit), D % BN == 0; the V walk of split z covers
-// BK-steps [z * steps_per_split, (z + 1) * steps_per_split). kFromLogits forms the
-// A operand from the logits and the statistics (K8); otherwise ``logits`` already
-// holds the dlogits (K10's second pass) and m, inv_se, scale, labels are unused.
-template <bool kFromLogits>
-__global__ void __launch_bounds__(NWARP * 32)
-lm_ce_bwd_kernel(const bf16* __restrict__ logits, const bf16* __restrict__ w,
-                 const float* __restrict__ m, const float* __restrict__ inv_se,
-                 const float* __restrict__ scale, const int* __restrict__ labels,
-                 bf16* __restrict__ dlogits, bf16* __restrict__ dh, float* __restrict__ partial,
-                 int N, int V, int D, int steps_per_split) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* a_s = reinterpret_cast<bf16*>(smem);
-  bf16* b_s = reinterpret_cast<bf16*>(smem + A_BYTES);
-  float* c_s = reinterpret_cast<float*>(smem + A_BYTES + B_BYTES);
-  const int d0 = blockIdx.x * BN, r0 = blockIdx.y * BM, split = blockIdx.z;
-  const bool write_dl = kFromLogits && blockIdx.x == 0;
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wm = warp / 4, wn = warp % 4;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-
-  // this thread's row of the dlogits tile and its statistics
-  const int a_row = tid / 4, a_c8 = (tid % 4) * 8;
-  const int n = r0 + a_row;
-  float rm = 0.f, rinv = 0.f, rscale = 0.f;
-  int rlabel = -1;
-  if (kFromLogits && n < N) {
-    rm = m[n];
-    rinv = inv_se[n];
-    rscale = scale[n];
-    rlabel = labels[n];
+// K8's first launch: grid (N, ceil(ldo / 2048)), a thread per 8 columns.
+// dl[n, v] = bf16(scale (exp(logit - m) inv_se - [v == label])) for v < V,
+// 0 on the pad columns [V, ldo). 16-byte loads where V % 8 == 0 (every row
+// then starts aligned), else element by element.
+__global__ void __launch_bounds__(256)
+lm_ce_dlogits_kernel(const bf16* __restrict__ logits, const float* __restrict__ m,
+                     const float* __restrict__ inv_se, const float* __restrict__ scale,
+                     const int* __restrict__ labels, bf16* __restrict__ dl, int V, int ldo) {
+  const int n = blockIdx.x;
+  const int c = (blockIdx.y * blockDim.x + threadIdx.x) * 8;
+  if (c >= ldo) return;
+  const float rm = m[n], rinv = inv_se[n], rscale = scale[n];
+  const int label = labels[n];
+  const bf16* row = logits + (size_t)n * V;
+  __align__(16) bf16 x[8];
+  if ((V & 7) == 0) {
+    *reinterpret_cast<uint4*>(x) = *reinterpret_cast<const uint4*>(row + c);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x[e] = c + e < V ? row[c + e] : __float2bfloat16(0.f);
   }
-
-  Acc acc[2][2];
+  __align__(16) bf16 y[8];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const int n_steps = (V + BK - 1) / BK;
-  const int s0 = split * steps_per_split;
-  const int s1 = min(n_steps, s0 + steps_per_split);
-  for (int step = s0; step < s1; ++step) {
-    const int v0 = step * BK;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int v = v0 + a_c8 + e;
-      bf16 d16 = __float2bfloat16(0.f);
-      if (n < N && v < V) {
-        const size_t i = (size_t)n * V + v;
-        if constexpr (kFromLogits) {
-          const float p = expf(__bfloat162float(logits[i]) - rm) * rinv;
-          d16 = __float2bfloat16(rscale * (p - (v == rlabel ? 1.f : 0.f)));
-          if (write_dl) dlogits[i] = d16;
-        } else {
-          d16 = logits[i];
-        }
-      }
-      a_s[a_row * LDA + a_c8 + e] = d16;
-    }
-#pragma unroll
-    for (int c = tid; c < BK * BN / 8; c += NWARP * 32) {  // W tile: 32 rows x 128
-      const int k = c / (BN / 8), c8 = (c % (BN / 8)) * 8;
-      const int v = v0 + k;
-      *reinterpret_cast<uint4*>(b_s + k * LDB_R + c8) =
-          v < V ? load16(w + (size_t)v * D + d0 + c8) : zero;  // rows past V are zero
-    }
-    __syncthreads();
-    mma_step<wmma::row_major>(a_s, b_s, acc, wm, wn);
-    __syncthreads();
+  for (int e = 0; e < 8; ++e) {
+    const int v = c + e;
+    const float p = expf(__bfloat162float(x[e]) - rm) * rinv;
+    y[e] = __float2bfloat16(v < V ? rscale * (p - (v == label ? 1.f : 0.f)) : 0.f);
   }
-  store_acc(c_s, acc, wm, wn);
-  __syncthreads();
-  for (int i = tid; i < BM * BN; i += NWARP * 32) {
-    const int row = i / BN, c = i % BN;
-    const int nn = r0 + row;
-    if (nn >= N) continue;
-    const size_t o = (size_t)nn * D + d0 + c;
-    if (partial != nullptr)
-      partial[(size_t)split * N * D + o] = c_s[row * LDC + c];
-    else
-      dh[o] = __float2bfloat16(c_s[row * LDC + c]);
-  }
+  *reinterpret_cast<uint4*>(dl + (size_t)n * ldo + c) = *reinterpret_cast<const uint4*>(y);
 }
 
-__global__ void lm_ce_finalize_kernel(const float* __restrict__ partial, bf16* __restrict__ dh,
-                                      size_t n, int nsplit) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int p = 0; p < nsplit; ++p) s += partial[p * n + i];
-  dh[i] = __float2bfloat16(s);
+// dh = dl @ W on the shared main loop (wgmma_gemm.cuh): A = dl [N, V] at row
+// pitch ldl, K-major; B = W [V, D] read MN-major; K = V
+__global__ void __launch_bounds__(kmb_wg::THREADS, 1)
+    lm_ce_dh_gemm(const __grid_constant__ CUtensorMap tma_a,
+                  const __grid_constant__ CUtensorMap tma_b,
+                  const __grid_constant__ CUtensorMap out_c,
+                  const __grid_constant__ CUtensorMap out_d, const kmb_wg::GemmArgs p) {
+  kmb_wg::gemm_tiles<kmb_wg::EPI_OUT, true>(&tma_a, &tma_b, &out_c, &out_d, p);
+}
+
+__global__ void lm_ce_dh_finalize(const float* __restrict__ partial,
+                                  const float* __restrict__ bias, bf16* __restrict__ out, int M,
+                                  int Ncols, int nsplit) {
+  kmb_wg::finalize_sum(partial, bias, out, M, Ncols, nsplit);
 }
 
 template <int kMode>
 cudaError_t launch_project(const void* h, const void* w, const void* bias, const void* labels,
                            void* out, void* part_m, void* part_se, void* part_ll,
                            const void* m, const void* inv_se, const void* scale, int N, int V,
-                           int D, cudaStream_t s) {
+                           int D, int ldo, cudaStream_t s) {
   cudaError_t err = kmb_allow_smem(lm_ce_project_kernel<kMode>, SMEM_BYTES);
   if (err != cudaSuccess) return err;
   lm_ce_project_kernel<kMode><<<dim3((V + BN - 1) / BN, (N + BM - 1) / BM), NWARP * 32,
                                  SMEM_BYTES, s>>>(
       (const bf16*)h, (const bf16*)w, (const float*)bias, (const int*)labels, (bf16*)out,
       (float*)part_m, (float*)part_se, (float*)part_ll, (const float*)m,
-      (const float*)inv_se, (const float*)scale, N, V, D);
+      (const float*)inv_se, (const float*)scale, N, V, D, ldo);
   return cudaGetLastError();
 }
 
@@ -361,27 +319,6 @@ cudaError_t launch_merge(const void* part_m, const void* part_se, const void* pa
   return cudaGetLastError();
 }
 
-template <bool kFromLogits>
-cudaError_t launch_dh(const void* a, const void* w, const void* m, const void* inv_se,
-                      const void* scale, const void* labels, void* dlogits, void* dh,
-                      void* partial, int N, int V, int D, int nsplit, int steps_per_split,
-                      cudaStream_t s) {
-  cudaError_t err = kmb_allow_smem(lm_ce_bwd_kernel<kFromLogits>, SMEM_BYTES);
-  if (err != cudaSuccess) return err;
-  float* part = nsplit > 1 ? (float*)partial : nullptr;
-  lm_ce_bwd_kernel<kFromLogits><<<dim3(D / BN, (N + BM - 1) / BM, nsplit), NWARP * 32,
-                                   SMEM_BYTES, s>>>(
-      (const bf16*)a, (const bf16*)w, (const float*)m, (const float*)inv_se,
-      (const float*)scale, (const int*)labels, (bf16*)dlogits, (bf16*)dh, part, N, V, D,
-      steps_per_split);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || nsplit == 1) return err;
-  const size_t n = (size_t)N * D;
-  lm_ce_finalize_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(part, (bf16*)dh, n,
-                                                                    nsplit);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // K7. part_*: fp32 [N, ceil(V / 128)] scratch; m, se, ll: fp32 [N]
@@ -391,7 +328,7 @@ KMB_EXPORT int kmb_lm_ce_fwd(const void* h, const void* w, const void* bias,
                              void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = launch_project<kLogitsStats>(h, w, bias, labels, logits, part_m, part_se,
-                                                 part_ll, nullptr, nullptr, nullptr, N, V, D,
+                                                 part_ll, nullptr, nullptr, nullptr, N, V, D, V,
                                                  s);
   if (err != cudaSuccess) return err;
   return launch_merge(part_m, part_se, part_ll, m, se, ll, N, V, s);
@@ -404,31 +341,47 @@ KMB_EXPORT int kmb_lm_ce_fwd_stats(const void* h, const void* w, const void* bia
                                    int D, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = launch_project<kStatsOnly>(h, w, bias, labels, nullptr, part_m, part_se,
-                                               part_ll, nullptr, nullptr, nullptr, N, V, D, s);
+                                               part_ll, nullptr, nullptr, nullptr, N, V, D, V, s);
   if (err != cudaSuccess) return err;
   return launch_merge(part_m, part_se, part_ll, m, se, ll, N, V, s);
 }
 
-// K8. partial: fp32 [nsplit, N, D] scratch when nsplit > 1, else unused.
-KMB_EXPORT int kmb_lm_ce_bwd(const void* logits, const void* w, const void* m,
-                             const void* inv_se, const void* scale, const void* labels,
-                             void* dlogits, void* dh, void* partial, int N, int V, int D,
-                             int nsplit, int steps_per_split, void* stream) {
-  return launch_dh<true>(logits, w, m, inv_se, scale, labels, dlogits, dh, partial, N, V, D,
-                         nsplit, steps_per_split, (cudaStream_t)stream);
+// K8's first launch. logits bf16 [N, V]; dl bf16 [N, ldo] (ldo % 8 == 0, ldo
+// >= V); both 16-byte aligned.
+KMB_EXPORT int kmb_lm_ce_dlogits(const void* logits, const void* m, const void* inv_se,
+                                 const void* scale, const void* labels, void* dl, int N, int V,
+                                 int ldo, void* stream) {
+  if (N < 1 || ldo < V || ldo % 8) return cudaErrorInvalidValue;
+  lm_ce_dlogits_kernel<<<dim3(N, (ldo / 8 + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
+      (const bf16*)logits, (const float*)m, (const float*)inv_se, (const float*)scale,
+      (const int*)labels, (bf16*)dl, V, ldo);
+  return cudaGetLastError();
 }
 
-// K10: the dlogits from the recomputed logits, then K8's dh GEMM over them.
-// partial as for K8.
-KMB_EXPORT int kmb_lm_ce_recompute_bwd(const void* h, const void* w, const void* bias,
-                                       const void* m, const void* inv_se, const void* scale,
-                                       const void* labels, void* dlogits, void* dh,
-                                       void* partial, int N, int V, int D, int nsplit,
-                                       int steps_per_split, void* stream) {
+// K8's and K10's dh GEMM: dh bf16 [N, D] = dl [N, V] (row pitch ldl) @ w [V,
+// D], on `ctas` persistent blocks, the V walk in nsplit parts of kper
+// 64-deep slices (ops/lm_ce.py dh_plan); partial: fp32 [nsplit, N, D] scratch
+// when nsplit > 1. Every pointer 16-byte aligned, ldl % 8 == 0, D % 8 == 0.
+KMB_EXPORT int kmb_lm_ce_dh(const void* dl, const void* w, void* dh, void* partial, int N,
+                            int V, int ldl, int D, int ctas, int nsplit, int kper,
+                            void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = launch_project<kDlogits>(h, w, bias, labels, dlogits, nullptr, nullptr,
-                                             nullptr, m, inv_se, scale, N, V, D, s);
-  if (err != cudaSuccess) return err;
-  return launch_dh<false>(dlogits, w, nullptr, nullptr, nullptr, nullptr, nullptr, dh, partial,
-                          N, V, D, nsplit, steps_per_split, s);
+  if (ctas < 1 || nsplit < 1 || ldl < V || ldl % 8 || D % 8) return cudaErrorInvalidValue;
+  static unsigned configured = 0;  // a bit per device
+  float* part = nsplit > 1 ? (float*)partial : nullptr;
+  const kmb_wg::GemmArgs p = {nullptr, part, N, D, 0, kper, nsplit, 0};
+  cudaError_t err =
+      kmb_wg::gemm_launch(lm_ce_dh_gemm, configured, true, dl, ldl, w, dh, nullptr, p, V, ctas, s);
+  if (err != cudaSuccess || nsplit == 1) return err;
+  return kmb_wg::finalize_launch(lm_ce_dh_finalize, part, nullptr, (bf16*)dh, N, D, nsplit, s);
+}
+
+// K10's first pass: the dlogits from the recomputed logits into dl [N, ldo]
+// (K8's padded buffer), for kmb_lm_ce_dh after it.
+KMB_EXPORT int kmb_lm_ce_recompute_dlogits(const void* h, const void* w, const void* bias,
+                                           const void* m, const void* inv_se,
+                                           const void* scale, const void* labels, void* dl,
+                                           int N, int V, int ldo, int D, void* stream) {
+  return launch_project<kDlogits>(h, w, bias, labels, dl, nullptr, nullptr, nullptr, m, inv_se,
+                                  scale, N, V, D, ldo, (cudaStream_t)stream);
 }

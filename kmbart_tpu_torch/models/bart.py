@@ -19,6 +19,7 @@ the self-attention kernel K3 gathers through it (ops/beam_attention.py).
 """
 
 import math
+import os
 
 import numpy as np
 import torch
@@ -209,9 +210,11 @@ def _residual_ffn(x, layer, cfg, dtype, train=False, generator=None):
     f = layer.fc1.weight.shape[0]
     if (cfg.activation_function == "gelu" and dtype == torch.bfloat16
             and ffn_supported(d, f)
-            and not (train and cfg.activation_dropout > 0.0)):
+            and not (train and cfg.activation_dropout > 0.0)
+            and os.environ.get("KMBART_NO_FUSED_FFN") != "1"):
         # fused kernel K2 (forward and backward): the [rows, ffn_dim]
-        # activations stay on chip (pallas_ffn.py:320-339 gates the same)
+        # activations stay on chip (pallas_ffn.py:320-339 gates the same,
+        # KMBART_NO_FUSED_FFN=1 included)
         h = ffn(x.to(dtype).contiguous(), layer.fc1.weight, layer.fc1.bias,
                 layer.fc2.weight, layer.fc2.bias)
     else:

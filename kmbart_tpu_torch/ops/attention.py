@@ -9,14 +9,18 @@ Self-attention and cross-attention without a cache, under a key-padding or
 causal mask and with no attention-prob dropout active, go where the JAX
 package sends them on the TPU (ops/attention.py:110-130 and 186-197): to
 the fused kernel K1 (ops/train_attention.py, forward and backward) when the
-whole score row fits on chip (Tq, Tk <= 256) and there are at most 12
-heads (pallas_train_attention.py:420-433); otherwise to the flash kernel
-K11 (ops/flash_attention.py) when Tq·Tk >= 128² and the lengths and
-head_dim are multiples of 8; otherwise to the composite. Decode-time
+whole score row fits on chip (Tq, Tk <= 256) and there are at most
+``KMBART_FUSED_ATTN_HEADS_MAX`` heads (default 12), unless
+``KMBART_NO_FUSED_ATTN=1`` (pallas_train_attention.py:409-433; both read
+at call time); otherwise to the flash kernel K11 (ops/flash_attention.py)
+when Tq·Tk >= 128² and the lengths and head_dim are multiples of 8;
+otherwise to the composite. Decode-time
 cross-attention over precomputed K/V folds a sample's beam group into the
 query axis, so each sample's encoder K/V is read once rather than once per
 beam.
 """
+
+import os
 
 import torch
 
@@ -26,7 +30,15 @@ from kmbart_tpu_torch.ops.layers import dense, dropout, scale_as
 from kmbart_tpu_torch.ops.train_attention import supported, train_attention
 
 NEG_INF = -1e9
-K1_MAX_HEADS = 12  # pallas_train_attention.py:426: more heads take the other paths
+
+
+def k1_enabled(num_heads):
+    """The switches of the JAX gate (pallas_train_attention.py:412,426):
+    ``KMBART_NO_FUSED_ATTN=1`` turns K1 off, and more heads than
+    ``KMBART_FUSED_ATTN_HEADS_MAX`` (default 12) take the other paths."""
+    if os.environ.get("KMBART_NO_FUSED_ATTN") == "1":
+        return False
+    return num_heads <= int(os.environ.get("KMBART_FUSED_ATTN_HEADS_MAX", "12"))
 
 
 def split_heads(x, num_heads):
@@ -102,17 +114,14 @@ def multi_head_attention(attn, hidden, kv_hidden=None, bias=None, *, num_heads,
         Tk = Tq if kv_hidden is None else kv_hidden.shape[1]
         hd = hidden.shape[-1] // num_heads
         fused = None
-        if (supported(Tq, Tk, hd) and num_heads <= K1_MAX_HEADS
-                and (Tq == Tk or not causal)):
+        if supported(Tq, Tk, hd) and k1_enabled(num_heads) and (Tq == Tk or not causal):
             fused = train_attention
         elif flash_supported(Tq, Tk, hd, causal):
             fused = flash_self_attention   # fp32 out; dense rounds it to dtype
         if fused is not None:
             if k_flat is None:
                 k_flat, v_flat = project_kv()
-            if fused is flash_self_attention:
-                q_flat, k_flat, v_flat = (t.contiguous() for t in (q_flat, k_flat, v_flat))
-            # K1 reads the fused QKV chunks by row stride, without a copy
+            # K1 and K11 read the fused QKV chunks by row stride, without a copy
             out = fused(q_flat, k_flat, v_flat, key_mask, num_heads=num_heads, causal=causal)
             return dense(out, attn.out_proj.weight, attn.out_proj.bias, dtype)
 

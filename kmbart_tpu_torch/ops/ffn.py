@@ -64,11 +64,12 @@ def supported(d, f):
 
 
 class GemmPlan(NamedTuple):
-    """One GEMM of a K2 or K2b call: [rows, cols] = [rows, depth] @ [depth,
-    cols] in ROW_TILE x COL_TILE output tiles, with the depth walk in
-    ``splits`` parts of ``kper`` K_TILE-deep slices each (the last part may be
-    shorter): split p covers depth [p·kper·K_TILE, min(depth,
-    (p+1)·kper·K_TILE)), and the parts are added in split order. Tile t (of
+    """One GEMM of a K2 or K2b call (or K8's and K10's dh, ops/lm_ce.py
+    dh_plan): [rows, cols] = [rows, depth] @ [depth, cols] in ROW_TILE x
+    COL_TILE output tiles, with the depth walk in ``splits`` parts of
+    ``kper`` K_TILE-deep slices each (the last part may be shorter): split
+    p covers depth [p·kper·K_TILE, min(depth, (p+1)·kper·K_TILE)), and the
+    parts are added in split order. Tile t (of
     row_tiles·col_tiles·splits; columns fastest, then rows, then splits) is
     computed by block t % ctas of the persistent grid."""
     rows: int
@@ -81,7 +82,7 @@ class GemmPlan(NamedTuple):
     ctas: int
 
 
-def _gemm_plan(rows, cols, depth, sms, split):
+def gemm_plan(rows, cols, depth, sms, split):
     row_tiles, col_tiles = -(-rows // ROW_TILE), -(-cols // COL_TILE)
     ksteps = -(-depth // K_TILE)
     kper = ksteps
@@ -101,13 +102,13 @@ def plan(n, d, f, sms):
     and never splits; the second (h @ W2ᵀ or da @ W1, [N, D] over depth F)
     splits its depth walk into fp32 partials when its tiles alone would
     leave SMs idle."""
-    return _gemm_plan(n, f, d, sms, False), _gemm_plan(n, d, f, sms, True)
+    return gemm_plan(n, f, d, sms, False), gemm_plan(n, d, f, sms, True)
 
 
 _SM_COUNTS = {}
 
 
-def _sm_count(device):
+def sm_count(device):
     if device not in _SM_COUNTS:
         _SM_COUNTS[device] = torch.cuda.get_device_properties(device).multi_processor_count
     return _SM_COUNTS[device]
@@ -118,7 +119,7 @@ def _check_widths(name, D, F):
         raise ValueError(f"{name} kernel takes D % 16 == 0 and F % 64 == 0; got D {D}, F {F}")
 
 
-def _check_aligned(name, *tensors):
+def check_aligned(name, *tensors):
     """TMA reads and the epilogue's paired stores want 16-byte aligned bases."""
     for t in tensors:
         if t is not None and t.data_ptr() % 16:
@@ -128,7 +129,7 @@ def _check_aligned(name, *tensors):
 def _launch_args(dev, N, D, F):
     """The plan's scalars for the C entry points, and the partial-sum
     scratch of the second GEMM when it splits."""
-    first, second = plan(N, D, F, _sm_count(dev))
+    first, second = plan(N, D, F, sm_count(dev))
     partial = (torch.empty((second.splits, N, D), dtype=torch.float32, device=dev)
                if second.splits > 1 else None)
     return partial, (first.ctas, second.ctas, second.splits, second.kper)
@@ -157,7 +158,7 @@ def fused_ffn(x, w1, b1, w2, b2, with_a=False):
     if N > 0:
         h = torch.empty((N, F), dtype=torch.bfloat16, device=dev)
         partial, plan_args = _launch_args(dev, N, D, F)
-        _check_aligned("fused_ffn", xf, w1, b1, w2, b2, y, h, partial, a)
+        check_aligned("fused_ffn", xf, w1, b1, w2, b2, y, h, partial, a)
         lib, stream = _cuda.prepare(dev)
         _cuda.check(lib.kmb_ffn_fwd(
             xf.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
@@ -206,7 +207,7 @@ def fused_ffn_bwd(g, a, w1, w2):
     if N == 0:
         return da, dx
     partial, plan_args = _launch_args(dev, N, D, F)
-    _check_aligned("fused_ffn_bwd", g, a, w1, w2, da, dx, partial)
+    check_aligned("fused_ffn_bwd", g, a, w1, w2, da, dx, partial)
     lib, stream = _cuda.prepare(dev)
     _cuda.check(lib.kmb_ffn_bwd(
         g.data_ptr(), a.data_ptr(), w1.data_ptr(), w2.data_ptr(), da.data_ptr(),

@@ -2,7 +2,10 @@
 
 Counterpart of kmbart_tpu/ops/pallas_attention.py. The kernel is in
 ``csrc/flash_attention.cu``; its source note says what bounds it on an H100
-and how the design answers that.
+and how the design answers that: bf16 inputs run both products on the
+tensor cores, with p split into two bf16 terms (``p_split``), fp32 inputs
+on the CUDA cores. It reads q, k and v by row stride (the chunks of a fused
+QKV projection need no copy).
 
 ``flash_attention`` wraps the forward: on CPU tensors it runs
 ``flash_attention_plain``, on CUDA tensors it launches the kernel or raises.
@@ -22,10 +25,20 @@ backward is autograd through ``flash_attention_plain``.
 import torch
 
 from kmbart_tpu_torch.ops import _cuda
+from kmbart_tpu_torch.ops.train_attention import _kernel_mask, _ptr, row_stride
 
 NEG_INF = -1e9
 MIN_SCORES = 128 * 128   # pallas_attention.flash_supported: Tq·Tk floor
-MAX_HEAD_DIM = 128       # csrc/flash_attention.cu: head_dim <= 32 x 4 per lane
+MAX_HEAD_DIM = 128       # csrc/flash_attention.cu: the widest instantiation
+
+
+def p_split(p):
+    """The two bf16 terms the bf16 kernel multiplies V by in place of the
+    fp32 p: (bf16(p), bf16(p − bf16(p))), as fp32 tensors. Their sum is
+    within 2⁻¹⁶·p of p: each rounding keeps 8 significant bits, and the
+    second rounds a residual of at most 2⁻⁸·p."""
+    hi = p.to(torch.bfloat16).float()
+    return hi, (p - hi).to(torch.bfloat16).float()
 
 
 def _key_bias(key_mask, B, Tk, device):
@@ -74,11 +87,12 @@ def supported(q_len, k_len, head_dim, causal=False):
 
 def flash_attention(q_flat, k_flat, v_flat, key_mask, *, num_heads, causal=False):
     """The kernel; same contract as ``flash_attention_plain`` (without
-    gradients). CUDA tensors launch the kernel, in bf16 or fp32."""
+    gradients). CUDA tensors launch the kernel, in bf16 or fp32; rows may be
+    strided (``train_attention.row_stride``)."""
     if q_flat.device.type == "cpu":
         return flash_attention_plain(q_flat, k_flat, v_flat, key_mask,
                                      num_heads=num_heads, causal=causal)
-    dev = _cuda.require_cuda("flash_attention", q_flat, k_flat, v_flat)
+    dev = _cuda.require_cuda("flash_attention", q_flat, k_flat, v_flat, contiguous=False)
     B, Tq, D = q_flat.shape
     Tk = k_flat.shape[1]
     if (k_flat.shape != (B, Tk, D) or v_flat.shape != k_flat.shape
@@ -93,14 +107,17 @@ def flash_attention(q_flat, k_flat, v_flat, key_mask, *, num_heads, causal=False
     if not (q_flat.dtype == k_flat.dtype == v_flat.dtype):
         raise TypeError("flash_attention: q, k, v dtypes differ")
     code = _cuda.dtype_code(q_flat)
-    bias = _key_bias(key_mask, B, Tk, dev).contiguous()
+    if q_flat.dtype == torch.bfloat16 and hd % 8:
+        raise ValueError(f"flash_attention: the bf16 kernel takes head_dim % 8 == 0, got {hd}")
     out = torch.empty((B, Tq, D), dtype=torch.float32, device=dev)
     if B == 0 or Tq == 0 or Tk == 0:
         return out.zero_()
+    mask = _kernel_mask(key_mask, B, Tk, dev)
+    lds = [row_stride(t, "flash_attention") for t in (q_flat, k_flat, v_flat)]
     lib, stream = _cuda.prepare(dev)
     _cuda.check(lib.kmb_flash_attention(
-        q_flat.data_ptr(), k_flat.data_ptr(), v_flat.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), B, Tq, Tk, D, num_heads, int(causal), hd ** -0.5, code, stream),
+        q_flat.data_ptr(), k_flat.data_ptr(), v_flat.data_ptr(), _ptr(mask),
+        out.data_ptr(), B, Tq, Tk, D, num_heads, *lds, int(causal), hd ** -0.5, code, stream),
         "flash_attention")
     flash_attention.launches += 1
     return out

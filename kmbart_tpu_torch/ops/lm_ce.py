@@ -14,6 +14,13 @@ recomputed from (h, W, bias) with the same bf16 rounding. On CPU tensors
 each runs its plain version (``*_plain``); on CUDA tensors it launches its
 kernel or raises.
 
+On the card K8 is two launches: ``dlogits_pass`` writes the dlogits into an
+[N, ``padded_vocab(V)``] buffer (TMA's row pitch is a multiple of 16 bytes;
+the pad columns are zero), then dh = dlogits @ W runs on the wgmma + TMA
+GEMM that K2b's second product uses, laid out by ``dh_plan``. K10's second
+pass is the same GEMM over the dlogits its first pass writes. Both return
+the [:, :V] view of the buffer as their dlogits.
+
 ``fused_lm_ce`` is the differentiable loss, in one of the JAX package's
 modes (pallas_lm_ce.py:385-396): "fwdbwd" (K7 + K8, the default), "nomat"
 (K9 + K10) or "bwd" (the library projection and statistics in PyTorch,
@@ -27,18 +34,20 @@ import os
 import torch
 
 from kmbart_tpu_torch.ops import _cuda
+from kmbart_tpu_torch.ops.ffn import check_aligned, gemm_plan, sm_count
 from kmbart_tpu_torch.ops.layers import mm_f32
 
 MIN_VOCAB = 1024   # pallas_lm_ce.DEFAULT_TILE_V: the JAX gate's vocab floor
 TILE_V = 128       # csrc/lm_ce.cu BN: vocab columns per K7 block
-TILE_N = 64        # csrc/lm_ce.cu BM
-STEP_V = 32        # csrc/lm_ce.cu BK: the K8 walk over the vocab
 
 
 def supported(n_rows, vocab_size, d_model, dtype):
     """The JAX gate (pallas_lm_ce.py:474-488) without its TPU and
-    single-device clauses: rows in tiles of 8, d_model % 128 == 0, a vocab
-    of at least 1024; and the kernels' bf16."""
+    single-device clauses: ``KMBART_NO_FUSED_CE=1`` (read at call time)
+    turns the kernels off; else rows in tiles of 8, d_model % 128 == 0, a
+    vocab of at least 1024; and the kernels' bf16."""
+    if os.environ.get("KMBART_NO_FUSED_CE") == "1":
+        return False
     return (n_rows % 8 == 0 and d_model % 128 == 0 and vocab_size >= MIN_VOCAB
             and dtype == torch.bfloat16)
 
@@ -112,12 +121,18 @@ def lm_ce_bwd_plain(logits, w, m, inv_se, scale, labels):
     return dl, dh
 
 
-def _splits(n_blocks, n_steps, device):
-    """Split the vocab walk when the output tiles alone would leave SMs idle."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = max(1, min(n_steps, (2 * sms) // max(n_blocks, 1)))
-    per = -(-n_steps // want)
-    return -(-n_steps // per), per
+def padded_vocab(vocab_size):
+    """The row pitch of the dlogits buffer of K8 and K10: the vocab rounded up
+    to 8 columns (16 bytes of bf16), the multiple TMA needs."""
+    return -(-vocab_size // 8) * 8
+
+
+def dh_plan(n_rows, d_model, vocab_size, sms):
+    """The launch plan of the dh GEMM ([N, D] = [N, V] @ [V, D], depth V) on
+    a card with ``sms`` SMs: K2b's second GEMM's plan (``ffn.gemm_plan``),
+    which splits the V walk into fp32 partials, added in split order, only
+    when the output tiles alone would leave SMs idle."""
+    return gemm_plan(n_rows, d_model, vocab_size, sms, True)
 
 
 def _check_stats(name, N, m, inv_se, scale, labels):
@@ -128,40 +143,56 @@ def _check_stats(name, N, m, inv_se, scale, labels):
         raise ValueError(f"{name}: labels must be int32 [N]")
 
 
-def _dh_scratch(N, D, V, dev):
-    """(nsplit, steps per split, fp32 partials or None) for the dh GEMM."""
-    n_blocks = (D // TILE_V) * -(-N // TILE_N)
-    nsplit, per = _splits(n_blocks, -(-V // STEP_V), dev)
-    partial = (torch.empty((nsplit, N, D), dtype=torch.float32, device=dev)
-               if nsplit > 1 else None)
-    return nsplit, per, partial
+def dlogits_pass(logits, m, inv_se, scale, labels):
+    """K8's first launch on CUDA tensors (checked by the caller): the bf16
+    dlogits in an [N, padded_vocab(V)] buffer with zero pad columns."""
+    N, V = logits.shape
+    dl = torch.empty((N, padded_vocab(V)), dtype=torch.bfloat16, device=logits.device)
+    check_aligned("lm_ce_bwd", logits, dl)
+    lib, stream = _cuda.prepare(logits.device)
+    _cuda.check(lib.kmb_lm_ce_dlogits(
+        logits.data_ptr(), m.data_ptr(), inv_se.data_ptr(), scale.data_ptr(),
+        labels.data_ptr(), dl.data_ptr(), N, V, dl.shape[1], stream), "lm_ce_bwd dlogits")
+    return dl
+
+
+def dh_gemm(name, dl, V, w):
+    """K8's second launch and K10's second pass on CUDA tensors (checked by
+    the caller): dh = dl[:, :V] @ w on the wgmma + TMA main loop."""
+    N, D = dl.shape[0], w.shape[1]
+    dh = torch.empty((N, D), dtype=torch.bfloat16, device=dl.device)
+    g = dh_plan(N, D, V, sm_count(dl.device))
+    partial = (torch.empty((g.splits, N, D), dtype=torch.float32, device=dl.device)
+               if g.splits > 1 else None)
+    check_aligned(name, dl, w, dh, partial)
+    lib, stream = _cuda.prepare(dl.device)
+    _cuda.check(lib.kmb_lm_ce_dh(
+        dl.data_ptr(), w.data_ptr(), dh.data_ptr(),
+        None if partial is None else partial.data_ptr(), N, V, dl.shape[1], D, g.ctas,
+        g.splits, g.kper, stream), f"{name} dh")
+    return dh
 
 
 def lm_ce_bwd(logits, w, m, inv_se, scale, labels):
     """K8; same contract as ``lm_ce_bwd_plain`` except that on a CUDA device
-    logits and w must be bf16, the statistics fp32 and labels int32."""
+    logits and w must be bf16, the statistics fp32 and labels int32. The
+    dlogits come back as a [:, :V] view of a buffer whose rows are
+    ``padded_vocab(V)`` apart."""
     if logits.device.type == "cpu":
         return lm_ce_bwd_plain(logits, w, m, inv_se, scale, labels)
-    dev = _cuda.require_cuda("lm_ce_bwd", logits, w, m, inv_se, scale, labels)
+    _cuda.require_cuda("lm_ce_bwd", logits, w, m, inv_se, scale, labels)
     N = logits.shape[0]
     V, D = w.shape
     _check_head("lm_ce_bwd", w, D, logits.dtype)
     if logits.shape != (N, V):
         raise ValueError(f"lm_ce_bwd: logits {tuple(logits.shape)} for w {tuple(w.shape)}")
     _check_stats("lm_ce_bwd", N, m, inv_se, scale, labels)
-    dl = torch.empty_like(logits)
-    dh = torch.empty((N, D), dtype=torch.bfloat16, device=dev)
     if N == 0:
-        return dl, dh
-    nsplit, per, partial = _dh_scratch(N, D, V, dev)
-    lib, stream = _cuda.prepare(dev)
-    _cuda.check(lib.kmb_lm_ce_bwd(
-        logits.data_ptr(), w.data_ptr(), m.data_ptr(), inv_se.data_ptr(), scale.data_ptr(),
-        labels.data_ptr(), dl.data_ptr(), dh.data_ptr(),
-        None if partial is None else partial.data_ptr(), N, V, D, nsplit, per, stream),
-        "lm_ce_bwd")
+        return torch.empty_like(logits), torch.empty((0, D), dtype=w.dtype, device=w.device)
+    dl = dlogits_pass(logits, m, inv_se, scale, labels)
+    dh = dh_gemm("lm_ce_bwd", dl, V, w)
     lm_ce_bwd.launches += 1
-    return dl, dh
+    return dl[:, :V], dh
 
 
 lm_ce_bwd.launches = 0
@@ -209,25 +240,25 @@ def lm_ce_recompute_bwd_plain(h, w, fbias, m, inv_se, scale, labels):
 def lm_ce_recompute_bwd(h, w, fbias, m, inv_se, scale, labels):
     """K10; same contract as ``lm_ce_recompute_bwd_plain`` except that on a
     CUDA device h and w must be bf16, fbias and the statistics fp32 and
-    labels int32. One launch is the dlogits pass and the dh GEMM after it
-    (csrc/lm_ce.cu, K10)."""
+    labels int32. The dlogits pass (K7's projection, csrc/lm_ce.cu), then
+    K8's dh GEMM over its padded buffer; the dlogits come back as
+    ``lm_ce_bwd`` returns them."""
     if h.device.type == "cpu":
         return lm_ce_recompute_bwd_plain(h, w, fbias, m, inv_se, scale, labels)
     dev, N, V, D = _check_fwd("lm_ce_recompute_bwd", h, w, fbias, labels)
     _check_stats("lm_ce_recompute_bwd", N, m, inv_se, scale, labels)
-    dl = torch.empty((N, V), dtype=torch.bfloat16, device=dev)
-    dh = torch.empty((N, D), dtype=torch.bfloat16, device=dev)
     if N == 0:
-        return dl, dh
-    nsplit, per, partial = _dh_scratch(N, D, V, dev)
+        return (torch.empty((0, V), dtype=torch.bfloat16, device=dev),
+                torch.empty((0, D), dtype=torch.bfloat16, device=dev))
+    dl = torch.empty((N, padded_vocab(V)), dtype=torch.bfloat16, device=dev)
     lib, stream = _cuda.prepare(dev)
-    _cuda.check(lib.kmb_lm_ce_recompute_bwd(
+    _cuda.check(lib.kmb_lm_ce_recompute_dlogits(
         h.data_ptr(), w.data_ptr(), fbias.data_ptr(), m.data_ptr(), inv_se.data_ptr(),
-        scale.data_ptr(), labels.data_ptr(), dl.data_ptr(), dh.data_ptr(),
-        None if partial is None else partial.data_ptr(), N, V, D, nsplit, per, stream),
-        "lm_ce_recompute_bwd")
+        scale.data_ptr(), labels.data_ptr(), dl.data_ptr(), N, V, dl.shape[1], D, stream),
+        "lm_ce_recompute_bwd dlogits")
+    dh = dh_gemm("lm_ce_recompute_bwd", dl, V, w)
     lm_ce_recompute_bwd.launches += 1
-    return dl, dh
+    return dl[:, :V], dh
 
 
 lm_ce_recompute_bwd.launches = 0

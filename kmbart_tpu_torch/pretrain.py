@@ -5,7 +5,7 @@ attribute/relation pretraining of the pretraining model, per-epoch
 ``model{N}/`` checkpoints (optionally every ``--save_every_steps`` steps
 too), a teacher-forced sample decode every 100 steps, and TensorBoard
 scalars with the head losses. It takes the same flags, with ``--device``
-(default ``cuda``) in place of ``--cpu``; the TPU mesh flags (model,
+(default ``cuda``; ``--cpu`` is ``--device cpu``); the TPU mesh flags (model,
 sequence and pipeline parallelism, multihost, ZeRO-1, sharded checkpoints)
 are not accepted. Checkpoints are in the JAX package's format, so either
 package resumes the other's, and a pretraining checkpoint loads into the
@@ -28,8 +28,7 @@ from kmbart_tpu_torch.checkpoint.io import jax_leaf_groups, load_training_data
 from kmbart_tpu_torch.cli_common import (add_common_model_args, add_dropout_args,
                                          add_hardware_args, add_pretraining_args,
                                          build_model_params, load_model_config,
-                                         save_train_checkpoint)
-from kmbart_tpu_torch.device import resolve_device
+                                         save_train_checkpoint, setup_device)
 from kmbart_tpu_torch.models.pretraining import (forward_logits, init_pretraining_model,
                                                  pretraining_loss)
 from kmbart_tpu_torch.parallel.train_step import build_train_step
@@ -80,7 +79,7 @@ def build_datasets(args):
 
 
 def main(args):
-    device = resolve_device(args.device)
+    device = setup_device(args)
     if args.batch_size % args.grad_accum_steps:
         raise ValueError(f'batch_size={args.batch_size} must be divisible by '
                          f'grad_accum_steps={args.grad_accum_steps}')

@@ -2,8 +2,8 @@
 
 Twin of the root ``vcg_generate.py``: decode a VCG split with greedy or
 beam settings and dump ``[{index, task_type, generations}]`` JSON. It
-takes the same flags, with ``--device`` (default ``cuda``) in place of
-``--cpu``; sampling is not ported yet.
+takes the same flags, with ``--device`` (default ``cuda``; ``--cpu`` is
+``--device cpu``); sampling is not ported yet.
 """
 
 import argparse
@@ -16,13 +16,13 @@ from kmbart_tpu_torch.data.loader import DataLoader
 from kmbart_tpu_torch.data.tokenization import ConditionTokenizer
 from kmbart_tpu_torch.utils.logger import Logger
 from kmbart_tpu_torch.checkpoint.io import load_pretrained
-from kmbart_tpu_torch.cli_common import add_common_model_args, add_hardware_args
-from kmbart_tpu_torch.device import resolve_device
+from kmbart_tpu_torch.cli_common import (add_common_model_args, add_hardware_args,
+                                         setup_device)
 from kmbart_tpu_torch.generation.driver import generate_text
 
 
 def main(args):
-    device = resolve_device(args.device)
+    device = setup_device(args)
     logger = Logger(log_file=args.log_dir)
     logger.info('Loading model...')
 

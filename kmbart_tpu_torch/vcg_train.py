@@ -4,8 +4,8 @@ Twin of the root ``vcg_train.py``: fine-tune the conditional-generation
 model on VCG with per-epoch ``model{N}/`` checkpoints (optionally every
 ``--save_every_steps`` steps too), optional validation loss and generation
 score, a sample decode every 100 steps, and TensorBoard scalars. It takes
-the same flags, with ``--device`` (default ``cuda``) in place of ``--cpu``;
-the TPU mesh flags (model, sequence and pipeline parallelism, multihost,
+the same flags, with ``--device`` (default ``cuda``; ``--cpu`` is ``--device
+cpu``); the TPU mesh flags (model, sequence and pipeline parallelism, multihost,
 ZeRO-1, sharded checkpoints) are not accepted. Checkpoints are in the JAX
 package's format, so either package resumes the other's.
 """
@@ -25,8 +25,8 @@ from kmbart_tpu_torch.utils.logger import Logger
 from kmbart_tpu_torch.checkpoint.io import jax_leaf_groups, load_training_data
 from kmbart_tpu_torch.cli_common import (add_common_model_args, add_dropout_args,
                                          add_hardware_args, build_model_params,
-                                         load_model_config, save_train_checkpoint)
-from kmbart_tpu_torch.device import resolve_device
+                                         load_model_config, save_train_checkpoint,
+                                         setup_device)
 from kmbart_tpu_torch.generation.api import generate
 from kmbart_tpu_torch.models.conditional import conditional_loss, init_conditional_model
 from kmbart_tpu_torch.parallel.train_step import build_eval_step, build_train_step
@@ -37,7 +37,7 @@ from kmbart_tpu_torch.training.validation import validate_generation_score, vali
 
 
 def main(args):
-    device = resolve_device(args.device)
+    device = setup_device(args)
     if args.batch_size % args.grad_accum_steps:
         raise ValueError(f'batch_size={args.batch_size} must be divisible by '
                          f'grad_accum_steps={args.grad_accum_steps}')

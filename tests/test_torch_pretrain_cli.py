@@ -93,9 +93,10 @@ def test_pretrain_twin_flags(data, tmp_path):
         pretrain.parse_args(base + ["--dataset", "coco_train", "x"])
     with pytest.raises(ValueError, match="--no_image"):
         pretrain.parse_args(base + ["--no_image"])
-    for flag in (["--model_parallel", "2"], ["--zero1"], ["--cpu"]):
+    for flag in (["--model_parallel", "2"], ["--zero1"]):
         with pytest.raises(SystemExit):
             pretrain.parse_args(base + flag)
+    assert pretrain.parse_args(base + ["--device", "cuda", "--cpu"]).device == "cpu"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             pretrain.main(pretrain.parse_args(
