@@ -22,12 +22,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                of their GEMMs (the port never calls either), K8's two
                launches timed alone, K11's error split into what its bf16
                p terms cost and the rest, and K2's and K2b's host time a
-               call; a planted-tie top-k;
+               call (and K7's); K3 at cache positions 0, 15 and 31 with the
+               bound of the rows its ancestry reads; a planted-tie top-k;
   4. generate  beam-5 VCG generation at BART-base width (config/vcg_base.json,
                random weights from a seed, batch 64): every generation kernel
                must have launched, outputs finite, and the encoder output and
                first-step log-probs close to the plain path's on the card;
-               a torch.profiler trace of one call (device-busy share, K2's);
+               one real K3 call (the cache and ancestry of the last step)
+               against its plain version; a torch.profiler trace of one call
+               (device-busy share, K2's and K3's device time, K3's summed
+               bound);
   5. cli       ``python -m kmbart_tpu_torch.vcg_generate --device cuda`` on a
                fixture dataset;
   6. train     fine-tuning at full width and depth (batch 128, 72 encoder and
@@ -192,6 +196,22 @@ def _bound(nbytes, bf16_flops=0.0, f32_flops=0.0):
     ops = bf16_flops / BF16_FLOPS + f32_flops / F32_FLOPS
     return {"bound_ms": 1e3 * max(mem, ops), "bound_by": "bytes" if mem >= ops else "operations",
             "bytes": nbytes, "flops": bf16_flops + f32_flops}
+
+
+def _k3_bound(anc, B, K, D, cache_index):
+    """K3's bound at one step (bf16 q and cache): q and the ancestry read,
+    the fp32 output written, and the K and V rows (slot, position) that some
+    beam of the sample descends through (all K of them at each position
+    when ``anc`` is None), each read once; the scores and P.V at the bf16
+    rate."""
+    n = cache_index + 1
+    if anc is None:
+        rows = B * K * n
+    else:
+        a = anc[:, :n].long().reshape(B, K, n)
+        rows = int(a.new_zeros((B, K, n), dtype=bool).scatter_(1, a, True).sum())
+    return _bound(2 * B * K * D + 4 * B * K * n + 4 * B * K * D + 2 * 2 * rows * D,
+                  bf16_flops=4.0 * B * K * n * D)
 
 
 def _pairs(Tq, Tk, causal):
@@ -388,26 +408,38 @@ def check_kernels(torch, dev):
                       k2(37, 32, 64, False), k2(37, 32, 64, False, with_a=True),
                       k2(1000, 1024, 4096, False), k2(1000, 1024, 4096, False, with_a=True)]
 
-    # K3: decoder self-attention, B 64, K 5, T 32, D 768, 12 heads, at the
-    # last position with branching ancestry; edges: cache_index 0, tiny widths
-    def k3(B, K, T, D, H, cache_index, timed):
-        q = randn(B * K, D) * (D // H) ** -0.5
-        kc, vc = randn(B, K, T, D), randn(B, K, T, D)
-        anc = torch.randint(0, K, (B * K, T), generator=g, device=dev, dtype=torch.int32)
+    # K3: decoder self-attention, B 64, K 5, T 32, D 768, 12 heads, with
+    # branching ancestry, at the last position (the kernels line's row) and
+    # at positions 0 and 15; edges: K 1 and K 4, every beam descending from
+    # one slot ("shared") and each beam keeping its own ("distinct"), head_dim
+    # 32 and 128 (two shared-memory chunks), tiny widths, and the fp32 q and
+    # fp32 cache instantiations
+    def k3(B, K, T, D, H, cache_index, timed, ancestry="branching", q_dtype=bf16,
+           cache_dtype=bf16):
+        q = randn(B * K, D, dtype=q_dtype) * (D // H) ** -0.5
+        kc, vc = randn(B, K, T, D, dtype=cache_dtype), randn(B, K, T, D, dtype=cache_dtype)
+        if ancestry == "branching":
+            anc = torch.randint(0, K, (B * K, T), generator=g, device=dev, dtype=torch.int32)
+        elif ancestry == "shared":
+            anc = torch.full((B * K, T), K - 1, device=dev, dtype=torch.int32)
+        else:
+            anc = torch.arange(K, device=dev, dtype=torch.int32).repeat(B)[:, None] \
+                .expand(B * K, T).contiguous()
         kw = dict(num_beams=K, num_heads=H)
         out = ba.beam_gather_attention(q, kc, vc, anc, cache_index, **kw)
         ref = ba.beam_gather_attention_plain(q, kc, vc, anc, cache_index, **kw)
         err = float((out - ref).abs().max())
         tol = _bf16_tol(ref)   # P is rounded to bf16 on both sides
-        _check(f"beam_gather_attention ci={cache_index}", err, tol)
-        res = {"shape": [B, K, T, D, H], "cache_index": cache_index,
-               "max_abs_err": err, "tol": tol}
+        _check(f"beam_gather_attention {B}x{K}x{T}x{D} H={H} ci={cache_index} {ancestry} "
+               f"q {q_dtype} cache {cache_dtype}", err, tol)
+        res = {"shape": [B, K, T, D, H], "cache_index": cache_index, "ancestry": ancestry,
+               "q_dtype": str(q_dtype).split(".")[-1],
+               "cache_dtype": str(cache_dtype).split(".")[-1], "max_abs_err": err, "tol": tol}
         if timed:
             res["ms"] = _time_ms(torch, lambda: ba.beam_gather_attention(q, kc, vc, anc, cache_index, **kw))
             res["plain_ms"] = _time_ms(torch, lambda: ba.beam_gather_attention_plain(q, kc, vc, anc, cache_index, **kw))
-            pos = cache_index + 1   # the cache positions this step reads
-            res.update(_bound(2 * B * K * D + 2 * 2 * B * K * pos * D + 4 * B * K * pos
-                              + 4 * B * K * D, bf16_flops=4.0 * B * K * pos * D))
+            res.update(_k3_bound(anc, B, K, D, cache_index))
+            res["bound_all_rows_ms"] = _k3_bound(None, B, K, D, cache_index)["bound_ms"]
         return res
 
     # K1 backward at K1's shapes (the generation encoder's row is forward
@@ -474,20 +506,33 @@ def check_kernels(torch, dev):
 
     # K7 and K8 at the fine-tune head (N 128 x 40 = 5120 rows, V 50320, D 768,
     # ragged last vocab tile); edge: ragged rows and a small ragged vocab
+    def k7_check(h, w, fbias, labels):
+        """K7 against its plain version: logits, logsumexp and label logit."""
+        N, V = h.shape[0], w.shape[0]
+        logits, m, se, ll = lm_ce.lm_ce_fwd(h, w, fbias, labels)
+        rl, rm, rse, rll = lm_ce.lm_ce_fwd_plain(h, w, fbias, labels)
+        tol = _bf16_tol(rl.float())
+        fwd = {"shape": [N, V, h.shape[1]], "logits_err": _max_err(logits, rl),
+               "lse_err": _max_err(torch.log(se) + m, torch.log(rse) + rm),
+               "ll_err": _max_err(ll, rll), "tol": tol, "logits_pitch": logits.stride(0)}
+        for key in ("logits_err", "lse_err", "ll_err"):
+            _check(f"lm_ce_fwd {key} {N}x{V}", fwd[key], tol)
+        fwd["max_abs_err"] = max(fwd["logits_err"], fwd["lse_err"], fwd["ll_err"])
+        return fwd, (logits, m, se)
+
+    def head_labels(N, V):
+        """Random labels, with rows 0-2 at column 0, at V - 1 and at the
+        first column of the ragged last 128-column tile."""
+        labels = torch.randint(0, V, (N,), generator=g, device=dev, dtype=torch.int32)
+        labels[:3] = torch.tensor([0, V - 1, (V - 1) // 128 * 128], dtype=torch.int32)
+        return labels
+
     def k78(N, V, D, timed):
         h = randn(N, D)
         w = randn(V, D, std=0.02)
         fbias = randn(V, std=0.02, dtype=torch.float32)
-        labels = torch.randint(0, V, (N,), generator=g, device=dev, dtype=torch.int32)
-        logits, m, se, ll = lm_ce.lm_ce_fwd(h, w, fbias, labels)
-        rl, rm, rse, rll = lm_ce.lm_ce_fwd_plain(h, w, fbias, labels)
-        tol = _bf16_tol(rl.float())
-        fwd = {"shape": [N, V, D], "logits_err": _max_err(logits, rl),
-               "lse_err": _max_err(torch.log(se) + m, torch.log(rse) + rm),
-               "ll_err": _max_err(ll, rll), "tol": tol}
-        for key in ("logits_err", "lse_err", "ll_err"):
-            _check(f"lm_ce_fwd {key} {N}x{V}", fwd[key], tol)
-        fwd["max_abs_err"] = max(fwd["logits_err"], fwd["lse_err"], fwd["ll_err"])
+        labels = head_labels(N, V)
+        fwd, (logits, m, se) = k7_check(h, w, fbias, labels)
         valid = torch.rand((N,), generator=g, device=dev) > 0.1
         scale = (valid.float() / valid.sum().clamp(min=1)).contiguous()
         inv_se = (1.0 / se).contiguous()
@@ -508,7 +553,9 @@ def check_kernels(torch, dev):
                 err, tol = _max_err(out, ref), _bf16_tol(ref.float())
                 _check(f"lm_ce_recompute_bwd {name} {N}x{V}", err, tol)
                 bwd[f"k10_{name}_err"], bwd[f"k10_{name}_tol"] = err, tol
-            fwd["ms"] = _time_ms(torch, lambda: lm_ce.lm_ce_fwd(h, w, fbias, labels), iters=10)
+            call = lambda: lm_ce.lm_ce_fwd(h, w, fbias, labels)  # noqa: E731
+            fwd["ms"] = _time_ms(torch, call, iters=10)
+            fwd["host_us"] = _host_us(torch, call)
             fwd["plain_ms"] = _time_ms(torch, lambda: lm_ce.lm_ce_fwd_plain(h, w, fbias, labels),
                                        iters=10)
             bwd["ms"] = _time_ms(torch, lambda: lm_ce.lm_ce_bwd(*bargs), iters=10)
@@ -553,7 +600,7 @@ def check_kernels(torch, dev):
         h = randn(N, D)
         w = randn(V, D, std=0.02)
         fbias = randn(V, std=0.02, dtype=torch.float32)
-        labels = torch.randint(0, V, (N,), generator=g, device=dev, dtype=torch.int32)
+        labels = head_labels(N, V)
         m, se, ll = lm_ce.lm_ce_fwd_stats(h, w, fbias, labels)
         rl, rm, rse, rll = lm_ce.lm_ce_fwd_plain(h, w, fbias, labels)
         tol = _bf16_tol(rl.float())
@@ -581,11 +628,14 @@ def check_kernels(torch, dev):
             bwd["ms"] = _time_ms(torch, lambda: lm_ce.lm_ce_recompute_bwd(*bargs), iters=10)
             bwd["plain_ms"] = _time_ms(torch, lambda: lm_ce.lm_ce_recompute_bwd_plain(*bargs),
                                        iters=10)
-            # the "fwdbwd" pair at the same shape, for the mode comparison,
-            # with its bounds at these rows
-            fwd["k7_ms"] = _time_ms(torch, lambda: lm_ce.lm_ce_fwd(h, w, fbias, labels),
-                                    iters=10)
-            logits = lm_ce.lm_ce_fwd(h, w, fbias, labels)[0]
+            # the "fwdbwd" pair at the same shape (the pretraining head's
+            # main path), K7 held to its plain version here too, for the
+            # mode comparison, with its bounds at these rows
+            k7, (logits, _, _) = k7_check(h, w, fbias, labels)
+            fwd.update({f"k7_{key}": k7[key] for key in ("logits_err", "lse_err", "ll_err")})
+            k7_call = lambda: lm_ce.lm_ce_fwd(h, w, fbias, labels)  # noqa: E731
+            fwd["k7_ms"] = _time_ms(torch, k7_call, iters=10)
+            fwd["k7_host_us"] = _host_us(torch, k7_call)
             k8args = (logits, w, m, bargs[4], scale, labels)
             # K8 at the pretraining rows ("fwdbwd" mode): both outputs held
             # to its plain version, as at the fine-tune rows
@@ -671,9 +721,17 @@ def check_kernels(torch, dev):
                                   k11(4, 272, 272, 768, 12, 7, True, False, key0=True,
                                       dtype=torch.float32)]
 
-    results["beam_attention"] = [k3(64, 5, 32, 768, 12, 31, True),
-                                 k3(64, 5, 32, 768, 12, 0, False),
-                                 k3(3, 5, 12, 32, 4, 6, False)]
+    results["beam_attention"] = [
+        k3(64, 5, 32, 768, 12, 31, True), k3(64, 5, 32, 768, 12, 0, True),
+        k3(64, 5, 32, 768, 12, 15, True),
+        k3(64, 5, 32, 768, 12, 31, False, ancestry="shared"),
+        k3(64, 5, 32, 768, 12, 31, False, ancestry="distinct"),
+        k3(16, 1, 32, 768, 12, 20, False), k3(16, 4, 32, 768, 12, 31, False),
+        k3(8, 5, 32, 384, 12, 31, False), k3(8, 5, 32, 1536, 12, 31, False),
+        k3(3, 5, 12, 32, 4, 6, False),
+        k3(8, 5, 32, 768, 12, 31, False, q_dtype=torch.float32),
+        k3(8, 5, 32, 768, 12, 31, False, cache_dtype=torch.float32),
+        k3(8, 5, 32, 768, 12, 31, False, q_dtype=torch.float32, cache_dtype=torch.float32)]
 
     # K4: [B*K, V] = [320, 50320] logits (ragged tail chunk); edge: forced
     # rows that are -inf except one column (49 all--inf chunks per row)
@@ -890,6 +948,33 @@ def run_generate(torch, dev, card):
     seconds, plain_seconds = (sorted(times[p])[1] for p in (False, True))
     same_rows = float((out == out_p).all(axis=1).mean())
 
+    # one real K3 call, held against its plain version: the cache and the
+    # ancestry of the last step of the first decoder layer, recorded in a
+    # further generate call (each call's inputs copied as it is made)
+    from kmbart_tpu_torch.ops import beam_attention
+    kernel = bart.beam_gather_attention
+    calls = []
+
+    def record(q, kc, vc, anc, cache_index, **kw):
+        if not calls or cache_index > calls[-1][4]:
+            calls[:] = [(q.clone(), kc.clone(), vc.clone(), anc.clone(), cache_index, kw)]
+        steps_read.append(_k3_bound(anc, kc.shape[0], kc.shape[1], kc.shape[3], cache_index))
+        return kernel(q, kc, vc, anc, cache_index, **kw)
+
+    steps_read = []
+    bart.beam_gather_attention = record
+    try:
+        gen()
+    finally:
+        bart.beam_gather_attention = kernel
+    q_r, kc_r, vc_r, anc_r, ci_r, kw_r = calls[-1]
+    with torch.no_grad():
+        k3_out = beam_attention.beam_gather_attention(q_r, kc_r, vc_r, anc_r, ci_r, **kw_r)
+        k3_ref = beam_attention.beam_gather_attention_plain(q_r, kc_r, vc_r, anc_r, ci_r, **kw_r)
+    k3_err = float((k3_out - k3_ref).abs().max())
+    _check(f"beam_gather_attention on generate's step {ci_r}", k3_err, _bf16_tol(k3_ref))
+    k3_bound_ms = sum(b["bound_ms"] for b in steps_read)
+
     emit("generate", card=card, config="config/vcg_base.json", batch=B, enc_len=T,
          num_beams=5, max_length=32, dtype=cfg.dtype, load_seconds=load_s,
          steps=steps, width=width, launches=launches,
@@ -900,8 +985,14 @@ def run_generate(torch, dev, card):
          encoder_max_abs_err=enc_err, encoder_mean_abs_err=float((enc_k - enc_p).abs().mean()),
          encoder_max_abs=float(enc_p.abs().max()), encoder_tol=enc_tol,
          first_step_logprob_max_abs_err=lp_err, logprob_tol=LOGPROB_ATOL,
-         rows_equal_to_plain=same_rows)
-    emit("generate_profile", card=card, **_profile_steps(torch, gen, n=1))
+         rows_equal_to_plain=same_rows, k3_real_step=ci_r,
+         k3_real_step_max_abs_err=k3_err, k3_real_step_tol=_bf16_tol(k3_ref),
+         k3_real_step_ancestor_slots=int(anc_r[:, :ci_r + 1].unique().numel()))
+    profile = _profile_steps(torch, gen, n=1)
+    # K3 over one call: its device time beside the summed bound of the
+    # launches recorded above (the rows each step's ancestry reads)
+    profile.update(k3_launches=len(steps_read), k3_bound_ms_per_call=k3_bound_ms)
+    emit("generate_profile", card=card, **profile)
     return launches
 
 
@@ -1150,8 +1241,8 @@ def _profile_steps(torch, run_step, n=3):
                                  if any(t in e.key for t in tags)) / 1e3 / n
     k2, k2b = per_step("ffn_fwd_gemm", "ffn_finalize"), per_step("ffn_bwd_gemm")
     # K7 (mode "fwdbwd": the projection and the merge), K8 (its two
-    # launches and the split-K finalize), K11
-    k7 = per_step("lm_ce_project_kernel<0>", "lm_ce_merge_kernel")
+    # launches and the split-K finalize), K11, K3 (the bf16 cache's kernel)
+    k7 = per_step("lm_ce_logits_gemm", "lm_ce_merge_kernel")
     k8 = per_step("lm_ce_dlogits_kernel", "lm_ce_dh_")
     k11 = per_step("flash_attention_wg", "flash_attention_tc")
     return {"steps": n, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
@@ -1163,6 +1254,7 @@ def _profile_steps(torch, run_step, n=3):
             "k7_ms_per_step": k7, "k7_share": k7 * n / busy_ms,
             "k8_ms_per_step": k8, "k8_share": k8 * n / busy_ms,
             "k11_ms_per_step": k11, "k11_share": k11 * n / busy_ms,
+            "k3_ms_per_step": per_step("beam_attention_bf16"),
             "top_device_ops": [{"name": e.key[:80], "calls": e.count,
                                 "ms_per_step": dev(e) / 1e3 / n,
                                 "share": dev(e) / 1e3 / busy_ms} for e in top]}

@@ -25,11 +25,22 @@
 // 3.35 TB/s). The TPU walked the vocab sequentially and carried (m, se, ll)
 // and the dh accumulator in VMEM across grid steps. Hopper has no ordered
 // grid, so:
-//   K7 tiles the [N, V] product into 64 x 128 blocks (wmma, K = D in steps
-//      of 32 through shared memory); each block writes its bf16 logits and
-//      one partial (max, exp-sum, label logit) per row, and a second pass
-//      merges a row's partials in a fixed order (as K4 does);
-//   K9 is the same kernel without the logits store;
+//   K7 runs the [N, V] = h @ W^T product on the persistent wgmma + TMA main
+//      loop of wgmma_gemm.cuh (A = h K-major, B = W [V, D] K-major, K = D =
+//      768, 128 x 128 tiles) with its EPI_STATS epilogue: bias, bf16
+//      rounding, a TMA store of the logits tile, and from the same rounded
+//      values in registers one partial (max, exp-sum, label logit) per row
+//      and 128-column tile into [3, N, ceil(V / 128)]; a second pass merges
+//      a row's partials in a fixed order (as K4 does). The tiles walk rows
+//      fastest: W (77 MB) is larger than the 50 MB L2, and walked columns
+//      fastest each 128-row block would stream all of it from HBM (3 GB at N
+//      5120), where rows fastest reads each 196 KB W slice once while h
+//      (7.9 MB at N 5120) stays in L2. TMA wants 16-byte row pitches, so for
+//      a vocab that is not a multiple of 8 the logits live in an [N,
+//      ceil(V / 8) x 8] buffer (the wrapper returns the [:, :V] view), and
+//      K8's first launch reads them at that pitch;
+//   K9 is a wmma projection (64 x 128 blocks, K = D in steps of 32
+//      through shared memory) with the same statistics and no logits store;
 //   K8 is two launches. An elementwise pass reads the logits once (16-byte
 //      loads where V % 8 == 0) and writes the dlogits, which the dW product
 //      needs anyway: 2 x N x V x 2 bytes, 1.03 GB at N 5120 (0.31 ms at
@@ -58,8 +69,9 @@
 // The ragged vocab tail (50320 = 393 x 128 + 16) is masked: W rows past V
 // load as zero, and those columns take no part in the statistics and get
 // zero dlogits, as _masked_w (:93-102) and the NEG floor do on the TPU.
-// K7, K9 and K10's first pass are still wmma (mma.sync) tiles without a
-// TMA/wgmma pipeline.
+// K9 and K10's first pass are still wmma (mma.sync) tiles without a
+// TMA/wgmma pipeline; EPI_STATS's store_c = 0 is K9's epilogue, for when
+// they move.
 #include <mma.h>
 
 #include "wgmma_gemm.cuh"
@@ -117,14 +129,13 @@ __device__ __forceinline__ uint4 load16(const bf16* p) {
   return *reinterpret_cast<const uint4*>(p);
 }
 
-// epilogues of the projection kernel
-enum { kLogitsStats = 0,   // K7: bf16 logits and per-tile statistics
-       kStatsOnly = 1,     // K9: per-tile statistics only
+// epilogues of the wmma projection kernel
+enum { kStatsOnly = 1,     // K9: per-tile statistics only
        kDlogits = 2 };     // K10, first pass: dlogits from the recomputed logits
 
 // grid (ceil(V / BN), ceil(N / BM)); partial stats [N, n_vtiles]. ``out`` is
-// the logits [N, V] (kLogitsStats) or the dlogits [N, ldo] with zero pad
-// columns [V, ldo) (kDlogits); m, inv_se, scale are read by kDlogits only.
+// the dlogits [N, ldo] with zero pad columns [V, ldo) (kDlogits); m,
+// inv_se, scale are read by kDlogits only.
 template <int kMode>
 __global__ void __launch_bounds__(NWARP * 32)
 lm_ce_project_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
@@ -196,9 +207,7 @@ lm_ce_project_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
       const int c = lane + 32 * e, v = v0 + c;
       vals[e] = -INFINITY;
       if (v < V) {
-        const bf16 l16 = __float2bfloat16(c_s[row * LDC + c] + bias[v]);
-        if constexpr (kMode == kLogitsStats) out[(size_t)n * V + v] = l16;
-        vals[e] = __bfloat162float(l16);
+        vals[e] = round_bf16(c_s[row * LDC + c] + bias[v]);
         tmax = fmaxf(tmax, vals[e]);
         if (v == label) ll = vals[e];
       }
@@ -250,20 +259,23 @@ __global__ void lm_ce_merge_kernel(const float* __restrict__ part_m,
 
 // K8's first launch: grid (N, ceil(ldo / 2048)), a thread per 8 columns.
 // dl[n, v] = bf16(scale (exp(logit - m) inv_se - [v == label])) for v < V,
-// 0 on the pad columns [V, ldo). 16-byte loads where V % 8 == 0 (every row
-// then starts aligned), else element by element.
+// 0 on the pad columns [V, ldo). The logits rows are ldl apart (K7's padded
+// pitch, or V); 16-byte loads where ldl % 8 == 0 (every row then starts
+// aligned, and a pad column's value is read and dropped), else element by
+// element.
 __global__ void __launch_bounds__(256)
 lm_ce_dlogits_kernel(const bf16* __restrict__ logits, const float* __restrict__ m,
                      const float* __restrict__ inv_se, const float* __restrict__ scale,
-                     const int* __restrict__ labels, bf16* __restrict__ dl, int V, int ldo) {
+                     const int* __restrict__ labels, bf16* __restrict__ dl, int V, int ldl,
+                     int ldo) {
   const int n = blockIdx.x;
   const int c = (blockIdx.y * blockDim.x + threadIdx.x) * 8;
   if (c >= ldo) return;
   const float rm = m[n], rinv = inv_se[n], rscale = scale[n];
   const int label = labels[n];
-  const bf16* row = logits + (size_t)n * V;
+  const bf16* row = logits + (size_t)n * ldl;
   __align__(16) bf16 x[8];
-  if ((V & 7) == 0) {
+  if ((ldl & 7) == 0 && c < ldl) {
     *reinterpret_cast<uint4*>(x) = *reinterpret_cast<const uint4*>(row + c);
   } else {
 #pragma unroll
@@ -277,6 +289,16 @@ lm_ce_dlogits_kernel(const bf16* __restrict__ logits, const float* __restrict__ 
     y[e] = __float2bfloat16(v < V ? rscale * (p - (v == label ? 1.f : 0.f)) : 0.f);
   }
   *reinterpret_cast<uint4*>(dl + (size_t)n * ldo + c) = *reinterpret_cast<const uint4*>(y);
+}
+
+// K7's projection on the shared main loop (wgmma_gemm.cuh): A = h [N, D]
+// K-major, B = W [V, D] K-major, the EPI_STATS epilogue, rows fastest
+__global__ void __launch_bounds__(kmb_wg::THREADS, 1)
+    lm_ce_logits_gemm(const __grid_constant__ CUtensorMap tma_a,
+                      const __grid_constant__ CUtensorMap tma_b,
+                      const __grid_constant__ CUtensorMap out_c,
+                      const __grid_constant__ CUtensorMap out_d, const kmb_wg::GemmArgs p) {
+  kmb_wg::gemm_tiles<kmb_wg::EPI_STATS, false, true>(&tma_a, &tma_b, &out_c, &out_d, p);
 }
 
 // dh = dl @ W on the shared main loop (wgmma_gemm.cuh): A = dl [N, V] at row
@@ -321,17 +343,26 @@ cudaError_t launch_merge(const void* part_m, const void* part_se, const void* pa
 
 }  // namespace
 
-// K7. part_*: fp32 [N, ceil(V / 128)] scratch; m, se, ll: fp32 [N]
+// K7. logits: bf16 [N, V] at row pitch ldl (ldl % 8 == 0, ldl >= V);
+// parts: fp32 [3, N, ceil(V / 128)] scratch (max, exp-sum, label logit);
+// m, se, ll: fp32 [N]; ctas: the persistent grid (ops/lm_ce.py
+// logits_plan). h, w, logits 16-byte aligned; D % 8 == 0.
 KMB_EXPORT int kmb_lm_ce_fwd(const void* h, const void* w, const void* bias,
-                             const void* labels, void* logits, void* part_m, void* part_se,
-                             void* part_ll, void* m, void* se, void* ll, int N, int V, int D,
-                             void* stream) {
+                             const void* labels, void* logits, void* parts, void* m, void* se,
+                             void* ll, int N, int V, int D, int ldl, int ctas, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = launch_project<kLogitsStats>(h, w, bias, labels, logits, part_m, part_se,
-                                                 part_ll, nullptr, nullptr, nullptr, N, V, D, V,
-                                                 s);
+  if (N < 1 || ctas < 1 || ldl < V || ldl % 8 || D % 8) return cudaErrorInvalidValue;
+  static unsigned configured = 0;  // a bit per device
+  kmb_wg::GemmArgs p = {(const float*)bias, nullptr, N, V, 0, 0, 1, 0};
+  p.store_c = 1;
+  p.labels = (const int*)labels;
+  p.stats = (float*)parts;
+  cudaError_t err = kmb_wg::gemm_launch(lm_ce_logits_gemm, configured, false, h, D, w, logits,
+                                        nullptr, p, D, ctas, s, ldl);
   if (err != cudaSuccess) return err;
-  return launch_merge(part_m, part_se, part_ll, m, se, ll, N, V, s);
+  const size_t plane = (size_t)N * ((V + kmb_wg::BN - 1) / kmb_wg::BN);
+  float* part = (float*)parts;
+  return launch_merge(part, part + plane, part + 2 * plane, m, se, ll, N, V, s);
 }
 
 // K9: K7 without the logits
@@ -346,15 +377,15 @@ KMB_EXPORT int kmb_lm_ce_fwd_stats(const void* h, const void* w, const void* bia
   return launch_merge(part_m, part_se, part_ll, m, se, ll, N, V, s);
 }
 
-// K8's first launch. logits bf16 [N, V]; dl bf16 [N, ldo] (ldo % 8 == 0, ldo
-// >= V); both 16-byte aligned.
+// K8's first launch. logits bf16 [N, V] at row pitch ldl >= V; dl bf16 [N,
+// ldo] (ldo % 8 == 0, ldo >= V); both 16-byte aligned.
 KMB_EXPORT int kmb_lm_ce_dlogits(const void* logits, const void* m, const void* inv_se,
                                  const void* scale, const void* labels, void* dl, int N, int V,
-                                 int ldo, void* stream) {
-  if (N < 1 || ldo < V || ldo % 8) return cudaErrorInvalidValue;
+                                 int ldl, int ldo, void* stream) {
+  if (N < 1 || ldl < V || ldo < V || ldo % 8) return cudaErrorInvalidValue;
   lm_ce_dlogits_kernel<<<dim3(N, (ldo / 8 + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
       (const bf16*)logits, (const float*)m, (const float*)inv_se, (const float*)scale,
-      (const int*)labels, (bf16*)dl, V, ldo);
+      (const int*)labels, (bf16*)dl, V, ldl, ldo);
   return cudaGetLastError();
 }
 

@@ -1,11 +1,13 @@
 // The persistent, warp-specialised wgmma + TMA GEMM main loop of K2, K2b
-// (ffn.cu) and K8's and K10's dh product (lm_ce.cu), shared by the files
-// that instantiate it under their own kernel names (a profile tells them
-// apart): C = A @ B with A [M, K] read K-major and B either K-major [Ncols,
-// K] or MN-major [K, Ncols] (B_MN, through wgmma's transpose of 16-bit
-// operands), bf16 operands, fp32 accumulation, and one of three epilogues:
-// EPI_GELU and EPI_DGELU are K2's and K2b's (ffn.cu's source note), EPI_OUT
-// rounds the sum (plus an optional fp32 bias) to bf16.
+// (ffn.cu), K7's projection and K8's and K10's dh product (lm_ce.cu),
+// shared by the files that instantiate it under their own kernel names (a
+// profile tells them apart): C = A @ B with A [M, K] read K-major and B
+// either K-major [Ncols, K] or MN-major [K, Ncols] (B_MN, through wgmma's
+// transpose of 16-bit operands), bf16 operands, fp32 accumulation, and one
+// of four epilogues: EPI_GELU and EPI_DGELU are K2's and K2b's (ffn.cu's
+// source note), EPI_OUT rounds the sum (plus an optional fp32 bias) to
+// bf16, EPI_STATS is K7's (the LM head's logits and a partial cross-entropy
+// statistic per row of each 128-column tile; lm_ce.cu's source note).
 //
 // One block an SM, 384 threads. Warpgroup 2 is the producer: one thread
 // issues the TMA copies (cp.async.bulk.tensor, 128-byte swizzle) into a ring
@@ -23,10 +25,13 @@
 //
 // The persistent tile order is columns fastest, then rows, then splits: the
 // column tiles of one row block run together, so an A slice comes from L2
-// for all but the first of them. When the output tiles alone leave SMs idle
-// the host's plan (ops/ffn.py gemm_plan) splits the K walk into fp32
-// partials that finalize_sum adds in split order; no atomics, so the result
-// is deterministic.
+// for all but the first of them. A GEMM whose B is much larger than L2 and
+// whose A is not (K7: W is 77 MB, h 8-14 MB) asks for rows fastest instead
+// (ROWS_FIRST): the row tiles of one column block run together, so each B
+// slice comes from HBM about once and A stays in L2. When the output tiles
+// alone leave SMs idle the host's plan (ops/ffn.py gemm_plan) splits the K
+// walk into fp32 partials that finalize_sum adds in split order; no
+// atomics, so the result is deterministic.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
@@ -55,15 +60,19 @@ constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * TILE_BYTES + 8 * NBARS + 1
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;
 
-enum { EPI_GELU = 0, EPI_OUT = 1, EPI_DGELU = 2 };
+enum { EPI_GELU = 0, EPI_OUT = 1, EPI_DGELU = 2, EPI_STATS = 3 };
 
+// Fields past store_d are zero in an aggregate initialiser that stops there.
 struct GemmArgs {
-  const float* bias;  // added to the sum before the epilogue's rounding, or null
+  const float* bias;  // added to the sum before the epilogue's rounding, or null (not EPI_STATS)
   float* partial;     // EPI_OUT with a split K walk: fp32 [splits, M, Ncols], else null
   int M, Ncols;
   int ksteps;         // 64-deep K slices in all
   int kper, splits;   // the K walk in `splits` parts of kper slices (the last may be short)
   int store_d;        // EPI_GELU: also store a through the second output map
+  int store_c;        // EPI_STATS: store the bf16 tile (0: the statistics alone)
+  const int* labels;  // EPI_STATS: each row's label column, [M]
+  float* stats;       // EPI_STATS: fp32 [3, M, ceil(Ncols / BN)]: max, exp-sum, label logit
 };
 
 __device__ __forceinline__ float gelu_exact(float z) {
@@ -208,21 +217,139 @@ __device__ __forceinline__ uint32_t tile_offset(int row, int col) {
 }
 
 // Tile t of the block's share (t = blockIdx.x, + gridDim.x, ...; columns
-// fastest, then rows, then splits) and its K slices [kb, kb + nk).
+// fastest, or rows fastest with ROWS_FIRST, then splits) and its K slices
+// [kb, kb + nk).
 struct Tile {
   int row0, col0, split, kb, nk;
 };
 
+template <bool ROWS_FIRST>
 __device__ __forceinline__ Tile tile_at(int t, const GemmArgs& p) {
-  const int tiles_n = (p.Ncols + BN - 1) / BN;
-  const int tiles_mn = tiles_n * ((p.M + BM - 1) / BM);
+  const int tiles_n = (p.Ncols + BN - 1) / BN, tiles_m = (p.M + BM - 1) / BM;
+  const int tiles_mn = tiles_n * tiles_m;
   Tile r;
   r.split = t / tiles_mn;
-  r.row0 = (t % tiles_mn) / tiles_n * BM;
-  r.col0 = t % tiles_n * BN;
+  if constexpr (ROWS_FIRST) {
+    r.row0 = t % tiles_mn % tiles_m * BM;
+    r.col0 = t % tiles_mn / tiles_m * BN;
+  } else {
+    r.row0 = (t % tiles_mn) / tiles_n * BM;
+    r.col0 = t % tiles_n * BN;
+  }
   r.kb = r.split * p.kper;
   r.nk = min(p.ksteps, r.kb + p.kper) - r.kb;
   return r;
+}
+
+// EPI_STATS's inputs from global memory, loaded before the tile's main loop
+// so that their latency hides behind it: the thread's bias pairs (columns
+// c0 + 8 j + {0, 1}; 0 past Ncols) and its four rows' labels, as tile
+// columns less c0 (-1 past M).
+struct StatsIn {
+  float2 bias[BN / 8];
+  int label[4];
+};
+
+__device__ __forceinline__ StatsIn stats_inputs(const GemmArgs& p, const Tile& tl) {
+  const int t = threadIdx.x % 128;
+  const int r0 = 16 * (t / 32) + (t % 32) / 4, c0 = 2 * (t % 4);
+  StatsIn in;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = tl.col0 + c0 + 8 * j;
+    in.bias[j] = col + 1 < p.Ncols ? *reinterpret_cast<const float2*>(p.bias + col)
+                                   : make_float2(col < p.Ncols ? p.bias[col] : 0.f, 0.f);
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = tl.row0 + 64 * (r >> 1) + r0 + 8 * (r & 1);
+    in.label[r] = row < p.M ? p.labels[row] - tl.col0 - c0 : -1;
+  }
+  return in;
+}
+
+// K7's epilogue on a consumer's tile (register layout as in epilogue below):
+// logits = bf16(acc + bias), stored by TMA through out_c when store_c, and
+// from the same rounded values, for each row r < M of the tile, the partial
+// (max, exp-sum about that max, label logit or 0) over the tile's columns
+// below Ncols, at stats[{0, 1, 2} M nvt + r nvt + col0 / BN]. A thread holds
+// 32 values of each of its four rows; the four lanes t % 4 of a row reduce
+// by shuffles. Columns past Ncols (W's rows there load as zero) count as
+// -inf: exp gives them exactly 0, and the row max stays finite because
+// col0 < Ncols.
+__device__ __forceinline__ void stats_epilogue(float (&acc)[2][64], const StatsIn& in,
+                                               const GemmArgs& p, const Tile& tl,
+                                               unsigned char* bufp, uint32_t buf,
+                                               const CUtensorMap* out_c) {
+  const int t = threadIdx.x % 128, cw = threadIdx.x / 128;
+  const bool leader = t == 0, store = p.store_c != 0;
+  const int r0 = 16 * (t / 32) + (t % 32) / 4, c0 = 2 * (t % 4);
+  if (store) bar_sync(3 + cw, 128);  // the leader's last store has read the buffer
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = tl.col0 + c0 + 8 * j;
+    const bool in0 = col < p.Ncols, in1 = col + 1 < p.Ncols;
+    const float b0 = in.bias[j].x, b1 = in.bias[j].y;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float& v0 = acc[hf][4 * j + 2 * h];
+        float& v1 = acc[hf][4 * j + 2 * h + 1];
+        const __nv_bfloat162 r = __floats2bfloat162_rn(v0 + b0, v1 + b1);
+        if (store)
+          *reinterpret_cast<__nv_bfloat162*>(bufp + tile_offset(64 * hf + r0 + 8 * h,
+                                                                c0 + 8 * j)) = r;
+        const float2 f = __bfloat1622float2(r);
+        v0 = in0 ? f.x : -INFINITY;
+        v1 = in1 ? f.y : -INFINITY;
+      }
+  }
+  if (store) {
+    fence_async_smem();
+    bar_sync(3 + cw, 128);
+    if (leader) {  // the store runs while the statistics are taken
+      tma_store(out_c, buf, tl.col0, tl.row0);
+      tma_store(out_c, buf + BOX_BYTES, tl.col0 + 64, tl.row0);
+      tma_store_commit();
+    }
+  }
+  const int nvt = (p.Ncols + BN - 1) / BN;
+  const size_t plane = static_cast<size_t>(p.M) * nvt;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = tl.row0 + 64 * hf + r0 + 8 * h;
+      float m = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+        m = fmaxf(m, fmaxf(acc[hf][4 * j + 2 * h], acc[hf][4 * j + 2 * h + 1]));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      const int label = in.label[2 * hf + h];
+      float se = 0.f, ll = 0.f;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const float v0 = acc[hf][4 * j + 2 * h], v1 = acc[hf][4 * j + 2 * h + 1];
+        se += expf(v0 - m);
+        se += expf(v1 - m);
+        if (label == 8 * j) ll = v0;
+        if (label == 8 * j + 1) ll = v1;
+      }
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        se += __shfl_xor_sync(0xffffffffu, se, o);
+        ll += __shfl_xor_sync(0xffffffffu, ll, o);
+      }
+      if (row < p.M && t % 4 == 0) {
+        const size_t i = static_cast<size_t>(row) * nvt + tl.col0 / BN;
+        p.stats[i] = m;
+        p.stats[plane + i] = se;
+        p.stats[2 * plane + i] = ll;
+      }
+    }
+  if (store && leader) tma_store_wait_read();
 }
 
 // The epilogue of consumer cw on its tile. Thread t holds, for half hf, j <
@@ -232,13 +359,18 @@ __device__ __forceinline__ Tile tile_at(int t, const GemmArgs& p) {
 // out_c is the result's map, out_d F1's a (stored when store_d) or B1's a
 // (loaded by the producer).
 template <int EPI>
-__device__ __forceinline__ void epilogue(float (&acc)[2][64], const GemmArgs& p, const Tile& tl,
+__device__ __forceinline__ void epilogue(float (&acc)[2][64], const StatsIn& in,
+                                         const GemmArgs& p, const Tile& tl,
                                          unsigned char* bufp, uint32_t buf, uint32_t aux_full,
                                          uint32_t aux_empty, uint32_t aux_parity,
                                          const CUtensorMap* out_c, const CUtensorMap* out_d) {
   const int t = threadIdx.x % 128, cw = threadIdx.x / 128;
   const bool leader = t == 0;
   const int r0 = 16 * (t / 32) + (t % 32) / 4, c0 = 2 * (t % 4);
+  if (EPI == EPI_STATS) {
+    stats_epilogue(acc, in, p, tl, bufp, buf, out_c);
+    return;
+  }
   if (EPI == EPI_OUT && p.partial != nullptr) {
     // a split K walk: fp32 partial sums straight to global memory
     const size_t part = static_cast<size_t>(tl.split) * p.M * p.Ncols;
@@ -323,8 +455,8 @@ __device__ __forceinline__ void epilogue(float (&acc)[2][64], const GemmArgs& p,
 // out = A @ B over the block's tiles (A [M, K] K-major; B K-major [Ncols, K]
 // or, B_MN, MN-major [K, Ncols]). q counts K slices through the ring, over
 // all the block's tiles in order: slice q sits in stage q % STAGES, in that
-// stage's (q / STAGES)-th round.
-template <int EPI, bool B_MN>
+// stage's (q / STAGES)-th round. ROWS_FIRST picks the tile order (tile_at).
+template <int EPI, bool B_MN, bool ROWS_FIRST = false>
 __device__ __forceinline__ void gemm_tiles(const CUtensorMap* tma_a, const CUtensorMap* tma_b,
                                            const CUtensorMap* out_c, const CUtensorMap* out_d,
                                            const GemmArgs& p) {
@@ -360,7 +492,7 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap* tma_a, const CUten
       uint32_t q = 0;
       int i = 0;
       for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++i) {
-        const Tile tl = tile_at(t, p);
+        const Tile tl = tile_at<ROWS_FIRST>(t, p);
         for (int k = tl.kb; k < tl.kb + tl.nk; ++k, ++q) {
           const uint32_t stage = q % STAGES;
           mbar_wait(empty0 + 8 * stage, ((q / STAGES) & 1) ^ 1);  // round 0 finds it free
@@ -397,7 +529,7 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap* tma_a, const CUten
     uint32_t q = 0;
     int i = 0;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++i) {
-      const Tile tl = tile_at(t, p);
+      const Tile tl = tile_at<ROWS_FIRST>(t, p);
       if ((i & 1) != cw) {  // the other warpgroup's tile: skip its slices
         q += tl.nk;
         continue;
@@ -407,6 +539,8 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap* tma_a, const CUten
       // of the tile before (the ping-pong order: main loops in turn, each
       // epilogue beside the other warpgroup's main loop).
       if (i > 0) bar_sync(1 + cw, 256);
+      StatsIn in;
+      if (EPI == EPI_STATS) in = stats_inputs(p, tl);
       float acc[2][64];
 #pragma unroll
       for (int j = 0; j < 64; ++j) acc[0][j] = acc[1][j] = 0.f;
@@ -436,7 +570,7 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap* tma_a, const CUten
       if (lane0) mbar_arrive(empty0 + 8 * ((q - 1) % STAGES));
       fence_acc(acc[0]);
       fence_acc(acc[1]);
-      epilogue<EPI>(acc, p, tl, bufp, buf, aux_full0 + 8 * cw, aux_empty0 + 8 * cw,
+      epilogue<EPI>(acc, in, p, tl, bufp, buf, aux_full0 + 8 * cw, aux_empty0 + 8 * cw,
                     (i >> 1) & 1, out_c, out_d);
     }
     if (threadIdx.x % 128 == 0) tma_store_wait_all();
@@ -510,11 +644,12 @@ typedef void (*GemmKernel)(const CUtensorMap, const CUtensorMap, const CUtensorM
 // C = A @ B on `kernel`, an includer's __global__ wrapper of gemm_tiles<EPI,
 // B_MN>; `configured` holds a bit per device whose kernel attributes are
 // set. A [M, K] K-major with row pitch lda; B = W [Ncols, K] (K-major) or W
-// [K, Ncols] (b_mn); C and D bf16 [M, Ncols] (D: F1's a out or B1's a in,
-// or null). p.splits > 1 walks K in parts of p.kper slices into p.partial.
+// [K, Ncols] (b_mn); C bf16 [M, Ncols] with row pitch ldc (0: Ncols) and D
+// bf16 [M, Ncols] (D: F1's a out or B1's a in, or null). p.splits > 1 walks
+// K in parts of p.kper slices into p.partial.
 inline cudaError_t gemm_launch(GemmKernel kernel, unsigned& configured, bool b_mn, const void* A,
                         int lda, const void* W, void* C, const void* D, GemmArgs p, int K,
-                        int ctas, cudaStream_t s) {
+                        int ctas, cudaStream_t s, int ldc = 0) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
@@ -536,9 +671,11 @@ inline cudaError_t gemm_launch(GemmKernel kernel, unsigned& configured, bool b_m
   if (err == cudaSuccess)
     err = b_mn ? make_map(&tb, W, p.Ncols, K, p.Ncols, 64, BK)
                : make_map(&tb, W, K, p.Ncols, K, BK, BN);
-  if (err == cudaSuccess) err = make_map(&tc, C, p.Ncols, p.M, p.Ncols, 64, BM);
+  if (ldc <= 0) ldc = p.Ncols;
+  if (err == cudaSuccess) err = make_map(&tc, C, p.Ncols, p.M, ldc, 64, BM);
   if (err == cudaSuccess)
-    err = make_map(&td, D != nullptr ? D : C, p.Ncols, p.M, p.Ncols, 64, BM);
+    err = D != nullptr ? make_map(&td, D, p.Ncols, p.M, p.Ncols, 64, BM)
+                       : make_map(&td, C, p.Ncols, p.M, ldc, 64, BM);
   if (err != cudaSuccess) return err;
   p.ksteps = (K + BK - 1) / BK;
   if (p.splits == 1) p.kper = p.ksteps;

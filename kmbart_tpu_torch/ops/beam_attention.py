@@ -9,22 +9,64 @@ the JAX reference (``beam_gather_attention_reference``), q, K, V and P are
 rounded to bf16 whatever the cache dtype; scores, softmax and the PV sum
 are fp32, and the output is fp32 [B·K, D].
 
-The kernel (``csrc/beam_attention.cu``) reads the ancestry directly and
-gathers each beam's cache_index + 1 ancestor rows; the TPU kernel scored
-every (slot, position) pair and masked them with the one-hot ``sel`` that
-``build_selection_mask`` builds. The plain version keeps the TPU form (the
-one-hot mask and -1e9 fill), so the two are held against each other.
+The kernel (``csrc/beam_attention.cu``) runs a block per (sample, head):
+it copies the sample's ancestry and the slab rows its beams descend
+through into shared memory, in chunks of positions that ``beam_plan``
+sizes, and gathers each beam's cache_index + 1 ancestor rows from there;
+the TPU kernel scored every (slot, position) pair and masked them with the
+one-hot ``sel`` that ``build_selection_mask`` builds. The plain version
+keeps the TPU form (the one-hot mask and -1e9 fill), so the two are held
+against each other.
 
 ``beam_gather_attention`` is the wrapper: on CPU tensors it runs
 ``beam_gather_attention_plain``, on CUDA tensors it launches the kernel or
 raises.
 """
 
+from typing import NamedTuple
+
 import torch
 
 from kmbart_tpu_torch.ops import _cuda
 
 NEG_INF = -1e9
+# the bf16 kernel's shared memory: a budget that keeps five blocks on an SM
+# (the whole slab of the main path's last step fits), and the card's limit
+SMEM_BUDGET = 46 * 1024
+SMEM_LIMIT = 227 * 1024
+
+
+class BeamPlan(NamedTuple):
+    """The bf16 kernel's layout for one call: positions [0, n) in chunks of
+    ``chunk`` (K rows of every chunk, then V rows, two chunks in flight),
+    ``smem`` bytes of shared memory a block, one block per (sample, head)."""
+    n: int
+    chunk: int
+    nchunks: int
+    smem: int
+
+
+def beam_smem_bytes(K, n, hd, chunk):
+    """csrc/beam_attention.cu beam_smem_bytes: two chunk buffers [K, chunk,
+    hd] bf16, the queries [K, hd] bf16, the ancestry, the scores and two
+    int32 per slab row (its place in a chunk buffer, its cache row), [K, n]
+    each, and the fp32 accumulator [K, hd]."""
+    return 2 * K * chunk * hd * 2 + K * hd * 2 + K * n * 16 + K * hd * 4
+
+
+def beam_plan(K, cache_index, hd):
+    """The chunk of positions the bf16 kernel stages at once: the whole
+    slab (cache_index + 1 positions) when it fits ``SMEM_BUDGET``, else the
+    most that does, and at least 8. Raises when that does not fit the
+    card's shared memory."""
+    n = cache_index + 1
+    fixed = beam_smem_bytes(K, n, hd, 0)
+    chunk = min(n, max(8, (SMEM_BUDGET - fixed) // (4 * K * hd)))
+    smem = beam_smem_bytes(K, n, hd, chunk)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"beam_gather_attention kernel: {smem} bytes of shared memory for "
+                         f"K {K}, {n} positions, head_dim {hd}")
+    return BeamPlan(n, chunk, -(-n // chunk), smem)
 
 
 def build_selection_mask(ancestry, num_beams, cache_index, num_heads):
@@ -90,14 +132,22 @@ def beam_gather_attention(q, k_cache, v_cache, ancestry, cache_index, *,
         raise TypeError("beam_gather_attention: k and v cache dtypes differ")
     if not 0 <= cache_index < T:
         raise ValueError(f"cache_index {cache_index} outside [0, {T})")
-    if H > 32:
-        raise ValueError("beam_gather_attention kernel takes at most 32 heads")
     q_code, c_code = _cuda.dtype_code(q), _cuda.dtype_code(k_cache)
+    chunk = 0
+    if k_cache.dtype == torch.bfloat16:
+        # 16-byte copies of head rows: head_dim % 8 == 0 and aligned bases
+        if (D // H) % 8 or k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+            raise ValueError("beam_gather_attention kernel takes head_dim % 8 == 0 and "
+                             "16-byte aligned bf16 caches")
+        chunk = beam_plan(K, int(cache_index), D // H).chunk
+    elif H > 32:
+        raise ValueError("beam_gather_attention kernel takes at most 32 heads on an fp32 "
+                         "cache")
     out = torch.empty((B * K, D), dtype=torch.float32, device=dev)
     lib, stream = _cuda.prepare(dev)
     _cuda.check(lib.kmb_beam_attention(
         q.data_ptr(), q_code, k_cache.data_ptr(), v_cache.data_ptr(), c_code,
-        ancestry.data_ptr(), out.data_ptr(), B, K, T, D, H, int(cache_index),
+        ancestry.data_ptr(), out.data_ptr(), B, K, T, D, H, int(cache_index), chunk,
         stream), "beam_gather_attention")
     beam_gather_attention.launches += 1
     return out

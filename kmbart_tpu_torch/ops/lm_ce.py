@@ -14,12 +14,18 @@ recomputed from (h, W, bias) with the same bf16 rounding. On CPU tensors
 each runs its plain version (``*_plain``); on CUDA tensors it launches its
 kernel or raises.
 
-On the card K8 is two launches: ``dlogits_pass`` writes the dlogits into an
-[N, ``padded_vocab(V)``] buffer (TMA's row pitch is a multiple of 16 bytes;
-the pad columns are zero), then dh = dlogits @ W runs on the wgmma + TMA
-GEMM that K2b's second product uses, laid out by ``dh_plan``. K10's second
-pass is the same GEMM over the dlogits its first pass writes. Both return
-the [:, :V] view of the buffer as their dlogits.
+On the card K7 is the projection on the wgmma + TMA GEMM that K2 and K8
+use (``logits_plan`` lays it out, its tiles walking rows fastest) with an
+epilogue that stores the bf16 logits and one partial (max, exp-sum, label
+logit) per row and 128-column tile, then a merge of each row's partials in
+a fixed order. TMA's row pitch is a multiple of 16 bytes, so the logits
+live in an [N, ``padded_vocab(V)``] buffer and K7 returns its [:, :V] view
+(the whole buffer when V % 8 == 0). K8 is two launches: ``dlogits_pass``
+reads the logits at their row pitch and writes the dlogits into an [N,
+``padded_vocab(V)``] buffer (the pad columns are zero), then dh = dlogits
+@ W runs on the same GEMM, laid out by ``dh_plan``. K10's second pass is
+the same GEMM over the dlogits its first pass writes. Both return the [:,
+:V] view of the buffer as their dlogits.
 
 ``fused_lm_ce`` is the differentiable loss, in one of the JAX package's
 modes (pallas_lm_ce.py:385-396): "fwdbwd" (K7 + K8, the default), "nomat"
@@ -84,26 +90,40 @@ def _check_fwd(name, h, w, fbias, labels):
     return dev, N, V, D
 
 
+def logits_plan(n_rows, d_model, vocab_size, sms):
+    """The launch plan of K7's projection ([N, V] = [N, D] @ [D, V], depth
+    D) on a card with ``sms`` SMs: ``ffn.gemm_plan`` without a split (the
+    epilogue's statistics need whole sums). The kernel walks its tiles rows
+    fastest (tile t is row tile t % row_tiles of column tile t //
+    row_tiles), so the row tiles that share a W slice run together; tile
+    (r, c) writes the partials of rows [128 r, 128 r + 128) at index c =
+    col0 / 128."""
+    return gemm_plan(n_rows, vocab_size, d_model, sms, False)
+
+
 def lm_ce_fwd(h, w, fbias, labels):
     """K7; same contract as ``lm_ce_fwd_plain`` except that on a CUDA device
-    h and w must be bf16, fbias fp32 and labels int32."""
+    h and w must be bf16, fbias fp32 and labels int32. The logits come back
+    as a [:, :V] view of a buffer whose rows are ``padded_vocab(V)``
+    apart."""
     if h.device.type == "cpu":
         return lm_ce_fwd_plain(h, w, fbias, labels)
     dev, N, V, D = _check_fwd("lm_ce_fwd", h, w, fbias, labels)
     f32 = dict(dtype=torch.float32, device=dev)
-    logits = torch.empty((N, V), dtype=torch.bfloat16, device=dev)
+    buf = torch.empty((N, padded_vocab(V)), dtype=torch.bfloat16, device=dev)
     m, se, ll = (torch.empty(N, **f32) for _ in range(3))
     if N == 0:
-        return logits, m, se, ll
-    n_vtiles = -(-V // TILE_V)
-    parts = [torch.empty((N, n_vtiles), **f32) for _ in range(3)]
+        return buf[:, :V], m, se, ll
+    parts = torch.empty((3, N, -(-V // TILE_V)), **f32)
+    check_aligned("lm_ce_fwd", h, w, fbias, buf)
+    g = logits_plan(N, D, V, sm_count(dev))
     lib, stream = _cuda.prepare(dev)
     _cuda.check(lib.kmb_lm_ce_fwd(
-        h.data_ptr(), w.data_ptr(), fbias.data_ptr(), labels.data_ptr(), logits.data_ptr(),
-        *(p.data_ptr() for p in parts), m.data_ptr(), se.data_ptr(), ll.data_ptr(),
-        N, V, D, stream), "lm_ce_fwd")
+        h.data_ptr(), w.data_ptr(), fbias.data_ptr(), labels.data_ptr(), buf.data_ptr(),
+        parts.data_ptr(), m.data_ptr(), se.data_ptr(), ll.data_ptr(), N, V, D, buf.shape[1],
+        g.ctas, stream), "lm_ce_fwd")
     lm_ce_fwd.launches += 1
-    return logits, m, se, ll
+    return buf[:, :V], m, se, ll
 
 
 lm_ce_fwd.launches = 0
@@ -144,15 +164,17 @@ def _check_stats(name, N, m, inv_se, scale, labels):
 
 
 def dlogits_pass(logits, m, inv_se, scale, labels):
-    """K8's first launch on CUDA tensors (checked by the caller): the bf16
-    dlogits in an [N, padded_vocab(V)] buffer with zero pad columns."""
+    """K8's first launch on CUDA tensors (checked by the caller; the logits
+    rows may be any pitch apart, as K7's view): the bf16 dlogits in an [N,
+    padded_vocab(V)] buffer with zero pad columns."""
     N, V = logits.shape
     dl = torch.empty((N, padded_vocab(V)), dtype=torch.bfloat16, device=logits.device)
     check_aligned("lm_ce_bwd", logits, dl)
     lib, stream = _cuda.prepare(logits.device)
     _cuda.check(lib.kmb_lm_ce_dlogits(
         logits.data_ptr(), m.data_ptr(), inv_se.data_ptr(), scale.data_ptr(),
-        labels.data_ptr(), dl.data_ptr(), N, V, dl.shape[1], stream), "lm_ce_bwd dlogits")
+        labels.data_ptr(), dl.data_ptr(), N, V, logits.stride(0), dl.shape[1], stream),
+        "lm_ce_bwd dlogits")
     return dl
 
 
@@ -180,12 +202,15 @@ def lm_ce_bwd(logits, w, m, inv_se, scale, labels):
     ``padded_vocab(V)`` apart."""
     if logits.device.type == "cpu":
         return lm_ce_bwd_plain(logits, w, m, inv_se, scale, labels)
-    _cuda.require_cuda("lm_ce_bwd", logits, w, m, inv_se, scale, labels)
+    _cuda.require_cuda("lm_ce_bwd", logits, w, m, inv_se, scale, labels, contiguous=False)
+    _cuda.require_cuda("lm_ce_bwd", w, m, inv_se, scale, labels)
     N = logits.shape[0]
     V, D = w.shape
     _check_head("lm_ce_bwd", w, D, logits.dtype)
     if logits.shape != (N, V):
         raise ValueError(f"lm_ce_bwd: logits {tuple(logits.shape)} for w {tuple(w.shape)}")
+    if N > 1 and (logits.stride(1) != 1 or logits.stride(0) < V):
+        raise ValueError("lm_ce_bwd kernel takes logits rows that are contiguous")
     _check_stats("lm_ce_bwd", N, m, inv_se, scale, labels)
     if N == 0:
         return torch.empty_like(logits), torch.empty((0, D), dtype=w.dtype, device=w.device)

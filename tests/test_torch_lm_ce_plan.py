@@ -1,5 +1,7 @@
 """K8's and K10's dh GEMM launch plan (kmbart_tpu_torch/ops/lm_ce.py dh_plan)
-and the padded row pitch of their dlogits buffer.
+and the padded row pitch of their dlogits buffer; K7's projection plan
+(logits_plan) with its rows-fastest tile order, and an emulation of K7's
+statistics epilogue and merge against the JAX package's Pallas kernel.
 
 csrc/lm_ce.cu runs dh = dlogits @ W on the main loop of csrc/wgmma_gemm.cuh
 with the depth K = V, read through TMA maps whose row pitch must be a
@@ -11,10 +13,15 @@ block are neighbours in the tile order, and the pitch is the least multiple
 of 8 bf16 columns that holds the vocab.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
+from kmbart_tpu.ops.pallas_lm_ce import _fwd_project_stats_call
 from kmbart_tpu_torch.ops import ffn, lm_ce
+from tests._torch_port import bf16_tol, to_jax, to_np, to_torch
+from tests.test_torch_beam_plan import _bf16, _butterfly
 from tests.test_torch_ffn_plan import _assert_partition, _intervals, _tile
 
 # (rows, d_model, vocab): the fine-tune head (N 128 x 40), the pretraining
@@ -87,3 +94,138 @@ def test_dh_tile_order_keeps_a_row_block_together(n):
     blocks = sorted({r for r, _ in wave})
     assert blocks == list(range(len(blocks)))
     assert all(sum(1 for r2, _ in wave if r2 == r) == g.col_tiles for r in blocks[:-1])
+
+
+def _tile_rows_first(t, g):
+    """K7's tile t as (row tile, column tile), decoded as csrc/wgmma_gemm.cuh
+    tile_at does with ROWS_FIRST: rows fastest."""
+    return t % g.row_tiles, t // g.row_tiles
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("n,d,v", SHAPES)
+def test_logits_plan_covers_each_tile_once_rows_fastest(n, d, v, sms):
+    g = lm_ce.logits_plan(n, d, v, sms)
+    assert (g.rows, g.cols, g.depth) == (n, v, d)
+    assert g.splits == 1 and g.kper == -(-d // ffn.K_TILE)   # whole sums for the statistics
+    assert g.col_tiles == -(-v // lm_ce.TILE_V) and lm_ce.TILE_V == ffn.COL_TILE
+    tiles = g.row_tiles * g.col_tiles
+    assert 1 <= g.ctas <= min(sms, tiles)
+    visits = np.zeros(tiles, np.int64)
+    for b in range(g.ctas):
+        visits[b::g.ctas] += 1
+    assert (visits == 1).all()
+    # every (row tile, column tile) once; its partials land at column index
+    # col0 / 128 for rows [row0, row0 + 128) below n: the [n, col_tiles]
+    # partial matrix is written exactly once
+    partial = np.zeros((n, g.col_tiles), np.uint8)
+    seen = set()
+    for t in range(tiles):
+        r, c = _tile_rows_first(t, g)
+        seen.add((r, c))
+        row0, col0 = r * ffn.ROW_TILE, c * ffn.COL_TILE
+        assert col0 < v
+        partial[row0:min(n, row0 + ffn.ROW_TILE), col0 // lm_ce.TILE_V] += 1
+    assert len(seen) == tiles and (partial == 1).all()
+
+
+@pytest.mark.parametrize("n", [5120, 9216])
+def test_logits_tile_order_keeps_a_column_block_together(n):
+    """Rows fastest: the row tiles of one column block are consecutive, so a
+    wave of the persistent grid spans a few column blocks and each 196 KB W
+    slice is read from HBM about once while h stays in L2 (at 50320 / 128 =
+    394 column blocks, columns fastest would stream all 77 MB of W once per
+    row block)."""
+    g = lm_ce.logits_plan(n, 768, 50320, 132)
+    order = [_tile_rows_first(t, g) for t in range(g.row_tiles * g.col_tiles)]
+    for c in range(g.col_tiles):
+        assert order[c * g.row_tiles:(c + 1) * g.row_tiles] == [(r, c) for r in
+                                                                range(g.row_tiles)]
+    wave = {c for _, c in order[:g.ctas]}
+    assert len(wave) <= -(-g.ctas // g.row_tiles) + 1
+    assert (g.row_tiles, g.col_tiles, g.ctas) == (n // 128, 394, 132)
+
+
+def emulate_k7_stats(logits, labels):
+    """K7's statistics from the bf16-rounded logits [N, V] (fp32 values), as
+    the EPI_STATS epilogue and lm_ce_merge_kernel take them: per 128-column
+    tile and row, lane l of the four that share the row owns columns 2l +
+    8j + {0, 1}; the tile max, then each lane's exp-sum in j order, joined
+    by xor 1 then xor 2; the label logit where the label falls. Then the
+    merge: lane L of a warp takes tiles L, L + 32, ... in order, rescales
+    each exp-sum to the row max and adds, and a butterfly (warp_sum: xor
+    16, 8, 4, 2, 1) joins the lanes.
+    Returns (m, se, ll) fp32 [N] and the partials [3, N, tiles]."""
+    N, V = logits.shape
+    nvt = -(-V // 128)
+    padded = np.full((N, nvt * 128), -np.inf, np.float32)
+    padded[:, :V] = logits
+    tiles = padded.reshape(N, nvt, 16, 4, 2)             # [row, tile, j, lane, pair]
+    pm = tiles.max(axis=(2, 3, 4))
+    e = np.exp((tiles - pm[:, :, None, None, None]).astype(np.float32)).astype(np.float32)
+    lane_se = np.zeros((N, nvt, 4), np.float32)
+    for j in range(16):
+        for k in range(2):
+            lane_se = (lane_se + e[:, :, j, :, k]).astype(np.float32)
+    x = (lane_se + lane_se[..., [1, 0, 3, 2]]).astype(np.float32)
+    pse = (x[..., 0] + x[..., 2]).astype(np.float32)
+    pll = np.zeros((N, nvt), np.float32)
+    rows = np.arange(N)
+    pll[rows, labels // 128] = logits[rows, labels]
+    mx = pm.max(axis=1)
+    lanes_se = np.zeros((N, 32), np.float32)
+    lanes_ll = np.zeros((N, 32), np.float32)
+    for t in range(nvt):
+        term = (pse[:, t] * np.exp((pm[:, t] - mx).astype(np.float32))).astype(np.float32)
+        lanes_se[:, t % 32] = (lanes_se[:, t % 32] + term).astype(np.float32)
+        lanes_ll[:, t % 32] = (lanes_ll[:, t % 32] + pll[:, t]).astype(np.float32)
+    return mx, _butterfly(lanes_se), _butterfly(lanes_ll), np.stack([pm, pse, pll])
+
+
+def test_k7_stats_emulation_matches_pallas_kernel():
+    """At a ragged vocab (1100 = 8 x 128 + 76) with labels in column 0, in
+    column V - 1 and in the ragged last tile: the emulated partials and
+    merge against _fwd_project_stats_call in interpret mode (which carries
+    running statistics across its vocab tiles instead). Both take the
+    statistics on the bf16 logits, so the max and the label logit agree
+    exactly and the exp-sum within the order of the fp32 sums (1e-5
+    relative), given the same logits; the projection itself (fp32 sums in
+    another order) may differ by the last bf16 bit, so the logits are held
+    within 2 bf16 ulps and the statistics are taken from the Pallas
+    kernel's logits."""
+    rng = np.random.default_rng(11)
+    N, V, D = 24, 1100, 128
+    h = rng.normal(size=(N, D)).astype(np.float32)
+    w = (rng.normal(size=(V, D)) * 0.05).astype(np.float32)
+    fbias = (rng.normal(size=(V,)) * 0.01).astype(np.float32)
+    labels = rng.integers(0, V, N).astype(np.int32)
+    labels[:3] = [0, V - 1, 1030]
+    logits_j, m_j, se_j, ll_j = _fwd_project_stats_call(
+        to_jax(h, "bfloat16"), to_jax(w, "bfloat16"), jnp.asarray(fbias).reshape(1, -1),
+        jnp.asarray(labels).reshape(-1, 1), 128, jnp.bfloat16, True)
+    lj = to_np(logits_j)
+    # the kernel's projection: bf16(h @ W^T + bias) with fp32 sums
+    hb, wb = _bf16(h), _bf16(w)
+    mine = _bf16((hb @ wb.T).astype(np.float32) + fbias)
+    np.testing.assert_allclose(mine, lj, rtol=0, atol=bf16_tol(lj))
+    m, se, ll, parts = emulate_k7_stats(lj, labels)
+    np.testing.assert_array_equal(m, to_np(m_j)[:, 0])
+    np.testing.assert_array_equal(ll, to_np(ll_j)[:, 0])
+    np.testing.assert_allclose(se, to_np(se_j)[:, 0], rtol=1e-5)
+    # the ragged last tile's partials cover its 76 columns only
+    last = lj[:, 8 * 128:]
+    np.testing.assert_array_equal(parts[0][:, -1], last.max(axis=1))
+    assert parts[2][1, -1] == lj[1, V - 1] and parts[2][0, 0] == lj[0, 0]
+    # against the port's plain version: the same statistics from its logits,
+    # and from the emulated projection's within the logits' 2 bf16 ulps
+    bf = torch.bfloat16
+    plain_logits, pm, pse, pll = lm_ce.lm_ce_fwd_plain(
+        to_torch(h, bf), to_torch(w, bf), to_torch(fbias), torch.from_numpy(labels))
+    plain_logits = plain_logits.float().numpy()
+    m3, se3, ll3, _ = emulate_k7_stats(plain_logits, labels)
+    np.testing.assert_array_equal(m3, pm.numpy())
+    np.testing.assert_array_equal(ll3, pll.numpy())
+    np.testing.assert_allclose(se3, pse.numpy(), rtol=1e-5)
+    m2, se2, _, _ = emulate_k7_stats(mine, labels)
+    np.testing.assert_allclose(np.log(se2) + m2, np.log(se3) + m3, rtol=0,
+                               atol=bf16_tol(plain_logits))
