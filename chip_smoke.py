@@ -20,7 +20,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                F.scaled_dot_product_attention call on the same data and for
                K2, K2b and K7-K10 the time of the bf16 torch.mm products
                of their GEMMs (the port never calls either), K8's two
-               launches timed alone, K11's error split into what its bf16
+               launches and K10's first pass timed alone, K9's statistics
+               and K10's outputs held equal to K7's and K8's (on K7's
+               logits) bit for bit, K11's error split into what its bf16
                p terms cost and the rest, and K2's and K2b's host time a
                call (and K7's); K3 at cache positions 0, 15 and 31 with the
                bound of the rows its ancestry reads; a planted-tie top-k;
@@ -57,7 +59,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                steps with the config's dropout in each mode (launches per step
                exact, loss finite and falling, ms/step, samples/s, peak
                memory), then the two modes in turns and a torch.profiler
-               trace of three "fwdbwd" steps;
+               trace of three steps in each mode;
   9. pretrain_long  the same at --lm_max_len 224 (296 encoder and 272 decoder
                tokens, batch 32), where every attention goes to the flash
                kernel K11 and none to K1: kernel path against plain path at
@@ -130,8 +132,11 @@ def emit(phase, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def _bf16_tol(ref):
-    scale = max(1.0, float(ref.abs().max()))
+def _bf16_tol(ref, floor=1.0):
+    """BF16_ULPS bf16 ulps of ref's largest magnitude, or of ``floor`` where
+    that is larger. The LM loss's dlogits and dh scale with 1 / (valid
+    tokens), far below 1: they are held with floor=0, at their own size."""
+    scale = max(floor, float(ref.abs().max()), 2.0 ** -126)
     return BF16_ULPS * 2.0 ** (math.floor(math.log2(scale)) - 7)
 
 
@@ -518,7 +523,7 @@ def check_kernels(torch, dev):
         for key in ("logits_err", "lse_err", "ll_err"):
             _check(f"lm_ce_fwd {key} {N}x{V}", fwd[key], tol)
         fwd["max_abs_err"] = max(fwd["logits_err"], fwd["lse_err"], fwd["ll_err"])
-        return fwd, (logits, m, se)
+        return fwd, (logits, m, se, ll)
 
     def head_labels(N, V):
         """Random labels, with rows 0-2 at column 0, at V - 1 and at the
@@ -532,7 +537,7 @@ def check_kernels(torch, dev):
         w = randn(V, D, std=0.02)
         fbias = randn(V, std=0.02, dtype=torch.float32)
         labels = head_labels(N, V)
-        fwd, (logits, m, se) = k7_check(h, w, fbias, labels)
+        fwd, (logits, m, se, _) = k7_check(h, w, fbias, labels)
         valid = torch.rand((N,), generator=g, device=dev) > 0.1
         scale = (valid.float() / valid.sum().clamp(min=1)).contiguous()
         inv_se = (1.0 / se).contiguous()
@@ -541,7 +546,7 @@ def check_kernels(torch, dev):
         rdl, rdh = lm_ce.lm_ce_bwd_plain(*bargs)
         bwd = {"shape": [N, V, D]}
         for name, out, ref in (("dlogits", dl, rdl), ("dh", dh, rdh)):
-            err, tol = _max_err(out, ref), _bf16_tol(ref.float())
+            err, tol = _max_err(out, ref), _bf16_tol(ref.float(), floor=0.0)
             _check(f"lm_ce_bwd {name} {N}x{V}", err, tol)
             bwd[f"{name}_err"], bwd[f"{name}_tol"] = err, tol
         bwd["max_abs_err"] = max(bwd["dlogits_err"], bwd["dh_err"])
@@ -550,7 +555,7 @@ def check_kernels(torch, dev):
             rargs = (h, w, fbias, m, inv_se, scale, labels)
             for name, out, ref in zip(("dlogits", "dh"), lm_ce.lm_ce_recompute_bwd(*rargs),
                                       lm_ce.lm_ce_recompute_bwd_plain(*rargs)):
-                err, tol = _max_err(out, ref), _bf16_tol(ref.float())
+                err, tol = _max_err(out, ref), _bf16_tol(ref.float(), floor=0.0)
                 _check(f"lm_ce_recompute_bwd {name} {N}x{V}", err, tol)
                 bwd[f"k10_{name}_err"], bwd[f"k10_{name}_tol"] = err, tol
             call = lambda: lm_ce.lm_ce_fwd(h, w, fbias, labels)  # noqa: E731
@@ -595,7 +600,11 @@ def check_kernels(torch, dev):
     results["lm_ce_bwd"] = [b for _, b in head]
 
     # K9 and K10 ("nomat") at the pretraining head (N 128 x 72 = 9216 rows,
-    # V 50320, D 768); edge: ragged rows and a small ragged vocab
+    # V 50320, D 768); edge: ragged rows and a small ragged vocab (pitch
+    # 1104). At both, K9 runs K7's projection without the store and K10's
+    # first pass forms K8's dlogits from K7's rounding, so on the same inputs
+    # K9's statistics equal K7's and K10's outputs equal K8's on K7's logits
+    # bit for bit, and K10's pad columns are zero
     def k910(N, V, D, timed):
         h = randn(N, D)
         w = randn(V, D, std=0.02)
@@ -609,6 +618,13 @@ def check_kernels(torch, dev):
         for key in ("lse_err", "ll_err"):
             _check(f"lm_ce_fwd_stats {key} {N}x{V}", fwd[key], tol)
         fwd["max_abs_err"] = max(fwd["lse_err"], fwd["ll_err"])
+        # the "fwdbwd" pair on the same inputs, K7 held to its plain version
+        k7, (logits, k7_m, k7_se, k7_ll) = k7_check(h, w, fbias, labels)
+        fwd.update({f"k7_{key}": k7[key] for key in ("logits_err", "lse_err", "ll_err")})
+        fwd["equal_to_k7"] = all(torch.equal(a, b) for a, b in
+                                 ((m, k7_m), (se, k7_se), (ll, k7_ll)))
+        if not fwd["equal_to_k7"]:
+            raise AssertionError(f"lm_ce_fwd_stats {N}x{V}: statistics differ from K7's")
         valid = torch.rand((N,), generator=g, device=dev) > 0.1
         scale = (valid.float() / valid.sum().clamp(min=1)).contiguous()
         bargs = (h, w, fbias, m, (1.0 / se).contiguous(), scale, labels)
@@ -616,10 +632,29 @@ def check_kernels(torch, dev):
         rdl, rdh = lm_ce.lm_ce_recompute_bwd_plain(*bargs)
         bwd = {"shape": [N, V, D]}
         for name, out, ref in (("dlogits", dl, rdl), ("dh", dh, rdh)):
-            err, tol = _max_err(out, ref), _bf16_tol(ref.float())
+            err, tol = _max_err(out, ref), _bf16_tol(ref.float(), floor=0.0)
             _check(f"lm_ce_recompute_bwd {name} {N}x{V}", err, tol)
             bwd[f"{name}_err"], bwd[f"{name}_tol"] = err, tol
         bwd["max_abs_err"] = max(bwd["dlogits_err"], bwd["dh_err"])
+        # K10's whole padded buffer: the pad columns [V, padded_vocab(V))
+        pitch = lm_ce.padded_vocab(V)
+        pad = dl.as_strided((N, pitch - V), (dl.stride(0), 1), dl.storage_offset() + V)
+        bwd["pad_columns"] = pitch - V
+        if dl.stride(0) != pitch or bool(pad.ne(0).any()):
+            raise AssertionError(f"lm_ce_recompute_bwd {N}x{V}: pad columns not zero")
+        # K8 on K7's logits, both outputs held to its plain version, as at
+        # the fine-tune rows, and K10's equal to its bit for bit
+        k8args = (logits, w, m, bargs[4], scale, labels)
+        k8_dl, k8_dh = lm_ce.lm_ce_bwd(*k8args)
+        for name, out, ref in zip(("dlogits", "dh"), (k8_dl, k8_dh),
+                                  lm_ce.lm_ce_bwd_plain(*k8args)):
+            err, tol = _max_err(out, ref), _bf16_tol(ref.float(), floor=0.0)
+            _check(f"lm_ce_bwd {name} {N}x{V}", err, tol)
+            bwd[f"k8_{name}_err"], bwd[f"k8_{name}_tol"] = err, tol
+        bwd["equal_to_k8"] = torch.equal(dl, k8_dl) and torch.equal(dh, k8_dh)
+        if not bwd["equal_to_k8"]:
+            raise AssertionError(f"lm_ce_recompute_bwd {N}x{V}: outputs differ from K8's "
+                                 f"on K7's logits")
         if timed:
             fwd["ms"] = _time_ms(torch, lambda: lm_ce.lm_ce_fwd_stats(h, w, fbias, labels),
                                  iters=10)
@@ -628,27 +663,19 @@ def check_kernels(torch, dev):
             bwd["ms"] = _time_ms(torch, lambda: lm_ce.lm_ce_recompute_bwd(*bargs), iters=10)
             bwd["plain_ms"] = _time_ms(torch, lambda: lm_ce.lm_ce_recompute_bwd_plain(*bargs),
                                        iters=10)
-            # the "fwdbwd" pair at the same shape (the pretraining head's
-            # main path), K7 held to its plain version here too, for the
-            # mode comparison, with its bounds at these rows
-            k7, (logits, _, _) = k7_check(h, w, fbias, labels)
-            fwd.update({f"k7_{key}": k7[key] for key in ("logits_err", "lse_err", "ll_err")})
+            bwd["dlogits_bound_ms"] = _bound(2 * N * D + 2 * V * D + 4 * V + 16 * N + 2 * N * V,
+                                             bf16_flops=2.0 * N * V * D)["bound_ms"]
             k7_call = lambda: lm_ce.lm_ce_fwd(h, w, fbias, labels)  # noqa: E731
             fwd["k7_ms"] = _time_ms(torch, k7_call, iters=10)
             fwd["k7_host_us"] = _host_us(torch, k7_call)
-            k8args = (logits, w, m, bargs[4], scale, labels)
-            # K8 at the pretraining rows ("fwdbwd" mode): both outputs held
-            # to its plain version, as at the fine-tune rows
-            for name, out, ref in zip(("dlogits", "dh"), lm_ce.lm_ce_bwd(*k8args),
-                                      lm_ce.lm_ce_bwd_plain(*k8args)):
-                err, tol = _max_err(out, ref), _bf16_tol(ref.float())
-                _check(f"lm_ce_bwd {name} {N}x{V}", err, tol)
-                bwd[f"k8_{name}_err"], bwd[f"k8_{name}_tol"] = err, tol
             bwd["k8_ms"] = _time_ms(torch, lambda: lm_ce.lm_ce_bwd(*k8args), iters=10)
             fwd["k7_bound_ms"] = _k7_bound(N, V, D)["bound_ms"]
             bwd["k8_bound_ms"] = _k8_bound(N, V, D)["bound_ms"]
             _lm_ce_parts(fwd, bwd, h, w, rdl, k8args)
             bwd["k8_dlogits_ms"] = bwd.pop("dlogits_ms")   # K8's first launch at these rows
+            # K10's first pass alone, beside K8's two launches
+            bwd["dlogits_ms"] = _time_ms(
+                torch, lambda: lm_ce.recompute_dlogits_pass(*bargs), iters=10)
             fwd.update(_bound(2 * N * D + 2 * V * D + 4 * V + 4 * N + 12 * N,
                               bf16_flops=2.0 * N * V * D))
             bwd.update(_bound(2 * N * D + 2 * V * D + 4 * V + 16 * N + 2 * N * V + 2 * N * D,
@@ -1216,8 +1243,8 @@ def run_train(torch, dev, card):
 def _profile_steps(torch, run_step, n=3):
     """Device-busy share and the top device kernels over ``n`` steps (or
     generate calls) under torch.profiler (kernels run on one stream, so
-    their device times add up without overlap); K1, K1b, K2, K2b, K7, K8 and
-    K11 summed over their kernels."""
+    their device times add up without overlap); K1, K1b, K2, K2b, K7-K10
+    and K11 summed over their kernels."""
     from torch.profiler import ProfilerActivity, profile
     run_step()
     torch.cuda.synchronize()
@@ -1240,10 +1267,21 @@ def _profile_steps(torch, run_step, n=3):
     per_step = lambda *tags: sum(dev(e) for e in events
                                  if any(t in e.key for t in tags)) / 1e3 / n
     k2, k2b = per_step("ffn_fwd_gemm", "ffn_finalize"), per_step("ffn_bwd_gemm")
-    # K7 (mode "fwdbwd": the projection and the merge), K8 (its two
-    # launches and the split-K finalize), K11, K3 (the bf16 cache's kernel)
-    k7 = per_step("lm_ce_logits_gemm", "lm_ce_merge_kernel")
-    k8 = per_step("lm_ce_dlogits_kernel", "lm_ce_dh_")
+    # the LM-CE kernels: K7 or K9 (a projection and the merge), K8 or K10
+    # (a dlogits launch and the dh GEMM with its split-K finalize); a step
+    # runs one pair, "fwdbwd" or "nomat", so the shared merge and dh GEMM
+    # go to the pair whose own kernel ran. K11, K3 (the bf16 cache's kernel)
+    merge, dh = per_step("lm_ce_merge_kernel"), per_step("lm_ce_dh_")
+    k7, k9 = per_step("lm_ce_logits_gemm"), per_step("lm_ce_stats_gemm")
+    k8, k10 = per_step("lm_ce_dlogits_kernel"), per_step("lm_ce_dlogits_gemm")
+    if k7:
+        k7 += merge
+    elif k9:
+        k9 += merge
+    if k8:
+        k8 += dh
+    elif k10:
+        k10 += dh
     k11 = per_step("flash_attention_wg", "flash_attention_tc")
     return {"steps": n, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / wall_ms,
@@ -1253,6 +1291,8 @@ def _profile_steps(torch, run_step, n=3):
             "k2b_ms_per_step": k2b, "k2b_share": k2b * n / busy_ms,
             "k7_ms_per_step": k7, "k7_share": k7 * n / busy_ms,
             "k8_ms_per_step": k8, "k8_share": k8 * n / busy_ms,
+            "k9_ms_per_step": k9, "k9_share": k9 * n / busy_ms,
+            "k10_ms_per_step": k10, "k10_share": k10 * n / busy_ms,
             "k11_ms_per_step": k11, "k11_share": k11 * n / busy_ms,
             "k3_ms_per_step": per_step("beam_attention_bf16"),
             "top_device_ops": [{"name": e.key[:80], "calls": e.count,
@@ -1497,8 +1537,10 @@ def run_pretrain(torch, dev, card):
                 torch.cuda.synchronize()
                 turns[mode].append(time.perf_counter() - t0)
     turn_ms = {m: 1e3 * sorted(v)[len(v) // 2] for m, v in turns.items()}
-    with _ce_mode("fwdbwd"):
-        profile = _profile_steps(torch, lambda: step(state, batch, 0))
+    profiles = {}
+    for mode in ("fwdbwd", "nomat"):
+        with _ce_mode(mode):
+            profiles[mode] = _profile_steps(torch, lambda: step(state, batch, 0))
     emit("pretrain", card=card, config="config/pretrain_base.json", batch=B, enc_len=T_enc,
          dec_len=T_dec, image_slots=cfg.max_img_num, relation_pairs=80, dtype=cfg.dtype,
          dropout=cfg.dropout, lr=1e-4, paths=paths,
@@ -1508,7 +1550,8 @@ def run_pretrain(torch, dev, card):
          fwdbwd_repeat_grad_norm_max_rel_err=repeat_rel[repeat_worst],
          fwdbwd_repeat_grad_norm_worst_leaf=repeat_worst, runs=runs,
          turns_s=turns, turns_ms_per_step=turn_ms)
-    emit("pretrain_profile", card=card, mode="fwdbwd", **profile)
+    for mode, profile in profiles.items():
+        emit("pretrain_profile", card=card, mode=mode, **profile)
     return launches
 
 

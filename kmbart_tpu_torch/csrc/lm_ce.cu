@@ -37,21 +37,22 @@
 //      5120), where rows fastest reads each 196 KB W slice once while h
 //      (7.9 MB at N 5120) stays in L2. TMA wants 16-byte row pitches, so for
 //      a vocab that is not a multiple of 8 the logits live in an [N,
-//      ceil(V / 8) x 8] buffer (the wrapper returns the [:, :V] view), and
-//      K8's first launch reads them at that pitch;
-//   K9 is a wmma projection (64 x 128 blocks, K = D in steps of 32
-//      through shared memory) with the same statistics and no logits store;
+//      ceil(V / 8) x 8] buffer (the wrapper returns the [:, :V] view; the
+//      store's map spans the pitch, so the pad columns get bf16(0 + 0) =
+//      0), and K8's first launch reads them at that pitch;
+//   K9 is K7's launch with the epilogue's store turned off (store_c = 0,
+//      under its own kernel name, lm_ce_stats_gemm): the same accumulators,
+//      rounding, partials and merge, so its statistics equal K7's bit for
+//      bit, and no [N, V] tensor reaches memory;
 //   K8 is two launches. An elementwise pass reads the logits once (16-byte
 //      loads where V % 8 == 0) and writes the dlogits, which the dW product
 //      needs anyway: 2 x N x V x 2 bytes, 1.03 GB at N 5120 (0.31 ms at
 //      3.35 TB/s). Then dh = dlogits @ W on the persistent wgmma + TMA main
 //      loop of wgmma_gemm.cuh (K2b's B2 GEMM: A = dlogits K-major, B = W
-//      [V, D] read MN-major, K = V, the plain bf16 epilogue), which runs
-//      near the tensor cores' rate, where a wmma tile without a copy
-//      pipeline reached about 50 TFLOP/s. TMA wants a row pitch of a
-//      multiple of 16 bytes, so the dlogits live in an [N, ceil(V / 8) x 8]
-//      buffer with zero pad columns
-//      (the wrapper returns the [:, :V] view); the GEMM's map of them is V
+//      [V, D] read MN-major, K = V, the plain bf16 epilogue). TMA wants a
+//      row pitch of a multiple of 16 bytes, so the dlogits live in an [N,
+//      ceil(V / 8) x 8] buffer with zero pad columns (the wrapper returns
+//      the [:, :V] view); the GEMM's map of them is V
 //      wide, and TMA zero-fills the ragged last K slice (50320 = 786 x 64 +
 //      16) of both operands. The output is 128 x 128 tiles walked columns
 //      first, so the six D tiles of a row block read each dlogits slice
@@ -61,172 +62,22 @@
 //   K10 cannot keep the TPU's [tn, D] fp32 dh accumulator on chip (768 fp32
 //      columns per row tile) and recomputing a logits tile once per 128-wide
 //      D tile would repeat the projection six times. So it runs in two
-//      passes: K7's projection with an epilogue that forms dlogits and writes
-//      them in bf16 into K8's padded buffer (the dW product needs them
-//      anyway, :446-451), then K8's dh GEMM. The price against one fused
-//      pass is a second read of the dlogits, N x V x 2 bytes (0.93 GB, about
-//      0.3 ms at N 9216).
+//      passes: K7's projection with the EPI_DLOGITS epilogue, which rounds
+//      the logits as K7 does, forms the dlogits in registers with the
+//      function K8's first launch uses (kmb_wg::dlogit) and stores them in
+//      bf16 by TMA into K8's padded buffer (the dW product needs them
+//      anyway, pallas_lm_ce.py:426-431), then K8's dh GEMM. K10's outputs
+//      thus equal K8's on K7's logits bit for bit. The price against one
+//      fused pass is a second read of the dlogits, N x V x 2 bytes (0.93 GB,
+//      about 0.3 ms at N 9216).
 // The ragged vocab tail (50320 = 393 x 128 + 16) is masked: W rows past V
 // load as zero, and those columns take no part in the statistics and get
 // zero dlogits, as _masked_w (:93-102) and the NEG floor do on the TPU.
-// K9 and K10's first pass are still wmma (mma.sync) tiles without a
-// TMA/wgmma pipeline; EPI_STATS's store_c = 0 is K9's epilogue, for when
-// they move.
-#include <mma.h>
-
 #include "wgmma_gemm.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
-constexpr int BM = 64;            // rows of the output tile
-constexpr int BN = 128;           // columns of the output tile
-constexpr int BK = 32;            // depth of one shared-memory step
-constexpr int NWARP = 8;          // 2 x 4 warps, 32 x 32 outputs each
-constexpr int LDA = BK + 8;       // A tile [BM][LDA]
-constexpr int LDB_T = BK + 8;     // W tile [BN][LDB_T] (column-major B)
-constexpr int LDC = BN + 4;       // fp32 epilogue tile [BM][LDC]
-
-constexpr size_t A_BYTES = sizeof(bf16) * BM * LDA;
-constexpr size_t B_BYTES = sizeof(bf16) * BN * LDB_T;
-constexpr size_t C_BYTES = sizeof(float) * BM * LDC;
-constexpr size_t SMEM_BYTES = A_BYTES + B_BYTES + C_BYTES;
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-
-// one BK step of the warp's 32 x 32 tile: A from a_s, B (column-major) from b_s
-__device__ __forceinline__ void mma_step(const bf16* a_s, const bf16* b_s, Acc (&acc)[2][2],
-                                         int wm, int wn) {
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      wmma::load_matrix_sync(fa[i], a_s + (wm * 32 + i * 16) * LDA + kk, LDA);
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::load_matrix_sync(fb[j], b_s + (wn * 32 + j * 16) * LDB_T + kk, LDB_T);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-  }
-}
-
-__device__ __forceinline__ void store_acc(float* c_s, Acc (&acc)[2][2], int wm, int wn) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(c_s + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16, acc[i][j],
-                              LDC, wmma::mem_row_major);
-}
-
-__device__ __forceinline__ uint4 load16(const bf16* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
-
-// epilogues of the wmma projection kernel
-enum { kStatsOnly = 1,     // K9: per-tile statistics only
-       kDlogits = 2 };     // K10, first pass: dlogits from the recomputed logits
-
-// grid (ceil(V / BN), ceil(N / BM)); partial stats [N, n_vtiles]. ``out`` is
-// the dlogits [N, ldo] with zero pad columns [V, ldo) (kDlogits); m,
-// inv_se, scale are read by kDlogits only.
-template <int kMode>
-__global__ void __launch_bounds__(NWARP * 32)
-lm_ce_project_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
-                     const float* __restrict__ bias, const int* __restrict__ labels,
-                     bf16* __restrict__ out, float* __restrict__ part_m,
-                     float* __restrict__ part_se, float* __restrict__ part_ll,
-                     const float* __restrict__ m, const float* __restrict__ inv_se,
-                     const float* __restrict__ scale, int N, int V, int D, int ldo) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* a_s = reinterpret_cast<bf16*>(smem);
-  bf16* b_s = reinterpret_cast<bf16*>(smem + A_BYTES);
-  float* c_s = reinterpret_cast<float*>(smem + A_BYTES + B_BYTES);
-  const int tile = blockIdx.x, v0 = tile * BN, r0 = blockIdx.y * BM;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 4, wn = warp % 4;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-
-  Acc acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < D; k0 += BK) {
-    {  // h tile: 64 rows x 32 = 256 chunks of 8
-      const int row = tid / 4, c8 = (tid % 4) * 8;
-      const int n = r0 + row;
-      *reinterpret_cast<uint4*>(a_s + row * LDA + c8) =
-          n < N ? load16(h + (size_t)n * D + k0 + c8) : zero;
-    }
-#pragma unroll
-    for (int c = tid; c < BN * BK / 8; c += NWARP * 32) {  // W tile: 128 rows x 32
-      const int row = c / 4, c8 = (c % 4) * 8;
-      const int v = v0 + row;
-      *reinterpret_cast<uint4*>(b_s + row * LDB_T + c8) =
-          v < V ? load16(w + (size_t)v * D + k0 + c8) : zero;  // rows past V are zero
-    }
-    __syncthreads();
-    mma_step(a_s, b_s, acc, wm, wn);
-    __syncthreads();
-  }
-  store_acc(c_s, acc, wm, wn);
-  __syncthreads();
-
-  const int n_vtiles = gridDim.x;
-  for (int row = warp; row < BM; row += NWARP) {
-    const int n = r0 + row;
-    if (n >= N) break;
-    const int label = labels[n];
-    if constexpr (kMode == kDlogits) {
-      const float rm = m[n], rinv = inv_se[n], rscale = scale[n];
-#pragma unroll
-      for (int e = 0; e < BN / 32; ++e) {
-        const int c = lane + 32 * e, v = v0 + c;
-        if (v < V) {
-          const float lf = __bfloat162float(__float2bfloat16(c_s[row * LDC + c] + bias[v]));
-          const float p = expf(lf - rm) * rinv;
-          out[(size_t)n * ldo + v] = __float2bfloat16(rscale * (p - (v == label ? 1.f : 0.f)));
-        } else if (v < ldo) {
-          out[(size_t)n * ldo + v] = __float2bfloat16(0.f);
-        }
-      }
-      continue;
-    }
-    float vals[BN / 32];
-    float tmax = -INFINITY, ll = 0.f;
-#pragma unroll
-    for (int e = 0; e < BN / 32; ++e) {
-      const int c = lane + 32 * e, v = v0 + c;
-      vals[e] = -INFINITY;
-      if (v < V) {
-        vals[e] = round_bf16(c_s[row * LDC + c] + bias[v]);
-        tmax = fmaxf(tmax, vals[e]);
-        if (v == label) ll = vals[e];
-      }
-    }
-    tmax = warp_max(tmax);  // v0 < V, so every tile has a valid column
-    float se = 0.f;
-#pragma unroll
-    for (int e = 0; e < BN / 32; ++e)
-      if (v0 + lane + 32 * e < V) se += expf(vals[e] - tmax);
-    se = warp_sum(se);
-    ll = warp_sum(ll);  // at most one lane holds the label
-    if (lane == 0) {
-      const size_t p = (size_t)n * n_vtiles + tile;
-      part_m[p] = tmax;
-      part_se[p] = se;
-      part_ll[p] = ll;
-    }
-  }
-}
 
 // merges a row's per-tile partials in a fixed order: a warp per row
 __global__ void lm_ce_merge_kernel(const float* __restrict__ part_m,
@@ -285,8 +136,8 @@ lm_ce_dlogits_kernel(const bf16* __restrict__ logits, const float* __restrict__ 
 #pragma unroll
   for (int e = 0; e < 8; ++e) {
     const int v = c + e;
-    const float p = expf(__bfloat162float(x[e]) - rm) * rinv;
-    y[e] = __float2bfloat16(v < V ? rscale * (p - (v == label ? 1.f : 0.f)) : 0.f);
+    y[e] = __float2bfloat16(
+        v < V ? kmb_wg::dlogit(__bfloat162float(x[e]), rm, rinv, rscale, v == label) : 0.f);
   }
   *reinterpret_cast<uint4*>(dl + (size_t)n * ldo + c) = *reinterpret_cast<const uint4*>(y);
 }
@@ -299,6 +150,24 @@ __global__ void __launch_bounds__(kmb_wg::THREADS, 1)
                       const __grid_constant__ CUtensorMap out_c,
                       const __grid_constant__ CUtensorMap out_d, const kmb_wg::GemmArgs p) {
   kmb_wg::gemm_tiles<kmb_wg::EPI_STATS, false, true>(&tma_a, &tma_b, &out_c, &out_d, p);
+}
+
+// K9: K7's instantiation under its own name, launched with store_c = 0
+__global__ void __launch_bounds__(kmb_wg::THREADS, 1)
+    lm_ce_stats_gemm(const __grid_constant__ CUtensorMap tma_a,
+                     const __grid_constant__ CUtensorMap tma_b,
+                     const __grid_constant__ CUtensorMap out_c,
+                     const __grid_constant__ CUtensorMap out_d, const kmb_wg::GemmArgs p) {
+  kmb_wg::gemm_tiles<kmb_wg::EPI_STATS, false, true>(&tma_a, &tma_b, &out_c, &out_d, p);
+}
+
+// K10's first pass: K7's projection with the EPI_DLOGITS epilogue
+__global__ void __launch_bounds__(kmb_wg::THREADS, 1)
+    lm_ce_dlogits_gemm(const __grid_constant__ CUtensorMap tma_a,
+                       const __grid_constant__ CUtensorMap tma_b,
+                       const __grid_constant__ CUtensorMap out_c,
+                       const __grid_constant__ CUtensorMap out_d, const kmb_wg::GemmArgs p) {
+  kmb_wg::gemm_tiles<kmb_wg::EPI_DLOGITS, false, true>(&tma_a, &tma_b, &out_c, &out_d, p);
 }
 
 // dh = dl @ W on the shared main loop (wgmma_gemm.cuh): A = dl [N, V] at row
@@ -317,64 +186,35 @@ __global__ void lm_ce_dh_finalize(const float* __restrict__ partial,
   kmb_wg::finalize_sum(partial, bias, out, M, Ncols, nsplit);
 }
 
-template <int kMode>
-cudaError_t launch_project(const void* h, const void* w, const void* bias, const void* labels,
-                           void* out, void* part_m, void* part_se, void* part_ll,
-                           const void* m, const void* inv_se, const void* scale, int N, int V,
-                           int D, int ldo, cudaStream_t s) {
-  cudaError_t err = kmb_allow_smem(lm_ce_project_kernel<kMode>, SMEM_BYTES);
-  if (err != cudaSuccess) return err;
-  lm_ce_project_kernel<kMode><<<dim3((V + BN - 1) / BN, (N + BM - 1) / BM), NWARP * 32,
-                                 SMEM_BYTES, s>>>(
-      (const bf16*)h, (const bf16*)w, (const float*)bias, (const int*)labels, (bf16*)out,
-      (float*)part_m, (float*)part_se, (float*)part_ll, (const float*)m,
-      (const float*)inv_se, (const float*)scale, N, V, D, ldo);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_merge(const void* part_m, const void* part_se, const void* part_ll,
-                         void* m, void* se, void* ll, int N, int V, cudaStream_t s) {
-  lm_ce_merge_kernel<<<(N + 7) / 8, 256, 0, s>>>((const float*)part_m, (const float*)part_se,
-                                                  (const float*)part_ll, (float*)m,
-                                                  (float*)se, (float*)ll, N,
-                                                  (V + BN - 1) / BN);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
-// K7. logits: bf16 [N, V] at row pitch ldl (ldl % 8 == 0, ldl >= V);
-// parts: fp32 [3, N, ceil(V / 128)] scratch (max, exp-sum, label logit);
-// m, se, ll: fp32 [N]; ctas: the persistent grid (ops/lm_ce.py
-// logits_plan). h, w, logits 16-byte aligned; D % 8 == 0.
+// K7, or K9 when logits is null. logits: bf16 [N, V] at row pitch ldl (ldl %
+// 8 == 0, ldl >= V; unused for K9); parts: fp32 [3, N, ceil(V / 128)]
+// scratch (max, exp-sum, label logit); m, se, ll: fp32 [N]; ctas: the
+// persistent grid (ops/lm_ce.py logits_plan). h, w, logits 16-byte aligned;
+// D % 8 == 0. The projection, then the merge of its partials.
 KMB_EXPORT int kmb_lm_ce_fwd(const void* h, const void* w, const void* bias,
                              const void* labels, void* logits, void* parts, void* m, void* se,
                              void* ll, int N, int V, int D, int ldl, int ctas, void* stream) {
+  const bool store = logits != nullptr;
+  if (N < 1 || ctas < 1 || D % 8 || (store && (ldl < V || ldl % 8)))
+    return cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (N < 1 || ctas < 1 || ldl < V || ldl % 8 || D % 8) return cudaErrorInvalidValue;
-  static unsigned configured = 0;  // a bit per device
+  static unsigned configured[2] = {0, 0};  // a bit per device, for each kernel
   kmb_wg::GemmArgs p = {(const float*)bias, nullptr, N, V, 0, 0, 1, 0};
-  p.store_c = 1;
+  p.store_c = store;
   p.labels = (const int*)labels;
   p.stats = (float*)parts;
-  cudaError_t err = kmb_wg::gemm_launch(lm_ce_logits_gemm, configured, false, h, D, w, logits,
-                                        nullptr, p, D, ctas, s, ldl);
+  cudaError_t err = kmb_wg::gemm_launch(store ? lm_ce_logits_gemm : lm_ce_stats_gemm,
+                                        configured[store], false, h, D, w, logits, nullptr, p,
+                                        D, ctas, s, ldl);
   if (err != cudaSuccess) return err;
-  const size_t plane = (size_t)N * ((V + kmb_wg::BN - 1) / kmb_wg::BN);
-  float* part = (float*)parts;
-  return launch_merge(part, part + plane, part + 2 * plane, m, se, ll, N, V, s);
-}
-
-// K9: K7 without the logits
-KMB_EXPORT int kmb_lm_ce_fwd_stats(const void* h, const void* w, const void* bias,
-                                   const void* labels, void* part_m, void* part_se,
-                                   void* part_ll, void* m, void* se, void* ll, int N, int V,
-                                   int D, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = launch_project<kStatsOnly>(h, w, bias, labels, nullptr, part_m, part_se,
-                                               part_ll, nullptr, nullptr, nullptr, N, V, D, V, s);
-  if (err != cudaSuccess) return err;
-  return launch_merge(part_m, part_se, part_ll, m, se, ll, N, V, s);
+  const int nvt = (V + kmb_wg::BN - 1) / kmb_wg::BN;
+  const float* part = (const float*)parts;
+  const size_t plane = (size_t)N * nvt;
+  lm_ce_merge_kernel<<<(N + 7) / 8, 256, 0, s>>>(part, part + plane, part + 2 * plane, (float*)m,
+                                                  (float*)se, (float*)ll, N, nvt);
+  return cudaGetLastError();
 }
 
 // K8's first launch. logits bf16 [N, V] at row pitch ldl >= V; dl bf16 [N,
@@ -408,11 +248,22 @@ KMB_EXPORT int kmb_lm_ce_dh(const void* dl, const void* w, void* dh, void* parti
 }
 
 // K10's first pass: the dlogits from the recomputed logits into dl [N, ldo]
-// (K8's padded buffer), for kmb_lm_ce_dh after it.
+// (K8's padded buffer: ldo % 8 == 0, V <= ldo < V + 8; its pad columns get
+// zeros), for kmb_lm_ce_dh after it; m, inv_se, scale fp32 [N]; ctas as
+// K7's. h, w, dl 16-byte aligned; D % 8 == 0.
 KMB_EXPORT int kmb_lm_ce_recompute_dlogits(const void* h, const void* w, const void* bias,
                                            const void* m, const void* inv_se,
                                            const void* scale, const void* labels, void* dl,
-                                           int N, int V, int ldo, int D, void* stream) {
-  return launch_project<kDlogits>(h, w, bias, labels, dl, nullptr, nullptr, nullptr, m, inv_se,
-                                  scale, N, V, D, ldo, (cudaStream_t)stream);
+                                           int N, int V, int ldo, int D, int ctas,
+                                           void* stream) {
+  if (N < 1 || ctas < 1 || ldo < V || ldo % 8 || ldo >= V + 8 || D % 8)
+    return cudaErrorInvalidValue;
+  static unsigned configured = 0;  // a bit per device
+  kmb_wg::GemmArgs p = {(const float*)bias, nullptr, N, V, 0, 0, 1, 0};
+  p.labels = (const int*)labels;
+  p.row_m = (const float*)m;
+  p.row_inv_se = (const float*)inv_se;
+  p.row_scale = (const float*)scale;
+  return kmb_wg::gemm_launch(lm_ce_dlogits_gemm, configured, false, h, D, w, dl, nullptr, p, D,
+                             ctas, (cudaStream_t)stream, ldo);
 }

@@ -1,13 +1,15 @@
 // The persistent, warp-specialised wgmma + TMA GEMM main loop of K2, K2b
-// (ffn.cu), K7's projection and K8's and K10's dh product (lm_ce.cu),
-// shared by the files that instantiate it under their own kernel names (a
-// profile tells them apart): C = A @ B with A [M, K] read K-major and B
-// either K-major [Ncols, K] or MN-major [K, Ncols] (B_MN, through wgmma's
-// transpose of 16-bit operands), bf16 operands, fp32 accumulation, and one
-// of four epilogues: EPI_GELU and EPI_DGELU are K2's and K2b's (ffn.cu's
-// source note), EPI_OUT rounds the sum (plus an optional fp32 bias) to
-// bf16, EPI_STATS is K7's (the LM head's logits and a partial cross-entropy
-// statistic per row of each 128-column tile; lm_ce.cu's source note).
+// (ffn.cu) and K7-K10's products (lm_ce.cu), shared by the files that
+// instantiate it under their own kernel names (a profile tells them apart):
+// C = A @ B with A [M, K] read K-major and B either K-major [Ncols, K] or
+// MN-major [K, Ncols] (B_MN, through wgmma's transpose of 16-bit operands),
+// bf16 operands, fp32 accumulation, and one of five epilogues: EPI_GELU and
+// EPI_DGELU are K2's and K2b's (ffn.cu's source note), EPI_OUT rounds the
+// sum (plus an optional fp32 bias) to bf16 (the second GEMMs of K2 and K2b,
+// and the dh product of K8 and K10), EPI_STATS is K7's and K9's (the LM
+// head's logits and a partial cross-entropy statistic per row of each
+// 128-column tile) and EPI_DLOGITS is K10's first pass (the dlogits formed
+// from the logits in registers; lm_ce.cu's source note).
 //
 // One block an SM, 384 threads. Warpgroup 2 is the producer: one thread
 // issues the TMA copies (cp.async.bulk.tensor, 128-byte swizzle) into a ring
@@ -60,7 +62,7 @@ constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * TILE_BYTES + 8 * NBARS + 1
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;
 
-enum { EPI_GELU = 0, EPI_OUT = 1, EPI_DGELU = 2, EPI_STATS = 3 };
+enum { EPI_GELU = 0, EPI_OUT = 1, EPI_DGELU = 2, EPI_STATS = 3, EPI_DLOGITS = 4 };
 
 // Fields past store_d are zero in an aggregate initialiser that stops there.
 struct GemmArgs {
@@ -70,9 +72,12 @@ struct GemmArgs {
   int ksteps;         // 64-deep K slices in all
   int kper, splits;   // the K walk in `splits` parts of kper slices (the last may be short)
   int store_d;        // EPI_GELU: also store a through the second output map
-  int store_c;        // EPI_STATS: store the bf16 tile (0: the statistics alone)
-  const int* labels;  // EPI_STATS: each row's label column, [M]
+  int store_c;        // EPI_STATS: store the bf16 tile (0: the statistics alone, K9)
+  const int* labels;  // EPI_STATS, EPI_DLOGITS: each row's label column, [M]
   float* stats;       // EPI_STATS: fp32 [3, M, ceil(Ncols / BN)]: max, exp-sum, label logit
+  const float* row_m;       // EPI_DLOGITS: each row's logit max, [M]
+  const float* row_inv_se;  // EPI_DLOGITS: 1 / each row's exp-sum, [M]
+  const float* row_scale;   // EPI_DLOGITS: each row's loss scale (0: an ignored label), [M]
 };
 
 __device__ __forceinline__ float gelu_exact(float z) {
@@ -83,6 +88,16 @@ __device__ __forceinline__ float dgelu_exact(float z) {
   // d/dz [z Phi(z)] = Phi(z) + z phi(z)
   return 0.5f * (1.f + erff(z * 0.70710678118654752f)) +
          z * 0.39894228040143268f * expf(-0.5f * z * z);
+}
+
+// one element of the LM loss's dlogits, scale (exp(logit - m) inv_se - [the
+// label's column]), from the bf16-rounded logit: K8's first launch and
+// K10's EPI_DLOGITS both call it, and the _rn intrinsics keep the compiler
+// from contracting either into an FMA, so the two agree bit for bit
+__device__ __forceinline__ float dlogit(float logit, float m, float inv_se, float scale,
+                                        bool label) {
+  const float p = __fmul_rn(expf(logit - m), inv_se);
+  return __fmul_rn(scale, __fsub_rn(p, label ? 1.f : 0.f));
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -241,19 +256,39 @@ __device__ __forceinline__ Tile tile_at(int t, const GemmArgs& p) {
   return r;
 }
 
-// EPI_STATS's inputs from global memory, loaded before the tile's main loop
-// so that their latency hides behind it: the thread's bias pairs (columns
-// c0 + 8 j + {0, 1}; 0 past Ncols) and its four rows' labels, as tile
-// columns less c0 (-1 past M).
-struct StatsIn {
+// The end of every epilogue that leaves through the consumer's tile buffer:
+// its threads' writes are made visible to TMA and waited for, then the
+// leader stores the buffer's two 64-column boxes through `map` at the tile's
+// place and, when `wait`, waits until the store has read the buffer (else
+// it calls tma_store_wait_read itself before the buffer is written again).
+__device__ __forceinline__ void store_tile(const CUtensorMap* map, uint32_t buf, const Tile& tl,
+                                           bool wait = true) {
+  fence_async_smem();
+  bar_sync(3 + threadIdx.x / 128, 128);
+  if (threadIdx.x % 128 == 0) {
+    tma_store(map, buf, tl.col0, tl.row0);
+    tma_store(map, buf + BOX_BYTES, tl.col0 + 64, tl.row0);
+    tma_store_commit();
+    if (wait) tma_store_wait_read();
+  }
+}
+
+// The LM-head epilogues' inputs from global memory, loaded before the tile's
+// main loop so that their latency hides behind it: the thread's bias pairs
+// (columns c0 + 8 j + {0, 1}; 0 past Ncols) and its four rows' labels, as
+// tile columns less c0 (-1 past M); for EPI_DLOGITS also the four rows'
+// max, 1 / exp-sum and scale (0 past M).
+struct RowIn {
   float2 bias[BN / 8];
   int label[4];
+  float m[4], inv_se[4], scale[4];
 };
 
-__device__ __forceinline__ StatsIn stats_inputs(const GemmArgs& p, const Tile& tl) {
+template <int EPI>
+__device__ __forceinline__ RowIn row_inputs(const GemmArgs& p, const Tile& tl) {
   const int t = threadIdx.x % 128;
   const int r0 = 16 * (t / 32) + (t % 32) / 4, c0 = 2 * (t % 4);
-  StatsIn in;
+  RowIn in;
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     const int col = tl.col0 + c0 + 8 * j;
@@ -263,7 +298,13 @@ __device__ __forceinline__ StatsIn stats_inputs(const GemmArgs& p, const Tile& t
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int row = tl.row0 + 64 * (r >> 1) + r0 + 8 * (r & 1);
-    in.label[r] = row < p.M ? p.labels[row] - tl.col0 - c0 : -1;
+    const bool live = row < p.M;
+    in.label[r] = live ? p.labels[row] - tl.col0 - c0 : -1;
+    if (EPI == EPI_DLOGITS) {
+      in.m[r] = live ? p.row_m[row] : 0.f;
+      in.inv_se[r] = live ? p.row_inv_se[row] : 0.f;
+      in.scale[r] = live ? p.row_scale[row] : 0.f;
+    }
   }
   return in;
 }
@@ -277,7 +318,7 @@ __device__ __forceinline__ StatsIn stats_inputs(const GemmArgs& p, const Tile& t
 // by shuffles. Columns past Ncols (W's rows there load as zero) count as
 // -inf: exp gives them exactly 0, and the row max stays finite because
 // col0 < Ncols.
-__device__ __forceinline__ void stats_epilogue(float (&acc)[2][64], const StatsIn& in,
+__device__ __forceinline__ void stats_epilogue(float (&acc)[2][64], const RowIn& in,
                                                const GemmArgs& p, const Tile& tl,
                                                unsigned char* bufp, uint32_t buf,
                                                const CUtensorMap* out_c) {
@@ -305,15 +346,7 @@ __device__ __forceinline__ void stats_epilogue(float (&acc)[2][64], const StatsI
         v1 = in1 ? f.y : -INFINITY;
       }
   }
-  if (store) {
-    fence_async_smem();
-    bar_sync(3 + cw, 128);
-    if (leader) {  // the store runs while the statistics are taken
-      tma_store(out_c, buf, tl.col0, tl.row0);
-      tma_store(out_c, buf + BOX_BYTES, tl.col0 + 64, tl.row0);
-      tma_store_commit();
-    }
-  }
+  if (store) store_tile(out_c, buf, tl, false);  // it runs while the statistics are taken
   const int nvt = (p.Ncols + BN - 1) / BN;
   const size_t plane = static_cast<size_t>(p.M) * nvt;
 #pragma unroll
@@ -352,6 +385,41 @@ __device__ __forceinline__ void stats_epilogue(float (&acc)[2][64], const StatsI
   if (store && leader) tma_store_wait_read();
 }
 
+// K10's first pass on a consumer's tile (register layout as in epilogue
+// below): the logits bf16(acc + bias) rounded as stats_epilogue rounds
+// them, then dlogit of each with its row's statistics, 0 in the columns
+// past Ncols, into the tile buffer and out by TMA through out_c, whose map
+// spans the dlogits buffer's padded row, so its pad columns get zeros.
+__device__ __forceinline__ void dlogits_epilogue(float (&acc)[2][64], const RowIn& in,
+                                                 const GemmArgs& p, const Tile& tl,
+                                                 unsigned char* bufp, uint32_t buf,
+                                                 const CUtensorMap* out_c) {
+  const int t = threadIdx.x % 128, cw = threadIdx.x / 128;
+  const int r0 = 16 * (t / 32) + (t % 32) / 4, c0 = 2 * (t % 4);
+  bar_sync(3 + cw, 128);  // the leader's last store has read the buffer
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = tl.col0 + c0 + 8 * j;
+    const bool in0 = col < p.Ncols, in1 = col + 1 < p.Ncols;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 2 * hf + h;
+        const float2 f = __bfloat1622float2(__floats2bfloat162_rn(
+            acc[hf][4 * j + 2 * h] + in.bias[j].x, acc[hf][4 * j + 2 * h + 1] + in.bias[j].y));
+        const float d0 = in0 ? dlogit(f.x, in.m[r], in.inv_se[r], in.scale[r],
+                                      in.label[r] == 8 * j) : 0.f;
+        const float d1 = in1 ? dlogit(f.y, in.m[r], in.inv_se[r], in.scale[r],
+                                      in.label[r] == 8 * j + 1) : 0.f;
+        *reinterpret_cast<__nv_bfloat162*>(bufp + tile_offset(64 * hf + r0 + 8 * h,
+                                                              c0 + 8 * j)) =
+            __floats2bfloat162_rn(d0, d1);
+      }
+  }
+  store_tile(out_c, buf, tl);
+}
+
 // The epilogue of consumer cw on its tile. Thread t holds, for half hf, j <
 // 16 and h < 2, the pair acc[hf][4j + 2h], acc[hf][4j + 2h + 1] at tile row
 // 64 hf + 16 (t / 32) + t % 32 / 4 + 8h and columns 8j + 2 (t % 4) + {0, 1}.
@@ -359,7 +427,7 @@ __device__ __forceinline__ void stats_epilogue(float (&acc)[2][64], const StatsI
 // out_c is the result's map, out_d F1's a (stored when store_d) or B1's a
 // (loaded by the producer).
 template <int EPI>
-__device__ __forceinline__ void epilogue(float (&acc)[2][64], const StatsIn& in,
+__device__ __forceinline__ void epilogue(float (&acc)[2][64], const RowIn& in,
                                          const GemmArgs& p, const Tile& tl,
                                          unsigned char* bufp, uint32_t buf, uint32_t aux_full,
                                          uint32_t aux_empty, uint32_t aux_parity,
@@ -369,6 +437,10 @@ __device__ __forceinline__ void epilogue(float (&acc)[2][64], const StatsIn& in,
   const int r0 = 16 * (t / 32) + (t % 32) / 4, c0 = 2 * (t % 4);
   if (EPI == EPI_STATS) {
     stats_epilogue(acc, in, p, tl, bufp, buf, out_c);
+    return;
+  }
+  if (EPI == EPI_DLOGITS) {
+    dlogits_epilogue(acc, in, p, tl, bufp, buf, out_c);
     return;
   }
   if (EPI == EPI_OUT && p.partial != nullptr) {
@@ -415,18 +487,9 @@ __device__ __forceinline__ void epilogue(float (&acc)[2][64], const StatsIn& in,
         }
       }
   }
-  fence_async_smem();
-  bar_sync(3 + cw, 128);
   if (EPI == EPI_GELU) {
-    if (p.store_d) {
-      if (leader) {
-        tma_store(out_d, buf, tl.col0, tl.row0);
-        tma_store(out_d, buf + BOX_BYTES, tl.col0 + 64, tl.row0);
-        tma_store_commit();
-        tma_store_wait_read();
-      }
-      bar_sync(3 + cw, 128);
-    }
+    if (p.store_d) store_tile(out_d, buf, tl);
+    bar_sync(3 + cw, 128);  // pass 1 is in the buffer (and the store of a has read it)
     // pass 2, h = bf16(gelu(a)) in place: 16-byte chunks, eight erfs each
 #pragma unroll 2
     for (int k = 0; k < TILE_BYTES / 16 / 128; ++k) {
@@ -440,16 +503,9 @@ __device__ __forceinline__ void epilogue(float (&acc)[2][64], const StatsIn& in,
       }
       *chunk = v;
     }
-    fence_async_smem();
-    bar_sync(3 + cw, 128);
   }
-  if (leader) {
-    tma_store(out_c, buf, tl.col0, tl.row0);
-    tma_store(out_c, buf + BOX_BYTES, tl.col0 + 64, tl.row0);
-    tma_store_commit();
-    tma_store_wait_read();
-    if (EPI == EPI_DGELU) mbar_arrive(aux_empty);  // the buffer may take the next a tile
-  }
+  store_tile(out_c, buf, tl);
+  if (EPI == EPI_DGELU && leader) mbar_arrive(aux_empty);  // the buffer may take the next a tile
 }
 
 // out = A @ B over the block's tiles (A [M, K] K-major; B K-major [Ncols, K]
@@ -539,8 +595,8 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap* tma_a, const CUten
       // of the tile before (the ping-pong order: main loops in turn, each
       // epilogue beside the other warpgroup's main loop).
       if (i > 0) bar_sync(1 + cw, 256);
-      StatsIn in;
-      if (EPI == EPI_STATS) in = stats_inputs(p, tl);
+      RowIn in;
+      if (EPI == EPI_STATS || EPI == EPI_DLOGITS) in = row_inputs<EPI>(p, tl);
       float acc[2][64];
 #pragma unroll
       for (int j = 0; j < 64; ++j) acc[0][j] = acc[1][j] = 0.f;
@@ -644,9 +700,11 @@ typedef void (*GemmKernel)(const CUtensorMap, const CUtensorMap, const CUtensorM
 // C = A @ B on `kernel`, an includer's __global__ wrapper of gemm_tiles<EPI,
 // B_MN>; `configured` holds a bit per device whose kernel attributes are
 // set. A [M, K] K-major with row pitch lda; B = W [Ncols, K] (K-major) or W
-// [K, Ncols] (b_mn); C bf16 [M, Ncols] with row pitch ldc (0: Ncols) and D
-// bf16 [M, Ncols] (D: F1's a out or B1's a in, or null). p.splits > 1 walks
-// K in parts of p.kper slices into p.partial.
+// [K, Ncols] (b_mn); C bf16 [M, ldc] (ldc 0: Ncols), or null when the
+// epilogue stores nothing (EPI_STATS with store_c 0); D bf16 [M, Ncols]
+// (D: F1's a out or B1's a in, or null). C's map spans its whole row, so an
+// epilogue writes the columns [Ncols, ldc) of the last tile as well. p.splits
+// > 1 walks K in parts of p.kper slices into p.partial.
 inline cudaError_t gemm_launch(GemmKernel kernel, unsigned& configured, bool b_mn, const void* A,
                         int lda, const void* W, void* C, const void* D, GemmArgs p, int K,
                         int ctas, cudaStream_t s, int ldc = 0) {
@@ -666,16 +724,14 @@ inline cudaError_t gemm_launch(GemmKernel kernel, unsigned& configured, bool b_m
     if (err != cudaSuccess) return err;
     if (device < 32) configured |= 1u << device;
   }
-  CUtensorMap ta, tb, tc, td;
+  CUtensorMap ta, tb, tc = {}, td = {};  // a null C or D gets no map: nothing reads it
   err = make_map(&ta, A, K, p.M, lda, BK, BM);
   if (err == cudaSuccess)
     err = b_mn ? make_map(&tb, W, p.Ncols, K, p.Ncols, 64, BK)
                : make_map(&tb, W, K, p.Ncols, K, BK, BN);
   if (ldc <= 0) ldc = p.Ncols;
-  if (err == cudaSuccess) err = make_map(&tc, C, p.Ncols, p.M, ldc, 64, BM);
-  if (err == cudaSuccess)
-    err = D != nullptr ? make_map(&td, D, p.Ncols, p.M, p.Ncols, 64, BM)
-                       : make_map(&td, C, p.Ncols, p.M, ldc, 64, BM);
+  if (err == cudaSuccess && C != nullptr) err = make_map(&tc, C, ldc, p.M, ldc, 64, BM);
+  if (err == cudaSuccess && D != nullptr) err = make_map(&td, D, p.Ncols, p.M, p.Ncols, 64, BM);
   if (err != cudaSuccess) return err;
   p.ksteps = (K + BK - 1) / BK;
   if (p.splits == 1) p.kper = p.ksteps;

@@ -42,8 +42,7 @@ _SIGNATURES = {
     "kmb_lm_ce_fwd": (_I, [_P] * 9 + [_I] * 5 + [_P]),
     "kmb_lm_ce_dlogits": (_I, [_P] * 6 + [_I] * 4 + [_P]),
     "kmb_lm_ce_dh": (_I, [_P] * 4 + [_I] * 7 + [_P]),
-    "kmb_lm_ce_fwd_stats": (_I, [_P] * 10 + [_I] * 3 + [_P]),
-    "kmb_lm_ce_recompute_dlogits": (_I, [_P] * 8 + [_I] * 4 + [_P]),
+    "kmb_lm_ce_recompute_dlogits": (_I, [_P] * 8 + [_I] * 5 + [_P]),
     "kmb_beam_attention": (_I, [_P, _I, _P, _P, _I, _P, _P] + [_I] * 7 + [_P]),
     "kmb_flash_attention": (_I, [_P] * 5 + [_I] * 9 + [_F, _I, _P]),
     "kmb_vocab_stats": (_I, [_P, _P, _P, _I, _I, _I, _P]),

@@ -14,18 +14,22 @@ recomputed from (h, W, bias) with the same bf16 rounding. On CPU tensors
 each runs its plain version (``*_plain``); on CUDA tensors it launches its
 kernel or raises.
 
-On the card K7 is the projection on the wgmma + TMA GEMM that K2 and K8
-use (``logits_plan`` lays it out, its tiles walking rows fastest) with an
-epilogue that stores the bf16 logits and one partial (max, exp-sum, label
-logit) per row and 128-column tile, then a merge of each row's partials in
-a fixed order. TMA's row pitch is a multiple of 16 bytes, so the logits
-live in an [N, ``padded_vocab(V)``] buffer and K7 returns its [:, :V] view
-(the whole buffer when V % 8 == 0). K8 is two launches: ``dlogits_pass``
-reads the logits at their row pitch and writes the dlogits into an [N,
-``padded_vocab(V)``] buffer (the pad columns are zero), then dh = dlogits
-@ W runs on the same GEMM, laid out by ``dh_plan``. K10's second pass is
-the same GEMM over the dlogits its first pass writes. Both return the [:,
-:V] view of the buffer as their dlogits.
+On the card K7-K10 run on the wgmma + TMA GEMM of ``csrc/wgmma_gemm.cuh``
+that K2 uses. K7 is the projection (``logits_plan`` lays it out, its tiles
+walking rows fastest) with an epilogue that stores the bf16 logits and one
+partial (max, exp-sum, label logit) per row and 128-column tile, then a
+merge of each row's partials in a fixed order. TMA's row pitch is a
+multiple of 16 bytes, so the logits live in an [N, ``padded_vocab(V)``]
+buffer and K7 returns its [:, :V] view (the whole buffer when V % 8 == 0).
+K9 is the same launch with the store turned off, so its statistics equal
+K7's bit for bit. K8 is two launches: ``dlogits_pass`` reads the logits at
+their row pitch and writes the dlogits into an [N, ``padded_vocab(V)``]
+buffer (the pad columns are zero), then dh = dlogits @ W runs on the same
+GEMM, laid out by ``dh_plan``. K10's first pass (``recompute_dlogits_pass``)
+is K7's projection with an epilogue that forms the same dlogits from the
+logits in registers and writes them into the same padded buffer; its second
+pass is K8's dh GEMM. K10's outputs thus equal K8's on K7's logits bit for
+bit. Both return the [:, :V] view of the buffer as their dlogits.
 
 ``fused_lm_ce`` is the differentiable loss, in one of the JAX package's
 modes (pallas_lm_ce.py:385-396): "fwdbwd" (K7 + K8, the default), "nomat"
@@ -101,6 +105,31 @@ def logits_plan(n_rows, d_model, vocab_size, sms):
     return gemm_plan(n_rows, vocab_size, d_model, sms, False)
 
 
+def _project_stats(wrapper, h, w, fbias, labels, store):
+    """The launch of K7 on CUDA tensors, or of K9 when not ``store``, counted
+    on ``wrapper``: (the logits buffer [N, padded_vocab(V)] or None, m, se,
+    ll)."""
+    name = wrapper.__name__
+    dev, N, V, D = _check_fwd(name, h, w, fbias, labels)
+    f32 = dict(dtype=torch.float32, device=dev)
+    buf = (torch.empty((N, padded_vocab(V)), dtype=torch.bfloat16, device=dev)
+           if store else None)
+    m, se, ll = (torch.empty(N, **f32) for _ in range(3))
+    if N == 0:
+        return buf, m, se, ll
+    parts = torch.empty((3, N, -(-V // TILE_V)), **f32)
+    check_aligned(name, h, w, fbias, buf)
+    g = logits_plan(N, D, V, sm_count(dev))
+    lib, stream = _cuda.prepare(dev)
+    _cuda.check(lib.kmb_lm_ce_fwd(
+        h.data_ptr(), w.data_ptr(), fbias.data_ptr(), labels.data_ptr(),
+        None if buf is None else buf.data_ptr(), parts.data_ptr(), m.data_ptr(),
+        se.data_ptr(), ll.data_ptr(), N, V, D, 0 if buf is None else buf.shape[1], g.ctas,
+        stream), name)
+    wrapper.launches += 1
+    return buf, m, se, ll
+
+
 def lm_ce_fwd(h, w, fbias, labels):
     """K7; same contract as ``lm_ce_fwd_plain`` except that on a CUDA device
     h and w must be bf16, fbias fp32 and labels int32. The logits come back
@@ -108,22 +137,8 @@ def lm_ce_fwd(h, w, fbias, labels):
     apart."""
     if h.device.type == "cpu":
         return lm_ce_fwd_plain(h, w, fbias, labels)
-    dev, N, V, D = _check_fwd("lm_ce_fwd", h, w, fbias, labels)
-    f32 = dict(dtype=torch.float32, device=dev)
-    buf = torch.empty((N, padded_vocab(V)), dtype=torch.bfloat16, device=dev)
-    m, se, ll = (torch.empty(N, **f32) for _ in range(3))
-    if N == 0:
-        return buf[:, :V], m, se, ll
-    parts = torch.empty((3, N, -(-V // TILE_V)), **f32)
-    check_aligned("lm_ce_fwd", h, w, fbias, buf)
-    g = logits_plan(N, D, V, sm_count(dev))
-    lib, stream = _cuda.prepare(dev)
-    _cuda.check(lib.kmb_lm_ce_fwd(
-        h.data_ptr(), w.data_ptr(), fbias.data_ptr(), labels.data_ptr(), buf.data_ptr(),
-        parts.data_ptr(), m.data_ptr(), se.data_ptr(), ll.data_ptr(), N, V, D, buf.shape[1],
-        g.ctas, stream), "lm_ce_fwd")
-    lm_ce_fwd.launches += 1
-    return buf[:, :V], m, se, ll
+    buf, m, se, ll = _project_stats(lm_ce_fwd, h, w, fbias, labels, True)
+    return buf[:, :w.shape[0]], m, se, ll
 
 
 lm_ce_fwd.launches = 0
@@ -235,19 +250,7 @@ def lm_ce_fwd_stats(h, w, fbias, labels):
     tensor is allocated."""
     if h.device.type == "cpu":
         return lm_ce_fwd_stats_plain(h, w, fbias, labels)
-    dev, N, V, D = _check_fwd("lm_ce_fwd_stats", h, w, fbias, labels)
-    f32 = dict(dtype=torch.float32, device=dev)
-    m, se, ll = (torch.empty(N, **f32) for _ in range(3))
-    if N == 0:
-        return m, se, ll
-    n_vtiles = -(-V // TILE_V)
-    parts = [torch.empty((N, n_vtiles), **f32) for _ in range(3)]
-    lib, stream = _cuda.prepare(dev)
-    _cuda.check(lib.kmb_lm_ce_fwd_stats(
-        h.data_ptr(), w.data_ptr(), fbias.data_ptr(), labels.data_ptr(),
-        *(p.data_ptr() for p in parts), m.data_ptr(), se.data_ptr(), ll.data_ptr(),
-        N, V, D, stream), "lm_ce_fwd_stats")
-    lm_ce_fwd_stats.launches += 1
+    _, m, se, ll = _project_stats(lm_ce_fwd_stats, h, w, fbias, labels, False)
     return m, se, ll
 
 
@@ -262,12 +265,27 @@ def lm_ce_recompute_bwd_plain(h, w, fbias, m, inv_se, scale, labels):
     return lm_ce_bwd_plain(logits, w, m, inv_se, scale, labels)
 
 
+def recompute_dlogits_pass(h, w, fbias, m, inv_se, scale, labels):
+    """K10's first pass on CUDA tensors (checked by the caller): K7's
+    projection with the dlogits epilogue, into an [N, padded_vocab(V)]
+    buffer with zero pad columns, as ``dlogits_pass`` writes it."""
+    (N, D), V = h.shape, w.shape[0]
+    dl = torch.empty((N, padded_vocab(V)), dtype=torch.bfloat16, device=h.device)
+    check_aligned("lm_ce_recompute_bwd", h, w, fbias, dl)
+    g = logits_plan(N, D, V, sm_count(h.device))
+    lib, stream = _cuda.prepare(h.device)
+    _cuda.check(lib.kmb_lm_ce_recompute_dlogits(
+        h.data_ptr(), w.data_ptr(), fbias.data_ptr(), m.data_ptr(), inv_se.data_ptr(),
+        scale.data_ptr(), labels.data_ptr(), dl.data_ptr(), N, V, dl.shape[1], D, g.ctas,
+        stream), "lm_ce_recompute_bwd dlogits")
+    return dl
+
+
 def lm_ce_recompute_bwd(h, w, fbias, m, inv_se, scale, labels):
     """K10; same contract as ``lm_ce_recompute_bwd_plain`` except that on a
     CUDA device h and w must be bf16, fbias and the statistics fp32 and
-    labels int32. The dlogits pass (K7's projection, csrc/lm_ce.cu), then
-    K8's dh GEMM over its padded buffer; the dlogits come back as
-    ``lm_ce_bwd`` returns them."""
+    labels int32. ``recompute_dlogits_pass``, then K8's dh GEMM over its
+    padded buffer; the dlogits come back as ``lm_ce_bwd`` returns them."""
     if h.device.type == "cpu":
         return lm_ce_recompute_bwd_plain(h, w, fbias, m, inv_se, scale, labels)
     dev, N, V, D = _check_fwd("lm_ce_recompute_bwd", h, w, fbias, labels)
@@ -275,12 +293,7 @@ def lm_ce_recompute_bwd(h, w, fbias, m, inv_se, scale, labels):
     if N == 0:
         return (torch.empty((0, V), dtype=torch.bfloat16, device=dev),
                 torch.empty((0, D), dtype=torch.bfloat16, device=dev))
-    dl = torch.empty((N, padded_vocab(V)), dtype=torch.bfloat16, device=dev)
-    lib, stream = _cuda.prepare(dev)
-    _cuda.check(lib.kmb_lm_ce_recompute_dlogits(
-        h.data_ptr(), w.data_ptr(), fbias.data_ptr(), m.data_ptr(), inv_se.data_ptr(),
-        scale.data_ptr(), labels.data_ptr(), dl.data_ptr(), N, V, dl.shape[1], D, stream),
-        "lm_ce_recompute_bwd dlogits")
+    dl = recompute_dlogits_pass(h, w, fbias, m, inv_se, scale, labels)
     dh = dh_gemm("lm_ce_recompute_bwd", dl, V, w)
     lm_ce_recompute_bwd.launches += 1
     return dl[:, :V], dh

@@ -1,7 +1,8 @@
 """K8's and K10's dh GEMM launch plan (kmbart_tpu_torch/ops/lm_ce.py dh_plan)
 and the padded row pitch of their dlogits buffer; K7's projection plan
-(logits_plan) with its rows-fastest tile order, and an emulation of K7's
-statistics epilogue and merge against the JAX package's Pallas kernel.
+(logits_plan, which K9 and K10's first pass share) with its rows-fastest
+tile order; emulations of K7's (and K9's) statistics epilogue and merge and
+of K10's dlogits epilogue against the JAX package's Pallas kernels.
 
 csrc/lm_ce.cu runs dh = dlogits @ W on the main loop of csrc/wgmma_gemm.cuh
 with the depth K = V, read through TMA maps whose row pitch must be a
@@ -18,7 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from kmbart_tpu.ops.pallas_lm_ce import _fwd_project_stats_call
+from kmbart_tpu.ops.pallas_lm_ce import (_fwd_project_stats_call, _fwd_stats_call,
+                                         _recompute_bwd_call)
 from kmbart_tpu_torch.ops import ffn, lm_ce
 from tests._torch_port import bf16_tol, to_jax, to_np, to_torch
 from tests.test_torch_beam_plan import _bf16, _butterfly
@@ -229,3 +231,105 @@ def test_k7_stats_emulation_matches_pallas_kernel():
     m2, se2, _, _ = emulate_k7_stats(mine, labels)
     np.testing.assert_allclose(np.log(se2) + m2, np.log(se3) + m3, rtol=0,
                                atol=bf16_tol(plain_logits))
+
+
+def _head(seed):
+    """h, W, bias and labels of a small ragged head (N 24, V 1100 = 8 x 128 +
+    76, D 128) with labels in column 0, in column V - 1 and in the ragged
+    last tile."""
+    rng = np.random.default_rng(seed)
+    N, V, D = 24, 1100, 128
+    h = rng.normal(size=(N, D)).astype(np.float32)
+    w = (rng.normal(size=(V, D)) * 0.05).astype(np.float32)
+    fbias = (rng.normal(size=(V,)) * 0.01).astype(np.float32)
+    labels = rng.integers(0, V, N).astype(np.int32)
+    labels[:3] = [0, V - 1, 1030]
+    return h, w, fbias, labels
+
+
+def _jax_head(h, w, fbias, labels):
+    return (to_jax(h, "bfloat16"), to_jax(w, "bfloat16"), jnp.asarray(fbias).reshape(1, -1),
+            jnp.asarray(labels).reshape(-1, 1))
+
+
+def test_k9_stats_emulation_matches_pallas_kernel():
+    """K9 is K7's launch without the logits store, so its statistics are
+    emulate_k7_stats of the same rounded logits. Held against
+    _fwd_stats_call in interpret mode (online statistics over its vocab
+    tiles, no logits out) on the logits _fwd_project_stats_call computes
+    from the same inputs: the max and the label logit exactly, the exp-sum
+    within the order of the fp32 sums (1e-5 relative)."""
+    h, w, fbias, labels = _head(12)
+    args = _jax_head(h, w, fbias, labels)
+    lj = to_np(_fwd_project_stats_call(*args, 128, jnp.bfloat16, True)[0])
+    m_j, se_j, ll_j = _fwd_stats_call(*args, 128, jnp.bfloat16, True)
+    m, se, ll, _ = emulate_k7_stats(lj, labels)
+    np.testing.assert_array_equal(m, to_np(m_j)[:, 0])
+    np.testing.assert_array_equal(ll, to_np(ll_j)[:, 0])
+    np.testing.assert_allclose(se, to_np(se_j)[:, 0], rtol=1e-5)
+
+
+def emulate_k10_dlogits(acc, fbias, m, inv_se, scale, labels):
+    """K10's first pass as the EPI_DLOGITS epilogue forms it, from the fp32
+    sums acc [N, V]: the logits bf16(acc + bias) (bias added to each column
+    pair before the rounding, as stats_epilogue does), then dlogit of each
+    (csrc/wgmma_gemm.cuh), bf16(scale (exp(logit - m) inv_se - [the label's
+    column])) with each product and difference rounded once in fp32, and 0
+    past V. Returns the [N, padded_vocab(V)] buffer the TMA store fills, its
+    pad columns included, as fp32 values."""
+    N, V = acc.shape
+    logits = _bf16((acc + fbias[None, :]).astype(np.float32))
+    e = np.exp((logits - m[:, None]).astype(np.float32)).astype(np.float32)
+    p = (e * inv_se[:, None]).astype(np.float32)
+    onehot = (np.arange(V)[None, :] == labels[:, None]).astype(np.float32)
+    out = np.zeros((N, lm_ce.padded_vocab(V)), np.float32)
+    out[:, :V] = _bf16((scale[:, None] * (p - onehot).astype(np.float32)).astype(np.float32))
+    return out
+
+
+def test_k10_dlogits_emulation_matches_pallas_kernel():
+    """At a ragged vocab with labels in column 0, in column V - 1 and in the
+    ragged last tile, and with rows whose scale is 0 (ignored labels): the
+    emulated epilogue against _recompute_bwd_call in interpret mode and
+    against the port's plain version. The projections sum in other orders,
+    so the emulation's logits are held within 2 bf16 ulps of the Pallas
+    kernel's and of the plain version's; given the same logits, the
+    dlogits agree exactly, and the buffer's pad columns are zero."""
+    h, w, fbias, labels = _head(13)
+    N, V = labels.shape[0], w.shape[0]
+    args = _jax_head(h, w, fbias, labels)
+    lj, m_j, se_j, _ = _fwd_project_stats_call(*args, 128, jnp.bfloat16, True)
+    lj = to_np(lj)
+    m = np.array(to_np(m_j)[:, 0])
+    inv_se = (1.0 / to_np(se_j)[:, 0]).astype(np.float32)
+    valid = np.ones(N, bool)
+    valid[[1, 5, 6]] = False   # the label in column V - 1 among them
+    scale = (valid / valid.sum()).astype(np.float32)
+    col = lambda a: jnp.asarray(a).reshape(N, 1)  # noqa: E731
+    dl_j, _ = _recompute_bwd_call(args[0], args[1], args[2], col(m), col(inv_se), col(scale),
+                                  args[3], 128, jnp.bfloat16, True)
+    dl_j = to_np(dl_j)
+    zero = np.zeros(V, np.float32)
+    # the epilogue on the Pallas kernel's logits: the same dlogits, bit for bit
+    mine = emulate_k10_dlogits(lj, zero, m, inv_se, scale, labels)
+    np.testing.assert_array_equal(mine[:, :V], dl_j)
+    assert mine.shape == (N, 1104) and not mine[:, V:].any()
+    assert not mine[~valid].any() and dl_j[0, 0] < 0 and dl_j[2, 1030] < 0
+    # the epilogue on its own fp32 sums: logits within 2 bf16 ulps
+    hb, wb = _bf16(h), _bf16(w)
+    acc = (hb @ wb.T).astype(np.float32)
+    own = emulate_k10_dlogits(acc, fbias, m, inv_se, scale, labels)
+    np.testing.assert_allclose(_bf16(acc + fbias), lj, rtol=0, atol=bf16_tol(lj))
+    np.testing.assert_allclose(own, mine, rtol=0, atol=bf16_tol(mine))
+    # the port's plain version: its logits within 2 bf16 ulps, and its
+    # dlogits those of the epilogue on its logits
+    bf = torch.bfloat16
+    th, tw, tb = to_torch(h, bf), to_torch(w, bf), to_torch(fbias)
+    tl = torch.from_numpy(labels)
+    plain_logits = lm_ce.lm_ce_fwd_plain(th, tw, tb, tl)[0].float().numpy()
+    np.testing.assert_allclose(plain_logits, lj, rtol=0, atol=bf16_tol(lj))
+    dl_p, _ = lm_ce.lm_ce_recompute_bwd_plain(th, tw, tb, torch.from_numpy(m),
+                                              torch.from_numpy(inv_se),
+                                              torch.from_numpy(scale), tl)
+    on_plain = emulate_k10_dlogits(plain_logits, zero, m, inv_se, scale, labels)
+    np.testing.assert_array_equal(on_plain[:, :V], dl_p.float().numpy())
