@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port (kmbart_tpu_torch) on one NVIDIA GPU.
 
 Run from the repository root:  python3 chip_smoke.py
-(``--kernels-only`` stops after phase 3, to compare kernel builds.)
+(``--kernels-only`` stops after phase 3, to compare kernel builds;
+``--only serve,sample`` drives only the named paths after it.)
 
 Phases, each printing one JSON line; any failure raises and exits non-zero:
   1. device    the card's name and power limit (needs a CUDA device);
@@ -25,7 +26,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                logits) bit for bit, K11's error split into what its bf16
                p terms cost and the rest, and K2's and K2b's host time a
                call (and K7's); K3 at cache positions 0, 15 and 31 with the
-               bound of the rows its ancestry reads; a planted-tie top-k;
+               bound of the rows its ancestry reads, and in ring mode at the
+               serving pool's shape (windows 1..32 with most wrapping past
+               column 0, all 32, all 1; each window's output equal bit for
+               bit to the scalar mode's on the window rotated to columns
+               [0, n)); a planted-tie top-k;
   4. generate  beam-5 VCG generation at BART-base width (config/vcg_base.json,
                random weights from a seed, batch 64): every generation kernel
                must have launched, outputs finite, and the encoder output and
@@ -67,7 +72,17 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                three (K11's share);
  10. pretrain_cli  ``python -m kmbart_tpu_torch.pretrain --device cuda`` trains
                one epoch on the fixture's coco, vg, vcg and reason datasets, and
-               the vcg_train twin fine-tunes one epoch from its model0/.
+               the vcg_train twin fine-tunes one epoch from its model0/;
+ 11. sample    generate() with do_sample, top_k 50 and top_p 0.9 at batch 64,
+               beam 5 and greedy: one generator seed gives the same tokens
+               twice, K1-K4 launch (K4 on the beam path), sentences/s;
+ 12. serve     the continuous engine at serve.py's defaults (pool 112, chunk
+               4, beam 5, max_length 32, 96 encoder tokens, 30 image slots) on
+               224 requests in four staggered bursts: every request's tokens
+               equal generate()'s on the same row (batches of 112), requests/s,
+               p50 and p99 latency, K3-ring and K4 launches, the device-busy
+               share of a profiled burst; then 64 requests through the static
+               engine and one POST through the HTTP server on 127.0.0.1.
 The line before the last lists every kernel with its launches on the main
 path, its error, its time, its plain version's, its bound and the library
 call's; the last line is {"ok": true, "device": {...}}. The port imports
@@ -217,6 +232,26 @@ def _k3_bound(anc, B, K, D, cache_index):
         rows = int(a.new_zeros((B, K, n), dtype=bool).scatter_(1, a, True).sum())
     return _bound(2 * B * K * D + 4 * B * K * n + 4 * B * K * D + 2 * 2 * rows * D,
                   bf16_flops=4.0 * B * K * n * D)
+
+
+def _ring_window(torch, T, ring_col, valid):
+    """[B, T] bool: the columns of each sample's ring window (the valid[b]
+    columns ending at ring_col, cyclically; lengths clamped to [1, T])."""
+    age = torch.remainder(ring_col - torch.arange(T, device=valid.device), T)
+    return age[None, :] < valid.clamp(1, T)[:, None]
+
+
+def _k3_ring_bound(torch, anc, B, K, T, D, ring_col, valid):
+    """``_k3_bound``'s rule over a ring call: q, the window lengths and the
+    ancestry of the window read, the fp32 output written, the K and V rows
+    (slot, column) of each window that some beam descends through read
+    once, and the scores and P.V of each window's positions."""
+    window = _ring_window(torch, T, ring_col, valid)                    # [B, T]
+    a = anc.long().reshape(B, K, T)
+    used = a.new_zeros((B, K, T), dtype=torch.bool).scatter_(1, a, True) & window[:, None]
+    n = int(window.sum())
+    return _bound(2 * B * K * D + 4 * B + 4 * K * n + 4 * B * K * D
+                  + 2 * 2 * int(used.sum()) * D, bf16_flops=4.0 * K * n * D)
 
 
 def _pairs(Tq, Tk, causal):
@@ -759,6 +794,52 @@ def check_kernels(torch, dev):
         k3(8, 5, 32, 768, 12, 31, False, q_dtype=torch.float32),
         k3(8, 5, 32, 768, 12, 31, False, cache_dtype=torch.float32),
         k3(8, 5, 32, 768, 12, 31, False, q_dtype=torch.float32, cache_dtype=torch.float32)]
+
+    # K3's ring mode at the serving pool's shape (pool 112, K 5, T 32): window
+    # lengths spread 1..32 with ring column 10 (the 21 lengths above 11 wrap
+    # past column 0), every window at 32, every window at 1
+    def k3_ring(B, K, T, D, H, ring_col, valid, what):
+        q = randn(B * K, D) * (D // H) ** -0.5
+        kc, vc = randn(B, K, T, D), randn(B, K, T, D)
+        anc = torch.randint(0, K, (B * K, T), generator=g, device=dev, dtype=torch.int32)
+        valid = torch.as_tensor(valid, dtype=torch.int32, device=dev)
+        kw = dict(num_beams=K, num_heads=H, valid_counts=valid)
+        out = ba.beam_gather_attention(q, kc, vc, anc, ring_col, **kw)
+        ref = ba.beam_gather_attention_plain(q, kc, vc, anc, ring_col, **kw)
+        err, tol = _max_err(out, ref), _bf16_tol(ref)
+        _check(f"beam_gather_attention ring {what} {B}x{K}x{T}x{D} col={ring_col}", err, tol)
+        wraps = int((valid > ring_col + 1).sum())
+        res = {"shape": [B, K, T, D, H], "ring_col": ring_col, "valid": what,
+               "windows_wrapping": wraps, "max_abs_err": err, "tol": tol}
+        # the window visited oldest first: every sample's output equals the
+        # scalar mode's on its window rotated to columns [0, n), bit for bit
+        lengths = sorted(set(valid.tolist()))
+        for n in set(lengths[::max(1, len(lengths) // 4)] + lengths[-1:]):
+            rows = (valid == n).nonzero()[:, 0]
+            cols = torch.remainder(ring_col - n + 1 + torch.arange(n, device=dev), T)
+            bk = (rows[:, None] * K + torch.arange(K, device=dev)[None, :]).reshape(-1)
+            scalar = ba.beam_gather_attention(
+                q[bk].contiguous(), kc[rows][:, :, cols].contiguous(),
+                vc[rows][:, :, cols].contiguous(), anc[bk][:, cols].contiguous(), n - 1,
+                num_beams=K, num_heads=H)
+            if not torch.equal(scalar, out[bk]):
+                raise AssertionError(f"ring mode {what}: window length {n} differs from the "
+                                     "scalar mode on the rotated window")
+        res["equals_rotated_scalar"] = True
+        res["ms"] = _time_ms(torch, lambda: ba.beam_gather_attention(q, kc, vc, anc, ring_col,
+                                                                     **kw))
+        res["plain_ms"] = _time_ms(torch, lambda: ba.beam_gather_attention_plain(
+            q, kc, vc, anc, ring_col, **kw))
+        res.update(_k3_ring_bound(torch, anc, B, K, T, D, ring_col, valid))
+        return res
+
+    spread = [1 + i % 32 for i in range(112)]
+    results["beam_attention_ring"] = [
+        k3_ring(112, 5, 32, 768, 12, 10, spread, "1..32"),
+        k3_ring(112, 5, 32, 768, 12, 17, [32] * 112, "all 32"),
+        k3_ring(112, 5, 32, 768, 12, 5, [1] * 112, "all 1")]
+    if results["beam_attention_ring"][0]["windows_wrapping"] * 3 < 112:
+        raise AssertionError("ring rows: fewer than a third of the windows wrap")
 
     # K4: [B*K, V] = [320, 50320] logits (ragged tail chunk); edge: forced
     # rows that are -inf except one column (49 all--inf chunks per row)
@@ -1619,6 +1700,249 @@ def run_pretrain_cli(card):
          finetune_from_model0="ok, 12 head tensors dropped")
 
 
+# ---------------------------------------------------------------------------
+# phases 11-12: sampling and serving
+# ---------------------------------------------------------------------------
+
+def _base_model(dev, seed):
+    """config/vcg_base.json with random weights from ``seed``, loaded the
+    way a user loads a checkpoint."""
+    from kmbart_tpu_torch import MultiModalBartConfig
+    from kmbart_tpu_torch.checkpoint.io import load_pretrained
+    cfg = MultiModalBartConfig.from_json(os.path.join(REPO, "config", "vcg_base.json"))
+    with tempfile.TemporaryDirectory() as tmp:
+        write_checkpoint(tmp, cfg, seed=seed)
+        _, model, _ = load_pretrained(tmp, device=dev)
+    return cfg, model
+
+
+def run_sample(torch, dev, card):
+    """generate() with do_sample, top_k 50 and top_p 0.9 at batch 64, beam 5
+    and greedy: one generator seed gives the same tokens twice, and the
+    kernels of the path launch (K4 on the beam path's fast sampling)."""
+    import numpy as np
+    from kmbart_tpu_torch.generation.api import generate
+    from kmbart_tpu_torch.ops import launch_counts, reset_launch_counts
+    cfg, model = _base_model(dev, seed=0)
+    B, T = 64, 72
+    rng = np.random.default_rng(0)
+    ids = rng.integers(4, 50000, (B, T))
+    ids[:, 1:31] = cfg.img_feat_id
+    batch = {"input_ids": torch.as_tensor(ids, device=dev),
+             "attention_mask": torch.ones((B, T), dtype=torch.long, device=dev),
+             "image_features": torch.as_tensor(
+                 rng.normal(size=(B, cfg.max_img_num, cfg.image_feature_size)),
+                 dtype=torch.float32, device=dev)}
+    result = {}
+    for mode, beams in (("beam5", 5), ("greedy", 1)):
+        def gen(seed=7):
+            return generate(model, cfg, batch, num_beams=beams, max_length=32,
+                            early_stopping=True, do_sample=True, top_k=50, top_p=0.9,
+                            trim=False, generator=torch.Generator(device=dev).manual_seed(seed))
+        gen(seed=1)   # warm-up
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        first = gen()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        want = ("train_attention", "ffn", "beam_attention") + (("vocab_stats",) if beams > 1
+                                                                else ())
+        missing = [k for k in want if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"sample {mode}: kernels not launched: {missing}")
+        if not np.array_equal(first, gen()):
+            raise AssertionError(f"sample {mode}: one generator seed gave two outputs")
+        if first.shape != (B, 32) or first.min() < 0 or first.max() >= cfg.vocab_size:
+            raise AssertionError(f"sample {mode}: bad output {first.shape}")
+        result[mode] = {"sentences_per_s": B / seconds, "seconds": seconds,
+                        "launches": {k: counts[k] for k in want}, "same_seed_identical": True,
+                        "distinct_rows": int(len({r.tobytes() for r in first}))}
+    emit("sample", card=card, config="config/vcg_base.json", batch=B, enc_len=T,
+         top_k=50, top_p=0.9, max_length=32, **result)
+
+
+SERVE_POOL, SERVE_CHUNK, SERVE_BEAMS, SERVE_MAXLEN, SERVE_ENC = 112, 4, 5, 32, 96
+SERVE_KERNELS = ("train_attention", "ffn", "beam_attention_ring", "vocab_stats")
+
+
+def _serve_requests(np, cfg, n, seed):
+    """n requests padded to the pool's 96 encoder tokens: 40-96 real tokens,
+    the first 30 after BOS image slots, with 30 ROI features each."""
+    rng = np.random.default_rng(seed)
+    E = SERVE_ENC
+    ids = np.full((n, E), cfg.pad_token_id, np.int64)
+    mask = np.zeros((n, E), np.int64)
+    widths = rng.integers(40, E + 1, n)
+    for i, w in enumerate(widths):
+        ids[i, :w] = rng.integers(4, 50000, w)
+        ids[i, 1:31] = cfg.img_feat_id
+        mask[i, :w] = 1
+    feats = rng.normal(size=(n, cfg.max_img_num, cfg.image_feature_size)).astype(np.float32)
+    return ids, mask, feats, widths
+
+
+def _row_invariance(torch, dev, model, cfg, A=32, B=112):
+    """Whether each GEMM shape of the encoder and of the admit's cross K/V
+    gives a row the same bits at A samples as at B samples (``dense``'s
+    bf16 product with an fp32 result), and whether a row's place in the
+    batch matters; the model's blocked image projection and K2 (the fused
+    FFN) likewise."""
+    from kmbart_tpu_torch.models.bart import image_projection
+    from kmbart_tpu_torch.ops.ffn import ffn
+    from kmbart_tpu_torch.ops.layers import matmul_f32
+    g = torch.Generator(device=dev).manual_seed(5)
+    E, D, F, R = SERVE_ENC, cfg.d_model, cfg.encoder_ffn_dim, cfg.max_img_num
+    shapes = {"image_projection": (R, cfg.image_feature_size, D), "qkv": (E, D, 3 * D),
+              "out_proj_and_cross_kv": (E, D, D)}
+    out = {}
+    for name, (rows, k, n) in shapes.items():
+        x = torch.randn((B * rows, k), generator=g, device=dev).to(torch.bfloat16)
+        w = (torch.randn((n, k), generator=g, device=dev) * 0.02)
+        small = matmul_f32(x[:A * rows], w)
+        moved = matmul_f32(torch.roll(x[:A * rows], rows, 0), w)
+        out[name] = {"rows": [A * rows, B * rows], "same_at_both_widths":
+                     bool(torch.equal(small, matmul_f32(x, w)[:A * rows])),
+                     "same_at_another_place": bool(torch.equal(small,
+                                                               torch.roll(moved, -rows, 0)))}
+    f = torch.randn((B, R, cfg.image_feature_size), generator=g, device=dev)
+    small = image_projection(model.model, f[:A], torch.bfloat16)
+    out["image_projection_blocked"] = {
+        "rows": [A * R, B * R], "same_at_both_widths": bool(torch.equal(
+            small, image_projection(model.model, f, torch.bfloat16)[:A])),
+        "same_at_another_place": bool(torch.equal(
+            small[1:], image_projection(model.model, f[1:A + 1], torch.bfloat16)[:A - 1]))}
+    x = torch.randn((B * E, D), generator=g, device=dev).to(torch.bfloat16)
+    w1 = (torch.randn((F, D), generator=g, device=dev) * 0.02).to(torch.bfloat16)
+    w2 = (torch.randn((D, F), generator=g, device=dev) * 0.02).to(torch.bfloat16)
+    b1, b2 = torch.zeros(F, device=dev), torch.zeros(D, device=dev)
+    out["k2_ffn"] = {"rows": [A * E, B * E], "same_at_both_widths": bool(torch.equal(
+        ffn(x[:A * E], w1, b1, w2, b2), ffn(x, w1, b1, w2, b2)[:A * E]))}
+    return out
+
+
+def run_serve(torch, dev, card):
+    """The continuous engine at serve.py's defaults: 224 requests in four
+    staggered bursts, each request's tokens equal to generate()'s on the
+    same row (batches of 112, the pool's decode shape), and the encoder
+    GEMMs' row invariance between the admit's 32 samples and 112; then 64
+    requests through the static engine and one POST through the HTTP
+    server."""
+    import urllib.request
+    import numpy as np
+    from kmbart_tpu_torch.generation.api import generate
+    from kmbart_tpu_torch.models import bart
+    from kmbart_tpu_torch.ops import launch_counts, reset_launch_counts
+    from kmbart_tpu_torch.serving.continuous import ContinuousGenerationEngine
+    from kmbart_tpu_torch.serving.engine import GenerationEngine
+    from kmbart_tpu_torch.serving.http import serve
+    cfg, model = _base_model(dev, seed=0)
+    N, bursts = 224, 4
+    ids, mask, feats, widths = _serve_requests(np, cfg, N, seed=3)
+
+    engine = ContinuousGenerationEngine(
+        model, cfg, pool_size=SERVE_POOL, encoder_seq_len=SERVE_ENC, chunk_steps=SERVE_CHUNK,
+        num_beams=SERVE_BEAMS, max_length=SERVE_MAXLEN, early_stopping=True)
+
+    def burst_run(rows, gap_s):
+        """Submit ``rows`` in four bursts ``gap_s`` apart; wait for all."""
+        done_at, sent_at, futs = {}, {}, {}
+        per = -(-len(rows) // bursts)
+        for b in range(bursts):
+            for i in rows[b * per:(b + 1) * per]:
+                sent_at[i] = time.perf_counter()
+                futs[i] = engine.submit(ids[i:i + 1, :widths[i]], mask[i:i + 1, :widths[i]],
+                                        feats[i:i + 1])
+                futs[i].add_done_callback(
+                    lambda _f, i=i: done_at.__setitem__(i, time.perf_counter()))
+            if b + 1 < bursts:
+                time.sleep(gap_s)
+        outs = {i: f.result(timeout=600) for i, f in futs.items()}
+        return outs, sent_at, done_at
+
+    try:
+        # warm-up: cuBLAS handles, the allocator, the kernels' first launches
+        burst_run(list(range(8)), 0.0)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        outs, sent_at, done_at = burst_run(list(range(N)), 0.25)
+        launches = {k: n for k, n in launch_counts().items() if k in SERVE_KERNELS}
+        missing = [k for k, n in launches.items() if n == 0]
+        if missing:
+            raise AssertionError(f"serve: kernels not launched: {missing}")
+        lat = np.array([done_at[i] - sent_at[i] for i in range(N)])
+        wall = max(done_at.values()) - min(sent_at.values())
+        profile = _profile_steps(torch, lambda: burst_run(list(range(SERVE_POOL)), 0.0), n=1)
+    finally:
+        engine.shutdown()
+    got = np.concatenate([outs[i] for i in range(N)])
+
+    # the reference: generate() on the same padded rows, in batches of 112
+    ref = np.concatenate([generate(
+        model, cfg, {"input_ids": torch.as_tensor(ids[s:s + SERVE_POOL], device=dev),
+                     "attention_mask": torch.as_tensor(mask[s:s + SERVE_POOL], device=dev),
+                     "image_features": torch.as_tensor(feats[s:s + SERVE_POOL], device=dev)},
+        num_beams=SERVE_BEAMS, max_length=SERVE_MAXLEN, early_stopping=True, trim=False)
+        for s in range(0, N, SERVE_POOL)])
+    equal = (got == ref).all(axis=1)
+    with torch.no_grad():
+        t = lambda a: torch.as_tensor(a, device=dev)
+        enc32 = bart.encode(model.model, cfg, t(ids[:32]), t(feats[:32]), t(mask[:32]))
+        enc112 = bart.encode(model.model, cfg, t(ids[:112]), t(feats[:112]),
+                             t(mask[:112]))[:32]
+        invariance = _row_invariance(torch, dev, model, cfg)
+    emit("serve_row_invariance", card=card, encoder_rows_equal_at_32_and_112=bool(
+        torch.equal(enc32, enc112)), **invariance)
+    fields = dict(card=card, config="config/vcg_base.json", requests=N, bursts=bursts,
+                  burst_gap_s=0.25, pool=SERVE_POOL, chunk_steps=SERVE_CHUNK,
+                  num_beams=SERVE_BEAMS, max_length=SERVE_MAXLEN, encoder_seq_len=SERVE_ENC,
+                  admit_width=32, requests_per_s=N / wall, wall_s=wall,
+                  latency_p50_s=float(np.percentile(lat, 50)),
+                  latency_p99_s=float(np.percentile(lat, 99)),
+                  latency_max_s=float(lat.max()), launches=launches,
+                  k3_ring_launches=launches["beam_attention_ring"],
+                  k4_launches=launches["vocab_stats"],
+                  device_busy_share=profile["device_busy_share"], profile=profile,
+                  rows_equal_to_generate=float(equal.mean()))
+    if not equal.all():
+        bad = np.nonzero(~equal)[0]
+        emit("serve", **fields, mismatched_rows=bad[:20].tolist(),
+             first_differing_position=[int(np.nonzero(got[i] != ref[i])[0][0])
+                                       for i in bad[:10]])
+        raise AssertionError(f"serve: {len(bad)} of {N} requests differ from generate()")
+
+    # the static engine: 64 requests, coalesced into batches of up to 32
+    static = GenerationEngine(model, cfg, max_batch_size=32, encoder_seq_len=SERVE_ENC,
+                              num_beams=SERVE_BEAMS, max_length=SERVE_MAXLEN,
+                              early_stopping=True)
+    server = None
+    try:
+        t0 = time.perf_counter()
+        futs = [static.submit(ids[i:i + 1, :widths[i]], mask[i:i + 1, :widths[i]],
+                              feats[i:i + 1]) for i in range(64)]
+        static_out = np.concatenate([f.result(timeout=600) for f in futs])
+        static_s = time.perf_counter() - t0
+        if static_out.shape != (64, SERVE_MAXLEN) or static_out.min() < 0:
+            raise AssertionError(f"static engine: bad output {static_out.shape}")
+        server = serve(static, port=0, block=False)
+        body = json.dumps({"input_ids": ids[:1, :widths[0]].tolist(),
+                           "image_features": feats[:1].tolist()}).encode()
+        req = urllib.request.Request(f"http://127.0.0.1:{server.server_address[1]}/generate",
+                                     data=body, headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            http_out = np.asarray(json.loads(r.read())["token_ids"])
+        if http_out.shape != (1, SERVE_MAXLEN):
+            raise AssertionError(f"HTTP: bad output {http_out.shape}")
+    finally:
+        if server is not None:
+            server.shutdown()
+        static.shutdown()
+    emit("serve", **fields, static_requests=64, static_seconds=static_s,
+         static_requests_per_s=64 / static_s,
+         static_rows_equal_to_generate=float((static_out == ref[:64]).all(axis=1).mean()),
+         http_tokens_equal_to_generate=bool((http_out[0] == ref[0]).all()))
+    return launches
+
+
 KERNEL_INFO = {
     "train_attention": ("kmbart_tpu_torch/csrc/train_attention_tc.cuh",
                         "kmbart_tpu/ops/pallas_train_attention.py:194"),
@@ -1628,6 +1952,8 @@ KERNEL_INFO = {
     "ffn_bwd": ("kmbart_tpu_torch/csrc/ffn.cu", "kmbart_tpu/ops/pallas_ffn.py:190"),
     "beam_attention": ("kmbart_tpu_torch/csrc/beam_attention.cu",
                        "kmbart_tpu/ops/pallas_beam_attention.py:214"),
+    "beam_attention_ring": ("kmbart_tpu_torch/csrc/beam_attention.cu",
+                            "kmbart_tpu/ops/pallas_beam_attention.py:214"),
     "vocab_stats": ("kmbart_tpu_torch/csrc/vocab_stats.cu",
                     "kmbart_tpu/ops/pallas_vocab_stats.py:60"),
     "lm_ce_fwd": ("kmbart_tpu_torch/csrc/lm_ce.cu", "kmbart_tpu/ops/pallas_lm_ce.py:250"),
@@ -1647,6 +1973,9 @@ def main(argv=None):
     ap.add_argument("--kernels-only", action="store_true",
                     help="build the kernels, hold each against its plain version, print "
                          "the kernels phase and stop (no paths driven, no ok line)")
+    ap.add_argument("--only", default=None,
+                    help="comma-separated paths to drive after the kernels phase "
+                         "(generate, sample, serve), then stop without the ok line")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1670,6 +1999,13 @@ def main(argv=None):
     emit("kernels", card=card, **kernels)
     if args.kernels_only:
         return
+    if args.only:
+        paths = {"generate": lambda: run_generate(torch, dev, card),
+                 "sample": lambda: run_sample(torch, dev, card),
+                 "serve": lambda: run_serve(torch, dev, card)}
+        for name in args.only.split(","):
+            paths[name]()
+        return
     launches = run_generate(torch, dev, card)
     run_cli(card)
     launches.update(run_train(torch, dev, card))
@@ -1680,6 +2016,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     launches["flash_attention"] = run_pretrain_long(torch, dev, card)["flash_attention"]
     run_pretrain_cli(card)
+    run_sample(torch, dev, card)
+    launches["beam_attention_ring"] = run_serve(torch, dev, card)["beam_attention_ring"]
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     loaded = [m for m in sys.modules if m == "kmbart_tpu" or m.startswith("kmbart_tpu.")]

@@ -15,6 +15,18 @@
 // (The TPU kernel also rounds its output to bf16; the port keeps the fp32 of
 // the oracle, beam_gather_attention_reference.)
 //
+// Ring mode (valid != nullptr): the continuous-batching pool's ring cache,
+// which every slot writes at column tick % T (kmbart_tpu/serving/
+// continuous.py pool_step, where build_selection_mask_ring,
+// pallas_beam_attention.py:87, feeds the same TPU kernel). Sample b's
+// positions are the n_b = valid[b] columns ending at column cache_index,
+// cyclically; the kernel visits them in logical order, oldest first
+// (column (cache_index - n_b + 1 + a) mod T for a = 0 .. n_b - 1), so a slot
+// admitted at any tick runs its scores, softmax and P.V sums in the order
+// of the offline decode, bit for bit. valid is clamped to [1, T]: an
+// inactive slot reads its own newest column and does not fault. It is a
+// template parameter, so the scalar-index path compiles as it did.
+//
 // What bounds it on an H100: bytes and latency. At the main path's shape
 // (B 64, K 5, T 32, D 768, H 12) a step reads at most the K and V rows up to
 // cache_index, 2 x 320 x 32 x 768 x 2 B = 31 MB per layer at the last step
@@ -111,15 +123,18 @@ __device__ __forceinline__ void issue_chunk(int load, int nchunks, int chunk, in
   cp_async_commit();
 }
 
-template <typename TQ, int PIECES>
+template <typename TQ, int PIECES, bool RING>
 __global__ void __launch_bounds__(kThreads)
     beam_attention_bf16(const TQ* __restrict__ q, const bf16* __restrict__ kc,
                         const bf16* __restrict__ vc, const int* __restrict__ ancestry,
-                        float* __restrict__ out, int K, int T, int D, int H, int cache_index,
-                        int chunk) {
+                        const int* __restrict__ valid, float* __restrict__ out, int K, int T,
+                        int D, int H, int cache_index, int chunk) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int hd = PIECES > 0 ? 8 * PIECES : D / H, n = cache_index + 1;
+  const int hd = PIECES > 0 ? 8 * PIECES : D / H;
+  // positions a = 0 .. n - 1; a's cache column is RING ? (first + a) % T : a
+  const int n = RING ? min(max(valid[b], 1), T) : cache_index + 1;
+  const int first = RING ? cache_index - n + 1 + T : 0;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   bf16* bufs = reinterpret_cast<bf16*>(smem);
   bf16* q_s = bufs + (size_t)2 * K * chunk * hd;
@@ -135,11 +150,12 @@ __global__ void __launch_bounds__(kThreads)
   // through goes (each thread reads the K entries of its position from
   // global memory, so this needs no second barrier)
   for (int i = tid; i < K * n; i += kThreads) {
-    const int j = i / n, t = i - j * n;
+    const int j = i / n, a = i - j * n;
+    const int t = RING ? (first + a) % T : a;
     anc_s[i] = anc_b[(size_t)j * T + t];
     bool used = false;
     for (int qb = 0; qb < K; ++qb) used |= anc_b[(size_t)qb * T + t] == j;
-    dst_s[i] = used ? j * chunk + t % chunk : -1;
+    dst_s[i] = used ? j * chunk + a % chunk : -1;
     src_s[i] = j * T + t;
   }
   for (int i = tid; i < K * hd; i += kThreads) {
@@ -236,6 +252,7 @@ template <typename TQ, typename TC>
 __global__ void beam_attention_scalar(const TQ* __restrict__ q, const TC* __restrict__ kc,
                                       const TC* __restrict__ vc,
                                       const int* __restrict__ ancestry,
+                                      const int* __restrict__ valid,
                                       float* __restrict__ out, int K, int T, int D, int hd,
                                       int cache_index) {
   extern __shared__ float smem_f[];
@@ -245,16 +262,20 @@ __global__ void beam_attention_scalar(const TQ* __restrict__ q, const TC* __rest
   const int lane = threadIdx.x % 32;
   float* q_w = smem_f + h * (hd + T);
   float* p_w = q_w + hd;
-  const int n = cache_index + 1;
+  // positions in logical order, as in the bf16 kernel's ring mode
+  const int n = valid ? min(max(valid[b], 1), T) : cache_index + 1;
+  const int first = valid ? cache_index - n + 1 + T : 0;
+  auto col = [&](int a) { return valid ? (first + a) % T : a; };
   const int* anc = ancestry + (size_t)r * T;
-  const size_t col = (size_t)h * hd;
+  const size_t hcol = (size_t)h * hd;
 
-  for (int d = lane; d < hd; d += 32) q_w[d] = round_bf16(to_f(q[(size_t)r * D + col + d]));
+  for (int d = lane; d < hd; d += 32) q_w[d] = round_bf16(to_f(q[(size_t)r * D + hcol + d]));
   __syncwarp();
 
   float m = -INFINITY;
   for (int t = lane; t < n; t += 32) {
-    const TC* k_row = kc + (((size_t)b * K + anc[t]) * T + t) * D + col;
+    const int c = col(t);
+    const TC* k_row = kc + (((size_t)b * K + anc[c]) * T + c) * D + hcol;
     float s = 0.f;
     for (int d = 0; d < hd; ++d) s = fmaf(q_w[d], round_bf16(to_f(k_row[d])), s);
     p_w[t] = s;
@@ -274,75 +295,97 @@ __global__ void beam_attention_scalar(const TQ* __restrict__ q, const TC* __rest
   for (int d = lane; d < hd; d += 32) {
     float acc = 0.f;
     for (int t = 0; t < n; ++t) {
-      const TC* v_row = vc + (((size_t)b * K + anc[t]) * T + t) * D + col;
+      const int c = col(t);
+      const TC* v_row = vc + (((size_t)b * K + anc[c]) * T + c) * D + hcol;
       acc = fmaf(p_w[t], round_bf16(to_f(v_row[d])), acc);
     }
-    out[(size_t)r * D + col + d] = acc;
+    out[(size_t)r * D + hcol + d] = acc;
   }
 }
 
-template <typename TQ, int PIECES>
+template <typename TQ, int PIECES, bool RING>
 cudaError_t launch_bf16_hd(const void* q, const void* kc, const void* vc, const int* anc,
-                        float* out, int B, int K, int T, int D, int H, int cache_index,
-                        int chunk, cudaStream_t stream) {
-  const size_t smem = beam_smem_bytes(K, cache_index + 1, D / H, chunk);
-  cudaError_t err = kmb_allow_smem(beam_attention_bf16<TQ, PIECES>, smem);
+                           const int* valid, float* out, int B, int K, int T, int D, int H,
+                           int cache_index, int chunk, cudaStream_t stream) {
+  // a ring call is sized for all T columns: no block holds more
+  const size_t smem = beam_smem_bytes(K, RING ? T : cache_index + 1, D / H, chunk);
+  cudaError_t err = kmb_allow_smem(beam_attention_bf16<TQ, PIECES, RING>, smem);
   if (err != cudaSuccess) return err;
-  beam_attention_bf16<TQ, PIECES><<<B * H, kThreads, smem, stream>>>(
-      (const TQ*)q, (const bf16*)kc, (const bf16*)vc, anc, out, K, T, D, H, cache_index, chunk);
+  beam_attention_bf16<TQ, PIECES, RING><<<B * H, kThreads, smem, stream>>>(
+      (const TQ*)q, (const bf16*)kc, (const bf16*)vc, anc, valid, out, K, T, D, H,
+      cache_index, chunk);
   return cudaGetLastError();
+}
+
+template <typename TQ, int PIECES>
+cudaError_t launch_bf16_mode(const void* q, const void* kc, const void* vc, const int* anc,
+                             const int* valid, float* out, int B, int K, int T, int D, int H,
+                             int cache_index, int chunk, cudaStream_t stream) {
+  if (valid)
+    return launch_bf16_hd<TQ, PIECES, true>(q, kc, vc, anc, valid, out, B, K, T, D, H,
+                                            cache_index, chunk, stream);
+  return launch_bf16_hd<TQ, PIECES, false>(q, kc, vc, anc, valid, out, B, K, T, D, H,
+                                           cache_index, chunk, stream);
 }
 
 // head_dim 64 (BART-base's) with its row pieces as a constant, others generic
 template <typename TQ>
 cudaError_t launch_bf16(const void* q, const void* kc, const void* vc, const int* anc,
-                        float* out, int B, int K, int T, int D, int H, int cache_index,
-                        int chunk, cudaStream_t stream) {
+                        const int* valid, float* out, int B, int K, int T, int D, int H,
+                        int cache_index, int chunk, cudaStream_t stream) {
   const int hd = D / H;
   if (hd % 8 || chunk < 1) return cudaErrorInvalidValue;
   if (hd == 64)
-    return launch_bf16_hd<TQ, 8>(q, kc, vc, anc, out, B, K, T, D, H, cache_index, chunk, stream);
-  return launch_bf16_hd<TQ, 0>(q, kc, vc, anc, out, B, K, T, D, H, cache_index, chunk, stream);
+    return launch_bf16_mode<TQ, 8>(q, kc, vc, anc, valid, out, B, K, T, D, H, cache_index,
+                                   chunk, stream);
+  return launch_bf16_mode<TQ, 0>(q, kc, vc, anc, valid, out, B, K, T, D, H, cache_index,
+                                 chunk, stream);
 }
 
 template <typename TQ>
 cudaError_t launch_scalar(const void* q, const void* kc, const void* vc, const int* anc,
-                          float* out, int B, int K, int T, int D, int H, int cache_index,
-                          cudaStream_t stream) {
+                          const int* valid, float* out, int B, int K, int T, int D, int H,
+                          int cache_index, cudaStream_t stream) {
   const int hd = D / H;
   if (H > 32) return cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * (size_t)H * (hd + T);
   cudaError_t err = kmb_allow_smem(beam_attention_scalar<TQ, float>, smem);
   if (err != cudaSuccess) return err;
   beam_attention_scalar<TQ, float><<<B * K, H * 32, smem, stream>>>(
-      (const TQ*)q, (const float*)kc, (const float*)vc, anc, out, K, T, D, hd, cache_index);
+      (const TQ*)q, (const float*)kc, (const float*)vc, anc, valid, out, K, T, D, hd,
+      cache_index);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // chunk: positions per shared-memory chunk of the bf16 kernel (ops/
-// beam_attention.py beam_plan); the fp32 cache ignores it.
+// beam_attention.py beam_plan); the fp32 cache ignores it. valid: int32 [B],
+// the ring mode's window lengths (cache_index is then the ring column), or
+// null for positions [0, cache_index].
 KMB_EXPORT int kmb_beam_attention(const void* q, int q_dtype, const void* k_cache,
                                   const void* v_cache, int cache_dtype,
-                                  const void* ancestry, void* out, int B, int K, int T,
-                                  int D, int H, int cache_index, int chunk, void* stream) {
+                                  const void* ancestry, const void* valid, void* out, int B,
+                                  int K, int T, int D, int H, int cache_index, int chunk,
+                                  void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const int* anc = (const int*)ancestry;
+  const int* vld = (const int*)valid;
   float* o = (float*)out;
   if (cache_dtype == KMB_BF16) {
     if (q_dtype == KMB_BF16)
-      return launch_bf16<__nv_bfloat16>(q, k_cache, v_cache, anc, o, B, K, T, D, H,
+      return launch_bf16<__nv_bfloat16>(q, k_cache, v_cache, anc, vld, o, B, K, T, D, H,
                                         cache_index, chunk, s);
     if (q_dtype == KMB_F32)
-      return launch_bf16<float>(q, k_cache, v_cache, anc, o, B, K, T, D, H, cache_index,
+      return launch_bf16<float>(q, k_cache, v_cache, anc, vld, o, B, K, T, D, H, cache_index,
                                 chunk, s);
   } else if (cache_dtype == KMB_F32) {
     if (q_dtype == KMB_BF16)
-      return launch_scalar<__nv_bfloat16>(q, k_cache, v_cache, anc, o, B, K, T, D, H,
+      return launch_scalar<__nv_bfloat16>(q, k_cache, v_cache, anc, vld, o, B, K, T, D, H,
                                           cache_index, s);
     if (q_dtype == KMB_F32)
-      return launch_scalar<float>(q, k_cache, v_cache, anc, o, B, K, T, D, H, cache_index, s);
+      return launch_scalar<float>(q, k_cache, v_cache, anc, vld, o, B, K, T, D, H,
+                                  cache_index, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -3,8 +3,11 @@
 Counterpart of kmbart_tpu/generation/api.py (HF 3.0.2
 ``GenerationMixin.generate``): option defaulting from the model config,
 the reference's validation asserts, attention-mask construction, one
-encoder pass, and dispatch to the beam or greedy loop, then the trim to the
-HF output width. Everything runs on the model's device.
+encoder pass, the return-sequence expansion of the encoder outputs when
+sampling (batch-major, as the reference's ``index_select``), and dispatch
+to the beam or greedy/sampling loop, then the trim to the HF output width.
+Everything runs on the model's device; sampling draws from ``generator``
+(a ``torch.Generator`` on that device; a freshly seeded one when None).
 """
 
 import dataclasses
@@ -14,7 +17,7 @@ import torch
 
 from kmbart_tpu_torch.config import MultiModalBartConfig
 from kmbart_tpu_torch.generation.beam import beam_search_loop
-from kmbart_tpu_torch.generation.decode import greedy_loop
+from kmbart_tpu_torch.generation.decode import greedy_or_sample_loop
 from kmbart_tpu_torch.models import bart
 
 
@@ -69,15 +72,24 @@ def options_from_config(cfg: MultiModalBartConfig, **overrides) -> GenerationOpt
 
 @torch.no_grad()
 def generate_tokens(model, cfg, input_ids, attention_mask, image_features,
-                    opts: GenerationOptions):
+                    opts: GenerationOptions, generator=None):
     """Device-side generate: (tokens [B·R, max_length], HF output width)."""
     opts.validate()
-    if opts.do_sample:
-        raise NotImplementedError("sampling (do_sample=True) is not ported yet")
     enc = bart.encode(model.model, cfg, input_ids, image_features, attention_mask)
+    K = opts.num_beams
+    mult = opts.num_return_sequences if opts.do_sample else 1
+    # the beam axis is not materialised (a sample's beams share its encoder
+    # states), so only sampled return sequences expand the encoder outputs
+    if mult > 1:
+        enc = enc.repeat_interleave(mult, dim=0)
+        attention_mask = attention_mask.repeat_interleave(mult, dim=0)
+    if opts.do_sample and generator is None:
+        generator = torch.Generator(device=enc.device)
+        generator.seed()
     common = dict(
         max_length=opts.max_length, min_length=opts.min_length,
-        repetition_penalty=opts.repetition_penalty,
+        do_sample=opts.do_sample, temperature=opts.temperature, top_k=opts.top_k,
+        top_p=opts.top_p, repetition_penalty=opts.repetition_penalty,
         no_repeat_ngram_size=opts.no_repeat_ngram_size,
         bad_words_ids=opts.bad_words_ids,
         pad_token_id=cfg.pad_token_id if cfg.pad_token_id is not None
@@ -85,18 +97,22 @@ def generate_tokens(model, cfg, input_ids, attention_mask, image_features,
         eos_token_id=cfg.eos_token_id,
         decoder_start_token_id=cfg.decoder_start_token_id
         if cfg.decoder_start_token_id is not None else cfg.bos_token_id)
-    if opts.num_beams > 1:
+    if K > 1:
         return beam_search_loop(
-            model, cfg, enc, attention_mask, batch_size=input_ids.shape[0],
-            num_beams=opts.num_beams, length_penalty=opts.length_penalty, early_stopping=opts.early_stopping,
-            num_return_sequences=opts.num_return_sequences, **common)
-    return greedy_loop(model, cfg, enc, attention_mask, **common)
+            model, cfg, enc, attention_mask, generator,
+            batch_size=input_ids.shape[0] * mult, num_beams=K,
+            length_penalty=opts.length_penalty, early_stopping=opts.early_stopping,
+            num_return_sequences=1 if opts.do_sample else opts.num_return_sequences,
+            **common)
+    return greedy_or_sample_loop(model, cfg, enc, attention_mask, generator, **common)
 
 
-def generate(model, cfg: MultiModalBartConfig, batch, *, trim=True, **kwargs):
+def generate(model, cfg: MultiModalBartConfig, batch, *, trim=True, generator=None,
+             **kwargs):
     """Generate for a collated batch {"input_ids", optional "attention_mask",
     "image_features"} (numpy or tensors). Returns an int32 numpy array
-    [B·num_return_sequences, width], batch-major like the reference."""
+    [B·num_return_sequences, width], batch-major like the reference.
+    ``generator``: the ``torch.Generator`` sampling draws from."""
     opts = options_from_config(cfg, **kwargs)
     dev = model.final_logits_bias.device
     input_ids = torch.as_tensor(batch["input_ids"], device=dev).long()
@@ -110,6 +126,6 @@ def generate(model, cfg: MultiModalBartConfig, batch, *, trim=True, **kwargs):
     if image_features is not None:
         image_features = torch.as_tensor(image_features, device=dev).float()
     out, eff_len = generate_tokens(model, cfg, input_ids, attention_mask,
-                                   image_features, opts)
+                                   image_features, opts, generator)
     out = out.to(torch.int32).cpu().numpy()
     return out[:, :eff_len] if trim else out

@@ -11,14 +11,22 @@ chosen on the raw logits: log_softmax is monotonic per row, so each beam's
 top-2K survivors are the same, and only they are normalised with the row
 logsumexp from the vocab-stats kernel K4. Otherwise the general path takes
 log_softmax, the postprocessors, and the top-2K of the flat [B, K·V]
-scores. Sampling is not ported yet (generation/api.py raises).
+scores.
+
+Sampling (HF: beam scores start at zero, no forced BOS/EOS, temperature)
+draws the 2K candidates without replacement by a Gumbel top-2K. With a
+top-k it draws over each row's top-k survivors ([B, K·kk] noise): on the
+fast path the survivors of the raw logits, normalised with K4's
+logsumexp, else the top-k of the postprocessed scores; top-p then keeps at
+least 2 tokens a row. Without a top-k it draws over the filtered
+[B, K·V] scores. The noise is ``logits._gumbel``'s.
 """
 
 import torch
 
 from kmbart_tpu_torch.generation import logits as lp
 from kmbart_tpu_torch.models import bart
-from kmbart_tpu_torch.ops.topk import top_k
+from kmbart_tpu_torch.ops.topk import top_k as exact_top_k
 from kmbart_tpu_torch.ops.vocab_stats import chunk_stats, logsumexp_from_stats
 
 NEG_1E9 = -1e9
@@ -33,7 +41,7 @@ def _merge_pool(hyp, cand_scores, cand_tokens, cand_lens, K):
     all_scores = torch.cat([hyp_scores, cand_scores], dim=1)
     all_tokens = torch.cat([hyp_tokens, cand_tokens], dim=1)
     all_lens = torch.cat([hyp_lens, cand_lens], dim=1)
-    top_scores, top_idx = top_k(all_scores, K)
+    top_scores, top_idx = exact_top_k(all_scores, K)
     new_tokens = torch.gather(all_tokens, 1, top_idx[..., None].expand(-1, -1, L))
     new_lens = torch.gather(all_lens, 1, top_idx)
     n_new = (cand_scores > NEG_1E9 / 2).sum(dim=1)
@@ -44,11 +52,92 @@ def _merge_pool(hyp, cand_scores, cand_tokens, cand_lens, K):
     return new_tokens, new_lens, top_scores, new_count, new_worst
 
 
-def beam_search_loop(model, cfg, enc_hidden, enc_mask, *, batch_size, num_beams,
-                     max_length, min_length, length_penalty, early_stopping,
+def fast_candidates(logits, beam_scores, K):
+    """The top-2K candidates of [B, K·V] normalised scores, chosen on the
+    raw logits [B·K, V] (inert postprocessors, no sampling): each beam's
+    top-2K, normalised with K4's logsumexp, then merged in flat-index
+    order. Returns (scores [B, 2K], flat indices [B, 2K])."""
+    BK, V = logits.shape
+    B = BK // K
+    cm, es = chunk_stats(logits.contiguous())
+    lse = logsumexp_from_stats(cm, es)
+    row_vals, row_idx = exact_top_k(logits, 2 * K)
+    norm = (row_vals - lse[:, None]) + beam_scores.reshape(BK, 1)
+    beam_base = (torch.arange(K, device=logits.device) * V)[None, :, None]
+    flat_idx = (row_idx.reshape(B, K, 2 * K) + beam_base).reshape(B, 2 * K * K)
+    cand_scores, pos = exact_top_k(norm.reshape(B, 2 * K * K), 2 * K)
+    return cand_scores, torch.gather(flat_idx, 1, pos)
+
+
+def beam_front(cand_scores, cand_tok, cand_beam, is_eos, K):
+    """The next beam front: the first K non-EOS candidates of each sample.
+    Returns (scores, tokens, parent beams), each [B, K]."""
+    B = cand_scores.shape[0]
+    dev = cand_scores.device
+    non_eos = ~is_eos
+    slot = torch.cumsum(non_eos.long(), dim=1) - 1
+    take = non_eos & (slot < K)
+    wslot = torch.clamp(slot, 0, K - 1)
+    # each (b, wslot) pair receives exactly one candidate that is taken
+    scores = torch.zeros((B, K), device=dev).scatter_add_(
+        1, wslot, torch.where(take, cand_scores, 0.0))
+    tokens = torch.zeros((B, K), dtype=torch.long, device=dev).scatter_add_(
+        1, wslot, torch.where(take, cand_tok, 0))
+    parents = torch.zeros((B, K), dtype=torch.long, device=dev).scatter_add_(
+        1, wslot, torch.where(take, cand_beam, 0))
+    return scores, tokens, parents
+
+
+def _sample_candidates(logits, scores, beam_scores, generator, *, K, top_k, top_p, fast):
+    """2K candidates drawn without replacement (Gumbel top-2K), sorted by
+    score descending. ``logits`` [B·K, V] are the raw (temperature-scaled)
+    logits, used on the fast path; ``scores`` the postprocessed
+    log-probs otherwise. Returns (scores [B, 2K], flat indices [B, 2K])."""
+    BK, V = logits.shape
+    B = BK // K
+    dev = logits.device
+    if top_k and top_k > 0:
+        # restrict each row to its top-k before the draw: tokens the filter
+        # masks carry zero probability either way
+        kk = max(top_k, 2)
+        if fast:
+            # the top-k of the raw logits is the top-k of the normalised
+            # scores; normalise the survivors with K4's logsumexp
+            cm, es = chunk_stats(logits.contiguous())
+            lse = logsumexp_from_stats(cm, es)
+            raw_vals, vidx = exact_top_k(logits, kk)
+            vals = (raw_vals - lse[:, None]) + beam_scores.reshape(BK, 1)
+        else:
+            vals, vidx = exact_top_k(scores + beam_scores.reshape(BK, 1), kk)
+        if top_p < 1.0:
+            vals = torch.where(lp._top_p_remove(vals, top_p, 2), NEG_1E9, vals)
+        beam_of_row = (torch.arange(BK, device=dev) % K)[:, None]
+        flat = vals.reshape(B, K * kk)
+        flat_gidx = (beam_of_row * V + vidx).reshape(B, K * kk)
+        noisy = torch.where(flat > NEG_1E9 / 2,
+                            flat + lp._gumbel(flat.shape, generator, dev), -float("inf"))
+        _, pos = exact_top_k(noisy, 2 * K)
+        cand_scores = torch.gather(flat, 1, pos)
+        cand_idx = torch.gather(flat_gidx, 1, pos)
+    else:
+        filtered = lp.top_k_top_p_filtering(scores + beam_scores.reshape(BK, 1), top_k,
+                                            top_p, min_tokens_to_keep=2)
+        flat = filtered.reshape(B, K * V)
+        # Gumbel top-k == multinomial sampling without replacement
+        noisy = torch.where(flat > NEG_1E9 / 2,
+                            flat + lp._gumbel(flat.shape, generator, dev), -float("inf"))
+        _, cand_idx = exact_top_k(noisy, 2 * K)
+        cand_scores = torch.gather(flat, 1, cand_idx)
+    order = torch.sort(cand_scores, dim=1, descending=True, stable=True).indices
+    return torch.gather(cand_scores, 1, order), torch.gather(cand_idx, 1, order)
+
+
+def beam_search_loop(model, cfg, enc_hidden, enc_mask, generator=None, *, batch_size,
+                     num_beams, max_length, min_length, length_penalty, early_stopping,
                      repetition_penalty, no_repeat_ngram_size, bad_words_ids,
                      pad_token_id, eos_token_id, decoder_start_token_id,
-                     num_return_sequences):
+                     num_return_sequences, do_sample=False, temperature=1.0, top_k=0,
+                     top_p=1.0):
     """enc_hidden / enc_mask are per sample (not beam-expanded): a sample's
     K beams share its encoder states and cross K/V.
     Returns (tokens [B·num_return_sequences, max_length], HF output width)."""
@@ -56,16 +145,21 @@ def beam_search_loop(model, cfg, enc_hidden, enc_mask, *, batch_size, num_beams,
     dev = enc_hidden.device
     B, K = batch_size, num_beams
     BK, V, L = B * K, cfg.vocab_size, max_length
-    fast_select = (repetition_penalty == 1.0 and no_repeat_ngram_size == 0
-                   and bad_words_ids is None and min_length == 0)
+    inert = (repetition_penalty == 1.0 and no_repeat_ngram_size == 0
+             and bad_words_ids is None and min_length == 0)
+    fast_select = inert and not do_sample
+    fast_sample = inert and do_sample and bool(top_k) and top_k > 0
 
     tokens = torch.full((BK, L), pad_token_id, dtype=torch.long, device=dev)
     tokens[:, 0] = decoder_start_token_id
     caches = bart.init_decode_cache_layers(trunk, cfg, enc_hidden, L, num_beams=K)
     ancestry = torch.zeros((BK, L), dtype=torch.int32, device=dev)
     own_slot = (torch.arange(BK, device=dev) % K).to(torch.int32)
-    beam_scores = torch.full((B, K), NEG_1E9, device=dev)
-    beam_scores[:, 0] = 0.0
+    if do_sample:
+        beam_scores = torch.zeros((B, K), device=dev)   # HF: zeros when sampling
+    else:
+        beam_scores = torch.full((B, K), NEG_1E9, device=dev)
+        beam_scores[:, 0] = 0.0
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
     hyp = (torch.full((B, K, L), pad_token_id, dtype=torch.long, device=dev),
            torch.zeros((B, K), dtype=torch.long, device=dev),
@@ -73,7 +167,6 @@ def beam_search_loop(model, cfg, enc_hidden, enc_mask, *, batch_size, num_beams,
            torch.zeros((B,), dtype=torch.long, device=dev),
            torch.full((B,), 1e9, device=dev))
     b_idx = torch.arange(B, device=dev)
-    beam_base = (torch.arange(K, device=dev) * V)[None, :, None]
     parent = torch.arange(BK, device=dev)
 
     def length_norm(cur_len):
@@ -90,24 +183,29 @@ def beam_search_loop(model, cfg, enc_hidden, enc_mask, *, batch_size, num_beams,
         hidden = bart.decode_step_stationary(trunk, cfg, prev, caches, cur_len - 1,
                                              ancestry, enc_mask, num_beams=K)
         logits = bart.lm_logits(trunk, cfg, hidden, model.final_logits_bias)[:, 0, :]
-        logits = lp.maybe_force_bos_eos(logits, cur_len, L, cfg.bos_token_id,
-                                        eos_token_id)
-        if fast_select:
-            cm, es = chunk_stats(logits.contiguous())
-            lse = logsumexp_from_stats(cm, es)
-            row_vals, row_idx = top_k(logits, 2 * K)
-            norm = (row_vals - lse[:, None]) + beam_scores.reshape(BK, 1)
-            flat_idx = (row_idx.reshape(B, K, 2 * K) + beam_base).reshape(B, 2 * K * K)
-            cand_scores, pos = top_k(norm.reshape(B, 2 * K * K), 2 * K)
-            cand_idx = torch.gather(flat_idx, 1, pos)
+        if do_sample:
+            if temperature != 1.0:
+                logits = logits / temperature
         else:
+            # adjust_logits_during_generation: greedy beam search only
+            logits = lp.maybe_force_bos_eos(logits, cur_len, L, cfg.bos_token_id,
+                                            eos_token_id)
+        scores = None
+        if not (fast_select or fast_sample):
             scores = torch.log_softmax(logits, dim=-1)
             scores = lp.postprocess_scores(
                 scores, tokens, cur_len, repetition_penalty=repetition_penalty,
                 no_repeat_ngram_size=no_repeat_ngram_size, bad_words_ids=bad_words_ids,
                 min_length=min_length, eos_token_id=eos_token_id)
+        if fast_select:
+            cand_scores, cand_idx = fast_candidates(logits, beam_scores, K)
+        elif do_sample:
+            cand_scores, cand_idx = _sample_candidates(
+                logits, scores, beam_scores, generator, K=K, top_k=top_k, top_p=top_p,
+                fast=fast_sample)
+        else:
             flat = (scores + beam_scores.reshape(BK, 1)).reshape(B, K * V)
-            cand_scores, cand_idx = top_k(flat, 2 * K)
+            cand_scores, cand_idx = exact_top_k(flat, 2 * K)
 
         cand_beam = cand_idx // V
         cand_tok = cand_idx % V
@@ -127,16 +225,8 @@ def beam_search_loop(model, cfg, enc_hidden, enc_mask, *, batch_size, num_beams,
         hyp_count, worst = hyp[3], hyp[4]
 
         # ---- the next beam front: the first K non-EOS candidates ----
-        non_eos = ~is_eos
-        slot = torch.cumsum(non_eos.long(), dim=1) - 1
-        take = non_eos & (slot < K)
-        wslot = torch.clamp(slot, 0, K - 1)
-        nb_scores = torch.zeros((B, K), device=dev).scatter_add_(
-            1, wslot, torch.where(take, cand_scores, 0.0))
-        nb_tokens = torch.zeros((B, K), dtype=torch.long, device=dev).scatter_add_(
-            1, wslot, torch.where(take, cand_tok, 0))
-        nb_parents = torch.zeros((B, K), dtype=torch.long, device=dev).scatter_add_(
-            1, wslot, torch.where(take, cand_beam, 0))
+        nb_scores, nb_tokens, nb_parents = beam_front(cand_scores, cand_tok, cand_beam,
+                                                      is_eos, K)
         # done batches emit (0, pad, 0)
         nb_scores = torch.where(done[:, None], 0.0, nb_scores)
         nb_tokens = torch.where(done[:, None], pad_token_id, nb_tokens)

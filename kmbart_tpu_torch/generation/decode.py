@@ -1,12 +1,12 @@
-"""Greedy decode loop.
+"""Greedy and sampling decode loop.
 
 Counterpart of kmbart_tpu/generation/decode.py (HF 3.0.2
-``_generate_no_beam_search`` without sampling): the raw logits are
-postprocessed in place (no log_softmax, no forced BOS/EOS), the argmax is
-taken, rows pad after their EOS, and the loop stops when every row has
-finished. It runs on the beam-stationary cache with one beam: every
-position lives in slot 0, so the ancestry stays all zeros. Sampling is not
-ported yet (generation/api.py raises).
+``_generate_no_beam_search``): the raw logits are postprocessed in place
+(no log_softmax, no forced BOS/EOS), then either the argmax is taken or a
+token is drawn (temperature, then top-k/top-p, from ``generator``); rows
+pad after their EOS, and the loop stops when every row has finished. It
+runs on the beam-stationary cache with one beam: every position lives in
+slot 0, so the ancestry stays all zeros.
 """
 
 import torch
@@ -15,9 +15,10 @@ from kmbart_tpu_torch.generation import logits as lp
 from kmbart_tpu_torch.models import bart
 
 
-def greedy_loop(model, cfg, enc_hidden, enc_mask, *, max_length, min_length,
-                repetition_penalty, no_repeat_ngram_size, bad_words_ids, pad_token_id,
-                eos_token_id, decoder_start_token_id):
+def greedy_or_sample_loop(model, cfg, enc_hidden, enc_mask, generator=None, *, max_length,
+                          min_length, do_sample=False, temperature=1.0, top_k=0, top_p=1.0,
+                          repetition_penalty, no_repeat_ngram_size, bad_words_ids,
+                          pad_token_id, eos_token_id, decoder_start_token_id):
     """Returns (tokens [B, max_length], the step count at loop exit, which
     is the HF output width)."""
     trunk = model.model
@@ -38,7 +39,17 @@ def greedy_loop(model, cfg, enc_hidden, enc_mask, *, max_length, min_length,
             scores, tokens, cur_len, repetition_penalty=repetition_penalty,
             no_repeat_ngram_size=no_repeat_ngram_size, bad_words_ids=bad_words_ids,
             min_length=min_length, eos_token_id=eos_token_id)
-        next_token = torch.argmax(scores, dim=-1)       # first maximum wins
+        if do_sample:
+            if temperature != 1.0:
+                scores = scores / temperature
+            if top_k and top_k > 0:
+                # the draw covers the k candidates only (lp.sample_from_top_k)
+                next_token = lp.sample_from_top_k(scores, top_k, top_p, generator)
+            else:
+                scores = lp.top_k_top_p_filtering(scores, top_k, top_p)
+                next_token = lp.categorical(scores, generator)
+        else:
+            next_token = torch.argmax(scores, dim=-1)   # first maximum wins
         if eos_token_id is not None:
             to_add = next_token * unfinished + pad_token_id * (1 - unfinished)
             unfinished = unfinished * (to_add != eos_token_id).long()

@@ -3,7 +3,8 @@
 Counterpart of kmbart_tpu/generation/driver.py (the reference's
 ``generate_text``): loop over the loader, generate with the CLI's
 settings, decode with skip_special_tokens, and group ``num_gen`` outputs
-per input row into ``[{index, task_type, generations}]``.
+per input row into ``[{index, task_type, generations}]``. Sampling draws
+from ``generator`` across the whole run.
 """
 
 from datetime import datetime
@@ -12,7 +13,7 @@ from kmbart_tpu_torch.generation.api import generate
 
 
 def generate_text(model, cfg, gen_loader, tokenizer, args, *, logger=None,
-                  log_interval=1):
+                  log_interval=1, generator=None):
     total_step = len(gen_loader)
     generated = []
     start_time = datetime.now()
@@ -28,8 +29,9 @@ def generate_text(model, cfg, gen_loader, tokenizer, args, *, logger=None,
             do_sample=getattr(args, "do_sample", False),
             top_p=getattr(args, "top_p", 1.0),
             top_k=getattr(args, "top_k", 0),
+            temperature=getattr(args, "temperature", None),
             max_length=getattr(args, "max_length", None),
-            early_stopping=True)
+            early_stopping=True, generator=generator)
         for j in range(len(batch["index"])):
             generated.append({
                 "index": batch["index"][j],

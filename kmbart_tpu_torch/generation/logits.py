@@ -1,16 +1,39 @@
 """Logits processors for decoding.
 
-Counterpart of kmbart_tpu/generation/logits.py (the non-sampling part):
-``force_token`` and ``maybe_force_bos_eos`` (HF 3.0.2
-adjust_logits_during_generation) and ``postprocess_scores`` with its
-helpers (repetition penalty, no-repeat-ngram, bad words, min-length EOS
-mask). ``tokens`` is the preallocated [B, max_len] buffer and ``cur_len``
-a Python int: the port's decode loops run on the host.
+Counterpart of kmbart_tpu/generation/logits.py: ``force_token`` and
+``maybe_force_bos_eos`` (HF 3.0.2 adjust_logits_during_generation),
+``postprocess_scores`` with its helpers (repetition penalty,
+no-repeat-ngram, bad words, min-length EOS mask), and the sampling filters
+``top_k_top_p_filtering`` and ``sample_from_top_k``. ``tokens`` is the
+preallocated [B, max_len] buffer and ``cur_len`` a Python int: the port's
+decode loops run on the host.
+
+Every random draw of the sampling paths is Gumbel noise from ``_gumbel``,
+taken from an explicit ``torch.Generator``: a categorical draw is the
+argmax of the logits plus that noise, as ``jax.random.categorical``
+computes it. The tests replace ``_gumbel`` to feed the port and the JAX
+package the same noise.
 """
 
 import torch
 
+from kmbart_tpu_torch.ops.topk import top_k as _top_k
+
 NEG_INF = -float("inf")
+
+
+def _gumbel(shape, generator, device):
+    """Standard Gumbel noise of ``shape`` (fp32), -log(-log(u)) with u
+    uniform in [tiny, 1), as ``jax.random.gumbel`` draws it."""
+    u = torch.rand(shape, generator=generator, device=device)
+    u = u.clamp_(min=torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def categorical(logits, generator):
+    """One draw per row from softmax(logits): the first argmax of logits
+    plus Gumbel noise (-inf entries are never drawn)."""
+    return torch.argmax(logits + _gumbel(logits.shape, generator, logits.device), dim=-1)
 
 
 def force_token(scores, token_id):
@@ -95,3 +118,47 @@ def postprocess_scores(scores, tokens, cur_len, *, repetition_penalty=1.0,
     scores = ban_repeated_ngrams(scores, tokens, cur_len, no_repeat_ngram_size)
     scores = apply_bad_words(scores, tokens, cur_len, bad_words_ids)
     return min_length_eos_mask(scores, cur_len, min_length, eos_token_id)
+
+
+def _top_p_remove(vals, top_p, min_tokens_to_keep):
+    """Nucleus mask over values sorted descending: drop what lies past the
+    first entry whose cumulative probability exceeds ``top_p``, keeping the
+    first ``min_tokens_to_keep`` entries."""
+    cum = torch.cumsum(torch.softmax(vals, dim=-1), dim=-1)
+    remove = cum > top_p
+    remove = torch.cat([torch.zeros_like(remove[:, :1]), remove[:, :-1]], dim=-1)
+    if min_tokens_to_keep > 1:
+        remove[:, :min_tokens_to_keep] = False
+    return remove
+
+
+def sample_from_top_k(logits, top_k, top_p, generator, min_tokens_to_keep=1):
+    """A categorical draw restricted to each row's top-k candidates (and
+    the top-p nucleus among them): int64 [B] token ids.
+
+    Distributed as ``top_k_top_p_filtering`` followed by a full-vocabulary
+    draw, but the noise covers [B, k]. As in the JAX package, exact ties AT
+    the k-th rank keep only the lowest-index tokens, where the filter keeps
+    the whole tied group."""
+    k = max(top_k, min_tokens_to_keep)
+    vals, idx = _top_k(logits, k)                      # sorted descending
+    if top_p < 1.0:
+        vals = torch.where(_top_p_remove(vals, top_p, min_tokens_to_keep), NEG_INF, vals)
+    slot = categorical(vals, generator)
+    return torch.gather(idx, 1, slot[:, None])[:, 0]
+
+
+def top_k_top_p_filtering(logits, top_k=0, top_p=1.0, min_tokens_to_keep=1):
+    """HF 3.0.2 top_k_top_p_filtering: -inf outside the top-k (ties with
+    the k-th value kept) and outside the top-p nucleus."""
+    vocab = logits.shape[-1]
+    if top_k > 0:
+        k = min(max(top_k, min_tokens_to_keep), vocab)
+        kth = torch.sort(logits, dim=-1).values[:, -k][:, None]
+        logits = torch.where(logits < kth, NEG_INF, logits)
+    if top_p < 1.0:
+        sorted_logits, order = torch.sort(logits, dim=-1, descending=True, stable=True)
+        remove = _top_p_remove(sorted_logits, top_p, min_tokens_to_keep)
+        remove_vocab = torch.zeros_like(remove).scatter_(1, order, remove)
+        logits = torch.where(remove_vocab, NEG_INF, logits)
+    return logits

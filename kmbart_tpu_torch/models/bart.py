@@ -145,6 +145,29 @@ def _ln(x, ln):
     return layer_norm(x, ln.weight, ln.bias, ln.eps)
 
 
+# Inference on the card projects the ROI features in blocks of this many rows
+# (the last block padded with zeros). cuBLAS picks its GEMM by the row count,
+# and the one it picks at 960 rows (a 32-request admit of the serving pool)
+# rounds otherwise than the one at 3360 (a batch of 112); a fixed count gives
+# a row the same bits in whatever batch it comes (chip_smoke.py's
+# serve_row_invariance line; the encoder's other GEMMs kept their bits
+# between those batches there).
+IMAGE_ROWS_BLOCK = 4096
+
+
+def image_projection(model, image_features, dtype):
+    """The ROI features projected to d_model: [B, N, F] -> [B, N, D]."""
+    lin = model.encoder.embed_images.linear
+    if not image_features.is_cuda or torch.is_grad_enabled():
+        return dense(image_features, lin.weight, lin.bias, dtype)
+    rows = image_features.reshape(-1, image_features.shape[-1])
+    n = rows.shape[0]
+    rows = torch.nn.functional.pad(rows, (0, 0, 0, -n % IMAGE_ROWS_BLOCK))
+    out = torch.cat([dense(block, lin.weight, lin.bias, dtype)
+                     for block in rows.split(IMAGE_ROWS_BLOCK)])
+    return out[:n].reshape(*image_features.shape[:-1], -1)
+
+
 def embed_multimodal(model, cfg, input_ids, image_features, dtype):
     """Token embeddings with projected ROI features spliced into the rows
     whose id is ``img_feat_id`` or ``cls_token_id``: the i-th such position
@@ -156,8 +179,7 @@ def embed_multimodal(model, cfg, input_ids, image_features, dtype):
     if image_features is None:
         return tok
     mask = (input_ids == cfg.img_feat_id) | (input_ids == cfg.cls_token_id)
-    lin = model.encoder.embed_images.linear
-    img = dense(image_features, lin.weight, lin.bias, dtype)        # [B, N, D]
+    img = image_projection(model, image_features, dtype)             # [B, N, D]
     slot = torch.cumsum(mask.long(), dim=1) - 1
     slot = slot.clamp(0, image_features.shape[1] - 1)
     gathered = torch.take_along_dim(img, slot[..., None], dim=1)
@@ -191,10 +213,16 @@ def _encoder_embed(model, cfg, input_ids, image_features, train=False, generator
 
 
 def _decoder_embed(model, cfg, token_ids, pos_start, train=False, generator=None):
+    """``pos_start``: the first position (an int), or a tensor [rows] of
+    per-row positions for a one-token step (the continuous pool, whose
+    slots sit at their own depths; bart.py:364-368)."""
     dtype = compute_dtype(cfg)
+    table = model.decoder.embed_positions.weight
     x = model.shared.weight[token_ids] * _embed_scale(cfg)
-    x = x + _positions(model.decoder.embed_positions.weight, token_ids.shape[1],
-                       _pos_offset(cfg), start=pos_start)[None]
+    if isinstance(pos_start, torch.Tensor):
+        x = x + table[pos_start + _pos_offset(cfg)][:, None, :]
+    else:
+        x = x + _positions(table, token_ids.shape[1], _pos_offset(cfg), start=pos_start)[None]
     if cfg.normalize_embedding:
         x = _ln(x, model.decoder.layernorm_embedding)
     return dropout(x, cfg.dropout, generator, train).to(dtype)
@@ -347,18 +375,27 @@ def init_decode_cache_layers(model, cfg, enc_hidden, max_len, num_beams):
 
 
 def decode_step_stationary(model, cfg, token_ids, caches, cache_index, ancestry,
-                           enc_attention_mask=None, num_beams=1):
+                           enc_attention_mask=None, num_beams=1, seq_positions=None,
+                           valid_counts=None):
     """One incremental decoder step over the beam-stationary cache.
 
     token_ids [B·K, 1]; caches from ``init_decode_cache_layers`` (updated
-    in place); cache_index: this step's position; ancestry int32 [B·K, T]
-    with this step's own slot already written at cache_index.
+    in place); cache_index: this step's position, the column its K/V are
+    written at; ancestry int32 [B·K, T] with this step's own slot already
+    written at cache_index.
+
+    The continuous pool's ring cache passes ``seq_positions`` (int [B·K],
+    each row's own position, for the position embedding) and
+    ``valid_counts`` (int32 [B], each sample's window length including this
+    step); cache_index is then the ring column every slot writes this tick
+    (continuous.py:20-29), and K3 reads each window in ring mode.
     Returns hidden [B·K, 1, D] in the compute dtype.
     """
     dtype = compute_dtype(cfg)
     H = cfg.decoder_attention_heads
     B, K, _, D = caches[0]["self_k"].shape
-    x = _decoder_embed(model, cfg, token_ids, cache_index)
+    x = _decoder_embed(model, cfg, token_ids,
+                       cache_index if seq_positions is None else seq_positions)
     cross_bias = (None if enc_attention_mask is None
                   else padding_bias(enc_attention_mask))
     for layer, cache in zip(model.decoder.layers, caches):
@@ -374,7 +411,7 @@ def decode_step_stationary(model, cfg, token_ids, caches, cache_index, ancestry,
         cache["self_v"][:, :, cache_index] = v_new.reshape(B, K, D)
         attn = beam_gather_attention(q_flat, cache["self_k"], cache["self_v"],
                                      ancestry, cache_index, num_beams=num_beams,
-                                     num_heads=H)
+                                     num_heads=H, valid_counts=valid_counts)
         h = dense(attn[:, None, :], sa.out_proj.weight, sa.out_proj.bias, dtype)
         x = _ln(x + h, layer.self_attn_layer_norm)
         h = multi_head_attention(layer.encoder_attn, x, bias=cross_bias, num_heads=H,

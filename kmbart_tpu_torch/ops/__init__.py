@@ -1,5 +1,6 @@
 """Tensor ops of the port. Eleven of them wrap hand-written Hopper kernels
-(``csrc/``); each wrapper counts its kernel launches in ``.launches``."""
+(``csrc/``); each wrapper counts its kernel launches in ``.launches``, and
+K3's wrapper its ring-mode launches also in ``.ring_launches``."""
 
 
 def kernel_wrappers():
@@ -22,9 +23,14 @@ def kernel_wrappers():
 
 
 def launch_counts():
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+    """{name: launches}, with K3's ring-mode launches as "beam_attention_ring"."""
+    wrappers = kernel_wrappers()
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    counts["beam_attention_ring"] = wrappers["beam_attention"].ring_launches
+    return counts
 
 
 def reset_launch_counts():
     for fn in kernel_wrappers().values():
         fn.launches = 0
+    kernel_wrappers()["beam_attention"].ring_launches = 0

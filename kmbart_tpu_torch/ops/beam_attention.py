@@ -18,9 +18,21 @@ one-hot ``sel`` that ``build_selection_mask`` builds. The plain version
 keeps the TPU form (the one-hot mask and -1e9 fill), so the two are held
 against each other.
 
+Ring mode (``valid_counts`` given, int32 [B]) serves the continuous
+pool's ring cache (kmbart_tpu/serving/continuous.py), where every slot
+writes column ``tick % T``: ``cache_index`` is then that ring column, and
+sample b reads the ``valid_counts[b]`` columns ending at it, cyclically
+(column t iff (ring_col − t) mod T < valid_counts[b]); ancestry outside
+the window is stale and ignored. The plain version builds
+``build_selection_mask_ring``'s one-hot; the kernel visits the window
+oldest first, so its sums run in the offline decode's order. Window
+lengths are clamped to [1, T] on both sides (an inactive slot reads its own
+newest column).
+
 ``beam_gather_attention`` is the wrapper: on CPU tensors it runs
 ``beam_gather_attention_plain``, on CUDA tensors it launches the kernel or
-raises.
+raises. ``.launches`` counts every launch, ``.ring_launches`` those in ring
+mode.
 """
 
 from typing import NamedTuple
@@ -85,19 +97,41 @@ def build_selection_mask(ancestry, num_beams, cache_index, num_heads):
     return sel.reshape(B, K * T, K * num_heads).to(torch.bfloat16)
 
 
+def build_selection_mask_ring(ancestry, num_beams, ring_col, valid_counts, num_heads):
+    """``build_selection_mask`` for the ring cache
+    (pallas_beam_attention.py:87): sample b's valid columns are the
+    ``valid_counts[b]`` columns ending at ``ring_col``, cyclically."""
+    BK, T = ancestry.shape
+    K = num_beams
+    B = BK // K
+    anc = ancestry.reshape(B, K, T)
+    j = torch.arange(K, dtype=ancestry.dtype, device=ancestry.device)
+    sel = anc.transpose(1, 2)[:, None, :, :] == j[None, :, None, None]  # [B, j, t, q]
+    age = torch.remainder(ring_col - torch.arange(T, device=ancestry.device), T)
+    t_ok = age[None, :] < valid_counts.to(ancestry.device)[:, None]      # [B, T]
+    sel = sel & t_ok[:, None, :, None]
+    sel = sel.reshape(B, K * T, K, 1).expand(B, K * T, K, num_heads)
+    return sel.reshape(B, K * T, K * num_heads).to(torch.bfloat16)
+
+
 def beam_gather_attention_plain(q, k_cache, v_cache, ancestry, cache_index, *,
-                                num_beams, num_heads):
+                                num_beams, num_heads, valid_counts=None):
     """Plain PyTorch version of the kernel, on any device.
 
     q [B·K, D] already scaled by head_dim**-0.5; k_cache, v_cache
     [B, K, T, D]; ancestry int [B·K, T]; cache_index: the newest valid
-    position. Returns fp32 [B·K, D].
+    position, or with ``valid_counts`` (int [B]) the ring column.
+    Returns fp32 [B·K, D].
     """
     B, K, T, D = k_cache.shape
     H = num_heads
     hd = D // H
     bf16 = torch.bfloat16
-    sel = build_selection_mask(ancestry, K, cache_index, H)
+    if valid_counts is None:
+        sel = build_selection_mask(ancestry, K, cache_index, H)
+    else:
+        sel = build_selection_mask_ring(ancestry, K, cache_index,
+                                        valid_counts.clamp(1, T), H)
     qh = q.reshape(B, K, H, hd).to(bf16).float()
     kh = k_cache.reshape(B, K, T, H, hd).to(bf16).float()
     vh = v_cache.reshape(B, K, T, H, hd).to(bf16).float()
@@ -112,22 +146,28 @@ def beam_gather_attention_plain(q, k_cache, v_cache, ancestry, cache_index, *,
 
 
 def beam_gather_attention(q, k_cache, v_cache, ancestry, cache_index, *,
-                          num_beams, num_heads):
+                          num_beams, num_heads, valid_counts=None):
     """Beam-stationary decode self-attention; same contract as
-    ``beam_gather_attention_plain`` (the kernel wants int32 ancestry)."""
+    ``beam_gather_attention_plain`` (the kernel wants int32 ancestry and
+    window lengths)."""
     if q.device.type == "cpu":
         return beam_gather_attention_plain(q, k_cache, v_cache, ancestry,
                                            cache_index, num_beams=num_beams,
-                                           num_heads=num_heads)
-    dev = _cuda.require_cuda("beam_gather_attention", q, k_cache, v_cache, ancestry)
+                                           num_heads=num_heads, valid_counts=valid_counts)
+    ring = valid_counts is not None
+    dev = _cuda.require_cuda("beam_gather_attention", q, k_cache, v_cache, ancestry,
+                             *((valid_counts,) if ring else ()))
     B, K, T, D = k_cache.shape
     H = num_heads
     if (K != num_beams or v_cache.shape != k_cache.shape or q.shape != (B * K, D)
             or ancestry.shape != (B * K, T) or D % H):
         raise ValueError(f"beam_gather_attention: shapes q {tuple(q.shape)}, cache "
                          f"{tuple(k_cache.shape)}, ancestry {tuple(ancestry.shape)}")
-    if ancestry.dtype != torch.int32:
-        raise TypeError("beam_gather_attention kernel takes int32 ancestry")
+    if ancestry.dtype != torch.int32 or (ring and valid_counts.dtype != torch.int32):
+        raise TypeError("beam_gather_attention kernel takes int32 ancestry and window lengths")
+    if ring and valid_counts.shape != (B,):
+        raise ValueError(f"beam_gather_attention: valid_counts {tuple(valid_counts.shape)} "
+                         f"for {B} samples")
     if k_cache.dtype != v_cache.dtype:
         raise TypeError("beam_gather_attention: k and v cache dtypes differ")
     if not 0 <= cache_index < T:
@@ -139,7 +179,8 @@ def beam_gather_attention(q, k_cache, v_cache, ancestry, cache_index, *,
         if (D // H) % 8 or k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
             raise ValueError("beam_gather_attention kernel takes head_dim % 8 == 0 and "
                              "16-byte aligned bf16 caches")
-        chunk = beam_plan(K, int(cache_index), D // H).chunk
+        # a ring call is planned for all T columns (no window is longer)
+        chunk = beam_plan(K, T - 1 if ring else int(cache_index), D // H).chunk
     elif H > 32:
         raise ValueError("beam_gather_attention kernel takes at most 32 heads on an fp32 "
                          "cache")
@@ -147,10 +188,12 @@ def beam_gather_attention(q, k_cache, v_cache, ancestry, cache_index, *,
     lib, stream = _cuda.prepare(dev)
     _cuda.check(lib.kmb_beam_attention(
         q.data_ptr(), q_code, k_cache.data_ptr(), v_cache.data_ptr(), c_code,
-        ancestry.data_ptr(), out.data_ptr(), B, K, T, D, H, int(cache_index), chunk,
-        stream), "beam_gather_attention")
+        ancestry.data_ptr(), valid_counts.data_ptr() if ring else None, out.data_ptr(),
+        B, K, T, D, H, int(cache_index), chunk, stream), "beam_gather_attention")
     beam_gather_attention.launches += 1
+    beam_gather_attention.ring_launches += ring
     return out
 
 
 beam_gather_attention.launches = 0
+beam_gather_attention.ring_launches = 0

@@ -1,14 +1,17 @@
 """Batch generation CLI of the port: ``python -m kmbart_tpu_torch.vcg_generate``.
 
 Twin of the root ``vcg_generate.py``: decode a VCG split with greedy or
-beam settings and dump ``[{index, task_type, generations}]`` JSON. It
-takes the same flags, with ``--device`` (default ``cuda``; ``--cpu`` is
-``--device cpu``); sampling is not ported yet.
+beam settings, or sampling, and dump ``[{index, task_type, generations}]``
+JSON. It takes the same flags, with ``--device`` (default ``cuda``;
+``--cpu`` is ``--device cpu``) and ``--temperature``; ``--do_sample``
+draws from a ``torch.Generator`` seeded with ``--seed``.
 """
 
 import argparse
 import json
 from datetime import datetime
+
+import torch
 
 from kmbart_tpu_torch.data.collation import Collator
 from kmbart_tpu_torch.data.datasets import VCGDataset
@@ -42,8 +45,9 @@ def main(args):
 
     start = datetime.now()
     logger.info('Start generation', pad=True)
+    generator = torch.Generator(device=device).manual_seed(args.seed)
     generated = generate_text(model, cfg, loader, tokenizer, args, logger=logger,
-                              log_interval=1)
+                              log_interval=1, generator=generator)
     logger.info('Generation complete in: ' + str(datetime.now() - start), pad=True)
 
     logger.info('Saving results...')
@@ -70,9 +74,11 @@ def parse_args(argv=None):
     parser.add_argument('--max_length', default=30, type=int,
                         help='max decode length')
     parser.add_argument('--do_sample', action='store_true',
-                        help='use nucleus sample (not ported yet: raises)')
+                        help='use nucleus sample (seeded from --seed)')
     parser.add_argument('--top_p', default=1.0, type=float)
     parser.add_argument('--top_k', default=0, type=int)
+    parser.add_argument('--temperature', default=None, type=float,
+                        help="sampling temperature (default: the model config's)")
     add_hardware_args(parser)
     parser.set_defaults(use_event=True, use_image=True)
     args = parser.parse_args(argv)

@@ -78,5 +78,8 @@ def test_options_validate_and_sampling_raises(setup):
         GenerationOptions(num_beams=2, num_return_sequences=3).validate()
     with pytest.raises(AssertionError):
         GenerationOptions(num_return_sequences=2).validate()
-    with pytest.raises(NotImplementedError, match="sampling"):
-        generate(model, pcfg, batch, do_sample=True)
+    # sampling is ported: it raises only on the options the reference refuses
+    with pytest.raises(AssertionError):
+        generate(model, pcfg, batch, do_sample=True, temperature=0.0)
+    with pytest.raises(AssertionError):
+        generate(model, pcfg, batch, do_sample=True, top_p=1.5)
