@@ -82,7 +82,28 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                equal generate()'s on the same row (batches of 112), requests/s,
                p50 and p99 latency, K3-ring and K4 launches, the device-busy
                share of a profiled burst; then 64 requests through the static
-               engine and one POST through the HTTP server on 127.0.0.1.
+               engine and one POST through the HTTP server on 127.0.0.1;
+ 13. extract   the bottom-up-attention extractor at config/extract_config.yaml's
+               widths (ResNet-101 C4, 1601 classes, 6000/300 proposals, 600 x
+               1000 px, bf16) on random weights: the given-boxes path on 16
+               images (the whole-image box and 24 boxes), the proposal path on
+               8 images batched and one by one (images/s, each stage's device
+               ms, peak memory, host syncs an image, 10..50 boxes kept), the
+               card's fp32 run against the CPU's on one image and the batch
+               path against the single path (the same kept rows but for named
+               near-ties, each pair on the same ROI-pool window, features
+               within 1e-3), bf16 against fp32;
+ 14. knowledge COMET's GPT at GPT-1's widths on random weights: greedy and
+               beam-5 get_reason over 32 events (events/s, ms a step), and the
+               card's fp32 run against the CPU's on 4 events (first-step
+               log-probs within 1e-4, the same tokens but for named near-ties);
+ 15. reason_filter  the filter_reason twin at BART-base on 64 rows (rows/s,
+               K1 and K2 launches, kernel path against plain path), a few
+               steps of the prepare_atomic twin with a BART-base text
+               backbone and its pooled encoder states on the kernel path
+               against the plain path (each bound checked to reject a
+               control that rounds K2's output to float8), and the
+               prepare_vcg twin's feature loop on images handed in as arrays.
 The line before the last lists every kernel with its launches on the main
 path, its error, its time, its plain version's, its bound and the library
 call's; the last line is {"ok": true, "device": {...}}. The port imports
@@ -1943,6 +1964,563 @@ def run_serve(torch, dev, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 13-15: data preparation (the feature extractor, COMET, the filter)
+# ---------------------------------------------------------------------------
+
+# config/extract_config.yaml's detector: ResNet-101 C4, 1601 classes, 401
+# attributes, a 512-channel RPN with 12 anchors, 6000 / 300 proposals
+# before / after the RPN's NMS (0.7), class-wise NMS 0.3, 600 / 1000 px
+EXTRACT = dict(num_classes=1601, num_attributes=401, rpn_channels=512, depth=101,
+               pre_nms_topk=6000, post_nms_topk=300, rpn_nms_thresh=0.7, nms_thresh=0.3,
+               min_size=600, max_size=1000)
+EXTRACT_FEAT_RTOL = 1e-3   # card fp32 vs CPU fp32 (and batch vs single), of max |feature|
+EXTRACT_TIE = 1e-4         # a kept row may differ where its max_conf is this near a tie
+# px: the same proposal on both sides. Matched proposals moved by up to
+# 0.044 px between an NVIDIA H100 80GB HBM3's fp32 run and the CPU's; two
+# kept rows whose boxes sit 0.1-0.5 px apart, with max_conf equal within
+# 1e-6, pass only as near-tie swaps (named)
+EXTRACT_BOX_ATOL = 0.1
+# bf16 against the same card's fp32 run, on the given boxes: bf16 operands at
+# every conv through 34 bottlenecks (and each conv's output rounded to bf16
+# on the card), held to 8 bf16 ulps at the features' largest magnitude and
+# the class probabilities to 8 ulps at 1
+EXTRACT_BF16_ULPS = 8
+GIVEN_SHAPES = [(480, 640), (640, 480), (375, 500), (500, 333), (427, 640), (480, 360),
+                (333, 500), (612, 612)] * 2
+# the first six share a padded shape (608 x 800) with the batch
+PROPOSAL_SHAPES = [(480, 640)] * 4 + [(375, 500)] * 2 + [(400, 500), (600, 600)]
+
+
+def _synthetic_image(np, rng, h, w):
+    """A BGR uint8 image with structure at several scales: 40-px blocks of
+    random colour, a gradient and pixel noise."""
+    base = rng.integers(0, 256, (h // 40 + 1, w // 40 + 1, 3)).astype(np.float32)
+    img = np.kron(base, np.ones((40, 40, 1), np.float32))[:h, :w]
+    img += np.linspace(0, 40, w, dtype=np.float32)[None, :, None]
+    img += rng.normal(0, 20, (h, w, 3)).astype(np.float32)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _given_boxes(np, rng, h, w, n=24):
+    """The whole-image box and ``n`` boxes inside the image, as VCG's
+    metadata gives them (prepare_vcg prepends the whole-image box)."""
+    xy = rng.uniform(0, 0.7, (n, 2)) * [w, h]
+    wh = rng.uniform(0.05, 0.3, (n, 2)) * [w, h]
+    boxes = np.concatenate([xy, np.minimum(xy + wh, [w, h])], axis=1)
+    return np.vstack([[0, 0, w, h], boxes]).astype(np.float32)
+
+
+def _detector_params(torch, seed=0):
+    """Random detector weights from ``seed`` whose activations stay O(1)
+    through 34 bottlenecks (each block's last BN and its shortcut's damp the
+    residual branch, as a trained network's do) and whose classifier is
+    confident enough that the CONF_THRESH rule has rows on both sides."""
+    from kmbart_tpu_torch.vision.extractor import init_extractor_params
+    p = init_extractor_params(torch.Generator().manual_seed(seed))
+    for stage in ("res2", "res3", "res4", "res5"):
+        for block in p["resnet"][stage]:
+            block["bn3"]["scale"].mul_(0.25)
+            if "shortcut_bn" in block:
+                block["shortcut_bn"]["scale"].mul_(0.25)
+    p["cls_score"].mul_(3.0)
+    return p
+
+
+def _proposal_arrays(torch, ex, image):
+    """The proposal path's stages on one image: (proposals [n, 4] in the
+    resized image, feats [n, 2048], max_conf [n]) as numpy."""
+    with torch.no_grad():
+        blob, _ = ex._blob(image)
+        sizes = torch.tensor([blob.shape[:2]], dtype=torch.float32, device=ex.device)
+        p, f, _, mc = ex._proposal_stages(ex._pad32(blob)[None], sizes)
+    return p[0].cpu().numpy(), f[0].cpu().numpy(), mc[0].cpu().numpy()
+
+
+def _same_kept_rows(np, ex, ref, got, what):
+    """The rows ``_keep_indices`` keeps from two runs of one image, matched by
+    box within EXTRACT_BOX_ATOL: the same set, each pair on the same
+    stride-16 ROI-pool window and its features within EXTRACT_FEAT_RTOL of
+    the largest. A row kept on one side only passes when its max_conf is
+    within EXTRACT_TIE of the threshold or of a row kept on the other side
+    only (the two swapped), and is named."""
+    (rp, rf, rm), (gp, gf, gm) = ref, got
+    rk, gk = set(ex._keep_indices(rm).tolist()), set(ex._keep_indices(gm).tolist())
+    match = {}
+    for i in rk:
+        near = np.nonzero(np.abs(gp - rp[i]).max(axis=1) <= EXTRACT_BOX_ATOL)[0]
+        hit = [j for j in near if j in gk]
+        if hit:
+            match[i] = hit[0]
+    only_ref = [i for i in rk if i not in match]
+    only_got = [j for j in gk if j not in match.values()]
+    named = []
+    for rows, conf, other in ((only_ref, rm, [gm[j] for j in only_got]),
+                              (only_got, gm, [rm[i] for i in only_ref])):
+        for r in rows:
+            near = [abs(conf[r] - ex.conf_thresh)] + [abs(conf[r] - o) for o in other]
+            if min(near) > EXTRACT_TIE:
+                raise AssertionError(f"{what}: row {r} (max_conf {conf[r]:.6f}) kept on one "
+                                     f"side only, {min(near):.2e} from any tie")
+            named.append({"row": int(r), "max_conf": float(conf[r]), "tie": float(min(near))})
+    # the ROI pool rounds each box to the stride-16 grid
+    window = lambda b: np.round(b.astype(np.float32) * np.float32(1 / 16))
+    moved = [(rp[i].tolist(), gp[j].tolist()) for i, j in match.items()
+             if (window(rp[i]) != window(gp[j])).any()]
+    if moved:
+        raise AssertionError(f"{what}: matched boxes pool other windows {moved}")
+    i, j = list(match), list(match.values())
+    drift = float(np.abs(gp[j] - rp[i]).max()) if i else 0.0
+    err = float(np.abs(gf[j] - rf[i]).max() / np.abs(rf[i]).max()) if i else 0.0
+    if err > EXTRACT_FEAT_RTOL:
+        rows = np.abs(gf[j] - rf[i]).max(axis=1) / np.abs(rf[i]).max()
+        raise AssertionError(f"{what}: kept features differ by {err:.3e} of the largest; "
+                             f"rows {[(a, float(e)) for a, e in zip(i, rows) if e > 1e-4]}")
+    return {"kept": len(rk), "matched": len(match), "box_drift_px": drift,
+            "feat_rel_err": err, "near_tie_rows": named}
+
+
+def _stage_ms(torch, ex, images, dev):
+    """Device ms of each proposal-path stage, averaged over ``images``:
+    backbone, RPN + its NMS, ROI pool + res5, class-wise NMS."""
+    from kmbart_tpu_torch.vision.nms import class_wise_max_conf_batched
+    sums = {"backbone": 0.0, "rpn_nms": 0.0, "roi_pool_res5": 0.0, "class_nms": 0.0}
+    with torch.no_grad():
+        for image in images:
+            blob, _ = ex._blob(image)
+            sizes = torch.tensor([blob.shape[:2]], dtype=torch.float32, device=dev)
+            blob = ex._pad32(blob)[None]
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            ev[0].record()
+            feat = ex._backbone(blob)
+            ev[1].record()
+            proposals, valid = ex._rpn_proposals(feat, sizes)
+            ev[2].record()
+            feats, scores = ex._roi_features(feat[0], proposals[0])
+            ev[3].record()
+            class_wise_max_conf_batched(proposals, scores[None], ex.nms_thresh)
+            ev[4].record()
+            torch.cuda.synchronize()
+            for k, name in enumerate(sums):
+                sums[name] += ev[k].elapsed_time(ev[k + 1])
+    return {k: v / len(images) for k, v in sums.items()}
+
+
+def _host_syncs(torch, fn):
+    """Host synchronisations while ``fn`` runs, from PyTorch's sync debug
+    mode (one warning per synchronising call)."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def run_extract(torch, dev, card):
+    """The bottom-up-attention extractor at config/extract_config.yaml's
+    widths on random weights: the given-boxes path on 16 images at VCG's
+    shape (the whole-image box and 24 boxes), the proposal path on 8 images
+    batched and one by one, with their rates, each stage's device time, the
+    peak memory and the host syncs of a proposal image; the card's fp32 run
+    against the CPU's, the batch path against the single path, and bf16
+    against fp32."""
+    import numpy as np
+    from kmbart_tpu_torch.vision.extractor import FeatureExtractor
+    params = _detector_params(torch)
+    ex16 = FeatureExtractor(params=params, dtype=torch.bfloat16, device=dev, **EXTRACT)
+    ex32 = FeatureExtractor(params=params, dtype=torch.float32, device=dev, **EXTRACT)
+    rng = np.random.default_rng(0)
+    given = [(_synthetic_image(np, rng, h, w), _given_boxes(np, rng, h, w))
+             for h, w in GIVEN_SHAPES]
+    props = [_synthetic_image(np, rng, h, w) for h, w in PROPOSAL_SHAPES]
+
+    ex16.extract_feature(*given[0])                                   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [ex16.extract_feature(img, boxes) for img, boxes in given]
+    given_s = time.perf_counter() - t0
+    for out in outs:
+        if out["features"].shape != (25, 2048) or out["scores"].shape != (25, 1601) \
+                or not np.isfinite(out["features"]).all():
+            raise AssertionError(f"extract: given-boxes output {out['features'].shape}")
+
+    # bf16 against fp32 on the same card, given boxes (the same rows on both)
+    bf16 = {"features_ulps": 0.0, "scores_ulps": 0.0}
+    for img, boxes in given[:2]:
+        a, b = ex32.extract_feature(img, boxes), ex16.extract_feature(img, boxes)
+        m = float(np.abs(a["features"]).max())
+        ulp = 2.0 ** (math.floor(math.log2(m)) - 7)
+        bf16["features_ulps"] = max(bf16["features_ulps"],
+                                    float(np.abs(a["features"] - b["features"]).max()) / ulp)
+        bf16["scores_ulps"] = max(bf16["scores_ulps"],
+                                  float(np.abs(a["scores"] - b["scores"]).max()) / 2.0 ** -7)
+    if max(bf16.values()) > EXTRACT_BF16_ULPS:
+        raise AssertionError(f"extract: bf16 against fp32 {bf16} > {EXTRACT_BF16_ULPS} ulps")
+
+    ex16.extract_feature_batch(props)                                 # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    batch_out = ex16.extract_feature_batch(props)
+    batch_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    single_out = [ex16.extract_feature(img) for img in props]
+    single_s = time.perf_counter() - t0
+    kept = [len(o["boxes"]) for o in batch_out + single_out]
+    if not all(10 <= k <= 50 for k in kept):
+        raise AssertionError(f"extract: kept {kept}, not 10..50")
+    syncs = _host_syncs(torch, lambda: ex16.extract_feature(props[0]))
+    stage = _stage_ms(torch, ex16, props[:3], dev)
+
+    # the batch path against the single path (fp32, images of the batch's padded shape)
+    with torch.no_grad():
+        blobs = [ex32._blob(img)[0] for img in props]
+        H = max(-(-b.shape[0] // 32) * 32 for b in blobs)
+        W = max(-(-b.shape[1] // 32) * 32 for b in blobs)
+        stacked = torch.stack([torch.nn.functional.pad(
+            b, (0, 0, 0, W - b.shape[1], 0, H - b.shape[0])) for b in blobs])
+        sizes = torch.tensor([b.shape[:2] for b in blobs], dtype=torch.float32, device=dev)
+        bp, bf, _, bm = (t.cpu().numpy() for t in ex32._proposal_stages(stacked, sizes))
+    shared = [i for i, b in enumerate(blobs)
+              if (-(-b.shape[0] // 32) * 32, -(-b.shape[1] // 32) * 32) == (H, W)]
+    batch_vs_single = {}
+    for i in shared:
+        batch_vs_single[i] = _same_kept_rows(np, ex32, _proposal_arrays(torch, ex32, props[i]),
+                                             (bp[i], bf[i], bm[i]), f"batch vs single {i}")
+    # the card's fp32 run against the CPU's, on one image
+    cpu = FeatureExtractor(params=params, dtype=torch.float32, device="cpu", **EXTRACT)
+    cpu_vs_card = _same_kept_rows(np, ex32, _proposal_arrays(torch, cpu, props[0]),
+                                  _proposal_arrays(torch, ex32, props[0]), "card vs CPU")
+    img, boxes = given[0]
+    a, b = cpu.extract_feature(img, boxes), ex32.extract_feature(img, boxes)
+    given_err = float(np.abs(a["features"] - b["features"]).max() / np.abs(a["features"]).max())
+    if given_err > EXTRACT_FEAT_RTOL:
+        raise AssertionError(f"extract: given boxes, card vs CPU {given_err:.3e}")
+    emit("extract", card=card, config="config/extract_config.yaml widths", dtype="bfloat16",
+         given_boxes={"images": len(given), "boxes_per_image": 25,
+                      "images_per_s": len(given) / given_s},
+         proposals={"images": len(props), "batch_images_per_s": len(props) / batch_s,
+                    "single_images_per_s": len(props) / single_s, "kept": kept,
+                    "peak_memory_gb_batch": peak_gb, "host_syncs_per_image": syncs,
+                    "stage_ms_per_image": stage},
+         bf16_vs_fp32=bf16, card_vs_cpu_fp32={"proposals": cpu_vs_card,
+                                               "given_boxes_feat_rel_err": given_err},
+         batch_vs_single_fp32=batch_vs_single)
+    return ex16
+
+
+COMET = dict(d_model=768, n_layers=12, n_heads=12)   # GPT-1, as COMET runs it
+COMET_BASE_VOCAB = 40478
+COMET_LOGPROB_ATOL = 1e-4
+COMET_TIE = 1e-4
+
+
+def _comet_assets(path):
+    """A GPT-1-sized vocab.json (40478 entries: characters and their word
+    ends, some merged words, the ATOMIC markers, filler words) with a
+    merges.txt, so that the BPE and get_reason run end to end."""
+    os.makedirs(path, exist_ok=True)
+    vocab = {}
+    for ch in "abcdefghijklmnopqrstuvwxyz0123456789'.,":
+        vocab[ch] = len(vocab)
+        vocab[ch + "</w>"] = len(vocab)
+    merges = [("t", "h"), ("th", "e</w>"), ("a", "t</w>"), ("o", "n</w>"), ("i", "n"),
+              ("in", "g</w>"), ("e", "r</w>"), ("o", "u"), ("ou", "t</w>")]
+    for a, b in merges:
+        vocab[a + b] = len(vocab)
+    for sp in ("none</w>", "<END>", "<xIntent>", "<xWant>", "<xNeed>", "<xReact>",
+               "<xEffect>"):
+        vocab[sp] = len(vocab)
+    i = 0
+    while len(vocab) < COMET_BASE_VOCAB:
+        vocab[f"w{i}</w>"] = len(vocab)
+        i += 1
+    with open(os.path.join(path, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(path, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+
+
+@contextlib.contextmanager
+def _decision_gaps(torch, atomic, K):
+    """Record, each decode step, the smallest gap that decided a token:
+    greedy, the top-two gap of each row's logits; beam, the smallest gap
+    among each row's K + 1 best candidates (a swap there changes the beams)."""
+    from kmbart_tpu_torch.knowledge import gpt
+    gaps, logits_fn, top_k = [], gpt.gpt_logits, atomic.top_k
+
+    def logits(*a, **k):
+        out = logits_fn(*a, **k)
+        if K == 1:
+            v = out.float().topk(2, dim=-1).values
+            gaps.append(float((v[..., 0] - v[..., 1]).min()))
+        return out
+
+    def beam_top_k(x, k):
+        vals, idx = top_k(x, k + 1)
+        d = vals[:, :-1] - vals[:, 1:]
+        d = d[torch.isfinite(d)]
+        gaps.append(float(d.min()) if d.numel() else math.inf)
+        return vals[:, :k], idx[:, :k]
+
+    gpt.gpt_logits, atomic.top_k = logits, beam_top_k
+    try:
+        yield gaps
+    finally:
+        gpt.gpt_logits, atomic.top_k = logits_fn, top_k
+
+
+def run_knowledge(torch, dev, card):
+    """COMET's GPT at GPT-1's widths (12 layers, d_model 768, 12 heads,
+    n_ctx 52, a 40478 + 6 vocabulary) on random weights: greedy and beam-5
+    get_reason over 32 events (events/s, ms a step), and the card's fp32
+    run against the CPU's on 4 events in both samplers (the first step's
+    log-probs, and the same tokens unless they part at a step decided by a
+    gap under COMET_TIE on either device, which is named)."""
+    import numpy as np
+    from kmbart_tpu_torch.knowledge import atomic, gpt
+    from kmbart_tpu_torch.knowledge.bpe_gpt1 import GPT1BPE
+    with tempfile.TemporaryDirectory() as tmp:
+        _comet_assets(tmp)
+        enc = GPT1BPE(os.path.join(tmp, "vocab.json"), os.path.join(tmp, "merges.txt"))
+    n_vocab = len(enc.encoder) + 5 + 1
+    model = gpt.init_gpt_model(n_vocab, 52, seed=0, device=dev, **COMET)
+    words = ["person", "the", "door", "eats", "at", "table", "runs", "out", "in", "car",
+             "2", "1", "talks", "to", "dog", "opens", "sits", "on", "bench", "laughing"]
+    rng = np.random.default_rng(0)
+    events = [" ".join(rng.choice(words, size=int(rng.integers(3, 12)))) for _ in range(32)]
+    steps = [0]
+    step_fn = gpt.gpt_step
+
+    def counted(*a, **k):
+        steps[0] += 1
+        return step_fn(*a, **k)
+
+    result = {}
+    for sampling in ("greedy", "beam-5"):
+        gen = atomic.AtomicGenerator(model, enc, sampling_algorithm=sampling)
+        gen.get_reason(events[0])                                        # warm-up
+        torch.cuda.synchronize()
+        steps[0] = 0
+        gpt.gpt_step = counted
+        try:
+            t0 = time.perf_counter()
+            out = [gen.get_reason(e) for e in events]
+            seconds = time.perf_counter() - t0
+        finally:
+            gpt.gpt_step = step_fn
+        if not all(set(o) == {"after", "before", "intent"} for o in out):
+            raise AssertionError(f"knowledge {sampling}: bad get_reason output")
+        result[sampling] = {"events_per_s": len(events) / seconds, "steps": steps[0],
+                            "ms_per_step": 1e3 * seconds / steps[0],
+                            "generations": sum(len(v) for o in out for v in o.values())}
+
+    # the card's fp32 run against the CPU's
+    cpu_model = gpt.init_gpt_model(n_vocab, 52, seed=0, device="cpu", **COMET)
+    parity = {"first_step_logprob_err": 0.0, "events": 4, "near_tie_partings": []}
+    for sampling, K in (("greedy", 1), ("beam-5", 5)):
+        gens = {d: atomic.AtomicGenerator(m, enc, sampling_algorithm=sampling,
+                                          dtype=torch.float32)
+                for d, m in (("card", model), ("cpu", cpu_model))}
+        for e, event in enumerate(events[:4]):
+            lp, toks, gaps = {}, {}, {}
+            for d, g in gens.items():
+                with torch.no_grad():
+                    tokens = torch.zeros((5, 52), dtype=torch.long, device=g.device)
+                    tokens[:, :18] = g.prompt(event)
+                    cache = g._prime(tokens, 18, 52)
+                    lp[d] = torch.log_softmax(g._step_logits(tokens, cache, 18), -1).cpu()
+                with _decision_gaps(torch, atomic, K) as gap_list:
+                    toks[d] = g.sample(g.prompt(event)).cpu().numpy()
+                gaps[d] = gap_list
+            parity["first_step_logprob_err"] = max(parity["first_step_logprob_err"], float(
+                (lp["card"] - lp["cpu"]).abs().max()))
+            differ = np.nonzero((toks["card"] != toks["cpu"]).any(axis=0))[0]
+            if len(differ):
+                # greedy: the steps up to the first differing column decide it;
+                # beam: any step may (a late swap re-parents the best beam)
+                t = int(differ[0])
+                upto = t - 18 + 1 if K == 1 else None
+                gap = min(min(gaps[d][:upto]) for d in gaps)
+                if gap >= COMET_TIE:
+                    raise AssertionError(f"knowledge {sampling}: event {e} parts at column "
+                                         f"{t}, smallest deciding gap {gap:.2e}")
+                parity["near_tie_partings"].append({"sampling": sampling, "event": e,
+                                                    "column": t, "gap": gap})
+    if parity["first_step_logprob_err"] > COMET_LOGPROB_ATOL:
+        raise AssertionError(f"knowledge: first-step log-probs differ by "
+                             f"{parity['first_step_logprob_err']:.2e}")
+    emit("knowledge", card=card, model="GPT-1 (COMET) 12x768, 12 heads, n_ctx 52",
+         n_vocab=n_vocab, dtype="bfloat16", events=len(events), **result,
+         card_vs_cpu_fp32=parity)
+
+
+# the filter's log-perplexities (a mean of ~30 label tokens' log-probs
+# through 12 BART-base layers), kernel path against plain path: 2.2e-3 on an
+# NVIDIA H100 80GB HBM3, and 1.9e-2 for coarse_ffn_control
+FILTER_LOGPP_ATOL = 0.01
+# prepare_atomic's mean-pooled BART-base encoder states, kernel path against
+# plain path, in bf16 ulps of the pooled states' largest magnitude: 2 on an
+# NVIDIA H100 80GB HBM3, and 5.75 for coarse_ffn_control
+ATOMIC_POOLED_ULPS = 4
+
+
+@contextlib.contextmanager
+def coarse_ffn_control():
+    """The plain path with K2's output rounded to float8 e5m2 (2 mantissa
+    bits where bf16 has 7): a control that a kernel-against-plain bound must
+    reject, so the bound sits between the sound reading and this one."""
+    import torch
+    from kmbart_tpu_torch.ops import ffn
+    top = torch.finfo(torch.float8_e5m2).max
+    with plain_path():
+        plain = ffn.fused_ffn
+
+        def coarse(*a, **k):   # the forward alone: both checks run without grad
+            y = plain(*a, **k)
+            return y.clamp(-top, top).to(torch.float8_e5m2).to(y.dtype)
+
+        ffn.fused_ffn = coarse
+        try:
+            yield
+        finally:
+            ffn.fused_ffn = plain
+
+
+def _hold(what, err, bound, control):
+    """err within bound, and the control (the same comparison on
+    coarse_ffn_control) past it."""
+    if not err <= bound < control:
+        raise AssertionError(f"{what}: kernel vs plain {err:.3e}, bound {bound:.3e}, "
+                             f"coarse control {control:.3e}")
+
+
+def run_reason_filter(torch, dev, card, extractor=None):
+    """The filter_reason twin's batch_log_perplexity at BART-base on 64
+    reasoning rows (72 encoder tokens with 30 image slots, 40 label tokens):
+    rows/s, K1 and K2 launches, and the kernel path against the plain path;
+    then a few steps of the prepare_atomic twin with a BART-base text
+    backbone (its K1/K2 launches, and its pooled encoder states on the
+    kernel path against the plain path), and the prepare_vcg twin's feature
+    loop on images handed in as arrays."""
+    import pickle
+    import numpy as np
+    from types import SimpleNamespace
+    from kmbart_tpu_torch.data.datasets import VCGDataset
+    from kmbart_tpu_torch.data.tokenization import ConditionTokenizer
+    from kmbart_tpu_torch.ops import launch_counts, reset_launch_counts
+    from kmbart_tpu_torch.vision.extractor import FeatureExtractor
+    if extractor is None:
+        extractor = FeatureExtractor(params=_detector_params(torch), dtype=torch.bfloat16,
+                                     device=dev, **EXTRACT)
+    from kmbart_tpu_torch.scripts import prep_common, prepare_atomic, prepare_vcg
+    from kmbart_tpu_torch.scripts.filter_reason import batch_log_perplexity
+    cfg, model = _base_model(dev, seed=2)
+    batch = _train_batch(torch, cfg, dev, B=64, seed=3)
+    batch["labels"][:, 30:] = -100                   # ragged label lengths, as collated
+    batch_log_perplexity(model, cfg, batch)          # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    log_pp = batch_log_perplexity(model, cfg, batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    filt = {"train_attention": counts["train_attention"], "ffn": counts["ffn"]}
+    if not filt["train_attention"] or not filt["ffn"]:
+        raise AssertionError(f"reason_filter: K1/K2 not launched {filt}")
+    with plain_path():
+        plain = batch_log_perplexity(model, cfg, batch)
+    with coarse_ffn_control():
+        coarse = batch_log_perplexity(model, cfg, batch)
+    err = float((log_pp - plain).abs().max())
+    control = float((coarse - plain).abs().max())
+    if log_pp.shape != (64,) or not torch.isfinite(log_pp).all():
+        raise AssertionError(f"reason_filter: log-perplexity {tuple(log_pp.shape)}")
+    _hold("reason_filter log-perplexity", err, FILTER_LOGPP_ATOL, control)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = make_dataset(os.path.join(tmp, "data"))
+        backbone = os.path.join(tmp, "backbone")
+        write_checkpoint(backbone, cfg, seed=4)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        params = prepare_atomic.main(prepare_atomic.parse_args([
+            "--data_dir", paths["vcg"], "--checkpoint_dir", os.path.join(tmp, "atomic"),
+            "--tokenizer_dir", paths["tokenizer"], "--text_backbone", backbone,
+            "--epochs", "1", "--batch_size", "4", "--image_seq_length", "4",
+            "--image_feature_size", "20", "--inner_dim", "64", "--device", str(dev)]))
+        atomic_s = time.perf_counter() - t0
+        atomic_counts = launch_counts()
+        if not all(torch.isfinite(p).all() for p in params.values()):
+            raise AssertionError("prepare_atomic: non-finite classifier weights")
+        # its text backbone on the fixture's four distinct events (ragged
+        # lengths, the trainer's batch), kernel path against plain path
+        tokenizer = ConditionTokenizer(assets_dir=paths["tokenizer"])
+        encode, _ = prepare_atomic.build_text_encoder(
+            SimpleNamespace(text_backbone=backbone), tokenizer, dev)
+        dataset = VCGDataset(paths["vcg"], split="train")
+        texts = sorted({str(dataset[i].get("event", "")) for i in range(len(dataset))})[:4]
+        reset_launch_counts()
+        pooled = encode(texts)
+        enc_counts = launch_counts()
+        if not enc_counts["train_attention"] or not enc_counts["ffn"]:
+            raise AssertionError(f"prepare_atomic encoder: K1/K2 not launched {enc_counts}")
+        with plain_path():
+            pooled_plain = encode(texts)
+        with coarse_ffn_control():
+            pooled_coarse = encode(texts)
+        ulp = 2.0 ** (math.floor(math.log2(float(np.abs(pooled_plain).max()))) - 7)
+        pooled_ulps = float(np.abs(pooled - pooled_plain).max()) / ulp
+        pooled_control = float(np.abs(pooled_coarse - pooled_plain).max()) / ulp
+        if pooled.shape != (4, cfg.d_model) or not np.isfinite(pooled).all():
+            raise AssertionError(f"prepare_atomic encoder: pooled {pooled.shape}")
+        _hold("prepare_atomic pooled encoder states (ulps)", pooled_ulps, ATOMIC_POOLED_ULPS,
+              pooled_control)
+
+        # prepare_vcg's feature loop on three images handed in as arrays
+        rng = np.random.default_rng(9)
+        annots, arrays = [], {}
+        for k, (h, w) in enumerate(((480, 640), (375, 500), (640, 480))):
+            annot = {"img_fn": f"img/{k}.jpg", "metadata_fn": f"md/{k}.json"}
+            boxes = _given_boxes(np, rng, h, w, n=6)[1:]
+            arrays[annot["img_fn"]] = (_synthetic_image(np, rng, h, w),
+                                       {"boxes": boxes.tolist(), "height": h, "width": w})
+            annots.append(annot)
+        args = SimpleNamespace(output_dir=tmp, shard=0, num_shards=1)
+        os.makedirs(os.path.join(tmp, "train"), exist_ok=True)
+        prep_common.extract_features_loop(
+            annots, "train", args,
+            lambda a, _, ex: prepare_vcg.image_data(a, *arrays[a["img_fn"]], ex),
+            extractor=extractor)
+        shapes = []
+        for k in range(3):
+            with open(os.path.join(tmp, "train", f"{k}.pkl"), "rb") as f:
+                feats = pickle.load(f)
+            shapes.append(list(feats["image_features"].shape))
+        if shapes != [[7, 2048]] * 3:
+            raise AssertionError(f"prepare_vcg feature loop wrote {shapes}")
+    emit("reason_filter", card=card, config="config/vcg_base.json", rows=64,
+         rows_per_s=64 / seconds, ms=1e3 * seconds, launches=filt,
+         kernel_vs_plain_log_pp_err=err, bound=FILTER_LOGPP_ATOL,
+         coarse_control_log_pp_err=control, log_pp_mean=float(log_pp.mean()),
+         prepare_atomic={"seconds": atomic_s, "text_backbone": "config/vcg_base.json",
+                         "launches": {k: atomic_counts[k] for k in ("train_attention", "ffn")},
+                         "pooled_kernel_vs_plain_ulps": pooled_ulps,
+                         "pooled_bound_ulps": ATOMIC_POOLED_ULPS,
+                         "pooled_coarse_control_ulps": pooled_control,
+                         "encoder_launches": {k: enc_counts[k]
+                                              for k in ("train_attention", "ffn")},
+                         "encoder_tokens": [len(tokenizer.encode(t)[:32]) for t in texts]},
+         prepare_vcg_feature_loop={"images": 3, "pickle_feature_shapes": shapes})
+
+
 KERNEL_INFO = {
     "train_attention": ("kmbart_tpu_torch/csrc/train_attention_tc.cuh",
                         "kmbart_tpu/ops/pallas_train_attention.py:194"),
@@ -1975,7 +2553,8 @@ def main(argv=None):
                          "the kernels phase and stop (no paths driven, no ok line)")
     ap.add_argument("--only", default=None,
                     help="comma-separated paths to drive after the kernels phase "
-                         "(generate, sample, serve), then stop without the ok line")
+                         "(generate, sample, serve, extract, knowledge, reason_filter), "
+                         "then stop without the ok line")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2002,7 +2581,10 @@ def main(argv=None):
     if args.only:
         paths = {"generate": lambda: run_generate(torch, dev, card),
                  "sample": lambda: run_sample(torch, dev, card),
-                 "serve": lambda: run_serve(torch, dev, card)}
+                 "serve": lambda: run_serve(torch, dev, card),
+                 "extract": lambda: run_extract(torch, dev, card),
+                 "knowledge": lambda: run_knowledge(torch, dev, card),
+                 "reason_filter": lambda: run_reason_filter(torch, dev, card)}
         for name in args.only.split(","):
             paths[name]()
         return
@@ -2018,6 +2600,10 @@ def main(argv=None):
     run_pretrain_cli(card)
     run_sample(torch, dev, card)
     launches["beam_attention_ring"] = run_serve(torch, dev, card)["beam_attention_ring"]
+    torch.cuda.empty_cache()
+    extractor = run_extract(torch, dev, card)
+    run_knowledge(torch, dev, card)
+    run_reason_filter(torch, dev, card, extractor)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     loaded = [m for m in sys.modules if m == "kmbart_tpu" or m.startswith("kmbart_tpu.")]

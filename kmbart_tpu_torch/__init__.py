@@ -19,7 +19,11 @@ heads and losses, the LM loss with or without stored logits, the flash
 attention for long captions) with the ``pretrain`` CLI (``python -m
 kmbart_tpu_torch.pretrain``); and serving (the static and the continuous
 slot-pool engine behind an HTTP server) with the ``serve`` CLI (``python -m
-kmbart_tpu_torch.serve``).
+kmbart_tpu_torch.serve``); and data preparation: the bottom-up-attention
+feature extractor (``vision``), the COMET knowledge generator
+(``knowledge``), the reasoning classifier, and the ``prepare_vcg``,
+``prepare_vcg_reason``, ``filter_reason`` and ``prepare_atomic`` CLIs
+(``python -m kmbart_tpu_torch.scripts.<name>``).
 """
 
 __version__ = "0.1.0"

@@ -270,3 +270,20 @@ def load_training_data(path, cfg: MultiModalBartConfig, device="cuda"):
     out["opt_state"] = AdamWState(step=step, mu=moments[0], nu=moments[1],
                                   leaf_steps=leaf_steps)
     return out
+
+
+def extractor_params_from_jax(tree):
+    """The JAX package's detector pytree (``init_extractor_params``, numpy
+    or array-like leaves) -> the port's tree of fp32 tensors: HWIO conv
+    kernels become [out, in, kh, kw] and [in, out] dense kernels
+    [out, in]."""
+    if isinstance(tree, dict):
+        return {k: extractor_params_from_jax(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [extractor_params_from_jax(v) for v in tree]
+    arr = np.array(tree, np.float32)
+    if arr.ndim == 4:
+        arr = arr.transpose(3, 2, 0, 1)
+    elif arr.ndim == 2:
+        arr = arr.T
+    return torch.from_numpy(np.ascontiguousarray(arr))

@@ -82,7 +82,8 @@ def causal_bias(q_len, k_len, device):
 
 def multi_head_attention(attn, hidden, kv_hidden=None, bias=None, *, num_heads,
                          dtype=torch.bfloat16, cross_cache=None, key_mask=None,
-                         causal=False, dropout_rate=0.0, generator=None, train=False):
+                         causal=False, dropout_rate=0.0, generator=None, train=False,
+                         self_cache=None, cache_index=None):
     """Attention block: projections, core, output projection.
 
     attn: a module with ``q_proj``, ``k_proj``, ``v_proj``, ``out_proj``
@@ -92,6 +93,12 @@ def multi_head_attention(attn, hidden, kv_hidden=None, bias=None, *, num_heads,
     divide the query batch (beam search). ``dropout_rate`` applies to the
     attention probs when ``train``, drawing from ``generator``. Returns
     [B, Tq, D] in ``dtype``.
+
+    self_cache: a flat incremental self-attention cache {"k", "v": [B, T,
+    D]} (kmbart_tpu/ops/attention.py:173-179, GPT's decode step): the new
+    K/V rows are written in place at ``cache_index`` and attention runs over
+    the whole static buffer under the caller's ``bias``, which must mask the
+    positions past the last one written. The BART paths never pass it.
     """
     core = dict(dropout_rate=dropout_rate, generator=generator, train=train, dtype=dtype)
     if kv_hidden is None and cross_cache is None:
@@ -108,7 +115,8 @@ def multi_head_attention(attn, hidden, kv_hidden=None, bias=None, *, num_heads,
         return (dense(src, attn.k_proj.weight, attn.k_proj.bias, dtype),
                 dense(src, attn.v_proj.weight, attn.v_proj.bias, dtype))
 
-    if (bias is None and cross_cache is None and (key_mask is not None or causal)
+    if (bias is None and cross_cache is None and self_cache is None
+            and (key_mask is not None or causal)
             and not (train and dropout_rate > 0.0)):
         Tq = hidden.shape[1]
         Tk = Tq if kv_hidden is None else kv_hidden.shape[1]
@@ -140,6 +148,11 @@ def multi_head_attention(attn, hidden, kv_hidden=None, bias=None, *, num_heads,
     else:
         if k_flat is None:
             k_flat, v_flat = project_kv()
+        if self_cache is not None:
+            end = cache_index + k_flat.shape[1]
+            self_cache["k"][:, cache_index:end] = k_flat
+            self_cache["v"][:, cache_index:end] = v_flat
+            k_flat, v_flat = self_cache["k"], self_cache["v"]
         k = split_heads(k_flat, num_heads)
         v = split_heads(v_flat, num_heads)
 

@@ -118,8 +118,9 @@ def test_port_imports_no_jax():
 
 
 # the port imports none of these, matched as a whole name or a dotted prefix
-# (so kmbart_tpu_torch does not match kmbart_tpu)
-_JAX_MODULES = ("jax", "jaxlib", "kmbart_tpu")
+# (so kmbart_tpu_torch does not match kmbart_tpu): jax, the JAX package, and
+# the root scripts/ package, whose twins live in kmbart_tpu_torch/scripts
+_JAX_MODULES = ("jax", "jaxlib", "kmbart_tpu", "scripts")
 
 
 def _port_sources():
@@ -129,10 +130,15 @@ def _port_sources():
 
 
 def test_no_jax_import_in_source():
-    """No module of the port, and not chip_smoke.py, imports jax or
-    kmbart_tpu."""
+    """No module of the port (its data-preparation subpackages included),
+    and not chip_smoke.py, imports jax, kmbart_tpu or the root scripts
+    package."""
     offenders = []
-    for path in _port_sources():
+    sources = list(_port_sources())
+    for sub in ("vision", "knowledge", "scripts"):
+        assert any(os.sep + os.path.join("kmbart_tpu_torch", sub) + os.sep in p
+                   for p in sources), sub
+    for path in sources:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
         for node in ast.walk(tree):
