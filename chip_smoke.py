@@ -103,7 +103,25 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                backbone and its pooled encoder states on the kernel path
                against the plain path (each bound checked to reject a
                control that rounds K2's output to float8), and the
-               prepare_vcg twin's feature loop on images handed in as arrays.
+               prepare_vcg twin's feature loop on images handed in as arrays;
+ 16. prep_twins  the COCO and VG twins (given boxes) and the CC and SBU twins
+               (proposals) on decoded images through the extract phase's
+               extractor, each pickle equal bit for bit to direct
+               extract_feature calls, and the prepare_coco_reason twin over
+               three captions at COMET's GPT-1 widths;
+ 17. ddp       two processes on the one card (gloo) at 64 rows each against
+               one process at 128 (NCCL at world size 1), BART-base at the
+               fine-tune shapes, dropout 0, three steps: losses within 2e-3,
+               the fine-tune kernels launched on each rank, ZeRO-1's
+               parameters bit-equal to the replicated pair's, ms a step and
+               the all-reduce's share.
+Phase 4 also wraps one generate() call in utils.profiling.trace and finds
+K3's and K4's launches in the trace it writes; phase 12 also holds each of
+the static engine's 64 requests to generate() on the padded batch the
+engine ran (its ``record`` hook), bounds how the engine's answers may differ
+from generate() at 112 samples (every divergence starts at a near-tie within
+the two runs' rounding), and probes the decode step's products at 160
+against 560 rows.
 The line before the last lists every kernel with its launches on the main
 path, its error, its time, its plain version's, its bound and the library
 call's; the last line is {"ok": true, "device": {...}}. The port imports
@@ -114,6 +132,7 @@ import contextlib
 import json
 import math
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -157,6 +176,12 @@ PRETRAIN_LAUNCHES = {
 }
 PRETRAIN_LONG_LAUNCHES = {**PRETRAIN_LAUNCHES["fwdbwd"], "train_attention": 0,
                           "train_attention_bwd": 0, "flash_attention": 18}
+# the static engine against generate() at another batch width: the two
+# calls' beam scores of the same candidate may differ by rounding (bf16
+# hidden states whose GEMMs sum in another order at 160 rows than at 560,
+# accumulated over the steps); 0.25 is two bf16 ulps of a logit of
+# magnitude 16, far below the O(1) differences of a wrong row or token
+NEAR_TIE_NOISE_MAX = 0.25
 # the least time the card could take (bound_ms): an H100 SXM's published
 # dense peaks (NVIDIA data sheet) at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
@@ -1122,6 +1147,26 @@ def run_generate(torch, dev, card):
     # launches recorded above (the rows each step's ancestry reads)
     profile.update(k3_launches=len(steps_read), k3_bound_ms_per_call=k3_bound_ms)
     emit("generate_profile", card=card, **profile)
+
+    # utils.profiling.trace around one generate() call: the Chrome trace it
+    # writes names K3's and K4's launches
+    from kmbart_tpu_torch.utils import profiling
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp):
+            gen()
+        (name,) = os.listdir(tmp)
+        size_mb = os.path.getsize(os.path.join(tmp, name)) / 2 ** 20
+        with open(os.path.join(tmp, name)) as f:
+            events = json.load(f)["traceEvents"]
+    kernel_names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    k3 = sum("beam_attention_bf16" in n for n in kernel_names)
+    k4 = sum("vocab_stats_kernel" in n for n in kernel_names)
+    if not (k3 and k4):
+        raise AssertionError(f"profiling.trace: {k3} K3 and {k4} K4 kernels in the trace")
+    emit("generate_trace", card=card, file=name, size_mb=size_mb, events=len(events),
+         kernel_events=len(kernel_names), k3_kernel_events=k3, k4_kernel_events=k4,
+         k3_launches_a_call=launches["beam_attention"],
+         k4_launches_a_call=launches["vocab_stats"])
     return launches
 
 
@@ -1802,12 +1847,92 @@ def _serve_requests(np, cfg, n, seed):
     return ids, mask, feats, widths
 
 
+def hold_static_engine(torch, model, cfg, records, dev, **gen_kw):
+    """generate() on each padded batch the static engine recorded (its
+    ``record`` hook: ids, mask, features and the requests' futures in row
+    order), at the engine's own bucket; every request's tokens must equal
+    its own rows of that call, or this raises. Returns (requests held,
+    [(batch, sample) of each request], the step traces of each call)."""
+    import numpy as np
+    from kmbart_tpu_torch.generation import beam
+    from kmbart_tpu_torch.generation.api import generate
+    t = lambda a: None if a is None else torch.as_tensor(a, device=dev)
+    held, where, traces = 0, {}, []
+    for j, (ids, mask, feats, futures) in enumerate(records):
+        beam.STEP_TRACE = []
+        try:
+            ref = generate(model, cfg, {"input_ids": t(ids), "attention_mask": t(mask),
+                                        "image_features": t(feats)}, trim=False, **gen_kw)
+            traces.append(beam.STEP_TRACE)
+        finally:
+            beam.STEP_TRACE = None
+        n_ret = ref.shape[0] // ids.shape[0]
+        row = 0
+        for fut in futures:
+            got = fut.result()
+            n = got.shape[0] // n_ret
+            if not np.array_equal(got, ref[row * n_ret:(row + n) * n_ret]):
+                raise AssertionError(f"static engine: batch {j} rows {row}..{row + n - 1} "
+                                     f"differ from generate() on the same padded batch")
+            where[id(fut)] = (j, row)
+            row += n
+            held += 1
+    return held, where, traces
+
+
+def near_ties(np, got, want, where, traces, ref_trace):
+    """For each request whose tokens ``got`` (request i at (batch j, sample
+    s) of the traced calls ``traces``) differ from ``want`` (sample i of the
+    traced call ``ref_trace``): the first step where the two calls'
+    candidates for it differ, the gap there between the two calls' choices
+    (in each call's scores, the smaller of the two gaps) and the noise, the
+    largest difference between the two calls' scores of the same (beam,
+    token) among the sample's top-2K rows at that step. A divergence that
+    starts where the gap is not within the noise, or where the noise is
+    more than rounding (NEAR_TIE_NOISE_MAX), raises. Returns the report,
+    one entry per differing request."""
+    report = []
+    steps_ref = [x for x in ref_trace if "cand_idx" in x]
+    for i, (j, s) in enumerate(where):
+        if np.array_equal(got[i], want[i]):
+            continue
+        steps = [x for x in traces[j] if "cand_idx" in x]
+        entry = {"request": i, "first_token_differing": int(np.nonzero(got[i] != want[i])[0][0])}
+        for t, (a, b) in enumerate(zip(steps, steps_ref)):
+            ca, cb = a["cand_idx"][s].tolist(), b["cand_idx"][i].tolist()
+            if ca == cb:
+                continue
+            pos = next(p for p in range(len(ca)) if ca[p] != cb[p])
+            x, y = ca[pos], cb[pos]
+            sa = dict(zip(a["row_idx"][s].tolist(), a["row_scores"][s].tolist()))
+            sb = dict(zip(b["row_idx"][i].tolist(), b["row_scores"][i].tolist()))
+            noise = max(abs(sa[k] - sb[k]) for k in sa.keys() & sb.keys())
+            gaps = [abs(d[x] - d[y]) for d in (sa, sb) if x in d and y in d]
+            entry.update(step=t + 1, candidate=pos, gap=min(gaps) if gaps else float("inf"),
+                         noise=noise)
+            break
+        else:
+            fa = traces[j][-1]["final_scores"][s].tolist()
+            fb = ref_trace[-1]["final_scores"][i].tolist()
+            entry.update(step="final", gap=min(abs(fa[0] - fa[1]), abs(fb[0] - fb[1])),
+                         noise=max(abs(u - v) for u, v in zip(fa, fb)))
+        entry["near_tie"] = entry["gap"] <= entry["noise"] <= NEAR_TIE_NOISE_MAX
+        report.append(entry)
+    bad = [e for e in report if not e["near_tie"]]
+    if bad:
+        raise AssertionError(f"static engine vs generate() at another batch: divergences "
+                             f"that do not start at a near-tie: {bad[:5]}")
+    return report
+
+
 def _row_invariance(torch, dev, model, cfg, A=32, B=112):
     """Whether each GEMM shape of the encoder and of the admit's cross K/V
     gives a row the same bits at A samples as at B samples (``dense``'s
     bf16 product with an fp32 result), and whether a row's place in the
     batch matters; the model's blocked image projection and K2 (the fused
-    FFN) likewise."""
+    FFN) likewise; and the decode step's products (self-attention QKV and
+    out, cross-attention Q and out, K2, the LM head) at A·5 against B·5
+    rows."""
     from kmbart_tpu_torch.models.bart import image_projection
     from kmbart_tpu_torch.ops.ffn import ffn
     from kmbart_tpu_torch.ops.layers import matmul_f32
@@ -1838,6 +1963,18 @@ def _row_invariance(torch, dev, model, cfg, A=32, B=112):
     b1, b2 = torch.zeros(F, device=dev), torch.zeros(D, device=dev)
     out["k2_ffn"] = {"rows": [A * E, B * E], "same_at_both_widths": bool(torch.equal(
         ffn(x[:A * E], w1, b1, w2, b2), ffn(x, w1, b1, w2, b2)[:A * E]))}
+    # the decode step's products, one row a beam: A·5 against B·5 rows
+    K, V = SERVE_BEAMS, cfg.vocab_size
+    step = {"decode_self_qkv": 3 * D, "decode_self_out": D, "decode_cross_q": D,
+            "decode_cross_out": D, "decode_lm_logits": V}
+    for name, n in step.items():
+        x = torch.randn((B * K, D), generator=g, device=dev).to(torch.bfloat16)
+        w = torch.randn((n, D), generator=g, device=dev) * 0.02
+        out[name] = {"rows": [A * K, B * K], "same_at_both_widths": bool(torch.equal(
+            matmul_f32(x[:A * K], w), matmul_f32(x, w)[:A * K]))}
+    x = torch.randn((B * K, D), generator=g, device=dev).to(torch.bfloat16)
+    out["decode_k2_ffn"] = {"rows": [A * K, B * K], "same_at_both_widths": bool(torch.equal(
+        ffn(x[:A * K], w1, b1, w2, b2), ffn(x, w1, b1, w2, b2)[:A * K]))}
     return out
 
 
@@ -1897,13 +2034,23 @@ def run_serve(torch, dev, card):
         engine.shutdown()
     got = np.concatenate([outs[i] for i in range(N)])
 
-    # the reference: generate() on the same padded rows, in batches of 112
-    ref = np.concatenate([generate(
-        model, cfg, {"input_ids": torch.as_tensor(ids[s:s + SERVE_POOL], device=dev),
-                     "attention_mask": torch.as_tensor(mask[s:s + SERVE_POOL], device=dev),
-                     "image_features": torch.as_tensor(feats[s:s + SERVE_POOL], device=dev)},
-        num_beams=SERVE_BEAMS, max_length=SERVE_MAXLEN, early_stopping=True, trim=False)
-        for s in range(0, N, SERVE_POOL)])
+    # the reference: generate() on the same padded rows, in batches of 112;
+    # the first call's steps traced for the static engine's near-ties below
+    from kmbart_tpu_torch.generation import beam
+    refs, ref_trace = [], []
+    for s in range(0, N, SERVE_POOL):
+        beam.STEP_TRACE = ref_trace if s == 0 else None
+        try:
+            refs.append(generate(
+                model, cfg,
+                {"input_ids": torch.as_tensor(ids[s:s + SERVE_POOL], device=dev),
+                 "attention_mask": torch.as_tensor(mask[s:s + SERVE_POOL], device=dev),
+                 "image_features": torch.as_tensor(feats[s:s + SERVE_POOL], device=dev)},
+                num_beams=SERVE_BEAMS, max_length=SERVE_MAXLEN, early_stopping=True,
+                trim=False))
+        finally:
+            beam.STEP_TRACE = None
+    ref = np.concatenate(refs)
     equal = (got == ref).all(axis=1)
     with torch.no_grad():
         t = lambda a: torch.as_tensor(a, device=dev)
@@ -1913,6 +2060,8 @@ def run_serve(torch, dev, card):
         invariance = _row_invariance(torch, dev, model, cfg)
     emit("serve_row_invariance", card=card, encoder_rows_equal_at_32_and_112=bool(
         torch.equal(enc32, enc112)), **invariance)
+    if not invariance["decode_k2_ffn"]["same_at_both_widths"]:
+        raise AssertionError("K2 gives a decode row other bits at 160 rows than at 560")
     fields = dict(card=card, config="config/vcg_base.json", requests=N, bursts=bursts,
                   burst_gap_s=0.25, pool=SERVE_POOL, chunk_steps=SERVE_CHUNK,
                   num_beams=SERVE_BEAMS, max_length=SERVE_MAXLEN, encoder_seq_len=SERVE_ENC,
@@ -1931,10 +2080,12 @@ def run_serve(torch, dev, card):
                                        for i in bad[:10]])
         raise AssertionError(f"serve: {len(bad)} of {N} requests differ from generate()")
 
-    # the static engine: 64 requests, coalesced into batches of up to 32
+    # the static engine: 64 requests, coalesced into batches of up to 32,
+    # each held to generate() on the padded batch the engine ran
+    records = []
     static = GenerationEngine(model, cfg, max_batch_size=32, encoder_seq_len=SERVE_ENC,
                               num_beams=SERVE_BEAMS, max_length=SERVE_MAXLEN,
-                              early_stopping=True)
+                              early_stopping=True, record=records)
     server = None
     try:
         t0 = time.perf_counter()
@@ -1942,6 +2093,7 @@ def run_serve(torch, dev, card):
                               feats[i:i + 1]) for i in range(64)]
         static_out = np.concatenate([f.result(timeout=600) for f in futs])
         static_s = time.perf_counter() - t0
+        static.record = None     # the HTTP request below is not one of the 64
         if static_out.shape != (64, SERVE_MAXLEN) or static_out.min() < 0:
             raise AssertionError(f"static engine: bad output {static_out.shape}")
         server = serve(static, port=0, block=False)
@@ -1957,9 +2109,20 @@ def run_serve(torch, dev, card):
         if server is not None:
             server.shutdown()
         static.shutdown()
+    held, where, traces = hold_static_engine(torch, model, cfg, records, dev,
+                                             num_beams=SERVE_BEAMS, max_length=SERVE_MAXLEN,
+                                             early_stopping=True)
+    if held != 64:
+        raise AssertionError(f"static engine: {held} of 64 requests recorded")
+    # the bound the engine meets against generate() at another batch (112
+    # samples): every request that differs starts at a near-tie
+    report = near_ties(np, static_out, ref[:64], [where[id(f)] for f in futs], traces,
+                       ref_trace)
     emit("serve", **fields, static_requests=64, static_seconds=static_s,
-         static_requests_per_s=64 / static_s,
-         static_rows_equal_to_generate=float((static_out == ref[:64]).all(axis=1).mean()),
+         static_requests_per_s=64 / static_s, static_batches=len(records),
+         static_rows_equal_to_own_batches=held / 64,
+         static_requests_differing_from_generate_at_112=len(report),
+         static_near_ties=report,
          http_tokens_equal_to_generate=bool((http_out[0] == ref[0]).all()))
     return launches
 
@@ -2213,6 +2376,292 @@ def run_extract(torch, dev, card):
                                                "given_boxes_feat_rel_err": given_err},
          batch_vs_single_fp32=batch_vs_single)
     return ex16
+
+
+def _same_arrays(np, what, got, want):
+    """``got`` has the keys of ``want`` and each array equal bit for bit."""
+    if set(got) != set(want):
+        raise AssertionError(f"prep_twins {what}: keys {sorted(got)} != {sorted(want)}")
+    for k, v in want.items():
+        if isinstance(v, np.ndarray):
+            if got[k].dtype != v.dtype or not np.array_equal(got[k], v):
+                raise AssertionError(f"prep_twins {what}: {k} differs from extract_feature's")
+        elif got[k] != v:
+            raise AssertionError(f"prep_twins {what}: {k} {got[k]!r} != {v!r}")
+
+
+def run_prep_twins(torch, dev, card, extractor):
+    """The COCO and VG twins (given boxes) and the CC and SBU twins
+    (proposals) on synthetic decoded images through the extract phase's
+    extractor: each pickle dict equal bit for bit to direct extract_feature
+    calls on the boxes the root scripts build, with their keys and shapes;
+    then the prepare_coco_reason twin over three captions on the knowledge
+    phase's COMET widths and assets."""
+    import numpy as np
+    from kmbart_tpu_torch.scripts import (prepare_cc, prepare_coco, prepare_coco_reason,
+                                          prepare_sbu, prepare_vg)
+    rng = np.random.default_rng(11)
+    h, w = GIVEN_SHAPES[0]
+    img = _synthetic_image(np, rng, h, w)
+    ex = extractor
+    xy = rng.uniform(0, 0.6, (12, 2)) * [w, h]
+    wh = rng.uniform(0.1, 0.35, (12, 2)) * [w, h]
+    seconds = {}
+
+    # COCO: the instance boxes (xywh -> xyxy) and the whole image
+    caps = {"images": [{"id": 3, "file_name": "3.jpg", "width": w, "height": h}],
+            "annotations": [{"image_id": 3, "caption": "a cat"}]}
+    inst = {"annotations": [{"image_id": 3, "bbox": [float(a), float(b), float(c), float(d)]}
+                            for (a, b), (c, d) in zip(xy[:8], wh[:8])]}
+    entry = prepare_coco.extract_data(caps, inst)[3]
+    t0 = time.perf_counter()
+    got = prepare_coco.image_data(entry, img, ex)
+    seconds["coco"] = time.perf_counter() - t0
+    f = ex.extract_feature(img, np.vstack((np.array(entry["boxes"]), [0, 0, w, h])))
+    _same_arrays(np, "coco", got, {"__img_id__": "3", "image_features": f["features"],
+                                   "mrm_labels": f["scores"], "boxes": f["boxes"]})
+    if got["image_features"].shape != (9, 2048) or got["mrm_labels"].shape != (9, 1601):
+        raise AssertionError(f"prep_twins coco: shapes {got['image_features'].shape}")
+
+    # VG: regions, objects and the whole image; y is a box's bottom edge
+    box = lambda i: {"x": float(xy[i, 0]), "y": float(xy[i, 1] + wh[i, 1]),
+                     "w": float(wh[i, 0]), "h": float(wh[i, 1])}
+    entry = {"img_id": 5, "regions": [{"region_id": 50 + i, **box(i)} for i in range(5)],
+             "objects": [{"object_id": 500 + i, **box(i)} for i in range(5, 12)]}
+    t0 = time.perf_counter()
+    got = prepare_vg.image_data(entry, img, ex)
+    seconds["vg"] = time.perf_counter() - t0
+    boxes = np.array([[xy[i, 0], xy[i, 1], xy[i, 0] + wh[i, 0], xy[i, 1] + wh[i, 1]]
+                      for i in range(12)] + [[0, 0, w, h]])
+    f = ex.extract_feature(img, boxes)
+    _same_arrays(np, "vg", got, {
+        "__img_id__": "5", "region_features": f["features"][:5],
+        "region_scores": f["scores"][:5], "region_boxes": f["boxes"][:5],
+        "region_ids": list(range(50, 55)), "object_features": f["features"][5:-1],
+        "object_scores": f["scores"][5:-1], "object_boxes": f["boxes"][5:-1],
+        "object_ids": list(range(505, 512)), "image_feature": f["features"][-1],
+        "image_score": f["scores"][-1], "image_box": f["boxes"][-1]})
+
+    # CC and SBU: the proposal path
+    ph, pw = PROPOSAL_SHAPES[-1]
+    img2 = _synthetic_image(np, rng, ph, pw)
+    t0 = time.perf_counter()
+    got_cc = prepare_cc.image_data(img2, ex)
+    seconds["cc"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got_sbu = prepare_sbu.image_data({"img_id": 9}, img2, ex)
+    seconds["sbu"] = time.perf_counter() - t0
+    f = ex.extract_feature(img2)
+    want = {"image_features": f["features"], "mrm_labels": f["scores"], "boxes": f["boxes"]}
+    _same_arrays(np, "cc", got_cc, want)
+    _same_arrays(np, "sbu", got_sbu, {"__img_id__": "9", **want})
+    kept = int(got_cc["boxes"].shape[0])
+    if not 10 <= kept <= 100 or got_cc["image_features"].shape != (kept, 2048):
+        raise AssertionError(f"prep_twins cc: {kept} boxes kept")
+
+    # the COCO captions' reasoning twin, on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        _comet_assets(os.path.join(tmp, "vocab"))
+        os.makedirs(os.path.join(tmp, "annot"))
+        captions = ["a man holds a cup at the table", "2 dogs run on the grass",
+                    "a person sits on the bench"]
+        with open(os.path.join(tmp, "annot", "train.json"), "w") as fh:
+            json.dump([{"img_id": i, "img_fn": f"{i}.jpg", "labels": c}
+                       for i, c in enumerate(captions)], fh)
+        t0 = time.perf_counter()
+        prepare_coco_reason.main(["--annot_dir", os.path.join(tmp, "annot"), "--output_dir",
+                                  os.path.join(tmp, "out"), "--comet_vocab_dir",
+                                  os.path.join(tmp, "vocab"), "--splits", "train",
+                                  "--device", "cuda"])
+        seconds["coco_reason"] = time.perf_counter() - t0
+        with open(os.path.join(tmp, "out", "reason_train.json")) as fh:
+            rows = json.load(fh)
+        with open(os.path.join(tmp, "out", "reason_train_ref.json")) as fh:
+            refs = json.load(fh)
+    if len(refs) != 3 or not rows or {r["task_type"] for r in rows} - {"before", "after",
+                                                                        "intent"}:
+        raise AssertionError(f"prep_twins coco_reason: {len(rows)} rows, {len(refs)} refs")
+    if {r["event"] for r in rows} - set(captions):
+        raise AssertionError("prep_twins coco_reason: rows of unknown captions")
+    emit("prep_twins", card=card, config="config/extract_config.yaml widths, COMET GPT-1 widths",
+         given_boxes={"coco_boxes": 9, "vg_boxes": 13}, proposals_kept=kept,
+         equal_to_extract_feature=True, seconds=seconds, reason_rows=len(rows),
+         reason_captions=len(refs))
+
+
+# ---------------------------------------------------------------------------
+# phase 16: multi-process data parallelism on the one card
+# ---------------------------------------------------------------------------
+
+DDP_ROWS, DDP_STEPS = 128, 3
+DDP_LOSS_RTOL = 2e-3
+
+
+def ddp_worker():
+    """One process of the ddp phase (``chip_smoke.py --ddp-worker``): BART-base
+    fine-tune steps at dropout 0 on the fine-tune cell's shapes, 128 rows
+    (the second half with fewer labels) split over KMBART_NUM_PROCESSES
+    ranks, replicated and then with ZeRO-1 from the same start. Prints one
+    JSON line: the backend, losses, ms a step, the all-reduce's share, the
+    kernel launches and a digest of the parameters after the steps."""
+    import hashlib
+    import torch
+    from kmbart_tpu_torch import MultiModalBartConfig
+    from kmbart_tpu_torch.checkpoint.io import jax_leaf_groups
+    from kmbart_tpu_torch.models.conditional import conditional_loss, init_conditional_model
+    from kmbart_tpu_torch.ops import launch_counts, reset_launch_counts
+    from kmbart_tpu_torch.parallel import distributed, zero1 as zero1_mod
+    from kmbart_tpu_torch.parallel.train_step import build_train_step
+    from kmbart_tpu_torch.training.adamw import AdamW
+    from kmbart_tpu_torch.training.state import TrainState, model_tensors
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # the deterministic backward of the embedding lookup and of the ROI
+    # splice (their default CUDA kernels accumulate with atomics), so two
+    # runs from the same start can be compared bit for bit
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    world = int(os.environ["KMBART_NUM_PROCESSES"])
+    # ranks that share one card rendezvous over gloo (NCCL refuses two ranks
+    # on a device); otherwise the default, which on a card is NCCL
+    dev = distributed.init_distributed("cuda", backend=os.environ.get("DDP_BACKEND"))
+    rank = distributed.rank()
+    cfg = MultiModalBartConfig.from_json(os.path.join(REPO, "config", "vcg_base.json")).replace(
+        dropout=0.0, attention_dropout=0.0, activation_dropout=0.0)
+    batch = _train_batch(torch, cfg, dev, B=DDP_ROWS)
+    batch["labels"][DDP_ROWS // 2:, 24:] = -100
+    rows = DDP_ROWS // world
+    batch = {k: v[rank * rows:(rank + 1) * rows] for k, v in batch.items()}
+
+    def loss_fn(m, b, generator):
+        loss, _ = conditional_loss(m, cfg, b, train=True, generator=generator)
+        return loss, {}
+
+    comm = [0.0]
+
+    def timed(fn):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            comm[0] += time.perf_counter() - t0
+            return out
+        return call
+
+    distributed.all_reduce_sum = timed(distributed.all_reduce_sum)
+    zero1_mod.all_gather_flat = timed(zero1_mod.all_gather_flat)
+    result = {"rank": rank, "world": world, "backend": torch.distributed.get_backend(),
+              "device": str(dev)}
+    for mode in ("replicated", "zero1") if world > 1 else ("replicated",):
+        model = init_conditional_model(cfg, seed=0, device=dev)
+        opt = AdamW(lr=1e-4, groups=jax_leaf_groups(cfg))
+        state = TrainState.create(model, opt)
+        z1 = None
+        if mode == "zero1":
+            z1 = zero1_mod.Zero1(cfg, model_tensors(model), world, rank)
+            state = state._replace(opt_state=z1.shard_state(state.opt_state))
+        step = build_train_step(loss_fn, opt, data_parallel=world > 1, zero1=z1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        comm[0] = 0.0
+        losses, times = [], []
+        for _ in range(DDP_STEPS):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, 0)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        digest = hashlib.sha256()
+        for name, t in sorted(model_tensors(model).items()):
+            digest.update(name.encode())
+            digest.update(t.detach().cpu().numpy().tobytes())
+        result[mode] = {"losses": losses, "step_s": times,
+                        "ms_per_step": 1e3 * sorted(times)[len(times) // 2],
+                        "comm_s": comm[0], "comm_share": comm[0] / sum(times),
+                        "launches": launch_counts(), "params_sha256": digest.hexdigest(),
+                        "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+        del model, state, step, opt
+        torch.cuda.empty_cache()
+    print(json.dumps(result), flush=True)
+    distributed.shutdown()
+
+
+def _ddp_run(world, shared_card):
+    """``world`` ddp workers, all on card 0 over gloo (``shared_card``) or
+    each on its own card; their JSON lines in rank order."""
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, KMBART_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   KMBART_NUM_PROCESSES=str(world), KMBART_PROCESS_ID=str(r),
+                   LOCAL_RANK="0" if shared_card else str(r),
+                   CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        if shared_card:
+            env["DDP_BACKEND"] = "gloo"
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                       "--ddp-worker"], env=env, cwd=REPO, text=True,
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            if p.returncode != 0:
+                raise AssertionError(f"ddp worker exited {p.returncode}: {err[-3000:]}")
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def run_ddp(torch, dev, card, cards=1):
+    """Two processes on the one card, rendezvoused over gloo, at 64 rows each
+    for three steps (or, with ``cards`` > 1, one process a card over NCCL,
+    128 / cards rows each), against one process at 128 rows (whose
+    --multihost rendezvous at world size 1 must pick NCCL): losses equal
+    within DDP_LOSS_RTOL step for step, the fine-tune kernels launched on
+    each rank, and the ZeRO-1 ranks' parameters bit-equal to the replicated
+    ranks'; ms a step and the all-reduce's share per rank."""
+    t0 = time.perf_counter()
+    pair = _ddp_run(2, True) if cards == 1 else _ddp_run(cards, False)
+    single = _ddp_run(1, False)[0]
+    seconds = time.perf_counter() - t0
+    if single["backend"] != "nccl":
+        raise AssertionError(f"ddp: one rank on cuda took {single['backend']}, not nccl")
+    want = single["replicated"]["losses"]
+    backend = "gloo" if cards == 1 else "nccl"
+    for r in pair:
+        if r["backend"] != backend:
+            raise AssertionError(f"ddp: rank {r['rank']} on {r['backend']}, not {backend}")
+        for mode in ("replicated", "zero1"):
+            got = r[mode]["losses"]
+            if any(abs(a - b) > DDP_LOSS_RTOL * abs(b) for a, b in zip(got, want)):
+                raise AssertionError(f"ddp {mode} rank {r['rank']}: losses {got} vs {want}")
+            counts = r[mode]["launches"]
+            wrong = {k: counts[k] for k, n in TRAIN_LAUNCHES.items()
+                     if counts[k] != n * DDP_STEPS}
+            if wrong:
+                raise AssertionError(f"ddp {mode} rank {r['rank']}: launches {wrong}")
+    digests = {r[m]["params_sha256"] for r in pair for m in ("replicated", "zero1")}
+    if len(digests) != 1:
+        raise AssertionError("ddp: ZeRO-1's parameters differ from the replicated pair's")
+    emit("ddp" if cards == 1 else "ddp_nccl", card=card, config="config/vcg_base.json",
+         rows=DDP_ROWS, enc_len=72, dec_len=40, steps=DDP_STEPS, dropout=0.0,
+         loss_rtol=DDP_LOSS_RTOL, single_backend=single["backend"],
+         ranks_backend="gloo (host-staged), one card" if cards == 1 else
+         f"nccl, {cards} cards", devices=sorted({r["device"] for r in pair}),
+         losses_single=want, params_bit_equal_zero1_replicated=True,
+         ranks=[{"rank": r["rank"], **{m: {k: r[m][k] for k in
+                                           ("losses", "ms_per_step", "comm_share",
+                                            "peak_memory_gb")}
+                                       for m in ("replicated", "zero1")}} for r in pair],
+         single_ms_per_step=single["replicated"]["ms_per_step"],
+         single_peak_memory_gb=single["replicated"]["peak_memory_gb"], seconds=seconds)
 
 
 COMET = dict(d_model=768, n_layers=12, n_heads=12)   # GPT-1, as COMET runs it
@@ -2553,9 +3002,12 @@ def main(argv=None):
                          "the kernels phase and stop (no paths driven, no ok line)")
     ap.add_argument("--only", default=None,
                     help="comma-separated paths to drive after the kernels phase "
-                         "(generate, sample, serve, extract, knowledge, reason_filter), "
-                         "then stop without the ok line")
+                         "(generate, sample, serve, extract, knowledge, reason_filter, "
+                         "prep_twins, ddp, ddp_nccl), then stop without the ok line")
+    ap.add_argument("--ddp-worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.ddp_worker:
+        return ddp_worker()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -2584,7 +3036,13 @@ def main(argv=None):
                  "serve": lambda: run_serve(torch, dev, card),
                  "extract": lambda: run_extract(torch, dev, card),
                  "knowledge": lambda: run_knowledge(torch, dev, card),
-                 "reason_filter": lambda: run_reason_filter(torch, dev, card)}
+                 "reason_filter": lambda: run_reason_filter(torch, dev, card),
+                 "prep_twins": lambda: run_prep_twins(torch, dev, card,
+                                                      run_extract(torch, dev, card)),
+                 "ddp": lambda: run_ddp(torch, dev, card),
+                 # every card of the machine, one rank each over NCCL
+                 "ddp_nccl": lambda: run_ddp(torch, dev, card,
+                                             cards=torch.cuda.device_count())}
         for name in args.only.split(","):
             paths[name]()
         return
@@ -2602,8 +3060,12 @@ def main(argv=None):
     launches["beam_attention_ring"] = run_serve(torch, dev, card)["beam_attention_ring"]
     torch.cuda.empty_cache()
     extractor = run_extract(torch, dev, card)
+    run_prep_twins(torch, dev, card, extractor)
     run_knowledge(torch, dev, card)
     run_reason_filter(torch, dev, card, extractor)
+    del extractor
+    torch.cuda.empty_cache()
+    run_ddp(torch, dev, card)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     loaded = [m for m in sys.modules if m == "kmbart_tpu" or m.startswith("kmbart_tpu.")]

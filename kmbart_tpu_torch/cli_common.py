@@ -1,13 +1,13 @@
 """Shared CLI plumbing for the port's entry points.
 
-Counterpart of the parts of kmbart_tpu/cli_common.py that a one-device
-PyTorch run needs: the model/data path flags, the dropout overrides, the
-loader flags, ``--device`` (``--cpu`` is the JAX spelling of ``--device
-cpu``), ``--amp`` (a no-op, as there) and ``--debug_nans``, the model build
-(either model) with a checkpoint overlay, and the train checkpoint. The TPU
-mesh flags (model,
-sequence and pipeline parallelism, multihost, ZeRO-1, sharded checkpoints)
-have no counterpart yet.
+Counterpart of kmbart_tpu/cli_common.py: the model/data path flags, the
+dropout overrides, the loader flags, ``--device`` (``--cpu`` is the JAX
+spelling of ``--device cpu``), ``--amp`` (a no-op, as there) and
+``--debug_nans``, the model build (either model) with a checkpoint overlay,
+and the train checkpoint. The training CLIs also take ``--multihost`` (one
+process per card, parallel/distributed.py), ``--zero1`` (parallel/zero1.py)
+and ``--sharded_checkpoints`` (checkpoint/sharded.py); tensor, sequence and
+pipeline parallelism are not ported yet, and their flags are refused.
 """
 
 import argparse
@@ -65,6 +65,46 @@ def add_hardware_args(parser, train=False):
                             help='split each batch into this many micro-batches and '
                                  'accumulate gradients before the optimizer update '
                                  '(batch_size must be divisible by it)')
+        parser.add_argument('--multihost', action='store_true',
+                            help='multi-process data-parallel training: join the process '
+                                 'group that KMBART_COORDINATOR_ADDRESS, KMBART_NUM_PROCESSES '
+                                 'and KMBART_PROCESS_ID (or torchrun) describe, NCCL on cards '
+                                 'and gloo on the CPU, and shard data loading by process; '
+                                 '--batch_size is per process (replaces the reference\'s '
+                                 'NCCL rendezvous, src/utils.py:9-13)')
+        parser.add_argument('--zero1', action='store_true',
+                            help='ZeRO stage 1: shard the AdamW moments (2/3 of optimizer '
+                                 'memory) over the processes instead of replicating them; '
+                                 'params/grads stay plain DP (parallel/zero1.py)')
+        parser.add_argument('--sharded_checkpoints', action='store_true',
+                            help='save checkpoints as sharded state (torch.distributed.'
+                                 'checkpoint, the port\'s own format: each process writes '
+                                 'only what it owns). Default is the portable npz format.')
+        for flag, kind in _NOT_PORTED:
+            parser.add_argument(flag, default=None, **kind,
+                                help='not ported yet: tensor, sequence and pipeline '
+                                     'parallelism come in a later slice')
+
+
+# the JAX package's mesh flags with no counterpart yet, refused by
+# ``check_parallel_flags`` (kmbart_tpu/cli_common.py:49-75)
+_NOT_PORTED = (('--model_parallel', {'type': int}),
+               ('--sequence_parallel', {'action': 'store_const', 'const': True}),
+               ('--pipeline_stages', {'type': int}),
+               ('--pipeline_microbatches', {'type': int}),
+               ('--pipeline_span_processes', {'action': 'store_const', 'const': True}))
+
+
+def check_parallel_flags(parser, args):
+    """Refuse, through ``parser.error``, the mesh flags the port has no
+    counterpart for (a value that asks for nothing, such as
+    ``--model_parallel 1``, passes)."""
+    for flag, _ in _NOT_PORTED:
+        value = getattr(args, flag[2:], None)
+        if value is True or (value is not None and value > 1):
+            parser.error(f'{flag} is not supported by the PyTorch port yet: it trains '
+                         f'data parallel only (--multihost, --zero1); tensor, sequence '
+                         f'and pipeline parallelism come in a later slice')
 
 
 def add_pretraining_args(parser):
@@ -85,9 +125,13 @@ def add_pretraining_args(parser):
 def setup_device(args):
     """``--debug_nans`` turns on ``torch.autograd.set_detect_anomaly``, the
     counterpart of ``jax_debug_nans``; returns the device of ``--device``
-    (or ``--cpu``)."""
+    (or ``--cpu``), and with ``--multihost`` joins the process group first
+    (the device is then this rank's card)."""
     if getattr(args, 'debug_nans', False):
         torch.autograd.set_detect_anomaly(True)
+    if getattr(args, 'multihost', False):
+        from kmbart_tpu_torch.parallel.distributed import init_distributed
+        return init_distributed(args.device)
     return resolve_device(args.device)
 
 
@@ -116,9 +160,11 @@ def build_model_params(args, cfg, init_model_fn, device, logger=None):
     """``init_model_fn(cfg, seed=--seed)`` (``init_conditional_model`` or
     ``init_pretraining_model``) with the checkpoint's weights laid over it
     (partial-load aware; weights the checkpoint lacks keep their
-    initialisation), on ``device``."""
+    initialisation), on ``device``. A sharded checkpoint's weights are
+    read by ``make_train_state``."""
     from kmbart_tpu_torch.checkpoint.io import load_pretrained
-    if args.checkpoint:
+    from kmbart_tpu_torch.checkpoint.sharded import has_sharded_state
+    if args.checkpoint and not has_sharded_state(args.checkpoint):
         _, model, report = load_pretrained(args.checkpoint, config=cfg, device=device,
                                            seed=args.seed, init_model_fn=init_model_fn)
         if logger is not None:
@@ -128,8 +174,63 @@ def build_model_params(args, cfg, init_model_fn, device, logger=None):
     return init_model_fn(cfg, seed=args.seed, device=device)
 
 
-def save_train_checkpoint(path, cfg, state, epoch):
-    """config.json + params.npz + training_data.npz in the JAX layout."""
+def make_train_state(args, cfg, model, optimizer, device, heads=False, logger=None):
+    """(TrainState, first epoch, ZeRO-1 layout or None): the state of a
+    fresh run or, with ``--continue_training``, of the checkpoint (npz or
+    sharded, written by any number of processes); with ``--zero1`` the
+    moments are this rank's parts. A sharded checkpoint also gives the
+    weights."""
+    from kmbart_tpu_torch.checkpoint.io import load_training_data
+    from kmbart_tpu_torch.checkpoint.sharded import (has_sharded_state, load_params_into,
+                                                     load_sharded)
+    from kmbart_tpu_torch.parallel import distributed
+    from kmbart_tpu_torch.training.state import TrainState, model_tensors
+    zero1 = None
+    if getattr(args, 'zero1', False) and distributed.world_size() > 1:
+        from kmbart_tpu_torch.parallel.zero1 import Zero1
+        zero1 = Zero1(cfg, model_tensors(model), distributed.world_size(),
+                      distributed.rank(), heads=heads)
+    state = TrainState.create(model, optimizer)
+    epoch = 0
+    if args.checkpoint and has_sharded_state(args.checkpoint):
+        if logger is not None:
+            logger.info('Loading the sharded checkpoint at "{}"'.format(args.checkpoint))
+        loaded = load_sharded(args.checkpoint, device=device)
+        load_params_into(model, loaded['params'])
+        if args.continue_training:
+            state = state._replace(opt_state=loaded['opt_state'], step=loaded['step'])
+            epoch = loaded['epoch'] + 1
+    elif args.continue_training:
+        td = load_training_data(args.checkpoint, cfg, device=device)
+        epoch = td['epoch'] + 1
+        if td['opt_state'] is not None:
+            state = state._replace(opt_state=td['opt_state'], step=int(td['step'] or 0))
+    if zero1 is not None:
+        state = state._replace(opt_state=zero1.shard_state(state.opt_state))
+    return state, epoch, zero1
+
+
+def save_train_checkpoint(path, cfg, state, epoch, args=None, zero1=None):
+    """Default: config.json + params.npz + training_data.npz in the JAX
+    layout, written by rank 0 (ZeRO-1 moments are gathered first, a
+    collective every rank joins). With ``--sharded_checkpoints``:
+    config.json + ``sharded_state/``, each rank writing what it owns
+    (checkpoint/sharded.py)."""
     from kmbart_tpu_torch.checkpoint.io import save_pretrained, save_training_data
-    save_pretrained(path, cfg, state.params)
-    save_training_data(path, cfg, opt_state=state.opt_state, epoch=epoch, step=state.step)
+    from kmbart_tpu_torch.parallel import distributed
+    from kmbart_tpu_torch.training.state import model_tensors
+    main = distributed.is_main_process()
+    if getattr(args, 'sharded_checkpoints', False):
+        from kmbart_tpu_torch.checkpoint.sharded import save_sharded
+        os.makedirs(path, exist_ok=True)
+        if main:
+            cfg.save_json(os.path.join(path, 'config.json'))
+        save_sharded(path, state, epoch, zero1=zero1)
+        return
+    opt_state = state.opt_state
+    if zero1 is not None:
+        opt_state = zero1.full_state(opt_state, model_tensors(state.params))
+    if main:
+        save_pretrained(path, cfg, state.params)
+        save_training_data(path, cfg, opt_state=opt_state, epoch=epoch, step=state.step)
+    distributed.barrier()

@@ -31,6 +31,12 @@ from kmbart_tpu_torch.ops.vocab_stats import chunk_stats, logsumexp_from_stats
 
 NEG_1E9 = -1e9
 
+# A hook for holding one decode to another: when a list, each step of the
+# fast selection path appends its candidates and every row's top-2K scores,
+# and the finalisation the hypotheses' scores, on the host. None (the
+# default) records nothing and adds no host sync.
+STEP_TRACE = None
+
 
 def _merge_pool(hyp, cand_scores, cand_tokens, cand_lens, K):
     """Keep the best K of (pool ∪ candidates); -inf score = no candidate.
@@ -52,11 +58,12 @@ def _merge_pool(hyp, cand_scores, cand_tokens, cand_lens, K):
     return new_tokens, new_lens, top_scores, new_count, new_worst
 
 
-def fast_candidates(logits, beam_scores, K):
+def fast_candidates(logits, beam_scores, K, trace=None):
     """The top-2K candidates of [B, K·V] normalised scores, chosen on the
     raw logits [B·K, V] (inert postprocessors, no sampling): each beam's
     top-2K, normalised with K4's logsumexp, then merged in flat-index
-    order. Returns (scores [B, 2K], flat indices [B, 2K])."""
+    order. Returns (scores [B, 2K], flat indices [B, 2K]); ``trace``, a
+    list, gets the step's numbers (STEP_TRACE)."""
     BK, V = logits.shape
     B = BK // K
     cm, es = chunk_stats(logits.contiguous())
@@ -66,7 +73,12 @@ def fast_candidates(logits, beam_scores, K):
     beam_base = (torch.arange(K, device=logits.device) * V)[None, :, None]
     flat_idx = (row_idx.reshape(B, K, 2 * K) + beam_base).reshape(B, 2 * K * K)
     cand_scores, pos = exact_top_k(norm.reshape(B, 2 * K * K), 2 * K)
-    return cand_scores, torch.gather(flat_idx, 1, pos)
+    cand_idx = torch.gather(flat_idx, 1, pos)
+    if trace is not None:
+        trace.append({"cand_scores": cand_scores.cpu(), "cand_idx": cand_idx.cpu(),
+                      "row_scores": norm.reshape(B, 2 * K * K).cpu(),
+                      "row_idx": flat_idx.cpu()})
+    return cand_scores, cand_idx
 
 
 def beam_front(cand_scores, cand_tok, cand_beam, is_eos, K):
@@ -198,7 +210,7 @@ def beam_search_loop(model, cfg, enc_hidden, enc_mask, generator=None, *, batch_
                 no_repeat_ngram_size=no_repeat_ngram_size, bad_words_ids=bad_words_ids,
                 min_length=min_length, eos_token_id=eos_token_id)
         if fast_select:
-            cand_scores, cand_idx = fast_candidates(logits, beam_scores, K)
+            cand_scores, cand_idx = fast_candidates(logits, beam_scores, K, trace=STEP_TRACE)
         elif do_sample:
             cand_scores, cand_idx = _sample_candidates(
                 logits, scores, beam_scores, generator, K=K, top_k=top_k, top_p=top_p,
@@ -251,6 +263,8 @@ def beam_search_loop(model, cfg, enc_hidden, enc_mask, generator=None, *, batch_
     final_lens = torch.where(~done[:, None], cur_len, 0).expand(B, K)
     hyp = _merge_pool(hyp, final_scores, tokens.reshape(B, K, L), final_lens, K)
     hyp_tokens, hyp_lens = hyp[0], hyp[1]
+    if STEP_TRACE is not None:
+        STEP_TRACE.append({"final_scores": hyp[2].cpu()})
 
     R = num_return_sequences
     out = hyp_tokens[:, :R].reshape(B * R, L)

@@ -6,7 +6,9 @@ head, the ignore-index cross-entropy with its hand-written gradient,
 (ops/lm_ce.py) where they apply and the composite ``lm_logits`` +
 ``cross_entropy_ignore_index`` otherwise, and the masked-mean losses of the
 pretraining heads (KL "batchmean" over the masked regions, CE over the
-present attribute and relation labels).
+present attribute and relation labels). Each mean divides by
+``global_count`` of its count: under data parallelism the count over every
+rank's rows, as the JAX package's mean over the global batch does.
 """
 
 import torch
@@ -14,6 +16,7 @@ from torch import nn
 
 from kmbart_tpu_torch.ops import lm_ce
 from kmbart_tpu_torch.ops.layers import dense, dropout
+from kmbart_tpu_torch.parallel.distributed import global_count
 
 
 class BartClassificationHead(nn.Module):
@@ -66,7 +69,7 @@ def cross_entropy_ignore_index(logits, labels, ignore_index=-100):
     their count. Statistics are fp32 whatever the logits dtype."""
     valid = labels != ignore_index
     safe = torch.where(valid, labels, 0).long()
-    n = valid.sum()
+    n = global_count(valid.sum())
     return _MaskedNllSum.apply(logits, safe, valid) / n.clamp(min=1), n
 
 
@@ -95,7 +98,7 @@ def masked_kl_div_batchmean(log_probs, soft_labels, mask):
     log_t = torch.log(torch.where(present, t, 1.0))
     pointwise = torch.where(present, t * (log_t - log_probs), 0.0)
     per_row = pointwise.sum(dim=-1)
-    n = mask.sum()
+    n = global_count(mask.sum())
     return torch.where(mask, per_row, 0.0).sum() / n.clamp(min=1), n
 
 
@@ -105,5 +108,5 @@ def masked_cross_entropy(logits, labels, mask):
     logp = torch.log_softmax(logits.float(), dim=-1)
     safe = torch.where(mask, labels, 0).long()
     nll = -logp.gather(-1, safe[..., None])[..., 0]
-    n = mask.sum()
+    n = global_count(mask.sum())
     return torch.where(mask, nll, 0.0).sum() / n.clamp(min=1), n

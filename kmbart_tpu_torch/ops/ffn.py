@@ -82,27 +82,42 @@ class GemmPlan(NamedTuple):
     ctas: int
 
 
-def gemm_plan(rows, cols, depth, sms, split):
+# An inference forward walks the second GEMM's depth in parts of this many
+# K_TILE slices at every row count, so a row's bits do not depend on the batch
+# it shares (a split chosen from the row count would change the order of the
+# fp32 sums between a 32-sample and a 112-sample decode step).
+INFERENCE_KPER = 8
+
+
+def gemm_plan(rows, cols, depth, sms, split, kper=None):
+    """``split``: split the depth walk when the output tiles alone would
+    leave SMs idle; ``kper``: walk it in parts of ``kper`` slices whatever
+    the row count (overrides ``split``)."""
     row_tiles, col_tiles = -(-rows // ROW_TILE), -(-cols // COL_TILE)
     ksteps = -(-depth // K_TILE)
-    kper = ksteps
-    if split:
-        # split the depth walk when the output tiles alone would leave SMs idle
-        want = max(1, min(ksteps, sms // (row_tiles * col_tiles)))
-        kper = -(-ksteps // want)
+    if kper is not None:
+        kper = min(kper, ksteps)
+    else:
+        kper = ksteps
+        if split:
+            want = max(1, min(ksteps, sms // (row_tiles * col_tiles)))
+            kper = -(-ksteps // want)
     splits = -(-ksteps // kper)
     return GemmPlan(rows, cols, depth, row_tiles, col_tiles, splits, kper,
                     min(sms, row_tiles * col_tiles * splits))
 
 
-def plan(n, d, f, sms):
+def plan(n, d, f, sms, invariant=False):
     """The launch plan of one call at N rows, D and F widths, on a card with
     ``sms`` SMs (one persistent block each): (first GEMM, second GEMM). The
     first (x @ W1ᵀ or g @ W2, [N, F] over depth D) feeds a nonlinear epilogue
-    and never splits; the second (h @ W2ᵀ or da @ W1, [N, D] over depth F)
-    splits its depth walk into fp32 partials when its tiles alone would
-    leave SMs idle."""
-    return gemm_plan(n, f, d, sms, False), gemm_plan(n, d, f, sms, True)
+    and never splits. The second (h @ W2ᵀ or da @ W1, [N, D] over depth F)
+    splits its depth walk into fp32 partials: with ``invariant`` (an
+    inference forward) in parts of INFERENCE_KPER slices at any N, else
+    when its tiles alone would leave SMs idle (training, where N is the
+    same every step and large)."""
+    return gemm_plan(n, f, d, sms, False), gemm_plan(
+        n, d, f, sms, True, kper=INFERENCE_KPER if invariant else None)
 
 
 _SM_COUNTS = {}
@@ -126,10 +141,10 @@ def check_aligned(name, *tensors):
             raise ValueError(f"{name}: kernel takes 16-byte aligned tensors")
 
 
-def _launch_args(dev, N, D, F):
+def _launch_args(dev, N, D, F, invariant=False):
     """The plan's scalars for the C entry points, and the partial-sum
     scratch of the second GEMM when it splits."""
-    first, second = plan(N, D, F, sm_count(dev))
+    first, second = plan(N, D, F, sm_count(dev), invariant)
     partial = (torch.empty((second.splits, N, D), dtype=torch.float32, device=dev)
                if second.splits > 1 else None)
     return partial, (first.ctas, second.ctas, second.splits, second.kper)
@@ -157,7 +172,9 @@ def fused_ffn(x, w1, b1, w2, b2, with_a=False):
     a = torch.empty((N, F), dtype=torch.bfloat16, device=dev) if with_a else None
     if N > 0:
         h = torch.empty((N, F), dtype=torch.bfloat16, device=dev)
-        partial, plan_args = _launch_args(dev, N, D, F)
+        # a call without ``a`` is an inference forward: its split is the
+        # same at every N; the training forward keeps the adaptive one
+        partial, plan_args = _launch_args(dev, N, D, F, invariant=not with_a)
         check_aligned("fused_ffn", xf, w1, b1, w2, b2, y, h, partial, a)
         lib, stream = _cuda.prepare(dev)
         _cuda.check(lib.kmb_ffn_fwd(

@@ -45,6 +45,7 @@ import torch
 
 from kmbart_tpu_torch.ops import _cuda
 from kmbart_tpu_torch.ops.ffn import check_aligned, gemm_plan, sm_count
+from kmbart_tpu_torch.parallel.distributed import global_count
 from kmbart_tpu_torch.ops.layers import mm_f32
 
 MIN_VOCAB = 1024   # pallas_lm_ce.DEFAULT_TILE_V: the JAX gate's vocab floor
@@ -369,7 +370,8 @@ def fused_lm_ce(hidden, shared, final_logits_bias, labels, *, ignore_index=-100,
     [..., D]; shared [V, D] (the fp32 tied embedding); final_logits_bias
     [V] or [1, V] (no gradient); labels [...]. ``mode`` and ``recompute``
     as ``resolve_mode`` reads them. Returns (mean loss over the valid
-    positions, their count), as the composite path does."""
+    positions, their count), as the composite path does; the count is
+    ``global_count``'s."""
     mode = resolve_mode(mode, recompute)
     d = hidden.shape[-1]
     h2 = hidden.reshape(-1, d).to(dtype).contiguous()
@@ -379,5 +381,5 @@ def fused_lm_ce(hidden, shared, final_logits_bias, labels, *, ignore_index=-100,
     safe = torch.where(valid, labels2, 0).to(torch.int32).contiguous()
     fbias = final_logits_bias.detach().reshape(-1).float().contiguous()
     nll = _FusedNll.apply(h2, w_b, fbias, safe, valid, mode)
-    cnt = valid.sum()
+    cnt = global_count(valid.sum())
     return nll / cnt.clamp(min=1), cnt

@@ -1,0 +1,188 @@
+"""Multi-process data parallelism: the rendezvous, the rank helpers and the
+collectives of the data-parallel step.
+
+Counterpart of the ``--multihost`` branch of kmbart_tpu/cli_common.py
+(:111-125) and of its ``is_main_process``, ``sync_timestamp`` and
+``data_feed``. The JAX package runs one pjit program over the global batch;
+the port runs one process per card, each on its own rows, and makes the
+step's arithmetic global by hand:
+
+- every masked mean divides its local sum by the count over all ranks
+  (``global_count`` inside ``global_counts()``), so the per-rank losses add
+  up to the loss of the global batch;
+- the gradients are summed over the ranks (``all_reduce_sum``, in a few
+  flat buckets), which then gives the global batch's gradient.
+
+The rendezvous reads ``KMBART_COORDINATOR_ADDRESS`` (host:port),
+``KMBART_NUM_PROCESSES`` and ``KMBART_PROCESS_ID`` first, as the JAX
+package does, and otherwise torchrun's ``MASTER_ADDR``/``MASTER_PORT``,
+``RANK`` and ``WORLD_SIZE``. The backend follows the device: NCCL for a
+CUDA device, each rank on ``cuda:{LOCAL_RANK}`` (default: its rank modulo
+the visible cards), and gloo on the CPU. A process feeds one device, so a
+per-process batch splits no further (the JAX ``local_batch_divisor`` is 1).
+"""
+
+import contextlib
+import os
+
+import torch
+import torch.distributed as dist
+
+BUCKET_ELEMS = 1 << 25     # 128 MiB of fp32 per flat all-reduce
+
+
+def init_distributed(device="cuda", backend=None):
+    """Join the process group; returns this rank's torch.device. ``device``
+    is ``--device``: "cpu" takes gloo, "cuda" NCCL on ``cuda:{LOCAL_RANK}``,
+    an explicit "cuda:N" NCCL on that card. ``backend`` overrides the
+    choice (gloo on cards: several ranks sharing one card, which NCCL
+    refuses)."""
+    addr = os.environ.get("KMBART_COORDINATOR_ADDRESS")
+    if addr:
+        world = int(os.environ["KMBART_NUM_PROCESSES"])
+        rank = int(os.environ["KMBART_PROCESS_ID"])
+        init_method = f"tcp://{addr}"
+    elif "MASTER_ADDR" in os.environ:
+        world = int(os.environ["WORLD_SIZE"])
+        rank = int(os.environ["RANK"])
+        init_method = "env://"
+    else:
+        raise ValueError("--multihost needs KMBART_COORDINATOR_ADDRESS, KMBART_NUM_PROCESSES "
+                         "and KMBART_PROCESS_ID, or torchrun's MASTER_ADDR, MASTER_PORT, "
+                         "RANK and WORLD_SIZE")
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("--device cuda, but torch.cuda.is_available() is False")
+        if dev.index is None:
+            local = os.environ.get("LOCAL_RANK")
+            local = int(local) if local is not None else rank % torch.cuda.device_count()
+            dev = torch.device("cuda", local)
+        torch.cuda.set_device(dev)
+    elif dev.type != "cpu":
+        raise ValueError(f"--multihost runs on cuda or cpu, not {device!r}")
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+    kwargs = {"device_id": dev} if backend == "nccl" else {}
+    dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank,
+                            **kwargs)
+    return dev
+
+
+def shutdown():
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def world_size():
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def rank():
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def is_main_process():
+    return rank() == 0
+
+
+def data_feed():
+    """(num_replicas, rank) for ShardedSampler: the slice of the global
+    index stream this process loads."""
+    return world_size(), rank()
+
+
+def sync_timestamp(timestamp):
+    """Rank 0's run timestamp on every rank, so the job writes one
+    checkpoint and log directory."""
+    if world_size() == 1:
+        return timestamp
+    box = [timestamp]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def barrier():
+    if world_size() > 1:
+        dist.barrier()
+
+
+_GLOBAL_COUNTS = [False]
+
+
+@contextlib.contextmanager
+def global_counts(enabled=True):
+    """Within the block, ``global_count`` sums counts over the ranks."""
+    prev = _GLOBAL_COUNTS[0]
+    _GLOBAL_COUNTS[0] = enabled and world_size() > 1
+    try:
+        yield
+    finally:
+        _GLOBAL_COUNTS[0] = prev
+
+
+def _all_reduce(t):
+    """Sum ``t`` over the ranks in place. Gloo takes CUDA tensors through a
+    host copy (several ranks on one card rendezvous over gloo, since NCCL
+    refuses them)."""
+    if t.is_cuda and dist.get_backend() == "gloo":
+        host = t.cpu()
+        dist.all_reduce(host)
+        t.copy_(host)
+    else:
+        dist.all_reduce(t)
+
+
+def global_count(n):
+    """The count a masked mean divides by: ``n`` itself, or inside
+    ``global_counts()`` its sum over every rank (one all-reduce; exact for
+    counts below 2^24)."""
+    if not _GLOBAL_COUNTS[0]:
+        return n
+    total = n.detach().to(torch.float32).reshape(1).clone()
+    _all_reduce(total)
+    return total.reshape(()).to(n.dtype)
+
+
+def _buckets(tensors, limit):
+    bucket, size = [], 0
+    for t in tensors:
+        if bucket and size + t.numel() > limit:
+            yield bucket
+            bucket, size = [], 0
+        bucket.append(t)
+        size += t.numel()
+    if bucket:
+        yield bucket
+
+
+def all_reduce_sum(tensors, bucket_elems=BUCKET_ELEMS):
+    """Sum each tensor (all of one dtype) over the ranks in place, in flat
+    buckets of at most ``bucket_elems`` elements: one all-reduce a bucket."""
+    if world_size() == 1:
+        return
+    for bucket in _buckets(tensors, bucket_elems):
+        flat = torch.cat([t.reshape(-1) for t in bucket])
+        _all_reduce(flat)
+        for t, part in zip(bucket, flat.split([t.numel() for t in bucket])):
+            t.copy_(part.view_as(t))
+
+
+def all_gather_flat(local):
+    """[world, n]: every rank's 1-D ``local`` (all of length n), exactly.
+    NCCL gathers in one call; gloo takes one broadcast per rank, through a
+    host copy for CUDA tensors."""
+    world = world_size()
+    out = torch.empty((world, local.numel()), dtype=local.dtype, device=local.device)
+    if world == 1:
+        out[0].copy_(local)
+        return out
+    if dist.get_backend() == "nccl":
+        dist.all_gather_into_tensor(out, local.contiguous())
+        return out
+    host = out.cpu()
+    host[rank()].copy_(local)
+    for r in range(world):
+        dist.broadcast(host[r], src=r)
+    out.copy_(host)
+    return out

@@ -1,30 +1,43 @@
 """Train and eval steps.
 
-Counterpart of kmbart_tpu/parallel/train_step.py for one device: no mesh
-arguments (DDP is later work). Eager PyTorch has no jit; a step is a
-forward, a backward and the AdamW update, queued on the device without a
-host sync.
+Counterpart of kmbart_tpu/parallel/train_step.py. Eager PyTorch has no jit;
+a step is a forward, a backward and the AdamW update, queued on the device
+without a host sync.
 
 ``grad_accum_steps`` G splits dim 0 of the batch into G micro-batches,
 each with its own dropout generator, and averages their gradients before
 the one update. The non-finite guard drops an update whose loss or any
 gradient is not finite and sets ``metrics["skipped"]``. Each step's
-dropout generator is seeded from (seed, state.step[, micro-batch]): the
-counterpart of ``fold_in(rng, state.step)``, so a resumed run draws what
+dropout generator is seeded from (seed, state.step[, micro-batch][, rank]):
+the counterpart of ``fold_in(rng, state.step)``, so a resumed run draws what
 an uninterrupted one would have.
+
+With ``data_parallel`` the process is one rank of a multi-process job
+(parallel/distributed.py) and the step computes what the JAX package's
+pjit step computes over the global batch, the ranks' batches side by side:
+each masked mean divides by its count over all ranks, the gradients and the
+loss terms are summed over the ranks (in a few flat all-reduces), and the
+guard then reads the summed values, so every rank skips the same steps.
+Under grad accumulation rank r's micro-batch i is its own rows
+``[i·B/G, (i+1)·B/G)``, normalised by micro-batch i's count over all ranks;
+the JAX package cuts the global batch into G contiguous blocks instead, so
+the two group rows differently when G > 1 (ROADMAP.md, known differences).
+``zero1`` (parallel/zero1.py) shards the AdamW moments over the ranks.
 """
 
 import torch
 
+from kmbart_tpu_torch.parallel import distributed
 from kmbart_tpu_torch.training.state import TrainState, model_tensors
 
 _MASK = (1 << 63) - 1
 
 
-def step_seed(seed, step, micro=0):
-    """A 63-bit generator seed for (seed, step, micro-batch) (splitmix64
-    finaliser: neighbouring steps get unrelated streams)."""
-    z = (seed * 0x9E3779B97F4A7C15 + step * 0xBF58476D1CE4E5B9 + micro + 1) & ((1 << 64) - 1)
+def step_seed(seed, step, micro=0, rank=0):
+    """A 63-bit generator seed for (seed, step, micro-batch, rank)
+    (splitmix64 finaliser: neighbouring steps get unrelated streams)."""
+    z = (seed * 0x9E3779B97F4A7C15 + step * 0xBF58476D1CE4E5B9 + micro + 1
+         + rank * 0xD1B54A32D192ED03) & ((1 << 64) - 1)
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & ((1 << 64) - 1)
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & ((1 << 64) - 1)
     return (z ^ (z >> 31)) & _MASK
@@ -35,8 +48,20 @@ def _split(batch, G):
             for i in range(G)]
 
 
-def build_train_step(loss_fn, optimizer, skip_nonfinite=True, grad_accum_steps=1):
-    """loss_fn(model, batch, generator) -> (loss, metrics dict of scalars).
+def _sum_over_ranks(loss, metrics):
+    """The loss and each metric summed over the ranks (one all-reduce)."""
+    keys = list(metrics)
+    stats = torch.stack([torch.as_tensor(loss).float().reshape(())] +
+                        [torch.as_tensor(metrics[k]).float().reshape(()) for k in keys])
+    distributed.all_reduce_sum([stats])
+    return stats[0], dict(zip(keys, stats[1:]))
+
+
+def build_train_step(loss_fn, optimizer, skip_nonfinite=True, grad_accum_steps=1,
+                     data_parallel=False, zero1=None):
+    """loss_fn(model, batch, generator) -> (loss, metrics dict of scalars);
+    under ``data_parallel`` the metrics are parts of the loss (each rank's
+    share of a global mean), summed over the ranks like it.
 
     Returns step(state, batch, seed) -> (state, metrics); metrics stay
     device tensors (read them at the logging cadence)."""
@@ -46,20 +71,28 @@ def build_train_step(loss_fn, optimizer, skip_nonfinite=True, grad_accum_steps=1
         model = state.params
         tensors = model_tensors(model)
         device = next(iter(tensors.values())).device
+        rank = distributed.rank() if data_parallel else 0
         model.zero_grad(set_to_none=True)
         micro = [batch] if G == 1 else _split(batch, G)
         losses, per_micro = [], []
-        for i, mb in enumerate(micro):
-            gen = torch.Generator(device=device).manual_seed(step_seed(seed, state.step, i))
-            loss, metrics = loss_fn(model, mb, gen)
-            loss.backward()
-            losses.append(loss.detach())
-            per_micro.append(metrics)
+        with distributed.global_counts(data_parallel):
+            for i, mb in enumerate(micro):
+                gen = torch.Generator(device=device).manual_seed(
+                    step_seed(seed, state.step, i, rank))
+                loss, metrics = loss_fn(model, mb, gen)
+                loss.backward()
+                losses.append(loss.detach())
+                per_micro.append(metrics)
         grads = {n: None if t.grad is None else (t.grad if G == 1 else t.grad / G)
                  for n, t in tensors.items()}
         loss = losses[0] if G == 1 else sum(losses) / G
         metrics = {k: torch.stack([torch.as_tensor(m[k]).detach() for m in per_micro])
                    .float().mean() for k in per_micro[0]}
+        if data_parallel:
+            grads = {n: torch.zeros_like(t, dtype=torch.float32) if g is None else g
+                     for (n, t), g in zip(tensors.items(), grads.values())}
+            distributed.all_reduce_sum(list(grads.values()))
+            loss, metrics = _sum_over_ranks(loss, metrics)
         ok = None
         if skip_nonfinite:
             finite = [torch.isfinite(loss).reshape(())]
@@ -67,7 +100,10 @@ def build_train_step(loss_fn, optimizer, skip_nonfinite=True, grad_accum_steps=1
             ok = torch.stack(finite).all()
             metrics["skipped"] = 1.0 - ok.float()
         # the guard is fused into the optimizer's update (adamw.py ``ok``)
-        opt_state = optimizer.update(grads, state.opt_state, tensors, ok=ok)
+        if zero1 is not None:
+            opt_state = zero1.update(optimizer, grads, state.opt_state, tensors, ok=ok)
+        else:
+            opt_state = optimizer.update(grads, state.opt_state, tensors, ok=ok)
         model.zero_grad(set_to_none=True)
         metrics["loss"] = loss
         return TrainState(params=model, opt_state=opt_state, step=state.step + 1), metrics
@@ -75,14 +111,19 @@ def build_train_step(loss_fn, optimizer, skip_nonfinite=True, grad_accum_steps=1
     return step
 
 
-def build_eval_step(loss_fn):
+def build_eval_step(loss_fn, data_parallel=False):
     """loss_fn(model, batch, generator) -> (loss, metrics); returns
-    step(model, batch) -> metrics, without gradients or dropout."""
+    step(model, batch) -> metrics, without gradients or dropout. Under
+    ``data_parallel`` the loss and metrics are the global batch's, on every
+    rank."""
 
     @torch.no_grad()
     def step(model, batch):
-        loss, metrics = loss_fn(model, batch, None)
+        with distributed.global_counts(data_parallel):
+            loss, metrics = loss_fn(model, batch, None)
         metrics = dict(metrics)
+        if data_parallel:
+            loss, metrics = _sum_over_ranks(loss, metrics)
         metrics["loss"] = loss
         return metrics
 

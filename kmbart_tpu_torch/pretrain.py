@@ -5,11 +5,12 @@ attribute/relation pretraining of the pretraining model, per-epoch
 ``model{N}/`` checkpoints (optionally every ``--save_every_steps`` steps
 too), a teacher-forced sample decode every 100 steps, and TensorBoard
 scalars with the head losses. It takes the same flags, with ``--device``
-(default ``cuda``; ``--cpu`` is ``--device cpu``); the TPU mesh flags (model,
-sequence and pipeline parallelism, multihost, ZeRO-1, sharded checkpoints)
-are not accepted. Checkpoints are in the JAX package's format, so either
-package resumes the other's, and a pretraining checkpoint loads into the
-fine-tune model (``vcg_train --checkpoint``) with the heads dropped.
+(default ``cuda``; ``--cpu`` is ``--device cpu``), and ``--multihost``,
+``--zero1`` and ``--sharded_checkpoints`` as ``vcg_train`` takes them; the
+tensor, sequence and pipeline parallelism flags are refused. Checkpoints
+are in the JAX package's format, so either package resumes the other's, and
+a pretraining checkpoint loads into the fine-tune model (``vcg_train
+--checkpoint``) with the heads dropped.
 """
 
 import argparse
@@ -24,16 +25,17 @@ from kmbart_tpu_torch.data.datasets import (CCDataset, COCODataset, ConcatDatase
 from kmbart_tpu_torch.data.loader import DataLoader, ShardedSampler
 from kmbart_tpu_torch.data.tokenization import ConditionTokenizer
 from kmbart_tpu_torch.utils.logger import Logger
-from kmbart_tpu_torch.checkpoint.io import jax_leaf_groups, load_training_data
+from kmbart_tpu_torch.checkpoint.io import jax_leaf_groups
 from kmbart_tpu_torch.cli_common import (add_common_model_args, add_dropout_args,
                                          add_hardware_args, add_pretraining_args,
-                                         build_model_params, load_model_config,
+                                         build_model_params, check_parallel_flags,
+                                         load_model_config, make_train_state,
                                          save_train_checkpoint, setup_device)
 from kmbart_tpu_torch.models.pretraining import (forward_logits, init_pretraining_model,
                                                  pretraining_loss)
+from kmbart_tpu_torch.parallel import distributed
 from kmbart_tpu_torch.parallel.train_step import build_train_step
 from kmbart_tpu_torch.training.adamw import AdamW
-from kmbart_tpu_torch.training.state import TrainState
 from kmbart_tpu_torch.training.trainer import run_epoch, to_device
 
 DATASET_NAMES = (
@@ -83,19 +85,22 @@ def main(args):
     if args.batch_size % args.grad_accum_steps:
         raise ValueError(f'batch_size={args.batch_size} must be divisible by '
                          f'grad_accum_steps={args.grad_accum_steps}')
-    timestamp = datetime.now().strftime("%Y-%m-%d-%H-%M-%S")
+    is_main = distributed.is_main_process()
+    timestamp = distributed.sync_timestamp(datetime.now().strftime("%Y-%m-%d-%H-%M-%S"))
     checkpoint_path = os.path.join(args.checkpoint_dir, timestamp)
     tb_writer = None
     log_dir = os.path.join(args.log_dir, timestamp) if args.log_dir else None
-    if log_dir is not None:
+    if log_dir is not None and is_main:
         os.makedirs(log_dir, exist_ok=True)
         from kmbart_tpu_torch.utils.tb import SummaryWriter
         tb_writer = SummaryWriter(log_dir=log_dir)
-    logger = Logger(log_file=os.path.join(log_dir, 'log.txt') if log_dir else None)
+    logger = Logger(log_file=os.path.join(log_dir, 'log.txt') if (log_dir and is_main) else None,
+                    enabled=is_main)
 
     os.makedirs(checkpoint_path, exist_ok=True)
     logger.info('Made checkpoint directory: "{}"'.format(checkpoint_path))
-    logger.info('Running on {}'.format(device), pad=True)
+    logger.info('Running on {} ({} process(es))'.format(device, distributed.world_size()),
+                pad=True)
     for k, v in vars(args).items():
         logger.info('{}: {}'.format(k, v))
 
@@ -104,14 +109,9 @@ def main(args):
     cfg = load_model_config(args)
     model = build_model_params(args, cfg, init_pretraining_model, device, logger)
     optimizer = AdamW(lr=args.lr, groups=jax_leaf_groups(cfg, heads=True))
-    state = TrainState.create(model, optimizer)
-
-    epoch = 0
-    if args.continue_training:
-        td = load_training_data(args.checkpoint, cfg, device=device)
-        epoch = td['epoch'] + 1
-        if td['opt_state'] is not None:
-            state = state._replace(opt_state=td['opt_state'], step=int(td['step'] or 0))
+    state, epoch, zero1 = make_train_state(args, cfg, model, optimizer, device, heads=True,
+                                           logger=logger)
+    replicas, rank = distributed.data_feed()
 
     logger.info('Loading data...')
     collate_fn = Collator(
@@ -123,21 +123,23 @@ def main(args):
     train_dataset = build_datasets(args)
     train_loader = DataLoader(
         train_dataset, batch_size=args.batch_size, collate_fn=collate_fn,
-        sampler=ShardedSampler(len(train_dataset), shuffle=True, seed=args.seed),
+        sampler=ShardedSampler(len(train_dataset), num_replicas=replicas, rank=rank,
+                               shuffle=True, seed=args.seed),
         num_workers=args.num_workers, drop_last=True)
 
     def loss_fn(m, b, generator):
         loss, aux = pretraining_loss(m, cfg, b, train=True, generator=generator)
         return loss, {k: v for k, v in aux['losses'].items() if k != 'loss'}
 
-    train_step = build_train_step(loss_fn, optimizer, grad_accum_steps=args.grad_accum_steps)
+    train_step = build_train_step(loss_fn, optimizer, grad_accum_steps=args.grad_accum_steps,
+                                  data_parallel=distributed.world_size() > 1, zero1=zero1)
 
     def callback(step, epoch, state, logger, **kwargs):
         if args.save_every_steps and (step + 1) % args.save_every_steps == 0:
             path = os.path.join(checkpoint_path, 'step{}'.format(state.step))
-            save_train_checkpoint(path, cfg, state, epoch)
+            save_train_checkpoint(path, cfg, state, epoch, args, zero1)
             logger.info('Saved mid-epoch checkpoint at "{}"'.format(path))
-        if step % 100 == 0:
+        if step % 100 == 0 and is_main:
             data = collate_fn([train_dataset[0]])
             logits = forward_logits(state.params, cfg, to_device(data, device))
             event_ids = np.array(data['input_ids'][0])
@@ -160,10 +162,13 @@ def main(args):
                              callback=callback, log_interval=1, tb_writer=tb_writer,
                              tb_interval=1)
         current = os.path.join(checkpoint_path, 'model{}'.format(epoch))
-        save_train_checkpoint(current, cfg, state, epoch)
+        save_train_checkpoint(current, cfg, state, epoch, args, zero1)
         logger.info('Saved checkpoint at "{}"'.format(checkpoint_path))
         epoch += 1
     logger.info('Training complete in: ' + str(datetime.now() - start), pad=True)
+    distributed.barrier()
+    if args.multihost:
+        distributed.shutdown()
     return checkpoint_path
 
 
@@ -189,7 +194,7 @@ def parse_args(argv=None):
     add_hardware_args(parser, train=True)
     parser.set_defaults(use_event=True, use_image=True)
     args = parser.parse_args(argv)
-
+    check_parallel_flags(parser, args)
     if args.checkpoint is None and args.model_config is None:
         raise ValueError('--model_config and --checkpoint cannot be empty at the same time')
     names = [k for k, _ in args.dataset]

@@ -2,10 +2,11 @@
 
 Twin of scripts/prep_common.py: the shard-strided per-image feature loop
 that writes one pickle per image, the extractor build (a detectron2-schema
-config and detector weights), the SBU/CC caption cleaning, and the CLI
-flags. One process drives the card's extractor; hosts split the data with
-``--num_shards/--shard`` (the reference's ``data[rank::gpu_num]``). The
-image download of the root module needs the network and is left out.
+config and detector weights), the SBU/CC caption cleaning, the download
+and corrupt-image helpers, and the CLI flags. One process drives the card's
+extractor; hosts split the data with ``--num_shards/--shard`` (the
+reference's ``data[rank::gpu_num]``). ``read_image`` is the one place an
+image file is decoded: OpenCV where it is installed, else PIL.
 """
 
 import json
@@ -15,6 +16,7 @@ import re
 import sys
 from datetime import datetime
 
+import numpy as np
 import torch
 
 
@@ -33,6 +35,68 @@ def clean_caption(cap, strip_at=False):
         new_cap = new_cap.split("@")[0]
     new_cap = re.sub(r"[^\S\n\t]+", " ", new_cap)    # redundant spacing
     return new_cap.strip()
+
+
+def read_image(path):
+    """The image at ``path`` as cv2.imread gives it: a BGR ``uint8`` [H, W, 3]
+    array, or None when the file is missing or cannot be decoded. Uses
+    OpenCV when it is importable, else PIL (converted to the same layout);
+    raises ImportError when neither is installed."""
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is not None:
+        return cv2.imread(path)
+    try:
+        from PIL import Image
+    except ImportError:
+        raise ImportError("read_image needs OpenCV (cv2) or PIL (Pillow); "
+                          "neither is installed") from None
+    if not os.path.isfile(path):
+        return None
+    try:
+        with Image.open(path) as img:
+            rgb = np.asarray(img.convert("RGB"))
+    except (OSError, ValueError, SyntaxError):
+        return None
+    return np.ascontiguousarray(rgb[..., ::-1])
+
+
+def delete_invalid(index, path):
+    """Remove a corrupt download ``{path}/{index}.jpg`` (scripts/prep_common.py:35,
+    the reference's scripts/prepare_sbu.py:37-47): one PIL cannot verify,
+    or 10 pixels or less on a side."""
+    from PIL import Image
+    image_dir = os.path.join(path, str(index) + ".jpg")
+    if not os.path.isfile(image_dir):
+        return
+    try:
+        img = Image.open(image_dir)
+        img.verify()
+        assert img.size[0] > 10 and img.size[1] > 10
+    except (IOError, ValueError, AssertionError, SyntaxError):
+        os.remove(image_dir)
+        print("Deleted corrupt image:", image_dir, flush=True)
+
+
+def download_image(index, url, path, timeout=5):
+    """Best-effort download of ``url`` to ``{path}/{index}.jpg``
+    (scripts/prep_common.py:50); a file already there is kept, a failure is
+    printed and skipped."""
+    import requests
+    headers = {"User-Agent": "Googlebot-Image/1.0",
+               "X-Forwarded-For": "64.18.15.200"}
+    image_dir = os.path.join(path, str(index) + ".jpg")
+    if os.path.isfile(image_dir):
+        return
+    try:
+        response = requests.get(url, stream=False, timeout=timeout,
+                                allow_redirects=True, headers=headers)
+        with open(image_dir, "wb") as f:
+            f.write(response.content)
+    except Exception:
+        print("failed to download {}".format(url), flush=True)
 
 
 def build_extractor(args):

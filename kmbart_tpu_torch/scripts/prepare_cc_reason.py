@@ -1,0 +1,17 @@
+"""COMET reasoning generation over the prepared CC index:
+``python -m kmbart_tpu_torch.scripts.prepare_cc_reason``.
+
+Twin of scripts/prepare_cc_reason.py: ``reason_common.run`` over the
+CC captions.
+"""
+
+from kmbart_tpu_torch.scripts.reason_common import run
+
+
+def main(argv=None):
+    run(caption_key="labels", annot_help="directory with the prepared cc {split}.json files",
+        argv=argv)
+
+
+if __name__ == "__main__":
+    main()

@@ -16,7 +16,8 @@ import warnings
 import numpy as np
 
 from kmbart_tpu_torch.scripts.prep_common import (add_shard_args, dump_json,
-                                                  extract_features_loop, print_segment_line)
+                                                  extract_features_loop, print_segment_line,
+                                                  read_image)
 
 
 def get_img_id(annot):
@@ -40,8 +41,7 @@ def image_data(annot, image, metadata, extractor):
 
 
 def get_image_data(annot, args, extractor):
-    import cv2
-    im = cv2.imread(os.path.join(args.data_dir, annot["img_fn"]))
+    im = read_image(os.path.join(args.data_dir, annot["img_fn"]))
     with open(os.path.join(args.data_dir, annot["metadata_fn"])) as f:
         metadata = json.load(f)
     return image_data(annot, im, metadata, extractor)

@@ -33,7 +33,7 @@ class _Request:
 
 class GenerationEngine:
     def __init__(self, model, cfg, tokenizer=None, *, max_batch_size=32, encoder_seq_len=None,
-                 max_wait_ms=5.0, batch_buckets=None, **gen_options):
+                 max_wait_ms=5.0, batch_buckets=None, record=None, **gen_options):
         """gen_options: forwarded to generate() (num_beams, max_length, ...;
         ``generator`` for sampling).
 
@@ -42,7 +42,13 @@ class GenerationEngine:
 
         ``batch_buckets``: ascending batch sizes (DEFAULT_BATCH_BUCKETS); a
         batch pads to the smallest bucket that fits, capped by
-        ``max_batch_size``."""
+        ``max_batch_size``.
+
+        ``record``: a list that each padded batch is appended to, as
+        ``(input_ids, attention_mask, image_features, futures)`` with the
+        futures of its requests in row order: a hook for holding the engine
+        to ``generate()`` on its own batches. The arrays are the ones the
+        batch ran on, not copies; ``None`` (the default) records nothing."""
         self.model = model
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -55,6 +61,7 @@ class GenerationEngine:
         self.encoder_seq_len = encoder_seq_len
         self.max_wait_ms = max_wait_ms
         self.gen_options = gen_options
+        self.record = record
         self._queue = queue.Queue()
         self._carry = None  # the request that did not fit the previous batch
         self._stop = threading.Event()
@@ -159,6 +166,8 @@ class GenerationEngine:
         # dummy rows keep the bucket's shape; a real token lets them finish
         ids[row:, 0] = self.cfg.eos_token_id
         mask[row:, 0] = 1
+        if self.record is not None:
+            self.record.append((ids, mask, feats, [r.future for r in reqs]))
         # trim=False: a response keeps the max_length width whatever batch
         # it was coalesced into; one host copy of the whole batch
         out = generate(self.model, self.cfg,

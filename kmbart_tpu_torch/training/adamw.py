@@ -59,8 +59,12 @@ class AdamW:
             leaf_steps={k: zero() for k in self.groups_for(params)})
 
     @torch.no_grad()
-    def update(self, grads, state, params, lr=None, ok=None):
-        """Update ``params`` in place; return the new state."""
+    def update(self, grads, state, params, lr=None, ok=None, part=None):
+        """Update ``params`` in place; return the new state. ``part(name,
+        tensor)``, when given, is the part of a tensor this process updates
+        (ZeRO-1, parallel/zero1.py; None: a tensor another rank owns), and
+        the state's moments hold those parts; the "used" test still reads
+        the whole gradients, so every rank decides it alike."""
         lr = self.lr if lr is None else lr
         b1, b2, eps = self.b1, self.b2, self.eps
         step = state.step + (1 if ok is None else ok.to(torch.int32))
@@ -86,7 +90,13 @@ class AdamW:
             else:
                 step_size = lr
             for name, g in zip(names, gs):
-                p, m, v = params[name], state.mu[name], state.nu[name]
+                p = params[name]
+                if part is not None:
+                    p = part(name, p)
+                    if p is None:
+                        continue
+                    g = part(name, g)
+                m, v = state.mu[name], state.nu[name]
                 new_m = b1 * m + (1.0 - b1) * g
                 new_v = b2 * v + (1.0 - b2) * torch.square(g)
                 new_p = p - step_size * new_m / (torch.sqrt(new_v) + eps)

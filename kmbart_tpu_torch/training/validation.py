@@ -15,7 +15,11 @@ from kmbart_tpu_torch.training.trainer import to_device
 def validate_loss(epoch, model, eval_step, val_loader, *, device, logger=None,
                   log_interval=1, tb_writer=None, tag="val"):
     """Mean of the per-batch losses over the batches the loader yielded
-    (not ``len(val_loader)``, which may count a batch the loader skips)."""
+    (not ``len(val_loader)``, which may count a batch the loader skips).
+    Under data parallelism each rank's loader yields its share of every
+    global batch and ``eval_step`` (``build_eval_step(data_parallel=True)``)
+    returns the global batch's loss, its sums and counts all-reduced, so
+    every rank averages the same numbers."""
     total_step = len(val_loader)
     loss = 0.0
     steps = 0

@@ -5,9 +5,13 @@ model on VCG with per-epoch ``model{N}/`` checkpoints (optionally every
 ``--save_every_steps`` steps too), optional validation loss and generation
 score, a sample decode every 100 steps, and TensorBoard scalars. It takes
 the same flags, with ``--device`` (default ``cuda``; ``--cpu`` is ``--device
-cpu``); the TPU mesh flags (model, sequence and pipeline parallelism, multihost,
-ZeRO-1, sharded checkpoints) are not accepted. Checkpoints are in the JAX
-package's format, so either package resumes the other's.
+cpu``). ``--multihost`` trains data parallel, one process per card (the
+global batch is the processes' ``--batch_size`` rows side by side),
+``--zero1`` shards the AdamW moments over them and ``--sharded_checkpoints``
+writes the port's sharded format; the tensor, sequence and pipeline
+parallelism flags are refused. Only rank 0 logs and writes npz checkpoints,
+which are in the JAX package's format, so either package resumes the
+other's.
 """
 
 import argparse
@@ -22,16 +26,17 @@ from kmbart_tpu_torch.data.datasets import VCGDataset
 from kmbart_tpu_torch.data.loader import DataLoader, ShardedSampler
 from kmbart_tpu_torch.data.tokenization import ConditionTokenizer
 from kmbart_tpu_torch.utils.logger import Logger
-from kmbart_tpu_torch.checkpoint.io import jax_leaf_groups, load_training_data
+from kmbart_tpu_torch.checkpoint.io import jax_leaf_groups
 from kmbart_tpu_torch.cli_common import (add_common_model_args, add_dropout_args,
                                          add_hardware_args, build_model_params,
-                                         load_model_config, save_train_checkpoint,
+                                         check_parallel_flags, load_model_config,
+                                         make_train_state, save_train_checkpoint,
                                          setup_device)
 from kmbart_tpu_torch.generation.api import generate
 from kmbart_tpu_torch.models.conditional import conditional_loss, init_conditional_model
+from kmbart_tpu_torch.parallel import distributed
 from kmbart_tpu_torch.parallel.train_step import build_eval_step, build_train_step
 from kmbart_tpu_torch.training.adamw import AdamW
-from kmbart_tpu_torch.training.state import TrainState
 from kmbart_tpu_torch.training.trainer import run_epoch
 from kmbart_tpu_torch.training.validation import validate_generation_score, validate_loss
 
@@ -41,19 +46,24 @@ def main(args):
     if args.batch_size % args.grad_accum_steps:
         raise ValueError(f'batch_size={args.batch_size} must be divisible by '
                          f'grad_accum_steps={args.grad_accum_steps}')
-    timestamp = datetime.now().strftime("%Y-%m-%d-%H-%M-%S")
+    is_main = distributed.is_main_process()
+    dp = distributed.world_size() > 1
+    timestamp = distributed.sync_timestamp(datetime.now().strftime("%Y-%m-%d-%H-%M-%S"))
     checkpoint_path = os.path.join(args.checkpoint_dir, timestamp)
     tb_writer = None
     log_dir = os.path.join(args.log_dir, timestamp) if args.log_dir else None
-    if log_dir is not None:
+    if log_dir is not None and is_main:
         os.makedirs(log_dir, exist_ok=True)
         from kmbart_tpu_torch.utils.tb import SummaryWriter
         tb_writer = SummaryWriter(log_dir=log_dir)
-    logger = Logger(log_file=os.path.join(log_dir, 'log.txt') if log_dir else None)
+    # rank-gated like the reference Logger (src/utils.py:42-79)
+    logger = Logger(log_file=os.path.join(log_dir, 'log.txt') if (log_dir and is_main) else None,
+                    enabled=is_main)
 
     os.makedirs(checkpoint_path, exist_ok=True)
     logger.info('Made checkpoint directory: "{}"'.format(checkpoint_path))
-    logger.info('Running on {}'.format(device), pad=True)
+    logger.info('Running on {} ({} process(es))'.format(device, distributed.world_size()),
+                pad=True)
     for k, v in vars(args).items():
         logger.info('{}: {}'.format(k, v))
 
@@ -62,14 +72,8 @@ def main(args):
     cfg = load_model_config(args)
     model = build_model_params(args, cfg, init_conditional_model, device, logger)
     optimizer = AdamW(lr=args.lr, groups=jax_leaf_groups(cfg))
-    state = TrainState.create(model, optimizer)
-
-    epoch = 0
-    if args.continue_training:
-        td = load_training_data(args.checkpoint, cfg, device=device)
-        epoch = td['epoch'] + 1
-        if td['opt_state'] is not None:
-            state = state._replace(opt_state=td['opt_state'], step=int(td['step'] or 0))
+    state, epoch, zero1 = make_train_state(args, cfg, model, optimizer, device, logger=logger)
+    replicas, rank = distributed.data_feed()
 
     logger.info('Loading data...')
     collate_fn = Collator(tokenizer, has_label=True, max_img_num=cfg.max_img_num,
@@ -82,13 +86,15 @@ def main(args):
                                use_event=args.use_event)
     train_loader = DataLoader(
         train_dataset, batch_size=args.batch_size, collate_fn=collate_fn,
-        sampler=ShardedSampler(len(train_dataset), shuffle=True, seed=args.seed),
+        sampler=ShardedSampler(len(train_dataset), num_replicas=replicas, rank=rank,
+                               shuffle=True, seed=args.seed),
         num_workers=args.num_workers, drop_last=True)
     val_dataset = VCGDataset(args.data_dir, split='val', use_image=args.use_image,
                              use_event=args.use_event)
     val_loader = DataLoader(val_dataset, batch_size=args.batch_size, collate_fn=collate_fn,
                             num_workers=args.num_workers,
-                            sampler=ShardedSampler(len(val_dataset), shuffle=False))
+                            sampler=ShardedSampler(len(val_dataset), num_replicas=replicas,
+                                                   rank=rank, shuffle=False))
     gen_dataset = VCGDataset(args.data_dir, split='val', use_image=args.use_image,
                              use_event=args.use_event, eval_mode=True)
     gen_loader = DataLoader(gen_dataset, batch_size=args.batch_size,
@@ -104,15 +110,16 @@ def main(args):
         loss, _ = conditional_loss(m, cfg, b, train=False)
         return loss, {}
 
-    train_step = build_train_step(loss_fn, optimizer, grad_accum_steps=args.grad_accum_steps)
-    eval_step = build_eval_step(eval_loss_fn)
+    train_step = build_train_step(loss_fn, optimizer, grad_accum_steps=args.grad_accum_steps,
+                                  data_parallel=dp, zero1=zero1)
+    eval_step = build_eval_step(eval_loss_fn, data_parallel=dp)
 
     def callback(step, epoch, state, logger, **kwargs):
         if args.save_every_steps and (step + 1) % args.save_every_steps == 0:
             path = os.path.join(checkpoint_path, 'step{}'.format(state.step))
-            save_train_checkpoint(path, cfg, state, epoch)
+            save_train_checkpoint(path, cfg, state, epoch, args, zero1)
             logger.info('Saved mid-epoch checkpoint at "{}"'.format(path))
-        if (step + 1) % 100 == 0:
+        if (step + 1) % 100 == 0 and is_main:
             inputs = collate_fn([train_dataset[0]])
             out = generate(state.params, cfg,
                            {'input_ids': inputs['input_ids'],
@@ -139,15 +146,19 @@ def main(args):
         if args.validate_loss:
             validate_loss(epoch, state.params, eval_step, val_loader, device=device,
                           logger=logger, tb_writer=tb_writer)
-        if args.validate_score:
+        if args.validate_score and is_main:
+            # decode and score on rank 0, as the JAX package does
             validate_generation_score(epoch, state.params, cfg, gen_loader, val_ref,
                                       tokenizer, args, logger=logger, tb_writer=tb_writer)
 
         current = os.path.join(checkpoint_path, 'model{}'.format(epoch))
-        save_train_checkpoint(current, cfg, state, epoch)
+        save_train_checkpoint(current, cfg, state, epoch, args, zero1)
         logger.info('Saved checkpoint at "{}"'.format(checkpoint_path))
         epoch += 1
     logger.info('Training complete in: ' + str(datetime.now() - start), pad=True)
+    distributed.barrier()
+    if args.multihost:
+        distributed.shutdown()
     return checkpoint_path
 
 
@@ -175,6 +186,7 @@ def parse_args(argv=None):
     add_hardware_args(parser, train=True)
     parser.set_defaults(use_event=True, use_image=True)
     args = parser.parse_args(argv)
+    check_parallel_flags(parser, args)
     if args.checkpoint is None and args.model_config is None:
         raise ValueError('--model_config and --checkpoint cannot be empty at the same time')
     return args

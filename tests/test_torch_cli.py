@@ -138,6 +138,12 @@ def test_no_jax_import_in_source():
     for sub in ("vision", "knowledge", "scripts"):
         assert any(os.sep + os.path.join("kmbart_tpu_torch", sub) + os.sep in p
                    for p in sources), sub
+    for module in ("parallel/distributed.py", "parallel/zero1.py", "checkpoint/sharded.py",
+                   "utils/profiling.py", "scripts/prepare_coco.py", "scripts/prepare_vg.py",
+                   "scripts/prepare_cc.py", "scripts/prepare_sbu.py",
+                   "scripts/prepare_coco_reason.py", "scripts/prepare_cc_reason.py",
+                   "scripts/prepare_sbu_reason.py"):
+        assert os.path.join(PORT, *module.split("/")) in sources, module
     for path in sources:
         with open(path) as f:
             tree = ast.parse(f.read(), path)

@@ -93,9 +93,12 @@ def test_pretrain_twin_flags(data, tmp_path):
         pretrain.parse_args(base + ["--dataset", "coco_train", "x"])
     with pytest.raises(ValueError, match="--no_image"):
         pretrain.parse_args(base + ["--no_image"])
-    for flag in (["--model_parallel", "2"], ["--zero1"]):
+    # tensor, sequence and pipeline parallelism are refused; data parallelism's
+    # flags are taken
+    for flag in (["--model_parallel", "2"], ["--sequence_parallel"], ["--pipeline_stages", "2"]):
         with pytest.raises(SystemExit):
             pretrain.parse_args(base + flag)
+    assert pretrain.parse_args(base + ["--multihost", "--zero1", "--sharded_checkpoints"]).zero1
     assert pretrain.parse_args(base + ["--device", "cuda", "--cpu"]).device == "cpu"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -84,10 +84,15 @@ def test_train_twin_device_and_flags(data, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             vcg_train.main(args)
-    # the TPU mesh flags are not accepted
-    for flag in (["--model_parallel", "2"], ["--zero1"], ["--sharded_checkpoints"]):
+    # tensor, sequence and pipeline parallelism are refused; data parallelism's
+    # flags are taken
+    for flag in (["--model_parallel", "2"], ["--sequence_parallel"], ["--pipeline_stages", "2"],
+                 ["--pipeline_microbatches", "4"], ["--pipeline_span_processes"]):
         with pytest.raises(SystemExit):
             vcg_train.parse_args(base + flag)
+    args = vcg_train.parse_args(base + ["--multihost", "--zero1", "--sharded_checkpoints",
+                                        "--model_parallel", "1"])
+    assert args.multihost and args.zero1 and args.sharded_checkpoints
     with pytest.raises(ValueError, match="divisible"):
         vcg_train.main(vcg_train.parse_args(
             [a if a != "cuda" else "cpu" for a in base] + ["--grad_accum_steps", "3"]))
