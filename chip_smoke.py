@@ -115,6 +115,19 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                the fine-tune kernels launched on each rank, ZeRO-1's
                parameters bit-equal to the replicated pair's, ms a step and
                the all-reduce's share.
+ 18. parallel  tensor, sequence and pipeline parallelism: two processes on the
+               one card (gloo, collectives and point-to-point transfers of
+               CUDA tensors staged through the host) at TP 2, TP 2 with SP,
+               PP 2 with 2 micro-batches and the pretraining step under PP 2
+               in LM-CE mode "nomat", BART-base at 32 rows a group (72 + 40
+               tokens; 96 + 72 for pretraining), dropout 0, K2 off as the
+               CLIs set it, three AdamW steps, each held against one process
+               on the same rows (losses within 2e-3, per-leaf gradient
+               norms); K1 and K1b launched at 6 heads inside each TP rank
+               and K7/K8 (K9/K10) on every rank, in the launch counts and in
+               a torch.profiler trace of one step a rank; ms a step a rank
+               and the collectives' share. ``--only parallel_nccl`` runs
+               TP 2 x DP 2 and PP 2 x TP 2 over NCCL on four cards instead.
 Phase 4 also wraps one generate() call in utils.profiling.trace and finds
 K3's and K4's launches in the trace it writes; phase 12 also holds each of
 the static engine's 64 requests to generate() on the padded batch the
@@ -124,7 +137,8 @@ the two runs' rounding), and probes the decode step's products at 160
 against 560 rows.
 The line before the last lists every kernel with its launches on the main
 path, its error, its time, its plain version's, its bound and the library
-call's; the last line is {"ok": true, "device": {...}}. The port imports
+call's (K1 and K1b also at a TP 2 rank's local shape, with the TP 2 run's
+launches); the last line is {"ok": true, "device": {...}}. The port imports
 nothing of jax or kmbart_tpu, and the script checks that at its end.
 """
 
@@ -426,6 +440,12 @@ def check_kernels(torch, dev):
         (4, 40, 40, 1024, 8, 7, True, True, False),
         (3, 24, 40, 288, 4, 5, False, False, False),
         (2, 72, 72, 1024, 4, 6, True, True, False),
+        # a TP 2 rank's local heads at the parallel phase's 32 rows: 6 heads
+        # of 64 over the [B, T, 384] column slice (encoder self, decoder
+        # causal self, cross)
+        (32, 72, 72, 384, 6, 9, False, True, True),
+        (32, 40, 40, 384, 6, 0, True, True, True),
+        (32, 40, 72, 384, 6, 9, False, False, True),
     ]
 
     def k1(B, Tq, Tk, D, H, pad, causal, fused, timed, dtype=bf16):
@@ -2511,6 +2531,7 @@ def ddp_worker():
     from kmbart_tpu_torch.models.conditional import conditional_loss, init_conditional_model
     from kmbart_tpu_torch.ops import launch_counts, reset_launch_counts
     from kmbart_tpu_torch.parallel import distributed, zero1 as zero1_mod
+    from kmbart_tpu_torch.parallel.mesh import Grid
     from kmbart_tpu_torch.parallel.train_step import build_train_step
     from kmbart_tpu_torch.training.adamw import AdamW
     from kmbart_tpu_torch.training.state import TrainState, model_tensors
@@ -2559,7 +2580,7 @@ def ddp_worker():
         if mode == "zero1":
             z1 = zero1_mod.Zero1(cfg, model_tensors(model), world, rank)
             state = state._replace(opt_state=z1.shard_state(state.opt_state))
-        step = build_train_step(loss_fn, opt, data_parallel=world > 1, zero1=z1)
+        step = build_train_step(loss_fn, opt, zero1=z1, grid=Grid())
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         reset_launch_counts()
@@ -2662,6 +2683,385 @@ def run_ddp(torch, dev, card, cards=1):
                                        for m in ("replicated", "zero1")}} for r in pair],
          single_ms_per_step=single["replicated"]["ms_per_step"],
          single_peak_memory_gb=single["replicated"]["peak_memory_gb"], seconds=seconds)
+
+
+# ---------------------------------------------------------------------------
+# phase 18: tensor, sequence and pipeline parallelism on the one card
+# ---------------------------------------------------------------------------
+
+PARALLEL_ROWS, PARALLEL_STEPS = 32, 3
+# a parallel run against one process on the same rows, both in bf16 with K2
+# off (as the CLIs run TP and PP): the step's arithmetic is the same but the
+# sums run in another order (row-parallel partial products summed in fp32,
+# micro-batches back-propagated one at a time), so the bounds are those of
+# the kernel path against the plain path (TRAIN_LOSS_RTOL,
+# TRAIN_GRAD_NORM_RTOL), per leaf with a norm of at least PARALLEL_NORM_FLOOR
+# of the largest; a leaf below it (the k-projection biases, whose gradient
+# is zero but for rounding: softmax ignores a constant added to a row's
+# scores) is held to PARALLEL_NORM_FLOOR of the largest norm, absolutely
+PARALLEL_LOSS_RTOL = TRAIN_LOSS_RTOL
+PARALLEL_GRAD_NORM_RTOL = TRAIN_GRAD_NORM_RTOL
+PARALLEL_NORM_FLOOR = 1e-3
+# case -> (Grid options, n_micro or None, pretraining "nomat" step)
+PARALLEL_CASES = {
+    "tp2": (dict(model_parallel=2), None, False),
+    "tp2_sp": (dict(model_parallel=2, sequence_parallel=True), None, False),
+    "pp2": (dict(stages=2), 2, False),
+    "pp2_pretrain_nomat": (dict(stages=2), 2, True),
+    "tp2_dp2": (dict(model_parallel=2), None, False),
+    "tp2_sp_dp2": (dict(model_parallel=2, sequence_parallel=True), None, False),
+    "pp2_tp2": (dict(model_parallel=2, stages=2), 2, False),
+}
+# K1 and K1b per rank and step: 18 attentions on TP 2's 6 local heads; 9 a
+# stage (3 + 3 + 3 layers' worth) on each of 2 micro-batches under PP 2; the
+# LM-CE pair once on every rank (the head is whole everywhere); K2 off
+PARALLEL_LAUNCHES = {"train_attention": 18, "train_attention_bwd": 18, "ffn": 0,
+                     "ffn_bwd": 0}
+
+
+def _parallel_setup(torch, dev, pretrain, rows):
+    """The model (random weights from seed 0), its config at dropout 0, the
+    JAX leaf groups and ``rows`` rows of the fine-tune (72 + 40 tokens) or
+    pretraining (96 + 72) batch."""
+    from kmbart_tpu_torch import MultiModalBartConfig
+    from kmbart_tpu_torch.checkpoint.io import jax_leaf_groups
+    from kmbart_tpu_torch.models.conditional import init_conditional_model
+    from kmbart_tpu_torch.models.pretraining import init_pretraining_model
+    name = "pretrain_base.json" if pretrain else "vcg_base.json"
+    cfg = MultiModalBartConfig.from_json(os.path.join(REPO, "config", name)).replace(
+        dropout=0.0, attention_dropout=0.0, activation_dropout=0.0, classif_dropout=0.0)
+    init = init_pretraining_model if pretrain else init_conditional_model
+    model = init(cfg, seed=0, device=dev)
+    batch = (_pretrain_batch(torch, cfg, dev, rows, 96, 72) if pretrain
+             else _train_batch(torch, cfg, dev, B=rows))
+    if not pretrain:
+        batch["attention_mask"][1::2, -9:] = 0
+        batch["labels"][rows // 2:, 24:] = -100
+    return cfg, model, jax_leaf_groups(cfg, heads=pretrain), batch
+
+
+def _parallel_loss_fn(cfg, grid, n_micro, pretrain):
+    from kmbart_tpu_torch.models.conditional import conditional_loss
+    from kmbart_tpu_torch.models.pretraining import pretraining_loss
+    from kmbart_tpu_torch.parallel import pp
+
+    def loss_fn(m, b, generator):
+        if n_micro is not None:
+            fn = pp.pipelined_pretraining_loss if pretrain else pp.pipelined_conditional_loss
+            loss, _ = fn(m, cfg, b, grid, n_micro=n_micro, train=True, generator=generator)
+        else:
+            fn = pretraining_loss if pretrain else conditional_loss
+            loss, _ = fn(m, cfg, b, train=True, generator=generator,
+                         tp=None if grid is None else grid.tp)
+        return loss, {}
+    return loss_fn
+
+
+class _GradNorms:
+    """AdamW that records, at its first update, the squared norm of each JAX
+    leaf's gradient as this rank holds it: a split tensor's part on every
+    rank of the model axis, a whole tensor on model rank 0 of its stage (the
+    ends on stage 0), so that the sum over a data coordinate's ranks is the
+    whole gradient's."""
+
+    def __init__(self, inner, groups, grid):
+        self.inner, self.groups, self.grid, self.sq = inner, groups, grid, None
+
+    def update(self, grads, state, params, **kw):
+        if self.sq is None:
+            import torch
+            from kmbart_tpu_torch.parallel.tp import tp_axis
+            grid = self.grid
+            sq = []
+            for key, names in self.groups.items():
+                total = torch.zeros((), dtype=torch.float32, device=next(iter(params.values()))
+                                    .device)
+                for n in names:
+                    g = grads.get(n)
+                    if g is None:
+                        continue
+                    counted = grid is None or (
+                        tp_axis(n) is not None or grid.model.index == 0) and (
+                        ".layers." in n or grid.stage.index == 0)
+                    if counted:
+                        total = total + g.float().square().sum()
+                sq.append(total)
+            self.sq = torch.stack(sq)
+        return self.inner.update(grads, state, params, **kw)
+
+
+def parallel_worker():
+    """One rank of the parallel phase (``chip_smoke.py --parallel-worker``):
+    each case of PARALLEL_CASES named in PARALLEL_CASES_RUN runs
+    PARALLEL_STEPS AdamW steps at dropout 0 on its grid, with
+    PARALLEL_ROWS rows a data coordinate, K2 off (KMBART_NO_FUSED_FFN=1, as
+    the CLIs set it), then the same steps timed once more with every
+    collective timed between two synchronisations, and one step under
+    torch.profiler. Prints one JSON line a case: the losses, the per-leaf
+    gradient norms of the first step, ms a step, the collectives' share,
+    the launches, the head counts K1 ran at, and the kernels the profile
+    saw."""
+    import torch
+    from kmbart_tpu_torch.ops import attention as attention_mod
+    from kmbart_tpu_torch.ops import launch_counts, reset_launch_counts
+    from kmbart_tpu_torch.parallel import distributed, sp
+    from kmbart_tpu_torch.parallel.mesh import Grid
+    from kmbart_tpu_torch.parallel.tp import shard_model_
+    from kmbart_tpu_torch.parallel.train_step import build_train_step
+    from kmbart_tpu_torch.training.adamw import AdamW
+    from kmbart_tpu_torch.training.state import TrainState
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = distributed.init_distributed("cuda", backend=os.environ.get("DDP_BACKEND"))
+    backend = torch.distributed.get_backend()
+
+    heads = {}
+    k1 = attention_mod.train_attention
+
+    def counting_k1(*a, num_heads, **k):
+        heads[num_heads] = heads.get(num_heads, 0) + 1
+        return k1(*a, num_heads=num_heads, **k)
+
+    attention_mod.train_attention = counting_k1
+    comm = [0.0, False]
+
+    def timed(fn):
+        def call(*a, **k):
+            if not comm[1]:
+                return fn(*a, **k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            comm[0] += time.perf_counter() - t0
+            return out
+        return call
+
+    for name in ("_all_reduce", "all_gather_flat", "broadcast", "send", "recv"):
+        setattr(distributed, name, timed(getattr(distributed, name)))
+    sp.dist.reduce_scatter_tensor = timed(sp.dist.reduce_scatter_tensor)
+
+    for case in os.environ["PARALLEL_CASES_RUN"].split(","):
+        grid_kw, n_micro, pretrain = PARALLEL_CASES[case]
+        grid = Grid(**grid_kw)
+        rows = PARALLEL_ROWS
+        cfg, model, groups, batch = _parallel_setup(torch, dev, pretrain,
+                                                    rows * grid.data.size)
+        d = grid.data.index
+        batch = {k: v[d * rows:(d + 1) * rows] for k, v in batch.items()}
+        shard_model_(model, cfg, grid)
+        opt = _GradNorms(AdamW(lr=1e-4, groups=groups), groups, grid)
+        step = build_train_step(_parallel_loss_fn(cfg, grid, n_micro, pretrain), opt, grid=grid)
+        state = TrainState.create(model, opt.inner)
+        with _ce_mode("nomat" if pretrain else "fwdbwd"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_launch_counts()
+            heads.clear()
+            losses, times = [], []
+            for _ in range(PARALLEL_STEPS):
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch, 0)
+                losses.append(float(metrics["loss"]))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            launches = launch_counts()
+            k1_heads = dict(heads)
+            sq = opt.sq.clone()
+            distributed.all_reduce_axis(sq, grid.feed)
+            norms = dict(zip(groups, sq.sqrt().tolist()))
+            comm[0], comm[1] = 0.0, True
+            timed_steps = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                state, _ = step(state, batch, 0)
+                torch.cuda.synchronize()
+                timed_steps.append(time.perf_counter() - t0)
+            comm_s, comm[1] = comm[0], False
+            profile = _profile_steps(torch, lambda: step(state, batch, 0), n=1)
+        kernels_seen = sorted({e["name"] for e in profile["top_device_ops"]})
+        result = {"case": case, "rank": distributed.rank(), "coords": list(grid.coords),
+                  "backend": backend, "device": str(dev), "losses": losses,
+                  "grad_norms": norms, "step_s": times,
+                  "ms_per_step": 1e3 * sorted(times[1:])[len(times[1:]) // 2],
+                  "instrumented_step_s": timed_steps,
+                  "collectives_share": comm_s / sum(timed_steps),
+                  "launches": {k: launches[k] for k in (*PARALLEL_LAUNCHES, "lm_ce_fwd",
+                                                        "lm_ce_bwd", "lm_ce_fwd_stats",
+                                                        "lm_ce_recompute_bwd")},
+                  "k1_heads": k1_heads,
+                  "profile": {k: profile[k] for k in ("device_busy_ms", "wall_ms",
+                                                       "k1_ms_per_step", "k1b_ms_per_step",
+                                                       "k7_ms_per_step", "k8_ms_per_step",
+                                                       "k9_ms_per_step", "k10_ms_per_step")},
+                  "top_device_ops": kernels_seen,
+                  "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+        print(json.dumps(result), flush=True)
+        del model, state, step, opt, batch
+        torch.cuda.empty_cache()
+    distributed.shutdown()
+
+
+def _parallel_run(world, cases, shared_card):
+    """``world`` parallel workers over ``cases``, all on card 0 over gloo
+    (``shared_card``) or one a card over NCCL; {case: [rank lines]}."""
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, KMBART_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   KMBART_NUM_PROCESSES=str(world), KMBART_PROCESS_ID=str(r),
+                   LOCAL_RANK="0" if shared_card else str(r), KMBART_NO_FUSED_FFN="1",
+                   PARALLEL_CASES_RUN=",".join(cases))
+        if shared_card:
+            env["DDP_BACKEND"] = "gloo"
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                       "--parallel-worker"], env=env, cwd=REPO, text=True,
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+    out = {c: [] for c in cases}
+    try:
+        for p in procs:
+            stdout, err = p.communicate(timeout=600)
+            if p.returncode != 0:
+                raise AssertionError(f"parallel worker exited {p.returncode}: {err[-3000:]}")
+            for line in stdout.strip().splitlines():
+                if line.startswith("{"):
+                    row = json.loads(line)
+                    out[row["case"]].append(row)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def _parallel_reference(torch, dev, pretrain, rows):
+    """One process on the same rows: the losses of PARALLEL_STEPS steps and
+    the per-leaf gradient norms of the first, K2 off as in the workers."""
+    from kmbart_tpu_torch.parallel.train_step import build_train_step
+    from kmbart_tpu_torch.training.adamw import AdamW
+    from kmbart_tpu_torch.training.state import TrainState
+    saved = os.environ.get("KMBART_NO_FUSED_FFN")
+    os.environ["KMBART_NO_FUSED_FFN"] = "1"
+    try:
+        cfg, model, groups, batch = _parallel_setup(torch, dev, pretrain, rows)
+        opt = _GradNorms(AdamW(lr=1e-4, groups=groups), groups, None)
+        step = build_train_step(_parallel_loss_fn(cfg, None, None, pretrain), opt)
+        state = TrainState.create(model, opt.inner)
+        losses = []
+        with _ce_mode("nomat" if pretrain else "fwdbwd"):
+            for _ in range(PARALLEL_STEPS):
+                state, metrics = step(state, batch, 0)
+                losses.append(float(metrics["loss"]))
+        norms = dict(zip(groups, opt.sq.sqrt().tolist()))
+    finally:
+        if saved is None:
+            del os.environ["KMBART_NO_FUSED_FFN"]
+        else:
+            os.environ["KMBART_NO_FUSED_FFN"] = saved
+    del model, state, step
+    torch.cuda.empty_cache()
+    return losses, norms
+
+
+def _hold_parallel(case, rank_rows, ref, expect_heads):
+    """Every rank's losses and per-leaf gradient norms against the one
+    process's, launches per step, K1's head count, the LM-CE kernels."""
+    want_losses, want_norms = ref
+    top = max(want_norms.values())
+    pretrain = PARALLEL_CASES[case][2]
+    worst = {"loss_rel": 0.0, "grad_norm_rel": 0.0, "grad_norm_abs_of_largest": 0.0}
+    for r in rank_rows:
+        what = f"parallel {case} rank {r['rank']}"
+        for a, b in zip(r["losses"], want_losses):
+            _check(f"{what} loss (relative)", abs(a - b) / abs(b), PARALLEL_LOSS_RTOL)
+            worst["loss_rel"] = max(worst["loss_rel"], abs(a - b) / abs(b))
+        for key, want in want_norms.items():
+            got = r["grad_norms"][key]
+            if want >= PARALLEL_NORM_FLOOR * top:
+                err = abs(got - want) / want
+                _check(f"{what} gradient norm of {key} (relative)", err,
+                       PARALLEL_GRAD_NORM_RTOL)
+                worst["grad_norm_rel"] = max(worst["grad_norm_rel"], err)
+            else:
+                err = abs(got - want) / top
+                _check(f"{what} gradient norm of {key} (absolute, of the largest)", err,
+                       PARALLEL_NORM_FLOOR)
+                worst["grad_norm_abs_of_largest"] = max(worst["grad_norm_abs_of_largest"], err)
+        per_step = {k: r["launches"][k] / PARALLEL_STEPS for k in PARALLEL_LAUNCHES}
+        if per_step != {k: float(v) for k, v in PARALLEL_LAUNCHES.items()}:
+            raise AssertionError(f"{what}: launches per step {per_step}")
+        pair = ("lm_ce_fwd_stats", "lm_ce_recompute_bwd") if pretrain else ("lm_ce_fwd",
+                                                                            "lm_ce_bwd")
+        if any(r["launches"][k] != PARALLEL_STEPS for k in pair):
+            raise AssertionError(f"{what}: LM-CE launches {r['launches']}")
+        if set(r["k1_heads"]) != {str(expect_heads)}:
+            raise AssertionError(f"{what}: K1 ran at heads {r['k1_heads']}, not {expect_heads}")
+        seen = " ".join(r["top_device_ops"])
+        kernels = ["attn_fwd_tc", "attn_bwd_tc"] + (
+            ["lm_ce_stats_gemm", "lm_ce_dlogits_gemm"] if pretrain
+            else ["lm_ce_logits_gemm", "lm_ce_dlogits_kernel"])
+        profiled = {"attn_fwd_tc": r["profile"]["k1_ms_per_step"],
+                    "attn_bwd_tc": r["profile"]["k1b_ms_per_step"],
+                    "lm_ce_stats_gemm": r["profile"]["k9_ms_per_step"],
+                    "lm_ce_dlogits_gemm": r["profile"]["k10_ms_per_step"],
+                    "lm_ce_logits_gemm": r["profile"]["k7_ms_per_step"],
+                    "lm_ce_dlogits_kernel": r["profile"]["k8_ms_per_step"]}
+        missing = [k for k in kernels if not profiled[k] > 0]
+        if missing:
+            raise AssertionError(f"{what}: the profile shows no device time of {missing} "
+                                 f"(top ops: {seen})")
+    return worst
+
+
+def run_parallel(torch, dev, card, cards=1):
+    """TP 2, TP 2 with SP, PP 2 (2 micro-batches) and the pretraining step
+    under PP 2 in LM-CE mode "nomat": two processes on the one card over
+    gloo (collectives, sends and receives of CUDA tensors staged through
+    the host; NCCL refuses two ranks on one card), PARALLEL_ROWS rows of
+    BART-base at the fine-tune shapes (the pretraining shapes for the
+    pretraining step), each held against one process on the same rows.
+    With ``cards`` = 4: TP 2 x DP 2 (also with SP, NCCL's reduce-scatter)
+    and PP 2 x TP 2, one rank a card over NCCL. Returns the TP 2 case's K1 and K1b launches (both ranks)."""
+    t0 = time.perf_counter()
+    if cards == 1:
+        cases, world = ["tp2", "tp2_sp", "pp2", "pp2_pretrain_nomat"], 2
+    else:
+        cases, world = ["tp2_dp2", "tp2_sp_dp2", "pp2_tp2"], 4
+    runs = _parallel_run(world, cases, shared_card=cards == 1)
+    backend = "gloo" if cards == 1 else "nccl"
+    refs = {}
+    summary = {}
+    for case in cases:
+        grid_kw, n_micro, pretrain = PARALLEL_CASES[case]
+        rows = runs[case]
+        if len(rows) != world or any(r["backend"] != backend for r in rows):
+            raise AssertionError(f"parallel {case}: ranks {[(r['rank'], r['backend']) for r in rows]}")
+        n_data = world // (grid_kw.get("model_parallel", 1) * grid_kw.get("stages", 1))
+        key = (pretrain, n_data)
+        if key not in refs:
+            refs[key] = _parallel_reference(torch, dev, pretrain, PARALLEL_ROWS * n_data)
+        heads = 12 // grid_kw.get("model_parallel", 1)
+        worst = _hold_parallel(case, rows, refs[key], heads)
+        summary[case] = {
+            "worst": worst,
+            "grid": grid_kw, "n_micro": n_micro, "pretrain_nomat": pretrain,
+            "rows_per_data_coordinate": PARALLEL_ROWS, "data_coordinates": n_data,
+            "losses_single": refs[key][0],
+            "ranks": [{k: r[k] for k in ("rank", "coords", "device", "losses", "ms_per_step",
+                                         "collectives_share", "launches", "k1_heads",
+                                         "peak_memory_gb", "profile")} for r in rows]}
+    emit("parallel" if cards == 1 else "parallel_nccl", card=card,
+         ranks_backend="gloo (host-staged), one card" if cards == 1 else
+         f"nccl, {cards} cards", steps=PARALLEL_STEPS, dropout=0.0, ffn_kernel="off",
+         loss_rtol=PARALLEL_LOSS_RTOL, grad_norm_rtol=PARALLEL_GRAD_NORM_RTOL,
+         norm_floor=PARALLEL_NORM_FLOOR, cases=summary, seconds=time.perf_counter() - t0)
+    if cards == 1:
+        return {k: sum(r["launches"][k] for r in runs["tp2"])
+                for k in ("train_attention", "train_attention_bwd")}
+    return None
 
 
 COMET = dict(d_model=768, n_layers=12, n_heads=12)   # GPT-1, as COMET runs it
@@ -3003,11 +3403,15 @@ def main(argv=None):
     ap.add_argument("--only", default=None,
                     help="comma-separated paths to drive after the kernels phase "
                          "(generate, sample, serve, extract, knowledge, reason_filter, "
-                         "prep_twins, ddp, ddp_nccl), then stop without the ok line")
+                         "prep_twins, ddp, ddp_nccl, parallel, parallel_nccl), then stop "
+                         "without the ok line")
     ap.add_argument("--ddp-worker", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--parallel-worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.ddp_worker:
         return ddp_worker()
+    if args.parallel_worker:
+        return parallel_worker()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -3042,7 +3446,10 @@ def main(argv=None):
                  "ddp": lambda: run_ddp(torch, dev, card),
                  # every card of the machine, one rank each over NCCL
                  "ddp_nccl": lambda: run_ddp(torch, dev, card,
-                                             cards=torch.cuda.device_count())}
+                                             cards=torch.cuda.device_count()),
+                 "parallel": lambda: run_parallel(torch, dev, card),
+                 # four cards: TP 2 x DP 2 and PP 2 x TP 2 over NCCL
+                 "parallel_nccl": lambda: run_parallel(torch, dev, card, cards=4)}
         for name in args.only.split(","):
             paths[name]()
         return
@@ -3066,21 +3473,29 @@ def main(argv=None):
     del extractor
     torch.cuda.empty_cache()
     run_ddp(torch, dev, card)
+    torch.cuda.empty_cache()
+    tp_launches = run_parallel(torch, dev, card)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     loaded = [m for m in sys.modules if m == "kmbart_tpu" or m.startswith("kmbart_tpu.")]
     if loaded:
         raise AssertionError(f"modules of kmbart_tpu were imported: {loaded}")
 
+    # K1 and K1b also at a TP 2 rank's local shape (6 heads, [32, 72, 384]),
+    # with their launches in the parallel phase's TP 2 run (both ranks)
+    rows = {name: kernels[name][0] for name in KERNEL_INFO}
+    for name in ("train_attention", "train_attention_bwd"):
+        rows[name + "_tp2_local"] = next(r for r in kernels[name]
+                                         if r["shape"] == [32, 72, 72, 384, 6])
+        launches[name + "_tp2_local"] = tp_launches[name]
     print(card)
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
-         "replaces": KERNEL_INFO[name][1], "launches": launches[name],
-         "max_abs_err": kernels[name][0]["max_abs_err"],
-         "ms": kernels[name][0]["ms"], "plain_ms": kernels[name][0]["plain_ms"],
-         "bound_ms": kernels[name][0]["bound_ms"], "bound_by": kernels[name][0]["bound_by"],
-         "library_ms": kernels[name][0].get("library_ms")}
-        for name in KERNEL_INFO]}))
+        {"name": name, "route": "cuda", "source": KERNEL_INFO[name.replace("_tp2_local", "")][0],
+         "replaces": KERNEL_INFO[name.replace("_tp2_local", "")][1], "launches": launches[name],
+         "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+         "library_ms": row.get("library_ms")}
+        for name, row in rows.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

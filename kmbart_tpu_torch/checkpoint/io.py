@@ -222,10 +222,12 @@ def load_pretrained(path, config=None, device="cuda", seed=0,
 
 
 def save_pretrained(path, cfg: MultiModalBartConfig, model):
-    """config.json + params.npz in the JAX layout."""
+    """config.json + params.npz in the JAX layout, from a model or a state
+    dict of whole tensors."""
     os.makedirs(path, exist_ok=True)
     cfg.save_json(os.path.join(path, CONFIG_NAME))
-    np.savez(os.path.join(path, WEIGHTS_NAME), **params_to_jax(model.state_dict(), cfg))
+    sd = model if isinstance(model, dict) else model.state_dict()
+    np.savez(os.path.join(path, WEIGHTS_NAME), **params_to_jax(sd, cfg))
 
 
 def save_training_data(path, cfg: MultiModalBartConfig, opt_state=None, epoch=None, step=None):

@@ -10,11 +10,16 @@ both ways). A checkpoint directory holds ``config.json`` and
 - the parameters and every replicated moment are written once (the
   checkpoint planner gives each replicated tensor one writer);
 - under ZeRO-1 (parallel/zero1.py) each rank writes its own moment parts,
-  a sliced part under ``{mu,nu}/{name}@{axis}.{rank}.{world}``.
+  a sliced part under ``{mu,nu}/{name}@{axis}.{rank}.{world}``;
+- under tensor parallelism (parallel/tp.py) each rank writes its slice of a
+  split tensor under ``{params,mu,nu}/{name}#{axis}.{m}.{M}`` (its place m
+  of M on the model axis, before any ZeRO-1 suffix); under pipeline
+  parallelism each stage writes its own layers, whose names are its own.
 
 ``load_sharded`` reads every tensor whole into the calling process, so a
 checkpoint written by W ranks loads into any number of processes (each
-then takes its ZeRO-1 parts again).
+then takes its parts again, ``parallel/tp.py shard_params``, and its
+ZeRO-1 parts).
 """
 
 import os
@@ -27,7 +32,7 @@ from kmbart_tpu_torch.training.adamw import AdamWState
 from kmbart_tpu_torch.training.state import model_tensors
 
 STATE_DIR = "sharded_state"
-_PART = re.compile(r"^(mu|nu)/(.+)@(\d+)\.(\d+)\.(\d+)$")
+_KEY = re.compile(r"^(params|mu|nu)/([^#@]+)(?:#(\d+)\.(\d+)\.(\d+))?(?:@(\d+)\.(\d+)\.(\d+))?$")
 
 
 def sharded_state_dir(path):
@@ -38,18 +43,27 @@ def has_sharded_state(path):
     return bool(path) and os.path.isdir(sharded_state_dir(path))
 
 
-def save_sharded(path, state, epoch, zero1=None):
+def _tp_suffix(name, grid):
+    from kmbart_tpu_torch.parallel.tp import tp_axis
+    axis = None if grid is None or grid.model.size == 1 else tp_axis(name)
+    return "" if axis is None else f"#{axis}.{grid.model.index}.{grid.model.size}"
+
+
+def save_sharded(path, state, epoch, zero1=None, grid=None):
     """Write ``state`` (a TrainState) and ``epoch`` to ``path/sharded_state``;
-    a collective when a process group is up: every rank calls it."""
-    sd = {f"params/{n}": t.detach() for n, t in model_tensors(state.params).items()}
+    a collective when a process group is up: every rank calls it. ``grid``:
+    the process grid of a split model (parallel/mesh.py)."""
+    sd = {f"params/{n}{_tp_suffix(n, grid)}": t.detach()
+          for n, t in model_tensors(state.params).items()}
     opt = state.opt_state
     for field in ("mu", "nu"):
         for name, m in getattr(opt, field).items():
             kind = zero1.kind[name] if zero1 is not None else ("replicated",)
+            key = f"{field}/{name}{_tp_suffix(name, grid)}"
             if kind[0] == "slice":
-                sd[f"{field}/{name}@{kind[1]}.{zero1.rank}.{zero1.world}"] = m
+                sd[f"{key}@{kind[1]}.{zero1.rank}.{zero1.world}"] = m
             else:
-                sd[f"{field}/{name}"] = m
+                sd[key] = m
     for key, v in (opt.leaf_steps or {}).items():
         sd[f"leaf_steps/{key}"] = v
     sd["opt_step"] = opt.step
@@ -65,26 +79,27 @@ def load_sharded(path, device="cpu"):
     meta = dcp.FileSystemReader(root).read_metadata().state_dict_metadata
     sd = {k: torch.empty(tuple(m.size), dtype=m.properties.dtype) for k, m in meta.items()}
     dcp.load(sd, checkpoint_id=root)
-    moments = {"mu": {}, "nu": {}}
-    parts = {}
+    # {(field, name): {(tp axis, m): {(zero1 axis, r): tensor}}}
+    pieces = {}
     for key, t in sd.items():
-        m = _PART.match(key)
+        m = _KEY.match(key)
         if m:
-            field, name, axis, r, _ = m.groups()
-            parts.setdefault((field, name, int(axis)), {})[int(r)] = t
-        elif key.startswith(("mu/", "nu/")):
-            field, name = key.split("/", 1)
-            moments[field][name] = t
-    for (field, name, axis), by_rank in parts.items():
-        moments[field][name] = torch.cat([by_rank[r] for r in sorted(by_rank)], dim=axis)
+            field, name, tp_ax, tp_m, _, z_ax, z_r, _ = m.groups()
+            tp_part = None if tp_ax is None else (int(tp_ax), int(tp_m))
+            z_part = None if z_ax is None else (int(z_ax), int(z_r))
+            pieces.setdefault((field, name), {}).setdefault(tp_part, {})[z_part] = t
+    whole = {"params": {}, "mu": {}, "nu": {}}
+    join = lambda parts: (parts[None] if None in parts else
+                          torch.cat([parts[k] for k in sorted(parts)], dim=min(parts)[0]))
+    for (field, name), by_tp in pieces.items():
+        whole[field][name] = join({k: join(v) for k, v in by_tp.items()})
     to = lambda d: {k: v.to(device) for k, v in d.items()}
     leaf_steps = {k[len("leaf_steps/"):]: v.to(device) for k, v in sd.items()
                   if k.startswith("leaf_steps/")}
     epoch, step = (int(x) for x in sd["meta"])
-    return {"params": to({k[len("params/"):]: v for k, v in sd.items()
-                          if k.startswith("params/")}),
-            "opt_state": AdamWState(step=sd["opt_step"].to(device), mu=to(moments["mu"]),
-                                    nu=to(moments["nu"]), leaf_steps=leaf_steps or None),
+    return {"params": to(whole["params"]),
+            "opt_state": AdamWState(step=sd["opt_step"].to(device), mu=to(whole["mu"]),
+                                    nu=to(whole["nu"]), leaf_steps=leaf_steps or None),
             "epoch": epoch, "step": step}
 
 

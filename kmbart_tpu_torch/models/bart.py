@@ -12,6 +12,13 @@ Training threads ``train`` and a ``torch.Generator`` through ``encode``,
 (embeddings, attention probs, both residual branches, the activation,
 LayerDrop), drawing from the one generator in a fixed order.
 
+Under tensor parallelism (``tp``, parallel/tp.py) each rank holds its
+columns of q, k, v and fc1 and its rows of out_proj and fc2 and the layers
+call the model axis's collectives; under sequence parallelism the stream
+between them holds this rank's rows (parallel/sp.py). Pipeline
+parallelism (parallel/pp.py) runs these same layer functions stage by
+stage.
+
 Generation runs on the beam-stationary cache: self K/V rows are written
 once into the writer beam's slot, in place, and never moved; the int32
 ancestry says which slot holds each past position for each live beam, and
@@ -32,6 +39,7 @@ from kmbart_tpu_torch.ops.ffn import ffn
 from kmbart_tpu_torch.ops.ffn import supported as ffn_supported
 from kmbart_tpu_torch.ops.layers import (ACTIVATIONS, dense, dropout, layer_norm,
                                          matmul_f32, scale_as)
+from kmbart_tpu_torch.parallel.tp import copy_to
 
 
 def compute_dtype(cfg):
@@ -232,10 +240,31 @@ def _decoder_embed(model, cfg, token_ids, pos_start, train=False, generator=None
 # Layers
 # --------------------------------------------------------------------------
 
-def _residual_ffn(x, layer, cfg, dtype, train=False, generator=None):
+def _res_ln(residual, h, ln, tp=None):
+    """LN(residual + h): every residual site, and so under sequence
+    parallelism every place the stream holds this rank's rows alone
+    (kmbart_tpu/models/bart.py:184 ``_res_ln``), where the norm's
+    gradient is a part of the whole one."""
+    if tp is not None:
+        tp.mark(ln.weight, ln.bias)
+    return _ln(residual + h, ln)
+
+
+def _residual_ffn(x, layer, cfg, dtype, train=False, generator=None, tp=None):
     residual = x
     d = x.shape[-1]
     f = layer.fc1.weight.shape[0]
+    if tp is not None:
+        # column-parallel fc1, row-parallel fc2 with b2 added once after the
+        # sum; K2 adds b2 in its body, so tensor parallelism takes the
+        # composite path (the JAX CLIs turn K2 off there,
+        # kmbart_tpu/cli_common.py:301-307)
+        h = dense(tp.enter(x), layer.fc1.weight, layer.fc1.bias, dtype)
+        h = ACTIVATIONS[cfg.activation_function](h)
+        h = dropout(h, cfg.activation_dropout, tp.generator, train)
+        h = tp.row(h, layer.fc2.weight, layer.fc2.bias, dtype)
+        h = dropout(h, cfg.dropout, tp.stream_generator(generator), train)
+        return _res_ln(residual, h, layer.final_layer_norm, tp)
     if (cfg.activation_function == "gelu" and dtype == torch.bfloat16
             and ffn_supported(d, f)
             and not (train and cfg.activation_dropout > 0.0)
@@ -254,28 +283,35 @@ def _residual_ffn(x, layer, cfg, dtype, train=False, generator=None):
     return _ln(residual + h, layer.final_layer_norm)
 
 
-def _encoder_layer(x, layer, key_mask, cfg, dtype, train=False, generator=None):
-    drop = dict(dropout_rate=cfg.attention_dropout, generator=generator, train=train)
+def _encoder_layer(x, layer, key_mask, cfg, dtype, train=False, generator=None, tp=None):
+    """One encoder layer; ``tp``: tensor parallelism inside the stack
+    (parallel/tp.py ``Stack``), under which ``x`` is this rank's rows when
+    the stack is sequence parallel."""
+    drop = dict(dropout_rate=cfg.attention_dropout, generator=generator, train=train, tp=tp)
+    stream = generator if tp is None else tp.stream_generator(generator)
     h = multi_head_attention(layer.self_attn, x, key_mask=key_mask,
                              num_heads=cfg.encoder_attention_heads, dtype=dtype, **drop)
-    h = dropout(h, cfg.dropout, generator, train)
-    x = _ln(x + h, layer.self_attn_layer_norm)
-    return _residual_ffn(x, layer, cfg, dtype, train, generator)
+    h = dropout(h, cfg.dropout, stream, train)
+    x = _res_ln(x, h, layer.self_attn_layer_norm, tp)
+    return _residual_ffn(x, layer, cfg, dtype, train, generator, tp)
 
 
 def _decoder_layer(x, layer, enc_hidden, cfg, dtype, self_key_mask, cross_key_mask,
-                   train=False, generator=None):
+                   train=False, generator=None, tp=None):
+    """One teacher-forced decoder layer; ``tp`` as in ``_encoder_layer``, with
+    ``enc_hidden`` already entered (``decode``)."""
     H = cfg.decoder_attention_heads
-    drop = dict(dropout_rate=cfg.attention_dropout, generator=generator, train=train)
+    drop = dict(dropout_rate=cfg.attention_dropout, generator=generator, train=train, tp=tp)
+    stream = generator if tp is None else tp.stream_generator(generator)
     h = multi_head_attention(layer.self_attn, x, key_mask=self_key_mask,
                              num_heads=H, dtype=dtype, causal=True, **drop)
-    h = dropout(h, cfg.dropout, generator, train)
-    x = _ln(x + h, layer.self_attn_layer_norm)
+    h = dropout(h, cfg.dropout, stream, train)
+    x = _res_ln(x, h, layer.self_attn_layer_norm, tp)
     h = multi_head_attention(layer.encoder_attn, x, kv_hidden=enc_hidden,
                              key_mask=cross_key_mask, num_heads=H, dtype=dtype, **drop)
-    h = dropout(h, cfg.dropout, generator, train)
-    x = _ln(x + h, layer.encoder_attn_layer_norm)
-    return _residual_ffn(x, layer, cfg, dtype, train, generator)
+    h = dropout(h, cfg.dropout, stream, train)
+    x = _res_ln(x, h, layer.encoder_attn_layer_norm, tp)
+    return _residual_ffn(x, layer, cfg, dtype, train, generator, tp)
 
 
 def _layer_dropped(p, generator, train):
@@ -292,27 +328,43 @@ def _layer_dropped(p, generator, train):
 # --------------------------------------------------------------------------
 
 def encode(model, cfg, input_ids, image_features=None, attention_mask=None, *,
-           train=False, generator=None):
-    """Multimodal encoder forward: [B, T, D] in the compute dtype."""
+           train=False, generator=None, tp=None):
+    """Multimodal encoder forward: [B, T, D] in the compute dtype. ``tp``:
+    tensor parallelism (parallel/tp.py ``TensorParallel``) on this rank's
+    part of the model; the output is whole on every rank."""
     dtype = compute_dtype(cfg)
     x = _encoder_embed(model, cfg, input_ids, image_features, train, generator)
+    stack = None if tp is None else tp.stack(x.shape[1], generator, salt=1)
+    if stack is not None:
+        x = stack.begin(x)
     for layer in model.encoder.layers:
         if not _layer_dropped(cfg.encoder_layerdrop, generator, train):
-            x = _encoder_layer(x, layer, attention_mask, cfg, dtype, train, generator)
+            x = _encoder_layer(x, layer, attention_mask, cfg, dtype, train, generator, stack)
+    if stack is not None:
+        x = stack.end(x)
     if cfg.normalize_before:
         x = _ln(x, model.encoder.layer_norm)
     return x
 
 
 def decode(model, cfg, decoder_input_ids, enc_hidden, enc_attention_mask=None,
-           decoder_attention_mask=None, *, train=False, generator=None):
-    """Teacher-forced decoder forward: [B, T, D] in the compute dtype."""
+           decoder_attention_mask=None, *, train=False, generator=None, tp=None):
+    """Teacher-forced decoder forward: [B, T, D] in the compute dtype; ``tp``
+    as in ``encode``."""
     dtype = compute_dtype(cfg)
     x = _decoder_embed(model, cfg, decoder_input_ids, 0, train, generator)
+    stack = None if tp is None else tp.stack(x.shape[1], generator, salt=2)
+    if stack is not None:
+        # every layer's k/v projections read the encoder output: its
+        # gradient parts are summed once, here
+        enc_hidden = copy_to(enc_hidden, tp.axis)
+        x = stack.begin(x)
     for layer in model.decoder.layers:
         if not _layer_dropped(cfg.decoder_layerdrop, generator, train):
             x = _decoder_layer(x, layer, enc_hidden, cfg, dtype, decoder_attention_mask,
-                               enc_attention_mask, train, generator)
+                               enc_attention_mask, train, generator, stack)
+    if stack is not None:
+        x = stack.end(x)
     if cfg.add_final_layer_norm:
         x = _ln(x, model.decoder.layer_norm)
     return x
@@ -320,13 +372,14 @@ def decode(model, cfg, decoder_input_ids, enc_hidden, enc_attention_mask=None,
 
 def forward(model, cfg, input_ids, image_features=None, attention_mask=None,
             decoder_input_ids=None, decoder_attention_mask=None, *, train=False,
-            generator=None):
-    """Trunk forward: (decoder_hidden, encoder_hidden)."""
+            generator=None, tp=None):
+    """Trunk forward: (decoder_hidden, encoder_hidden), whole on every rank
+    under tensor parallelism (``tp``)."""
     enc = encode(model, cfg, input_ids, image_features, attention_mask, train=train,
-                 generator=generator)
+                 generator=generator, tp=tp)
     dec = decode(model, cfg, decoder_input_ids, enc, enc_attention_mask=attention_mask,
                  decoder_attention_mask=decoder_attention_mask, train=train,
-                 generator=generator)
+                 generator=generator, tp=tp)
     return dec, enc
 
 

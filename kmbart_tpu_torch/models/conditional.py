@@ -60,15 +60,23 @@ class _LazyAux(Mapping):
         return 1 + len(self._items)
 
 
-def conditional_loss(model, cfg, batch, *, train=False, generator=None):
+def conditional_loss(model, cfg, batch, *, train=False, generator=None, tp=None,
+                     trunk_fn=None):
     """CE loss on ``batch["labels"]`` (-100 ignored), dropout drawn from
     ``generator`` when ``train``. Returns (loss, aux) where ``aux["logits"]``
-    are the LM logits in the compute dtype, computed on access."""
-    hidden, _ = bart.forward(
-        model.model, cfg, batch["input_ids"], batch.get("image_features"),
-        batch.get("attention_mask"), decoder_input_ids=batch["decoder_input_ids"],
-        decoder_attention_mask=batch.get("decoder_attention_mask"), train=train,
-        generator=generator)
+    are the LM logits in the compute dtype, computed on access. ``tp``:
+    tensor parallelism (parallel/tp.py); ``trunk_fn(trunk, cfg, batch,
+    train, generator) -> decoder hidden`` swaps the trunk for another
+    execution of the same math (the pipeline, parallel/pp.py). The LM head
+    runs whole on the decoder output either way."""
+    if trunk_fn is not None:
+        hidden = trunk_fn(model.model, cfg, batch, train, generator)
+    else:
+        hidden, _ = bart.forward(
+            model.model, cfg, batch["input_ids"], batch.get("image_features"),
+            batch.get("attention_mask"), decoder_input_ids=batch["decoder_input_ids"],
+            decoder_attention_mask=batch.get("decoder_attention_mask"), train=train,
+            generator=generator, tp=tp)
     loss, _ = lm_cross_entropy(model.model, cfg, hidden, model.final_logits_bias,
                                batch["labels"])
     return loss, _LazyAux(lambda: bart.lm_logits(

@@ -74,17 +74,28 @@ def _pair_rows(hidden, pairs):
     return torch.cat([obj, sub], dim=-1)
 
 
-def pretraining_loss(model, cfg, batch, *, train=False, generator=None):
+def pretraining_loss(model, cfg, batch, *, train=False, generator=None, tp=None,
+                     trunk_fn=None):
     """The multi-task loss. Returns (total, aux): ``aux["losses"]`` holds
     lm_loss, mrm_loss, attribute_loss, relation_loss and loss, for the heads
     whose inputs the batch has (src/model/model.py:244-307);
     ``aux["logits"]`` are the LM logits in the compute dtype, computed on
-    access. Dropout draws from ``generator`` when ``train``, trunk first."""
-    hidden, _ = bart.forward(
-        model.model, cfg, batch["input_ids"], batch.get("image_features"),
-        batch.get("attention_mask"), decoder_input_ids=batch["decoder_input_ids"],
-        decoder_attention_mask=batch.get("decoder_attention_mask"), train=train,
-        generator=generator)
+    access. Dropout draws from ``generator`` when ``train``, trunk first.
+
+    ``tp``: tensor parallelism (parallel/tp.py). ``trunk_fn(trunk, cfg,
+    batch, train, generator) -> decoder hidden`` swaps the encoder/decoder
+    trunk for another execution of the same math
+    (kmbart_tpu/models/pretraining.py:53,69): the pipeline
+    (parallel/pp.py) passes its staged forward here, and the heads run
+    whole on every rank on its output."""
+    if trunk_fn is not None:
+        hidden = trunk_fn(model.model, cfg, batch, train, generator)
+    else:
+        hidden, _ = bart.forward(
+            model.model, cfg, batch["input_ids"], batch.get("image_features"),
+            batch.get("attention_mask"), decoder_input_ids=batch["decoder_input_ids"],
+            decoder_attention_mask=batch.get("decoder_attention_mask"), train=train,
+            generator=generator, tp=tp)
     dtype = compute_dtype(cfg)
     head = dict(dropout_rate=cfg.classif_dropout, generator=generator, train=train,
                 dtype=dtype)

@@ -83,7 +83,7 @@ def causal_bias(q_len, k_len, device):
 def multi_head_attention(attn, hidden, kv_hidden=None, bias=None, *, num_heads,
                          dtype=torch.bfloat16, cross_cache=None, key_mask=None,
                          causal=False, dropout_rate=0.0, generator=None, train=False,
-                         self_cache=None, cache_index=None):
+                         self_cache=None, cache_index=None, tp=None):
     """Attention block: projections, core, output projection.
 
     attn: a module with ``q_proj``, ``k_proj``, ``v_proj``, ``out_proj``
@@ -99,7 +99,20 @@ def multi_head_attention(attn, hidden, kv_hidden=None, bias=None, *, num_heads,
     K/V rows are written in place at ``cache_index`` and attention runs over
     the whole static buffer under the caller's ``bias``, which must mask the
     positions past the last one written. The BART paths never pass it.
+
+    tp: tensor parallelism inside a stack (parallel/tp.py ``Stack``): the
+    projections are this rank's columns of q, k and v, the core runs its
+    ``num_heads / tp`` heads (K1 at that head count), out_proj is
+    row-parallel with its bias added after the sum, and the attention-prob
+    dropout draws from the rank's own generator. ``kv_hidden`` is then
+    already whole on the rank (the decoder enters the encoder output once).
     """
+    out_proj = dense
+    if tp is not None:
+        assert cross_cache is None and self_cache is None, "tensor parallelism trains only"
+        hidden = tp.enter(hidden)
+        num_heads = tp.heads(num_heads)
+        generator, out_proj = tp.generator, tp.row
     core = dict(dropout_rate=dropout_rate, generator=generator, train=train, dtype=dtype)
     if kv_hidden is None and cross_cache is None:
         # self-attention: one fused QKV matmul instead of three
@@ -120,7 +133,7 @@ def multi_head_attention(attn, hidden, kv_hidden=None, bias=None, *, num_heads,
             and not (train and dropout_rate > 0.0)):
         Tq = hidden.shape[1]
         Tk = Tq if kv_hidden is None else kv_hidden.shape[1]
-        hd = hidden.shape[-1] // num_heads
+        hd = q_flat.shape[-1] // num_heads
         fused = None
         if supported(Tq, Tk, hd) and k1_enabled(num_heads) and (Tq == Tk or not causal):
             fused = train_attention
@@ -131,7 +144,7 @@ def multi_head_attention(attn, hidden, kv_hidden=None, bias=None, *, num_heads,
                 k_flat, v_flat = project_kv()
             # K1 and K11 read the fused QKV chunks by row stride, without a copy
             out = fused(q_flat, k_flat, v_flat, key_mask, num_heads=num_heads, causal=causal)
-            return dense(out, attn.out_proj.weight, attn.out_proj.bias, dtype)
+            return out_proj(out, attn.out_proj.weight, attn.out_proj.bias, dtype)
 
     q = split_heads(q_flat, num_heads)
     if cross_cache is not None:
@@ -161,4 +174,4 @@ def multi_head_attention(attn, hidden, kv_hidden=None, bias=None, *, num_heads,
         if causal:
             bias = bias + causal_bias(q.shape[1], k.shape[1], q.device)
     out = attention_core(q, k, v, bias, **core)
-    return dense(merge_heads(out), attn.out_proj.weight, attn.out_proj.bias, dtype)
+    return out_proj(merge_heads(out), attn.out_proj.weight, attn.out_proj.bias, dtype)

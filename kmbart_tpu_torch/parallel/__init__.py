@@ -1,1 +1,2 @@
-"""Train and eval steps (one device; DDP is not ported yet)."""
+"""Multi-process training: the process grid, data, tensor, sequence and
+pipeline parallelism, ZeRO-1, and the train and eval steps."""

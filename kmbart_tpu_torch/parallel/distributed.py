@@ -8,7 +8,7 @@ the port runs one process per card, each on its own rows, and makes the
 step's arithmetic global by hand:
 
 - every masked mean divides its local sum by the count over all ranks
-  (``global_count`` inside ``global_counts()``), so the per-rank losses add
+  (``global_count`` inside ``global_counts(axis)``), so the per-rank losses add
   up to the loss of the global batch;
 - the gradients are summed over the ranks (``all_reduce_sum``, in a few
   flat buckets), which then gives the global batch's gradient.
@@ -20,6 +20,11 @@ package does, and otherwise torchrun's ``MASTER_ADDR``/``MASTER_PORT``,
 CUDA device, each rank on ``cuda:{LOCAL_RANK}`` (default: its rank modulo
 the visible cards), and gloo on the CPU. A process feeds one device, so a
 per-process batch splits no further (the JAX ``local_batch_divisor`` is 1).
+
+Under tensor, sequence and pipeline parallelism the ranks form a grid
+(parallel/mesh.py) and each collective runs over one of its axes
+(``Axis``): the counts, the gradient sums and the loss over the data axis,
+the non-finite guard over every rank.
 """
 
 import contextlib
@@ -86,9 +91,13 @@ def is_main_process():
     return rank() == 0
 
 
-def data_feed():
+def data_feed(grid=None):
     """(num_replicas, rank) for ShardedSampler: the slice of the global
-    index stream this process loads."""
+    index stream this process loads. Under a process grid
+    (parallel/mesh.py) the ranks of one data coordinate form a feed group
+    and load the same rows."""
+    if grid is not None:
+        return grid.data.size, grid.data.index
     return world_size(), rank()
 
 
@@ -107,40 +116,71 @@ def barrier():
         dist.barrier()
 
 
-_GLOBAL_COUNTS = [False]
+class Axis:
+    """One axis of the process grid (parallel/mesh.py), as this rank sees
+    it: its ``size``, this rank's ``index`` on it, the global ``ranks`` of
+    this rank's group in axis order, and the ``group`` (None: the world,
+    when the axis spans it). A size-1 axis needs no collective."""
+
+    def __init__(self, size, index, ranks, group=None):
+        self.size, self.index, self.ranks, self.group = size, index, tuple(ranks), group
+
+    def __repr__(self):
+        return f"Axis(size={self.size}, index={self.index}, ranks={self.ranks})"
+
+
+def world_axis():
+    return Axis(world_size(), rank(), range(world_size()))
+
+
+_COUNT_AXIS = [None]
 
 
 @contextlib.contextmanager
-def global_counts(enabled=True):
-    """Within the block, ``global_count`` sums counts over the ranks."""
-    prev = _GLOBAL_COUNTS[0]
-    _GLOBAL_COUNTS[0] = enabled and world_size() > 1
+def global_counts(axis):
+    """Within the block, ``global_count`` sums counts over the ranks of
+    ``axis``, the data axis, whose ranks hold different rows (None, or a
+    size-1 axis: no sum)."""
+    prev = _COUNT_AXIS[0]
+    _COUNT_AXIS[0] = axis if axis is not None and axis.size > 1 else None
     try:
         yield
     finally:
-        _GLOBAL_COUNTS[0] = prev
+        _COUNT_AXIS[0] = prev
 
 
-def _all_reduce(t):
-    """Sum ``t`` over the ranks in place. Gloo takes CUDA tensors through a
-    host copy (several ranks on one card rendezvous over gloo, since NCCL
-    refuses them)."""
-    if t.is_cuda and dist.get_backend() == "gloo":
+def _staged(t, group):
+    """Gloo takes CUDA tensors through a host copy (several ranks on one
+    card rendezvous over gloo, since NCCL refuses them)."""
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _all_reduce(t, group=None):
+    """Sum ``t`` over the ranks of ``group`` in place."""
+    if _staged(t, group):
         host = t.cpu()
-        dist.all_reduce(host)
+        dist.all_reduce(host, group=group)
         t.copy_(host)
     else:
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=group)
+
+
+def all_reduce_axis(t, axis):
+    """``t`` summed over ``axis`` in place (nothing for a size-1 axis)."""
+    if axis is not None and axis.size > 1:
+        _all_reduce(t, axis.group)
+    return t
 
 
 def global_count(n):
     """The count a masked mean divides by: ``n`` itself, or inside
-    ``global_counts()`` its sum over every rank (one all-reduce; exact for
-    counts below 2^24)."""
-    if not _GLOBAL_COUNTS[0]:
+    ``global_counts(axis)`` its sum over the axis's ranks (one all-reduce;
+    exact for counts below 2^24)."""
+    axis = _COUNT_AXIS[0]
+    if axis is None:
         return n
     total = n.detach().to(torch.float32).reshape(1).clone()
-    _all_reduce(total)
+    _all_reduce(total, axis.group)
     return total.reshape(()).to(n.dtype)
 
 
@@ -156,33 +196,68 @@ def _buckets(tensors, limit):
         yield bucket
 
 
-def all_reduce_sum(tensors, bucket_elems=BUCKET_ELEMS):
-    """Sum each tensor (all of one dtype) over the ranks in place, in flat
-    buckets of at most ``bucket_elems`` elements: one all-reduce a bucket."""
-    if world_size() == 1:
+def all_reduce_sum(tensors, bucket_elems=BUCKET_ELEMS, axis=None):
+    """Sum each tensor (all of one dtype) over the ranks of ``axis``
+    (default: every rank) in place, in flat buckets of at most
+    ``bucket_elems`` elements: one all-reduce a bucket."""
+    axis = world_axis() if axis is None else axis
+    if axis.size == 1:
         return
     for bucket in _buckets(tensors, bucket_elems):
         flat = torch.cat([t.reshape(-1) for t in bucket])
-        _all_reduce(flat)
+        _all_reduce(flat, axis.group)
         for t, part in zip(bucket, flat.split([t.numel() for t in bucket])):
             t.copy_(part.view_as(t))
 
 
-def all_gather_flat(local):
-    """[world, n]: every rank's 1-D ``local`` (all of length n), exactly.
-    NCCL gathers in one call; gloo takes one broadcast per rank, through a
-    host copy for CUDA tensors."""
-    world = world_size()
-    out = torch.empty((world, local.numel()), dtype=local.dtype, device=local.device)
-    if world == 1:
+def all_gather_flat(local, axis=None):
+    """[axis size, n]: every rank's 1-D ``local`` (all of length n) over
+    ``axis`` (default: every rank), exactly. NCCL gathers in one call; gloo
+    takes one broadcast per rank, through a host copy for CUDA tensors."""
+    axis = world_axis() if axis is None else axis
+    out = torch.empty((axis.size, local.numel()), dtype=local.dtype, device=local.device)
+    if axis.size == 1:
         out[0].copy_(local)
         return out
-    if dist.get_backend() == "nccl":
-        dist.all_gather_into_tensor(out, local.contiguous())
+    if dist.get_backend(axis.group) == "nccl":
+        dist.all_gather_into_tensor(out, local.contiguous(), group=axis.group)
         return out
     host = out.cpu()
-    host[rank()].copy_(local)
-    for r in range(world):
-        dist.broadcast(host[r], src=r)
+    host[axis.index].copy_(local)
+    for i, r in enumerate(axis.ranks):
+        dist.broadcast(host[i], src=r, group=axis.group)
     out.copy_(host)
+    return out
+
+
+def broadcast(t, src_index, axis):
+    """``t`` in place from the rank at ``src_index`` on ``axis``."""
+    if axis.size == 1:
+        return t
+    src = axis.ranks[src_index]
+    if _staged(t, axis.group):
+        host = t.cpu()
+        dist.broadcast(host, src=src, group=axis.group)
+        t.copy_(host)
+    else:
+        dist.broadcast(t, src=src, group=axis.group)
+    return t
+
+
+def send(t, dst):
+    """Point-to-point send to global rank ``dst`` (gloo: CUDA tensors
+    through a host copy)."""
+    if _staged(t, None):
+        t = t.cpu()
+    dist.send(t.contiguous(), dst=dst)
+
+
+def recv(shape, dtype, device, src):
+    """The tensor global rank ``src`` sends (``send``)."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    if _staged(out, None):
+        host = torch.empty(shape, dtype=dtype)
+        dist.recv(host, src=src)
+        return out.copy_(host)
+    dist.recv(out, src=src)
     return out

@@ -12,7 +12,7 @@ dropout generator is seeded from (seed, state.step[, micro-batch][, rank]):
 the counterpart of ``fold_in(rng, state.step)``, so a resumed run draws what
 an uninterrupted one would have.
 
-With ``data_parallel`` the process is one rank of a multi-process job
+With a ``grid`` whose data axis has several ranks, the process is one rank of a multi-process job
 (parallel/distributed.py) and the step computes what the JAX package's
 pjit step computes over the global batch, the ranks' batches side by side:
 each masked mean divides by its count over all ranks, the gradients and the
@@ -23,6 +23,18 @@ Under grad accumulation rank r's micro-batch i is its own rows
 the JAX package cuts the global batch into G contiguous blocks instead, so
 the two group rows differently when G > 1 (ROADMAP.md, known differences).
 ``zero1`` (parallel/zero1.py) shards the AdamW moments over the ranks.
+
+With a ``grid`` (parallel/mesh.py) the step is one rank of tensor, sequence
+and pipeline parallelism (the counterpart of the JAX step under
+``param_partition_specs`` / ``stage_param_specs``): the loss function runs
+this rank's part of the model (parallel/tp.py, parallel/pp.py), the data
+axis takes the place of the ranks above, the gradients that sequence
+parallelism leaves in parts are summed over the model axis, the guard reads
+every rank, and the per-leaf "used" test of AdamW is ORed over the ranks of
+one data coordinate, where a JAX leaf's parts live. Under pipeline
+parallelism each accumulation micro-batch splits again into the pipeline's
+micro-batches inside the loss, in the JAX order
+(kmbart_tpu/cli_common.py:328 ``validate_batch_layout``).
 """
 
 import torch
@@ -48,34 +60,59 @@ def _split(batch, G):
             for i in range(G)]
 
 
-def _sum_over_ranks(loss, metrics):
-    """The loss and each metric summed over the ranks (one all-reduce)."""
+def _sum_over_ranks(loss, metrics, axis=None):
+    """The loss and each metric summed over the ranks of ``axis`` (default:
+    every rank; one all-reduce)."""
     keys = list(metrics)
     stats = torch.stack([torch.as_tensor(loss).float().reshape(())] +
                         [torch.as_tensor(metrics[k]).float().reshape(()) for k in keys])
-    distributed.all_reduce_sum([stats])
+    distributed.all_reduce_sum([stats], axis=axis)
     return stats[0], dict(zip(keys, stats[1:]))
 
 
+def _data_axis(grid):
+    return grid.data if grid is not None and grid.data.size > 1 else None
+
+
 def build_train_step(loss_fn, optimizer, skip_nonfinite=True, grad_accum_steps=1,
-                     data_parallel=False, zero1=None):
+                     zero1=None, grid=None):
     """loss_fn(model, batch, generator) -> (loss, metrics dict of scalars);
-    under ``data_parallel`` the metrics are parts of the loss (each rank's
+    over several data ranks the metrics are parts of the loss (each rank's
     share of a global mean), summed over the ranks like it.
+
+    ``grid`` (parallel/mesh.py) makes the step a rank of data parallelism
+    over its data axis and of tensor, sequence and pipeline parallelism over
+    the others: the counts, the gradients and the loss are summed over the
+    data axis, the
+    gradients that sequence parallelism leaves in parts over the model
+    axis, the non-finite guard reads every rank, and AdamW's "used" test is
+    ORed over the ranks of a data coordinate. Each step's dropout generator
+    is seeded from the data coordinate, so the ranks of one model axis draw
+    the same masks on the replicated stream.
 
     Returns step(state, batch, seed) -> (state, metrics); metrics stay
     device tensors (read them at the logging cadence)."""
     G = grad_accum_steps
+    data = _data_axis(grid)
+    tp = None if grid is None else grid.tp
+    split = grid is not None and grid.parallel
+
+    def any_over(flags):
+        votes = flags.to(torch.float32)
+        distributed.all_reduce_axis(votes, grid.feed)
+        return votes > 0
 
     def step(state: TrainState, batch, seed):
         model = state.params
         tensors = model_tensors(model)
         device = next(iter(tensors.values())).device
-        rank = distributed.rank() if data_parallel else 0
+        rank = 0 if data is None else data.index
         model.zero_grad(set_to_none=True)
+        if tp is not None:
+            tp.partial.clear()
         micro = [batch] if G == 1 else _split(batch, G)
         losses, per_micro = [], []
-        with distributed.global_counts(data_parallel):
+        with distributed.global_counts(data):
             for i, mb in enumerate(micro):
                 gen = torch.Generator(device=device).manual_seed(
                     step_seed(seed, state.step, i, rank))
@@ -88,22 +125,31 @@ def build_train_step(loss_fn, optimizer, skip_nonfinite=True, grad_accum_steps=1
         loss = losses[0] if G == 1 else sum(losses) / G
         metrics = {k: torch.stack([torch.as_tensor(m[k]).detach() for m in per_micro])
                    .float().mean() for k in per_micro[0]}
-        if data_parallel:
+        if data is not None:
             grads = {n: torch.zeros_like(t, dtype=torch.float32) if g is None else g
                      for (n, t), g in zip(tensors.items(), grads.values())}
-            distributed.all_reduce_sum(list(grads.values()))
-            loss, metrics = _sum_over_ranks(loss, metrics)
+            distributed.all_reduce_sum(list(grads.values()), axis=data)
+            loss, metrics = _sum_over_ranks(loss, metrics, data)
+        if tp is not None and tp.partial:
+            ids = {id(t): n for n, t in tensors.items()}
+            distributed.all_reduce_sum([grads[ids[i]] for i in tp.partial
+                                        if grads.get(ids[i]) is not None], axis=tp.axis)
         ok = None
         if skip_nonfinite:
             finite = [torch.isfinite(loss).reshape(())]
             finite += [torch.isfinite(g).all() for g in grads.values() if g is not None]
             ok = torch.stack(finite).all()
+            if split:
+                bad = (~ok).to(torch.float32).reshape(1)
+                distributed.all_reduce_axis(bad, grid.world)
+                ok = bad[0] == 0
             metrics["skipped"] = 1.0 - ok.float()
         # the guard is fused into the optimizer's update (adamw.py ``ok``)
+        extra = {"any_over": any_over} if split and grid.feed.size > 1 else {}
         if zero1 is not None:
-            opt_state = zero1.update(optimizer, grads, state.opt_state, tensors, ok=ok)
+            opt_state = zero1.update(optimizer, grads, state.opt_state, tensors, ok=ok, **extra)
         else:
-            opt_state = optimizer.update(grads, state.opt_state, tensors, ok=ok)
+            opt_state = optimizer.update(grads, state.opt_state, tensors, ok=ok, **extra)
         model.zero_grad(set_to_none=True)
         metrics["loss"] = loss
         return TrainState(params=model, opt_state=opt_state, step=state.step + 1), metrics
@@ -111,19 +157,20 @@ def build_train_step(loss_fn, optimizer, skip_nonfinite=True, grad_accum_steps=1
     return step
 
 
-def build_eval_step(loss_fn, data_parallel=False):
+def build_eval_step(loss_fn, grid=None):
     """loss_fn(model, batch, generator) -> (loss, metrics); returns
-    step(model, batch) -> metrics, without gradients or dropout. Under
-    ``data_parallel`` the loss and metrics are the global batch's, on every
-    rank."""
+    step(model, batch) -> metrics, without gradients or dropout. Over a
+    ``grid``'s data axis the loss and metrics are the global batch's, on
+    every rank."""
+    data = _data_axis(grid)
 
     @torch.no_grad()
     def step(model, batch):
-        with distributed.global_counts(data_parallel):
+        with distributed.global_counts(data):
             loss, metrics = loss_fn(model, batch, None)
         metrics = dict(metrics)
-        if data_parallel:
-            loss, metrics = _sum_over_ranks(loss, metrics)
+        if data is not None:
+            loss, metrics = _sum_over_ranks(loss, metrics, data)
         metrics["loss"] = loss
         return metrics
 

@@ -15,7 +15,13 @@ tensors, one per layer where JAX stacks the layers:
 
 Parameters and gradients stay replicated (plain data parallelism): each
 rank updates its part of each parameter from the summed gradient, then the
-parts are all-gathered. The "used" test and the per-leaf step counts read
+parts are all-gathered.
+
+Under tensor and pipeline parallelism (parallel/mesh.py) the moments of a
+rank's own part of the model (its slice, its stage's layers) are sharded
+over the data axis only, on the first axis that the composed JAX specs
+leave free (``stage_param_specs``: the stage axis takes the layer axis,
+and without a model axis the tensor-parallel axes stay free). The "used" test and the per-leaf step counts read
 whole gradients (training/adamw.py ``part``), so each element's arithmetic
 is the replicated run's, and the parameters are bit-equal to it.
 """
@@ -53,22 +59,28 @@ def _jax_leaves(cfg, shapes, heads):
     return {k: (tuple(v[0]), v[1]) for k, v in leaves.items()}
 
 
-def _zero1_axis(key, shape, world):
-    """The first axis of the leaf that the TP rules leave free and
-    ``world`` divides, or None."""
+def _zero1_axis(key, shape, world, tp_rules=True, stages=False):
+    """The first axis of the leaf that the partition specs leave free and
+    ``world`` divides, or None. ``tp_rules``: the tensor-parallel rules
+    name their axes (always, but under pipeline parallelism without a model
+    axis); ``stages``: the stage axis takes a stacked leaf's layer axis."""
     name = key.rsplit("/", 1)[-1]
-    rules = _LAYER_MODEL_AXIS if "/layers/" in key else _TOP_MODEL_AXIS
-    taken = rules.get(name)
+    layer = "/layers/" in key
+    rules = _LAYER_MODEL_AXIS if layer else _TOP_MODEL_AXIS
+    taken = {rules.get(name)} if tp_rules else set()
+    if stages and layer:
+        taken.add(0)
     for i, dim in enumerate(shape):
-        if i != taken and dim >= world and dim % world == 0:
+        if i not in taken and dim >= world and dim % world == 0:
             return i
     return None
 
 
-def leaf_axes(cfg, shapes, world, heads=False):
+def leaf_axes(cfg, shapes, world, heads=False, tp_rules=True, stages=False):
     """{JAX leaf key: the axis ZeRO-1 shards its moments on, or None}: the
-    axis that ``kmbart_tpu.parallel.tp.zero1_moment_specs`` names "data"."""
-    return {k: _zero1_axis(k, shape, world)
+    axis that ``kmbart_tpu.parallel.tp.zero1_moment_specs`` names "data"
+    (over the specs of ``stage_param_specs`` under ``stages``)."""
+    return {k: _zero1_axis(k, shape, world, tp_rules, stages)
             for k, (shape, _) in _jax_leaves(cfg, shapes, heads).items()}
 
 
@@ -76,12 +88,15 @@ class Zero1:
     """The moment layout of one rank. ``tensors``: {port name: tensor} that
     the optimizer updates (training/state.py ``model_tensors``)."""
 
-    def __init__(self, cfg, tensors, world, rank, heads=False):
+    def __init__(self, cfg, tensors, world, rank, heads=False, grid=None):
         self.world, self.rank = world, rank
+        self.axis = None if grid is None else grid.data
+        stages = grid is not None and grid.stage.size > 1
+        tp_rules = not stages or grid.model.size > 1
         shapes = {n: tuple(t.shape) for n, t in tensors.items()}
         self.kind = {}
         for key, (shape, members) in _jax_leaves(cfg, shapes, heads).items():
-            axis = _zero1_axis(key, shape, world)
+            axis = _zero1_axis(key, shape, world, tp_rules, stages)
             per_rank = shape[0] // world if axis is not None else 0
             for name, layer, transpose in members:
                 if axis is None:
@@ -122,7 +137,7 @@ class Zero1:
         """Every rank's parts of ``full`` ({name: tensor}, updated in place
         from ``local`` = this rank's parts, {name: tensor})."""
         own = [local[n] for n in self._sliced + self._owned[self.rank]]
-        rows = all_gather_flat(torch.cat([t.reshape(-1) for t in own]))
+        rows = all_gather_flat(torch.cat([t.reshape(-1) for t in own]), self.axis)
         for r in range(self.world):
             offset = 0
             for name in self._sliced + self._owned[r]:
@@ -157,8 +172,8 @@ class Zero1:
             out[field] = full
         return state._replace(**out)
 
-    def update(self, optimizer, grads, state, params, ok=None):
+    def update(self, optimizer, grads, state, params, ok=None, **kw):
         """AdamW on this rank's parts, then the parameters gathered."""
-        new = optimizer.update(grads, state, params, ok=ok, part=self.part)
+        new = optimizer.update(grads, state, params, ok=ok, part=self.part, **kw)
         self.gather_params(params)
         return new

@@ -6,8 +6,10 @@ attribute/relation pretraining of the pretraining model, per-epoch
 too), a teacher-forced sample decode every 100 steps, and TensorBoard
 scalars with the head losses. It takes the same flags, with ``--device``
 (default ``cuda``; ``--cpu`` is ``--device cpu``), and ``--multihost``,
-``--zero1`` and ``--sharded_checkpoints`` as ``vcg_train`` takes them; the
-tensor, sequence and pipeline parallelism flags are refused. Checkpoints
+``--zero1``, ``--sharded_checkpoints`` and the tensor, sequence and
+pipeline parallelism flags as ``vcg_train`` takes them (the root CLI wires
+them at pretrain.py:127-190; under pipeline parallelism the four heads run
+whole on every stage). Checkpoints
 are in the JAX package's format, so either package resumes the other's, and
 a pretraining checkpoint loads into the fine-tune model (``vcg_train
 --checkpoint``) with the heads dropped.
@@ -28,9 +30,10 @@ from kmbart_tpu_torch.utils.logger import Logger
 from kmbart_tpu_torch.checkpoint.io import jax_leaf_groups
 from kmbart_tpu_torch.cli_common import (add_common_model_args, add_dropout_args,
                                          add_hardware_args, add_pretraining_args,
-                                         build_model_params, check_parallel_flags,
-                                         load_model_config, make_train_state,
-                                         save_train_checkpoint, setup_device)
+                                         build_model_params, load_model_config,
+                                         make_grid_from_args, make_train_state,
+                                         pipeline_microbatches, save_train_checkpoint,
+                                         setup_device, validate_batch_layout, whole_model)
 from kmbart_tpu_torch.models.pretraining import (forward_logits, init_pretraining_model,
                                                  pretraining_loss)
 from kmbart_tpu_torch.parallel import distributed
@@ -82,9 +85,10 @@ def build_datasets(args):
 
 def main(args):
     device = setup_device(args)
-    if args.batch_size % args.grad_accum_steps:
-        raise ValueError(f'batch_size={args.batch_size} must be divisible by '
-                         f'grad_accum_steps={args.grad_accum_steps}')
+    grid = make_grid_from_args(args)
+    pp_active = grid is not None and grid.stage.size > 1
+    n_micro = pipeline_microbatches(args) if pp_active else 1
+    validate_batch_layout(args, n_micro)
     is_main = distributed.is_main_process()
     timestamp = distributed.sync_timestamp(datetime.now().strftime("%Y-%m-%d-%H-%M-%S"))
     checkpoint_path = os.path.join(args.checkpoint_dir, timestamp)
@@ -99,8 +103,8 @@ def main(args):
 
     os.makedirs(checkpoint_path, exist_ok=True)
     logger.info('Made checkpoint directory: "{}"'.format(checkpoint_path))
-    logger.info('Running on {} ({} process(es))'.format(device, distributed.world_size()),
-                pad=True)
+    logger.info('Running on {} ({} process(es){})'.format(
+        device, distributed.world_size(), '' if grid is None else ', ' + repr(grid)), pad=True)
     for k, v in vars(args).items():
         logger.info('{}: {}'.format(k, v))
 
@@ -108,10 +112,13 @@ def main(args):
     tokenizer = ConditionTokenizer(assets_dir=args.tokenizer_dir)
     cfg = load_model_config(args)
     model = build_model_params(args, cfg, init_pretraining_model, device, logger)
+    if grid is not None and grid.parallel:
+        from kmbart_tpu_torch.parallel.tp import shard_model_
+        shard_model_(model, cfg, grid)
     optimizer = AdamW(lr=args.lr, groups=jax_leaf_groups(cfg, heads=True))
     state, epoch, zero1 = make_train_state(args, cfg, model, optimizer, device, heads=True,
-                                           logger=logger)
-    replicas, rank = distributed.data_feed()
+                                           logger=logger, grid=grid)
+    replicas, rank = distributed.data_feed(grid)
 
     logger.info('Loading data...')
     collate_fn = Collator(
@@ -125,23 +132,32 @@ def main(args):
         train_dataset, batch_size=args.batch_size, collate_fn=collate_fn,
         sampler=ShardedSampler(len(train_dataset), num_replicas=replicas, rank=rank,
                                shuffle=True, seed=args.seed),
-        num_workers=args.num_workers, drop_last=True)
+        num_workers=args.num_workers, drop_last=True, batch_divisor=n_micro)
 
     def loss_fn(m, b, generator):
-        loss, aux = pretraining_loss(m, cfg, b, train=True, generator=generator)
+        if pp_active:
+            from kmbart_tpu_torch.parallel.pp import pipelined_pretraining_loss
+            loss, aux = pipelined_pretraining_loss(m, cfg, b, grid, n_micro=n_micro,
+                                                   train=True, generator=generator)
+        else:
+            loss, aux = pretraining_loss(m, cfg, b, train=True, generator=generator,
+                                         tp=None if grid is None else grid.tp)
         return loss, {k: v for k, v in aux['losses'].items() if k != 'loss'}
 
     train_step = build_train_step(loss_fn, optimizer, grad_accum_steps=args.grad_accum_steps,
-                                  data_parallel=distributed.world_size() > 1, zero1=zero1)
+                                  zero1=zero1, grid=grid)
 
     def callback(step, epoch, state, logger, **kwargs):
         if args.save_every_steps and (step + 1) % args.save_every_steps == 0:
             path = os.path.join(checkpoint_path, 'step{}'.format(state.step))
-            save_train_checkpoint(path, cfg, state, epoch, args, zero1)
+            save_train_checkpoint(path, cfg, state, epoch, args, zero1, grid)
             logger.info('Saved mid-epoch checkpoint at "{}"'.format(path))
-        if step % 100 == 0 and is_main:
+        if step % 100 == 0:
+            whole = whole_model(state.params, cfg, grid, init_pretraining_model)
+            if not is_main:
+                return
             data = collate_fn([train_dataset[0]])
-            logits = forward_logits(state.params, cfg, to_device(data, device))
+            logits = forward_logits(whole, cfg, to_device(data, device))
             event_ids = np.array(data['input_ids'][0])
             event_ids[event_ids == -100] = tokenizer.unk_token_id
             ans = tokenizer.decode(logits[0].argmax(dim=-1).cpu().numpy())
@@ -162,7 +178,7 @@ def main(args):
                              callback=callback, log_interval=1, tb_writer=tb_writer,
                              tb_interval=1)
         current = os.path.join(checkpoint_path, 'model{}'.format(epoch))
-        save_train_checkpoint(current, cfg, state, epoch, args, zero1)
+        save_train_checkpoint(current, cfg, state, epoch, args, zero1, grid)
         logger.info('Saved checkpoint at "{}"'.format(checkpoint_path))
         epoch += 1
     logger.info('Training complete in: ' + str(datetime.now() - start), pad=True)
@@ -194,7 +210,6 @@ def parse_args(argv=None):
     add_hardware_args(parser, train=True)
     parser.set_defaults(use_event=True, use_image=True)
     args = parser.parse_args(argv)
-    check_parallel_flags(parser, args)
     if args.checkpoint is None and args.model_config is None:
         raise ValueError('--model_config and --checkpoint cannot be empty at the same time')
     names = [k for k, _ in args.dataset]

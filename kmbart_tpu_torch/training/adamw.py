@@ -47,7 +47,13 @@ class AdamW:
         self.groups = groups
 
     def groups_for(self, params):
-        return self.groups if self.groups is not None else {n: [n] for n in params}
+        """The groups over the tensors of ``params``: a rank of a split model
+        holds some members of a group (its stage's layers), or a part of
+        each."""
+        if self.groups is None:
+            return {n: [n] for n in params}
+        groups = {k: [n for n in names if n in params] for k, names in self.groups.items()}
+        return {k: names for k, names in groups.items() if names}
 
     def init(self, params):
         dev = next(iter(params.values())).device
@@ -59,23 +65,35 @@ class AdamW:
             leaf_steps={k: zero() for k in self.groups_for(params)})
 
     @torch.no_grad()
-    def update(self, grads, state, params, lr=None, ok=None, part=None):
+    def update(self, grads, state, params, lr=None, ok=None, part=None, any_over=None):
         """Update ``params`` in place; return the new state. ``part(name,
         tensor)``, when given, is the part of a tensor this process updates
         (ZeRO-1, parallel/zero1.py; None: a tensor another rank owns), and
         the state's moments hold those parts; the "used" test still reads
-        the whole gradients, so every rank decides it alike."""
+        the whole gradients, so every rank decides it alike. ``any_over``,
+        when given, ORs the groups' "used" flags (a bool vector) over the
+        ranks that hold other parts of the same groups (tensor and pipeline
+        parallelism: a JAX leaf is split over them, and a rank whose part
+        got no gradient must still step)."""
         lr = self.lr if lr is None else lr
         b1, b2, eps = self.b1, self.b2, self.eps
         step = state.step + (1 if ok is None else ok.to(torch.int32))
         per_leaf = self.skip_unused and state.leaf_steps is not None
         mu, nu = dict(state.mu), dict(state.nu)
         leaf_steps = None if state.leaf_steps is None else dict(state.leaf_steps)
-        for key, names in self.groups_for(params).items():
-            gs = [torch.zeros_like(params[n], dtype=torch.float32) if grads.get(n) is None
-                  else grads[n].float() for n in names]
+        groups = self.groups_for(params)
+        grads_of = {key: [torch.zeros_like(params[n], dtype=torch.float32) if grads.get(n) is None
+                          else grads[n].float() for n in names] for key, names in groups.items()}
+        if per_leaf:
+            flags = torch.stack([torch.stack([(g != 0).any() for g in gs]).any()
+                                 for gs in grads_of.values()])
+            if any_over is not None:
+                flags = any_over(flags)
+            used_of = dict(zip(groups, flags))
+        for key, names in groups.items():
+            gs = grads_of[key]
             if per_leaf:
-                used = torch.stack([(g != 0).any() for g in gs]).any()
+                used = used_of[key]
                 if ok is not None:
                     used = used & ok
                 leaf_steps[key] = state.leaf_steps[key] + used.to(torch.int32)

@@ -17,9 +17,12 @@ def validate_loss(epoch, model, eval_step, val_loader, *, device, logger=None,
     """Mean of the per-batch losses over the batches the loader yielded
     (not ``len(val_loader)``, which may count a batch the loader skips).
     Under data parallelism each rank's loader yields its share of every
-    global batch and ``eval_step`` (``build_eval_step(data_parallel=True)``)
-    returns the global batch's loss, its sums and counts all-reduced, so
-    every rank averages the same numbers."""
+    global batch and ``eval_step`` (``build_eval_step`` with a ``grid``)
+    returns the global batch's loss, its sums and counts
+    all-reduced over the data axis, so every rank averages the same
+    numbers; under tensor and pipeline parallelism the ranks of a data
+    coordinate load the same rows and run their parts of one forward
+    (the pipelined loss under ``--pipeline_stages``)."""
     total_step = len(val_loader)
     loss = 0.0
     steps = 0

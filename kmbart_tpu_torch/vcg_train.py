@@ -5,13 +5,17 @@ model on VCG with per-epoch ``model{N}/`` checkpoints (optionally every
 ``--save_every_steps`` steps too), optional validation loss and generation
 score, a sample decode every 100 steps, and TensorBoard scalars. It takes
 the same flags, with ``--device`` (default ``cuda``; ``--cpu`` is ``--device
-cpu``). ``--multihost`` trains data parallel, one process per card (the
-global batch is the processes' ``--batch_size`` rows side by side),
-``--zero1`` shards the AdamW moments over them and ``--sharded_checkpoints``
-writes the port's sharded format; the tensor, sequence and pipeline
-parallelism flags are refused. Only rank 0 logs and writes npz checkpoints,
-which are in the JAX package's format, so either package resumes the
-other's.
+cpu``). ``--multihost`` trains on several processes, one per card:
+data parallel (the global batch is the feed groups' ``--batch_size`` rows
+side by side), and with ``--model_parallel``, ``--sequence_parallel`` and
+``--pipeline_stages`` tensor, sequence and pipeline parallel
+(parallel/mesh.py), as the root CLI wires them (vcg_train.py:83-190);
+``--zero1`` shards the AdamW moments over the data axis and
+``--sharded_checkpoints`` writes the port's sharded format. Only rank 0
+logs and writes npz checkpoints (the parts of a split model gathered
+first), which are in the JAX package's format, so either package resumes
+the other's; the sample decode and the generation score run on rank 0 on
+the gathered whole model.
 """
 
 import argparse
@@ -29,9 +33,10 @@ from kmbart_tpu_torch.utils.logger import Logger
 from kmbart_tpu_torch.checkpoint.io import jax_leaf_groups
 from kmbart_tpu_torch.cli_common import (add_common_model_args, add_dropout_args,
                                          add_hardware_args, build_model_params,
-                                         check_parallel_flags, load_model_config,
-                                         make_train_state, save_train_checkpoint,
-                                         setup_device)
+                                         load_model_config, make_grid_from_args,
+                                         make_train_state, pipeline_microbatches,
+                                         save_train_checkpoint, setup_device,
+                                         validate_batch_layout, whole_model)
 from kmbart_tpu_torch.generation.api import generate
 from kmbart_tpu_torch.models.conditional import conditional_loss, init_conditional_model
 from kmbart_tpu_torch.parallel import distributed
@@ -43,11 +48,13 @@ from kmbart_tpu_torch.training.validation import validate_generation_score, vali
 
 def main(args):
     device = setup_device(args)
-    if args.batch_size % args.grad_accum_steps:
-        raise ValueError(f'batch_size={args.batch_size} must be divisible by '
-                         f'grad_accum_steps={args.grad_accum_steps}')
+    grid = make_grid_from_args(args)
+    pp_active = grid is not None and grid.stage.size > 1
+    # each feed group's batch splits into the pipeline's micro-batches, so
+    # partial batches trim to a multiple of their count
+    n_micro = pipeline_microbatches(args) if pp_active else 1
+    validate_batch_layout(args, n_micro)
     is_main = distributed.is_main_process()
-    dp = distributed.world_size() > 1
     timestamp = distributed.sync_timestamp(datetime.now().strftime("%Y-%m-%d-%H-%M-%S"))
     checkpoint_path = os.path.join(args.checkpoint_dir, timestamp)
     tb_writer = None
@@ -62,8 +69,8 @@ def main(args):
 
     os.makedirs(checkpoint_path, exist_ok=True)
     logger.info('Made checkpoint directory: "{}"'.format(checkpoint_path))
-    logger.info('Running on {} ({} process(es))'.format(device, distributed.world_size()),
-                pad=True)
+    logger.info('Running on {} ({} process(es){})'.format(
+        device, distributed.world_size(), '' if grid is None else ', ' + repr(grid)), pad=True)
     for k, v in vars(args).items():
         logger.info('{}: {}'.format(k, v))
 
@@ -71,9 +78,18 @@ def main(args):
     tokenizer = ConditionTokenizer(assets_dir=args.tokenizer_dir)
     cfg = load_model_config(args)
     model = build_model_params(args, cfg, init_conditional_model, device, logger)
+    if grid is not None and grid.parallel:
+        from kmbart_tpu_torch.parallel.tp import shard_model_
+        shard_model_(model, cfg, grid)
+        if grid.sequence_parallel:
+            logger.info('Sequence parallelism active (TP degree {})'.format(grid.model.size))
+        if pp_active:
+            logger.info('Pipeline parallelism active ({} stages, {} microbatches)'.format(
+                grid.stage.size, n_micro))
     optimizer = AdamW(lr=args.lr, groups=jax_leaf_groups(cfg))
-    state, epoch, zero1 = make_train_state(args, cfg, model, optimizer, device, logger=logger)
-    replicas, rank = distributed.data_feed()
+    state, epoch, zero1 = make_train_state(args, cfg, model, optimizer, device, logger=logger,
+                                           grid=grid)
+    replicas, rank = distributed.data_feed(grid)
 
     logger.info('Loading data...')
     collate_fn = Collator(tokenizer, has_label=True, max_img_num=cfg.max_img_num,
@@ -88,13 +104,14 @@ def main(args):
         train_dataset, batch_size=args.batch_size, collate_fn=collate_fn,
         sampler=ShardedSampler(len(train_dataset), num_replicas=replicas, rank=rank,
                                shuffle=True, seed=args.seed),
-        num_workers=args.num_workers, drop_last=True)
+        num_workers=args.num_workers, drop_last=True, batch_divisor=n_micro)
     val_dataset = VCGDataset(args.data_dir, split='val', use_image=args.use_image,
                              use_event=args.use_event)
     val_loader = DataLoader(val_dataset, batch_size=args.batch_size, collate_fn=collate_fn,
                             num_workers=args.num_workers,
                             sampler=ShardedSampler(len(val_dataset), num_replicas=replicas,
-                                                   rank=rank, shuffle=False))
+                                                   rank=rank, shuffle=False),
+                            batch_divisor=n_micro)
     gen_dataset = VCGDataset(args.data_dir, split='val', use_image=args.use_image,
                              use_event=args.use_event, eval_mode=True)
     gen_loader = DataLoader(gen_dataset, batch_size=args.batch_size,
@@ -102,26 +119,39 @@ def main(args):
     with open(os.path.join(args.data_dir, 'val_ref.json')) as f:
         val_ref = json.load(f)
 
+    if pp_active:
+        from kmbart_tpu_torch.parallel.pp import pipelined_conditional_loss
+
+        def model_loss(m, b, train, generator):
+            return pipelined_conditional_loss(m, cfg, b, grid, n_micro=n_micro, train=train,
+                                              generator=generator)
+    else:
+        def model_loss(m, b, train, generator):
+            return conditional_loss(m, cfg, b, train=train, generator=generator,
+                                    tp=None if grid is None else grid.tp)
+
     def loss_fn(m, b, generator):
-        loss, _ = conditional_loss(m, cfg, b, train=True, generator=generator)
-        return loss, {}
+        return model_loss(m, b, True, generator)[0], {}
 
     def eval_loss_fn(m, b, generator):
-        loss, _ = conditional_loss(m, cfg, b, train=False)
-        return loss, {}
+        return model_loss(m, b, False, None)[0], {}
 
     train_step = build_train_step(loss_fn, optimizer, grad_accum_steps=args.grad_accum_steps,
-                                  data_parallel=dp, zero1=zero1)
-    eval_step = build_eval_step(eval_loss_fn, data_parallel=dp)
+                                  zero1=zero1, grid=grid)
+    eval_step = build_eval_step(eval_loss_fn, grid=grid)
 
     def callback(step, epoch, state, logger, **kwargs):
         if args.save_every_steps and (step + 1) % args.save_every_steps == 0:
             path = os.path.join(checkpoint_path, 'step{}'.format(state.step))
-            save_train_checkpoint(path, cfg, state, epoch, args, zero1)
+            save_train_checkpoint(path, cfg, state, epoch, args, zero1, grid)
             logger.info('Saved mid-epoch checkpoint at "{}"'.format(path))
-        if (step + 1) % 100 == 0 and is_main:
+        if (step + 1) % 100 == 0:
+            # generate() runs on one rank, on the whole model
+            whole = whole_model(state.params, cfg, grid, init_conditional_model)
+            if not is_main:
+                return
             inputs = collate_fn([train_dataset[0]])
-            out = generate(state.params, cfg,
+            out = generate(whole, cfg,
                            {'input_ids': inputs['input_ids'],
                             'attention_mask': inputs['attention_mask'],
                             'image_features': inputs['image_features']},
@@ -146,13 +176,15 @@ def main(args):
         if args.validate_loss:
             validate_loss(epoch, state.params, eval_step, val_loader, device=device,
                           logger=logger, tb_writer=tb_writer)
-        if args.validate_score and is_main:
+        if args.validate_score:
             # decode and score on rank 0, as the JAX package does
-            validate_generation_score(epoch, state.params, cfg, gen_loader, val_ref,
-                                      tokenizer, args, logger=logger, tb_writer=tb_writer)
+            whole = whole_model(state.params, cfg, grid, init_conditional_model)
+            if is_main:
+                validate_generation_score(epoch, whole, cfg, gen_loader, val_ref,
+                                          tokenizer, args, logger=logger, tb_writer=tb_writer)
 
         current = os.path.join(checkpoint_path, 'model{}'.format(epoch))
-        save_train_checkpoint(current, cfg, state, epoch, args, zero1)
+        save_train_checkpoint(current, cfg, state, epoch, args, zero1, grid)
         logger.info('Saved checkpoint at "{}"'.format(checkpoint_path))
         epoch += 1
     logger.info('Training complete in: ' + str(datetime.now() - start), pad=True)
@@ -186,7 +218,6 @@ def parse_args(argv=None):
     add_hardware_args(parser, train=True)
     parser.set_defaults(use_event=True, use_image=True)
     args = parser.parse_args(argv)
-    check_parallel_flags(parser, args)
     if args.checkpoint is None and args.model_config is None:
         raise ValueError('--model_config and --checkpoint cannot be empty at the same time')
     return args

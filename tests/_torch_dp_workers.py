@@ -24,6 +24,7 @@ from kmbart_tpu_torch.cli_common import save_train_checkpoint
 from kmbart_tpu_torch.config import tiny_config
 from kmbart_tpu_torch.models.conditional import conditional_loss, init_conditional_model
 from kmbart_tpu_torch.parallel import distributed
+from kmbart_tpu_torch.parallel.mesh import Grid
 from kmbart_tpu_torch.parallel.train_step import build_train_step
 from kmbart_tpu_torch.parallel.zero1 import Zero1
 from kmbart_tpu_torch.training.adamw import AdamW
@@ -99,7 +100,7 @@ def main(out_dir):
     for name, G in runs:
         model = init_conditional_model(fp32, seed=0, device="cpu")
         opt = _Capture(AdamW(lr=1e-3, groups=jax_leaf_groups(cfg)))
-        step = build_train_step(fp32_loss_fn, opt, grad_accum_steps=G, data_parallel=dp)
+        step = build_train_step(fp32_loss_fn, opt, grad_accum_steps=G, grid=Grid())
         state = TrainState.create(model, opt.inner)
         b = mine if dp or name != "grads_accum" else interleaved
         state, metrics = step(state, b, 0)
@@ -113,7 +114,7 @@ def main(out_dir):
         state = TrainState.create(model, opt)
         if zero1 is not None:
             state = state._replace(opt_state=zero1.shard_state(state.opt_state))
-        step = build_train_step(loss_fn, opt, data_parallel=dp, zero1=zero1)
+        step = build_train_step(loss_fn, opt, zero1=zero1, grid=Grid())
         for i in range(3):
             state, _ = step(state, mine, 0)
         out[name] = {n: t.detach().clone() for n, t in model_tensors(model).items()}

@@ -139,6 +139,7 @@ def test_no_jax_import_in_source():
         assert any(os.sep + os.path.join("kmbart_tpu_torch", sub) + os.sep in p
                    for p in sources), sub
     for module in ("parallel/distributed.py", "parallel/zero1.py", "checkpoint/sharded.py",
+                   "parallel/mesh.py", "parallel/tp.py", "parallel/sp.py", "parallel/pp.py",
                    "utils/profiling.py", "scripts/prepare_coco.py", "scripts/prepare_vg.py",
                    "scripts/prepare_cc.py", "scripts/prepare_sbu.py",
                    "scripts/prepare_coco_reason.py", "scripts/prepare_cc_reason.py",

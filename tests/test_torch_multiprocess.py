@@ -15,6 +15,10 @@ each a process of its own, against one process on their rows side by side.
   batch 8 in one process, train and validation losses within rtol and atol
   2e-3, rank 1 silent, rank 0 writing ``params.npz``; then a resume under
   ``--multihost --zero1 --sharded_checkpoints`` that runs epoch 2.
+- The ``pretrain`` twin at two ranks with ZeRO-1 and sharded checkpoints;
+  it accepts the tensor, sequence and pipeline parallelism flags and
+  refuses the combinations the JAX CLIs refuse (tests/test_torch_tp.py,
+  test_torch_sp.py and test_torch_pp.py run them).
 """
 
 import os
@@ -231,20 +235,33 @@ def test_vcg_train_multihost_matches_one_process_and_resumes(data, tmp_path):
     assert loaded["epoch"] == 1 and loaded["step"] == 8
 
 
-def test_pretrain_multihost_zero1_sharded_and_refused_flags(data, tmp_path):
+def test_pretrain_multihost_zero1_sharded_and_refused_flags(data, tmp_path, monkeypatch):
     """The ``pretrain`` twin at two ranks with ZeRO-1 (the heads' leaves
     too) writes a sharded checkpoint that loads into one process; its
-    tensor, sequence and pipeline parallelism flags are refused."""
+    tensor, sequence and pipeline parallelism flags are accepted, and the
+    combinations the JAX CLIs refuse are refused (``make_grid_from_args``,
+    kmbart_tpu/cli_common.py:296-319), as is a split model without
+    --multihost."""
     from kmbart_tpu_torch import pretrain
+    from kmbart_tpu_torch.cli_common import make_grid_from_args
     argv = ["--dataset", "coco_train", os.path.join(data, "coco"),
             "--dataset", "vg_train", os.path.join(data, "vg"),
             "--checkpoint_dir", str(tmp_path / "ckpt"),
             "--tokenizer_dir", os.path.join(data, "tokenizer"),
             "--model_config", os.path.join(data, "config.json"), "--epochs", "1",
             "--batch_size", "4", "--max_img_num", "4", "--lr", "1e-3", "--device", "cpu"]
-    for flag in (["--model_parallel", "2"], ["--pipeline_stages", "2"], ["--sequence_parallel"]):
-        with pytest.raises(SystemExit):
-            pretrain.parse_args(argv + flag)
+    flags = ["--model_parallel", "2", "--pipeline_stages", "2", "--sequence_parallel",
+             "--pipeline_microbatches", "4", "--pipeline_span_processes"]
+    args = pretrain.parse_args(argv + flags)
+    assert (args.model_parallel, args.pipeline_stages, args.pipeline_microbatches) == (2, 2, 4)
+    assert args.sequence_parallel and args.pipeline_span_processes
+    monkeypatch.setenv("KMBART_NO_FUSED_FFN", "")
+    monkeypatch.delenv("KMBART_NO_FUSED_FFN")
+    with pytest.raises(ValueError, match="cannot be combined with --sequence_parallel"):
+        make_grid_from_args(pretrain.parse_args(argv + flags + ["--multihost"]))
+    for flag in (["--model_parallel", "2"], ["--pipeline_stages", "2"]):
+        with pytest.raises(ValueError, match="need --multihost"):
+            make_grid_from_args(pretrain.parse_args(argv + flag))
     out = _run(["-m", "kmbart_tpu_torch.pretrain"] + argv
                + ["--multihost", "--zero1", "--sharded_checkpoints"], 2)
     assert "Loss" in out[0] and "Loss" not in out[1]

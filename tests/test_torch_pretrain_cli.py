@@ -81,7 +81,7 @@ def test_pretrain_twin_trains_resumes_and_loads_in_jax(data, tmp_path):
     assert all(torch.isfinite(t).all() for t in model.state_dict().values())
 
 
-def test_pretrain_twin_flags(data, tmp_path):
+def test_pretrain_twin_flags(data, tmp_path, monkeypatch):
     base = _args(data, str(tmp_path), "--model_config", os.path.join(data, "config.json"))
     args = pretrain.parse_args(base)
     assert (args.mrm_enabled, args.ap_enabled, args.rp_enabled) == (True, True, True)
@@ -93,11 +93,16 @@ def test_pretrain_twin_flags(data, tmp_path):
         pretrain.parse_args(base + ["--dataset", "coco_train", "x"])
     with pytest.raises(ValueError, match="--no_image"):
         pretrain.parse_args(base + ["--no_image"])
-    # tensor, sequence and pipeline parallelism are refused; data parallelism's
-    # flags are taken
+    # the tensor, sequence and pipeline parallelism flags are taken, and the
+    # grid refuses what the JAX CLI's mesh refuses
+    from kmbart_tpu_torch.cli_common import make_grid_from_args
+    monkeypatch.setenv("KMBART_NO_FUSED_FFN", "")
+    monkeypatch.delenv("KMBART_NO_FUSED_FFN")
     for flag in (["--model_parallel", "2"], ["--sequence_parallel"], ["--pipeline_stages", "2"]):
-        with pytest.raises(SystemExit):
-            pretrain.parse_args(base + flag)
+        pretrain.parse_args(base + flag)
+    with pytest.raises(ValueError, match="cannot be combined with --sequence_parallel"):
+        make_grid_from_args(pretrain.parse_args(base + ["--pipeline_stages", "2",
+                                                        "--sequence_parallel", "--multihost"]))
     assert pretrain.parse_args(base + ["--multihost", "--zero1", "--sharded_checkpoints"]).zero1
     assert pretrain.parse_args(base + ["--device", "cuda", "--cpu"]).device == "cpu"
     if not torch.cuda.is_available():

@@ -74,7 +74,7 @@ def test_vcg_train_twin_trains_resumes_and_generates(data, tmp_path):
     assert len(gen) == 18 and all(len(g["generations"]) == 1 for g in gen)
 
 
-def test_train_twin_device_and_flags(data, tmp_path):
+def test_train_twin_device_and_flags(data, tmp_path, monkeypatch):
     from kmbart_tpu_torch import vcg_train
     base = _train_args(data, str(tmp_path), "--model_config",
                        os.path.join(data, "config.json"))
@@ -84,12 +84,20 @@ def test_train_twin_device_and_flags(data, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             vcg_train.main(args)
-    # tensor, sequence and pipeline parallelism are refused; data parallelism's
-    # flags are taken
+    # the tensor, sequence and pipeline parallelism flags are taken, and the
+    # grid refuses what the JAX CLI's mesh refuses (and a split model
+    # without --multihost: one process a device)
+    from kmbart_tpu_torch.cli_common import make_grid_from_args
+    monkeypatch.setenv("KMBART_NO_FUSED_FFN", "")
+    monkeypatch.delenv("KMBART_NO_FUSED_FFN")
     for flag in (["--model_parallel", "2"], ["--sequence_parallel"], ["--pipeline_stages", "2"],
                  ["--pipeline_microbatches", "4"], ["--pipeline_span_processes"]):
-        with pytest.raises(SystemExit):
-            vcg_train.parse_args(base + flag)
+        vcg_train.parse_args(base + flag)
+    with pytest.raises(ValueError, match="cannot be combined with --sequence_parallel"):
+        make_grid_from_args(vcg_train.parse_args(base + ["--pipeline_stages", "2",
+                                                         "--sequence_parallel", "--multihost"]))
+    with pytest.raises(ValueError, match="need --multihost"):
+        make_grid_from_args(vcg_train.parse_args(base + ["--model_parallel", "2"]))
     args = vcg_train.parse_args(base + ["--multihost", "--zero1", "--sharded_checkpoints",
                                         "--model_parallel", "1"])
     assert args.multihost and args.zero1 and args.sharded_checkpoints
