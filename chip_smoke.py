@@ -127,7 +127,18 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                and K7/K8 (K9/K10) on every rank, in the launch counts and in
                a torch.profiler trace of one step a rank; ms a step a rank
                and the collectives' share. ``--only parallel_nccl`` runs
-               TP 2 x DP 2 and PP 2 x TP 2 over NCCL on four cards instead.
+               TP 2 x DP 2 and PP 2 x TP 2 over NCCL on four cards instead,
+               then phase 19's TP 2 x DP 2 generation.
+ 19. parallel_generate  generate() over a split model at the generate cell's
+               call (batch 64 of 72 tokens, beam 5, max_length 32): TP 2 and
+               DP 2 (32 rows a rank), two processes on the one card over gloo
+               (host-staged), each rank on its part of the model and its
+               block of the rows; ms a call a rank and the collectives'
+               share, K1-K4 launches a rank and K1's and K3's head counts (6
+               under TP, where K2 stays off), the samples that differ from
+               one process's generate() on the card (each must start at a
+               near-tie, as phase 12 bounds them) and between the ranks
+               (none may).
 Phase 4 also wraps one generate() call in utils.profiling.trace and finds
 K3's and K4's launches in the trace it writes; phase 12 also holds each of
 the static engine's 64 requests to generate() on the padded batch the
@@ -138,6 +149,7 @@ against 560 rows.
 The line before the last lists every kernel with its launches on the main
 path, its error, its time, its plain version's, its bound and the library
 call's (K1 and K1b also at a TP 2 rank's local shape, with the TP 2 run's
+launches, and K3 at a TP 2 rank's decode step, with phase 19's TP 2
 launches); the last line is {"ok": true, "device": {...}}. The port imports
 nothing of jax or kmbart_tpu, and the script checks that at its end.
 """
@@ -446,6 +458,9 @@ def check_kernels(torch, dev):
         (32, 72, 72, 384, 6, 9, False, True, True),
         (32, 40, 40, 384, 6, 0, True, True, True),
         (32, 40, 72, 384, 6, 9, False, False, True),
+        # generation's encoder on a TP 2 rank (the parallel_generate phase):
+        # B 64, 72 x 72, 6 heads over the [B, T, 384] columns
+        (64, 72, 72, 384, 6, 0, False, True, True),
     ]
 
     def k1(B, Tq, Tk, D, H, pad, causal, fused, timed, dtype=bf16):
@@ -859,7 +874,12 @@ def check_kernels(torch, dev):
         k3(3, 5, 12, 32, 4, 6, False),
         k3(8, 5, 32, 768, 12, 31, False, q_dtype=torch.float32),
         k3(8, 5, 32, 768, 12, 31, False, cache_dtype=torch.float32),
-        k3(8, 5, 32, 768, 12, 31, False, q_dtype=torch.float32, cache_dtype=torch.float32)]
+        k3(8, 5, 32, 768, 12, 31, False, q_dtype=torch.float32, cache_dtype=torch.float32),
+        # a TP 2 rank's decode step (the parallel_generate phase): 6 heads of
+        # 64 over a 384-column cache row, at the last position first (the
+        # kernels line's beam_attention_tp2_local row)
+        k3(64, 5, 32, 384, 6, 31, True), k3(64, 5, 32, 384, 6, 0, True),
+        k3(64, 5, 32, 384, 6, 15, True)]
 
     # K3's ring mode at the serving pool's shape (pool 112, K 5, T 32): window
     # lengths spread 1..32 with ring column 10 (the 21 lengths above 11 wrap
@@ -1035,6 +1055,20 @@ def plain_path():
             setattr(mod, name, fn)
 
 
+def _generate_batch(torch, cfg, dev, B=64, T=72):
+    """bench.py's decode batch on ``dev``: B rows of T tokens from seed 0,
+    positions 1-30 image slots, 30 ROI features a row."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    ids = rng.integers(4, 50000, (B, T))
+    ids[:, 1:31] = cfg.img_feat_id
+    return {"input_ids": torch.as_tensor(ids, device=dev),
+            "attention_mask": torch.ones((B, T), dtype=torch.long, device=dev),
+            "image_features": torch.as_tensor(
+                rng.normal(size=(B, cfg.max_img_num, cfg.image_feature_size)),
+                dtype=torch.float32, device=dev)}
+
+
 def run_generate(torch, dev, card):
     import numpy as np
     from kmbart_tpu_torch import MultiModalBartConfig
@@ -1050,15 +1084,10 @@ def run_generate(torch, dev, card):
         _, model, _ = load_pretrained(tmp, device=dev)
         load_s = time.perf_counter() - t0
 
-    B, T = 64, 72   # bench.py's decode batch: 72 tokens, rows 1-30 image slots
-    rng = np.random.default_rng(0)
-    ids = rng.integers(4, 50000, (B, T))
-    ids[:, 1:31] = cfg.img_feat_id
-    input_ids = torch.as_tensor(ids, device=dev)
-    mask = torch.ones((B, T), dtype=torch.long, device=dev)
-    feats = torch.as_tensor(rng.normal(size=(B, cfg.max_img_num, cfg.image_feature_size)),
-                            dtype=torch.float32, device=dev)
-    batch = {"input_ids": input_ids, "attention_mask": mask, "image_features": feats}
+    B, T = 64, 72
+    batch = _generate_batch(torch, cfg, dev, B, T)
+    input_ids, mask, feats = (batch[k] for k in ("input_ids", "attention_mask",
+                                                 "image_features"))
 
     def gen():
         # the user-level entry point; it returns host tokens trimmed to the
@@ -1811,14 +1840,7 @@ def run_sample(torch, dev, card):
     from kmbart_tpu_torch.ops import launch_counts, reset_launch_counts
     cfg, model = _base_model(dev, seed=0)
     B, T = 64, 72
-    rng = np.random.default_rng(0)
-    ids = rng.integers(4, 50000, (B, T))
-    ids[:, 1:31] = cfg.img_feat_id
-    batch = {"input_ids": torch.as_tensor(ids, device=dev),
-             "attention_mask": torch.ones((B, T), dtype=torch.long, device=dev),
-             "image_features": torch.as_tensor(
-                 rng.normal(size=(B, cfg.max_img_num, cfg.image_feature_size)),
-                 dtype=torch.float32, device=dev)}
+    batch = _generate_batch(torch, cfg, dev, B, T)
     result = {}
     for mode, beams in (("beam5", 5), ("greedy", 1)):
         def gen(seed=7):
@@ -1900,7 +1922,8 @@ def hold_static_engine(torch, model, cfg, records, dev, **gen_kw):
     return held, where, traces
 
 
-def near_ties(np, got, want, where, traces, ref_trace):
+def near_ties(np, got, want, where, traces, ref_trace,
+              what="static engine vs generate() at another batch"):
     """For each request whose tokens ``got`` (request i at (batch j, sample
     s) of the traced calls ``traces``) differ from ``want`` (sample i of the
     traced call ``ref_trace``): the first step where the two calls'
@@ -1940,8 +1963,8 @@ def near_ties(np, got, want, where, traces, ref_trace):
         report.append(entry)
     bad = [e for e in report if not e["near_tie"]]
     if bad:
-        raise AssertionError(f"static engine vs generate() at another batch: divergences "
-                             f"that do not start at a near-tie: {bad[:5]}")
+        raise AssertionError(f"{what}: divergences that do not start at a near-tie: "
+                             f"{bad[:5]}")
     return report
 
 
@@ -2901,9 +2924,10 @@ def parallel_worker():
     distributed.shutdown()
 
 
-def _parallel_run(world, cases, shared_card):
-    """``world`` parallel workers over ``cases``, all on card 0 over gloo
-    (``shared_card``) or one a card over NCCL; {case: [rank lines]}."""
+def _parallel_run(world, cases, shared_card, worker="--parallel-worker", **env_extra):
+    """``world`` workers (``chip_smoke.py <worker>``) over ``cases``, all on
+    card 0 over gloo (``shared_card``) or one a card over NCCL, with
+    ``env_extra`` in their environment; {case: [rank lines]}."""
     sock = socket.socket()
     sock.bind(("127.0.0.1", 0))
     port = sock.getsockname()[1]
@@ -2912,19 +2936,19 @@ def _parallel_run(world, cases, shared_card):
     for r in range(world):
         env = dict(os.environ, KMBART_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
                    KMBART_NUM_PROCESSES=str(world), KMBART_PROCESS_ID=str(r),
-                   LOCAL_RANK="0" if shared_card else str(r), KMBART_NO_FUSED_FFN="1",
-                   PARALLEL_CASES_RUN=",".join(cases))
+                   LOCAL_RANK="0" if shared_card else str(r),
+                   PARALLEL_CASES_RUN=",".join(cases), **env_extra)
         if shared_card:
             env["DDP_BACKEND"] = "gloo"
-        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                                       "--parallel-worker"], env=env, cwd=REPO, text=True,
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), worker],
+                                      env=env, cwd=REPO, text=True,
                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE))
     out = {c: [] for c in cases}
     try:
         for p in procs:
             stdout, err = p.communicate(timeout=600)
             if p.returncode != 0:
-                raise AssertionError(f"parallel worker exited {p.returncode}: {err[-3000:]}")
+                raise AssertionError(f"{worker} exited {p.returncode}: {err[-3000:]}")
             for line in stdout.strip().splitlines():
                 if line.startswith("{"):
                     row = json.loads(line)
@@ -3030,7 +3054,7 @@ def run_parallel(torch, dev, card, cards=1):
         cases, world = ["tp2", "tp2_sp", "pp2", "pp2_pretrain_nomat"], 2
     else:
         cases, world = ["tp2_dp2", "tp2_sp_dp2", "pp2_tp2"], 4
-    runs = _parallel_run(world, cases, shared_card=cards == 1)
+    runs = _parallel_run(world, cases, shared_card=cards == 1, KMBART_NO_FUSED_FFN="1")
     backend = "gloo" if cards == 1 else "nccl"
     refs = {}
     summary = {}
@@ -3061,6 +3085,216 @@ def run_parallel(torch, dev, card, cards=1):
     if cards == 1:
         return {k: sum(r["launches"][k] for r in runs["tp2"])
                 for k in ("train_attention", "train_attention_bwd")}
+    return None
+
+
+# ---------------------------------------------------------------------------
+# phase 19: generation over a split model
+# ---------------------------------------------------------------------------
+
+# the generate cell's call (batch 64 of 72 tokens, beam 5, max_length 32)
+PGEN_ROWS, PGEN_ENC, PGEN_BEAMS, PGEN_MAXLEN = 64, 72, 5, 32
+# case -> Grid options: TP 2 and DP 2 on one card, TP 2 x DP 2 on four
+PGEN_CASES = {"tp2": dict(model_parallel=2), "dp2": {}, "tp2_dp2": dict(model_parallel=2)}
+PGEN_KERNELS = ("train_attention", "ffn", "beam_attention", "vocab_stats")
+
+
+def parallel_generate_worker():
+    """One rank of the parallel_generate phase (``chip_smoke.py
+    --parallel-generate-worker``): for each case of PGEN_CASES named in
+    PARALLEL_CASES_RUN, the checkpoint PGEN_CHECKPOINT cut to the rank's
+    part of the grid and ``generate(..., grid=grid)`` on the whole batch:
+    a warm-up, a call with the launches and the head counts K1 and K3 ran
+    at, a call with every collective timed between two synchronisations,
+    and a call with beam.STEP_TRACE on, whose tokens and trace go to
+    PGEN_DIR/<case>.rank<r>.pt. Prints one JSON line a case."""
+    import torch
+    from kmbart_tpu_torch.checkpoint.io import load_pretrained
+    from kmbart_tpu_torch.generation import beam
+    from kmbart_tpu_torch.generation.api import generate
+    from kmbart_tpu_torch.models import bart
+    from kmbart_tpu_torch.ops import attention as attention_mod
+    from kmbart_tpu_torch.ops import launch_counts, reset_launch_counts
+    from kmbart_tpu_torch.parallel import distributed
+    from kmbart_tpu_torch.parallel.mesh import Grid
+    from kmbart_tpu_torch.parallel.tp import shard_model_
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = distributed.init_distributed("cuda", backend=os.environ.get("DDP_BACKEND"))
+    backend = torch.distributed.get_backend()
+
+    heads = {"k1": {}, "k3": {}}
+
+    def counting(key, fn):
+        def call(*a, num_heads, **k):
+            heads[key][num_heads] = heads[key].get(num_heads, 0) + 1
+            return fn(*a, num_heads=num_heads, **k)
+        return call
+
+    attention_mod.train_attention = counting("k1", attention_mod.train_attention)
+    bart.beam_gather_attention = counting("k3", bart.beam_gather_attention)
+    comm = [0.0, False]
+
+    def timed(fn):
+        def call(*a, **k):
+            if not comm[1]:
+                return fn(*a, **k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            comm[0] += time.perf_counter() - t0
+            return out
+        return call
+
+    for name in ("_all_reduce", "all_gather_flat", "broadcast"):
+        setattr(distributed, name, timed(getattr(distributed, name)))
+
+    for case in os.environ["PARALLEL_CASES_RUN"].split(","):
+        grid = Grid(**PGEN_CASES[case])
+        cfg, model, _ = load_pretrained(os.environ["PGEN_CHECKPOINT"], device=dev)
+        if grid.model.size > 1:
+            shard_model_(model, cfg, grid)
+        batch = _generate_batch(torch, cfg, dev, PGEN_ROWS, PGEN_ENC)
+
+        def gen():
+            return generate(model, cfg, batch, grid=grid, num_beams=PGEN_BEAMS,
+                            max_length=PGEN_MAXLEN, early_stopping=True, trim=False)
+
+        gen()   # warm-up: cuBLAS handles, allocator
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        for h in heads.values():
+            h.clear()
+        t0 = time.perf_counter()
+        out = gen()
+        seconds = time.perf_counter() - t0
+        launches = {k: launch_counts()[k] for k in PGEN_KERNELS}
+        ran_at = {k: dict(v) for k, v in heads.items()}
+        comm[0], comm[1] = 0.0, True
+        t0 = time.perf_counter()
+        gen()
+        instrumented = time.perf_counter() - t0
+        comm_s, comm[1] = comm[0], False
+        beam.STEP_TRACE = []
+        try:
+            traced = gen()
+            trace = beam.STEP_TRACE
+        finally:
+            beam.STEP_TRACE = None
+        torch.save({"tokens": traced, "trace": trace},
+                   os.path.join(os.environ["PGEN_DIR"], f"{case}.rank{distributed.rank()}.pt"))
+        print(json.dumps({
+            "case": case, "rank": distributed.rank(), "coords": list(grid.coords),
+            "backend": backend, "device": str(dev), "ms_per_call": 1e3 * seconds,
+            "instrumented_ms": 1e3 * instrumented, "collectives_share": comm_s / instrumented,
+            "launches": launches, "k1_heads": ran_at["k1"], "k3_heads": ran_at["k3"],
+            "traced_equals_timed": bool((traced == out).all()),
+            "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 2 ** 30}), flush=True)
+        del model
+        torch.cuda.empty_cache()
+    distributed.shutdown()
+
+
+def _block(B, n_data, d):
+    """Data coordinate d's rows [lo, hi) of B (generation/api.py)."""
+    per = -(-B // n_data)
+    lo = min(d * per, B)
+    return lo, min(lo + per, B)
+
+
+def run_parallel_generate(torch, dev, card, cards=1):
+    """Beam-5 generation over a split model at the generate cell's call
+    (BART-base bf16, batch 64 of 72 tokens, max_length 32): TP 2 and DP 2
+    (32 rows a rank) as two processes on the one card over gloo, or with
+    ``cards`` = 4 TP 2 x DP 2 over NCCL, one rank a card; each rank's
+    tokens held to one process's ``generate()`` on the same card (every
+    sample that differs must start at a near-tie, ``near_ties``), the
+    ranks' arrays to each other (none may differ), the launches and head
+    counts of K1-K4 a rank (K1 and K3 at 6 heads and K2 off under TP).
+    Returns the TP 2 case's K3 launches (both ranks)."""
+    import numpy as np
+    from kmbart_tpu_torch import MultiModalBartConfig
+    from kmbart_tpu_torch.checkpoint.io import load_pretrained
+    from kmbart_tpu_torch.generation import beam
+    from kmbart_tpu_torch.generation.api import generate
+    t0 = time.perf_counter()
+    cfg = MultiModalBartConfig.from_json(os.path.join(REPO, "config", "vcg_base.json"))
+    cases, world = (["tp2", "dp2"], 2) if cards == 1 else (["tp2_dp2"], 4)
+    backend = "gloo" if cards == 1 else "nccl"
+    summary = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_checkpoint(tmp, cfg, seed=0)   # the generate phase's weights
+        runs = _parallel_run(world, cases, cards == 1, "--parallel-generate-worker",
+                             PGEN_CHECKPOINT=tmp, PGEN_DIR=tmp)
+        _, model, _ = load_pretrained(tmp, device=dev)
+        batch = _generate_batch(torch, cfg, dev, PGEN_ROWS, PGEN_ENC)
+        beam.STEP_TRACE = []
+        try:
+            t1 = time.perf_counter()
+            ref = generate(model, cfg, batch, num_beams=PGEN_BEAMS, max_length=PGEN_MAXLEN,
+                           early_stopping=True, trim=False)
+            ref_s = time.perf_counter() - t1
+            ref_trace = beam.STEP_TRACE
+        finally:
+            beam.STEP_TRACE = None
+        del model
+        torch.cuda.empty_cache()
+        for case in cases:
+            rows = runs[case]
+            if len(rows) != world or any(r["backend"] != backend for r in rows):
+                raise AssertionError(f"parallel_generate {case}: ranks "
+                                     f"{[(r['rank'], r['backend']) for r in rows]}")
+            tp = PGEN_CASES[case].get("model_parallel", 1)
+            n_data = world // tp
+            heads = 12 // tp
+            saved = {r["rank"]: torch.load(os.path.join(tmp, f"{case}.rank{r['rank']}.pt"),
+                                           weights_only=False) for r in rows}
+            first = saved[rows[0]["rank"]]["tokens"]
+            between = max(int((~(saved[r]["tokens"] == first).all(axis=1)).sum())
+                          for r in saved)
+            if between:
+                raise AssertionError(f"parallel_generate {case}: {between} samples differ "
+                                     "between ranks")
+            differing, ties = {}, []
+            for r in rows:
+                what = f"parallel_generate {case} rank {r['rank']}"
+                d = r["coords"][0]
+                lo, hi = _block(PGEN_ROWS, n_data, d)
+                if not r["traced_equals_timed"]:
+                    raise AssertionError(f"{what}: two calls gave two outputs")
+                missing = [k for k in ("train_attention", "beam_attention", "vocab_stats")
+                           if r["launches"][k] == 0]
+                if missing:
+                    raise AssertionError(f"{what}: kernels not launched: {missing}")
+                if (r["launches"]["ffn"] == 0) != (tp > 1):
+                    raise AssertionError(f"{what}: K2 launched {r['launches']['ffn']} times "
+                                         f"at TP {tp}")
+                for k in ("k1_heads", "k3_heads"):
+                    if set(r[k]) != {str(heads)}:
+                        raise AssertionError(f"{what}: {k} {r[k]}, not {heads}")
+                sliced = [{k: v[lo:hi] for k, v in step.items()} for step in ref_trace]
+                got, want = saved[r["rank"]]["tokens"][lo:hi], ref[lo:hi]
+                report = near_ties(np, got, want, [(0, s) for s in range(hi - lo)],
+                                   [saved[r["rank"]]["trace"]], sliced, what=what)
+                differing[r["rank"]] = len(report)
+                ties += [dict(e, rank=r["rank"], sample=lo + e["request"]) for e in report]
+            summary[case] = {
+                "grid": PGEN_CASES[case], "rows_per_data_coordinate": -(-PGEN_ROWS // n_data),
+                "samples_differing_from_one_process": differing,
+                "samples_differing_between_ranks": between, "near_ties": ties[:8],
+                "ranks": [{k: r[k] for k in ("rank", "coords", "device", "ms_per_call",
+                                             "collectives_share", "instrumented_ms",
+                                             "launches", "k1_heads", "k3_heads",
+                                             "peak_memory_gb")} for r in rows]}
+    emit("parallel_generate" if cards == 1 else "parallel_generate_nccl", card=card,
+         config="config/vcg_base.json", batch=PGEN_ROWS, enc_len=PGEN_ENC,
+         num_beams=PGEN_BEAMS, max_length=PGEN_MAXLEN,
+         ranks_backend="gloo (host-staged), one card" if cards == 1 else
+         f"nccl, {cards} cards", one_process_ms_per_call=1e3 * ref_s,
+         near_tie_noise_max=NEAR_TIE_NOISE_MAX, cases=summary,
+         seconds=time.perf_counter() - t0)
+    if cards == 1:
+        return sum(r["launches"]["beam_attention"] for r in runs["tp2"])
     return None
 
 
@@ -3403,15 +3637,19 @@ def main(argv=None):
     ap.add_argument("--only", default=None,
                     help="comma-separated paths to drive after the kernels phase "
                          "(generate, sample, serve, extract, knowledge, reason_filter, "
-                         "prep_twins, ddp, ddp_nccl, parallel, parallel_nccl), then stop "
-                         "without the ok line")
+                         "prep_twins, ddp, ddp_nccl, parallel, parallel_generate, "
+                         "parallel_nccl, parallel_generate_nccl), then stop without the "
+                         "ok line")
     ap.add_argument("--ddp-worker", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--parallel-worker", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--parallel-generate-worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.ddp_worker:
         return ddp_worker()
     if args.parallel_worker:
         return parallel_worker()
+    if args.parallel_generate_worker:
+        return parallel_generate_worker()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -3448,8 +3686,14 @@ def main(argv=None):
                  "ddp_nccl": lambda: run_ddp(torch, dev, card,
                                              cards=torch.cuda.device_count()),
                  "parallel": lambda: run_parallel(torch, dev, card),
-                 # four cards: TP 2 x DP 2 and PP 2 x TP 2 over NCCL
-                 "parallel_nccl": lambda: run_parallel(torch, dev, card, cards=4)}
+                 "parallel_generate": lambda: run_parallel_generate(torch, dev, card),
+                 # four cards: TP 2 x DP 2 and PP 2 x TP 2 training over
+                 # NCCL, then (alone: parallel_generate_nccl) TP 2 x DP 2
+                 # generation
+                 "parallel_nccl": lambda: (run_parallel(torch, dev, card, cards=4),
+                                           run_parallel_generate(torch, dev, card, cards=4)),
+                 "parallel_generate_nccl": lambda: run_parallel_generate(torch, dev, card,
+                                                                         cards=4)}
         for name in args.only.split(","):
             paths[name]()
         return
@@ -3475,6 +3719,8 @@ def main(argv=None):
     run_ddp(torch, dev, card)
     torch.cuda.empty_cache()
     tp_launches = run_parallel(torch, dev, card)
+    torch.cuda.empty_cache()
+    tp_launches["beam_attention"] = run_parallel_generate(torch, dev, card)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     loaded = [m for m in sys.modules if m == "kmbart_tpu" or m.startswith("kmbart_tpu.")]
@@ -3482,11 +3728,14 @@ def main(argv=None):
         raise AssertionError(f"modules of kmbart_tpu were imported: {loaded}")
 
     # K1 and K1b also at a TP 2 rank's local shape (6 heads, [32, 72, 384]),
-    # with their launches in the parallel phase's TP 2 run (both ranks)
+    # with their launches in the parallel phase's TP 2 run (both ranks), and
+    # K3 at a TP 2 rank's decode step (6 heads, cache [64, 5, 32, 384]) with
+    # its launches in the parallel_generate phase's TP 2 run (both ranks)
     rows = {name: kernels[name][0] for name in KERNEL_INFO}
-    for name in ("train_attention", "train_attention_bwd"):
-        rows[name + "_tp2_local"] = next(r for r in kernels[name]
-                                         if r["shape"] == [32, 72, 72, 384, 6])
+    for name, shape in (("train_attention", [32, 72, 72, 384, 6]),
+                        ("train_attention_bwd", [32, 72, 72, 384, 6]),
+                        ("beam_attention", [64, 5, 32, 384, 6])):
+        rows[name + "_tp2_local"] = next(r for r in kernels[name] if r["shape"] == shape)
         launches[name + "_tp2_local"] = tp_launches[name]
     print(card)
     print(json.dumps({"kernels": [

@@ -285,7 +285,9 @@ def whole_tensors(tensors, cfg, grid):
 def whole_model(model, cfg, grid, init_model_fn):
     """The whole model from this rank's part, on rank 0 (None elsewhere): a
     collective under a split ``grid`` (every rank calls it); the model
-    itself otherwise. For decoding, which runs on one rank."""
+    itself otherwise. The trainers' decoding under pipeline stages, which
+    runs on rank 0 alone as in the JAX package; without stages every rank
+    decodes on its own part (``generate(..., grid=grid)``)."""
     from kmbart_tpu_torch.parallel import distributed
     from kmbart_tpu_torch.checkpoint.sharded import load_params_into
     from kmbart_tpu_torch.training.state import model_tensors

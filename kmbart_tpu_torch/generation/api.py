@@ -8,6 +8,16 @@ sampling (batch-major, as the reference's ``index_select``), and dispatch
 to the beam or greedy/sampling loop, then the trim to the HF output width.
 Everything runs on the model's device; sampling draws from ``generator``
 (a ``torch.Generator`` on that device; a freshly seeded one when None).
+
+Over a process grid (``grid``, parallel/mesh.py), the counterpart of the
+JAX package's ``generate`` on sharded inputs and parameters
+(tests/test_parallel_generate.py): data coordinate d decodes the d-th
+contiguous block of ⌈B/dp⌉ rows (the last smaller, maybe empty), the ranks
+of a model axis each on their part of the model (parallel/tp.py
+``shard_model_``); every rank returns the whole batch's tokens, the blocks
+gathered over the data axis, equal to one process's. Sampling draws the
+whole batch's noise on every rank (``logits.gumbel_rows``) from one seed,
+so the sampled tokens are one process's at the same seed too.
 """
 
 import dataclasses
@@ -19,6 +29,7 @@ from kmbart_tpu_torch.config import MultiModalBartConfig
 from kmbart_tpu_torch.generation.beam import beam_search_loop
 from kmbart_tpu_torch.generation.decode import greedy_or_sample_loop
 from kmbart_tpu_torch.models import bart
+from kmbart_tpu_torch.parallel import distributed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,10 +83,52 @@ def options_from_config(cfg: MultiModalBartConfig, **overrides) -> GenerationOpt
 
 @torch.no_grad()
 def generate_tokens(model, cfg, input_ids, attention_mask, image_features,
-                    opts: GenerationOptions, generator=None):
-    """Device-side generate: (tokens [B·R, max_length], HF output width)."""
+                    opts: GenerationOptions, generator=None, grid=None):
+    """Device-side generate: (tokens [B·R, max_length], HF output width).
+    ``grid``: generation over a split model (module docstring); a grid with
+    pipeline stages raises, as the JAX package gathers the model to decode
+    (kmbart_tpu/vcg_train.py ``host_replicated``)."""
     opts.validate()
-    enc = bart.encode(model.model, cfg, input_ids, image_features, attention_mask)
+    if grid is not None and grid.stage.size > 1:
+        raise ValueError("generate() does not run inside a pipeline: gather the model "
+                         "first (cli_common.whole_model)")
+    if opts.do_sample and generator is None:
+        generator = torch.Generator(device=input_ids.device)
+        generator.seed()
+        if grid is not None and grid.world.size > 1:
+            # every rank draws from rank 0's seed
+            box = torch.tensor([generator.initial_seed() % 2 ** 63], device=input_ids.device)
+            generator.manual_seed(int(distributed.broadcast(box, 0, grid.world)[0]))
+    tp = None if grid is None else grid.tp
+    data = None if grid is None else grid.data
+    if data is None or data.size == 1:
+        return _decode(model, cfg, input_ids, attention_mask, image_features, opts,
+                       generator, tp)
+    B = input_ids.shape[0]
+    per = -(-B // data.size)
+    lo = min(data.index * per, B)
+    hi = min(lo + per, B)
+    mult = opts.num_return_sequences if opts.do_sample else 1
+    if hi > lo:
+        out, eff_len = _decode(
+            model, cfg, input_ids[lo:hi], attention_mask[lo:hi],
+            None if image_features is None else image_features[lo:hi], opts, generator, tp,
+            noise_rows=(B * mult, lo * mult))
+    else:
+        # an empty block decodes nothing but joins the gather
+        out = torch.empty((0, opts.max_length), dtype=torch.long, device=input_ids.device)
+        eff_len = 0
+    R = opts.num_return_sequences
+    pad = cfg.pad_token_id if cfg.pad_token_id is not None else cfg.eos_token_id
+    tokens, widths = distributed.all_gather_blocks(out, per * R, pad, data, tag=eff_len)
+    # one process stops at the latest sample's finish: the widest block's
+    return tokens.long(), max(widths)
+
+
+def _decode(model, cfg, input_ids, attention_mask, image_features, opts, generator, tp,
+            noise_rows=None):
+    """Encode and decode the rows given on this rank's part of the model."""
+    enc = bart.encode(model.model, cfg, input_ids, image_features, attention_mask, tp=tp)
     K = opts.num_beams
     mult = opts.num_return_sequences if opts.do_sample else 1
     # the beam axis is not materialised (a sample's beams share its encoder
@@ -83,9 +136,6 @@ def generate_tokens(model, cfg, input_ids, attention_mask, image_features,
     if mult > 1:
         enc = enc.repeat_interleave(mult, dim=0)
         attention_mask = attention_mask.repeat_interleave(mult, dim=0)
-    if opts.do_sample and generator is None:
-        generator = torch.Generator(device=enc.device)
-        generator.seed()
     common = dict(
         max_length=opts.max_length, min_length=opts.min_length,
         do_sample=opts.do_sample, temperature=opts.temperature, top_k=opts.top_k,
@@ -96,7 +146,8 @@ def generate_tokens(model, cfg, input_ids, attention_mask, image_features,
         else cfg.eos_token_id,
         eos_token_id=cfg.eos_token_id,
         decoder_start_token_id=cfg.decoder_start_token_id
-        if cfg.decoder_start_token_id is not None else cfg.bos_token_id)
+        if cfg.decoder_start_token_id is not None else cfg.bos_token_id,
+        tp=tp, noise_rows=noise_rows)
     if K > 1:
         return beam_search_loop(
             model, cfg, enc, attention_mask, generator,
@@ -108,11 +159,14 @@ def generate_tokens(model, cfg, input_ids, attention_mask, image_features,
 
 
 def generate(model, cfg: MultiModalBartConfig, batch, *, trim=True, generator=None,
-             **kwargs):
+             grid=None, **kwargs):
     """Generate for a collated batch {"input_ids", optional "attention_mask",
     "image_features"} (numpy or tensors). Returns an int32 numpy array
     [B·num_return_sequences, width], batch-major like the reference.
-    ``generator``: the ``torch.Generator`` sampling draws from."""
+    ``generator``: the ``torch.Generator`` sampling draws from (under a
+    grid, seeded alike on every rank). ``grid``: a ``parallel/mesh.py
+    Grid`` and ``model`` this rank's part of the model; every rank of the
+    grid calls this with the whole batch and gets the whole output."""
     opts = options_from_config(cfg, **kwargs)
     dev = model.final_logits_bias.device
     input_ids = torch.as_tensor(batch["input_ids"], device=dev).long()
@@ -126,6 +180,6 @@ def generate(model, cfg: MultiModalBartConfig, batch, *, trim=True, generator=No
     if image_features is not None:
         image_features = torch.as_tensor(image_features, device=dev).float()
     out, eff_len = generate_tokens(model, cfg, input_ids, attention_mask,
-                                   image_features, opts, generator)
+                                   image_features, opts, generator, grid)
     out = out.to(torch.int32).cpu().numpy()
     return out[:, :eff_len] if trim else out

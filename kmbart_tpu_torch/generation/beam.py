@@ -19,7 +19,12 @@ top-k it draws over each row's top-k survivors ([B, K·kk] noise): on the
 fast path the survivors of the raw logits, normalised with K4's
 logsumexp, else the top-k of the postprocessed scores; top-p then keeps at
 least 2 tokens a row. Without a top-k it draws over the filtered
-[B, K·V] scores. The noise is ``logits._gumbel``'s.
+[B, K·V] scores. The noise is ``logits._gumbel``'s (``logits.gumbel_rows``:
+a data rank decoding a block draws the whole batch's and keeps its rows).
+
+Over a split model (``tp``) each rank runs the decode step on its part;
+K4 and the top-2K select run on the logits, whole on every rank (the LM
+head is not split), and the ranks of a model group agree the stop test.
 """
 
 import torch
@@ -100,7 +105,8 @@ def beam_front(cand_scores, cand_tok, cand_beam, is_eos, K):
     return scores, tokens, parents
 
 
-def _sample_candidates(logits, scores, beam_scores, generator, *, K, top_k, top_p, fast):
+def _sample_candidates(logits, scores, beam_scores, generator, *, K, top_k, top_p, fast,
+                       noise_rows=None):
     """2K candidates drawn without replacement (Gumbel top-2K), sorted by
     score descending. ``logits`` [B·K, V] are the raw (temperature-scaled)
     logits, used on the fast path; ``scores`` the postprocessed
@@ -126,8 +132,8 @@ def _sample_candidates(logits, scores, beam_scores, generator, *, K, top_k, top_
         beam_of_row = (torch.arange(BK, device=dev) % K)[:, None]
         flat = vals.reshape(B, K * kk)
         flat_gidx = (beam_of_row * V + vidx).reshape(B, K * kk)
-        noisy = torch.where(flat > NEG_1E9 / 2,
-                            flat + lp._gumbel(flat.shape, generator, dev), -float("inf"))
+        noise = lp.gumbel_rows(flat.shape, generator, dev, noise_rows)
+        noisy = torch.where(flat > NEG_1E9 / 2, flat + noise, -float("inf"))
         _, pos = exact_top_k(noisy, 2 * K)
         cand_scores = torch.gather(flat, 1, pos)
         cand_idx = torch.gather(flat_gidx, 1, pos)
@@ -136,8 +142,8 @@ def _sample_candidates(logits, scores, beam_scores, generator, *, K, top_k, top_
                                             top_p, min_tokens_to_keep=2)
         flat = filtered.reshape(B, K * V)
         # Gumbel top-k == multinomial sampling without replacement
-        noisy = torch.where(flat > NEG_1E9 / 2,
-                            flat + lp._gumbel(flat.shape, generator, dev), -float("inf"))
+        noise = lp.gumbel_rows(flat.shape, generator, dev, noise_rows)
+        noisy = torch.where(flat > NEG_1E9 / 2, flat + noise, -float("inf"))
         _, cand_idx = exact_top_k(noisy, 2 * K)
         cand_scores = torch.gather(flat, 1, cand_idx)
     order = torch.sort(cand_scores, dim=1, descending=True, stable=True).indices
@@ -149,9 +155,11 @@ def beam_search_loop(model, cfg, enc_hidden, enc_mask, generator=None, *, batch_
                      repetition_penalty, no_repeat_ngram_size, bad_words_ids,
                      pad_token_id, eos_token_id, decoder_start_token_id,
                      num_return_sequences, do_sample=False, temperature=1.0, top_k=0,
-                     top_p=1.0):
+                     top_p=1.0, tp=None, noise_rows=None):
     """enc_hidden / enc_mask are per sample (not beam-expanded): a sample's
-    K beams share its encoder states and cross K/V.
+    K beams share its encoder states and cross K/V. ``tp``: this rank's
+    part of a split model; ``noise_rows``: (samples of the whole batch,
+    this block's first sample) for sampling on a data rank.
     Returns (tokens [B·num_return_sequences, max_length], HF output width)."""
     trunk = model.model
     dev = enc_hidden.device
@@ -164,7 +172,7 @@ def beam_search_loop(model, cfg, enc_hidden, enc_mask, generator=None, *, batch_
 
     tokens = torch.full((BK, L), pad_token_id, dtype=torch.long, device=dev)
     tokens[:, 0] = decoder_start_token_id
-    caches = bart.init_decode_cache_layers(trunk, cfg, enc_hidden, L, num_beams=K)
+    caches = bart.init_decode_cache_layers(trunk, cfg, enc_hidden, L, num_beams=K, tp=tp)
     ancestry = torch.zeros((BK, L), dtype=torch.int32, device=dev)
     own_slot = (torch.arange(BK, device=dev) % K).to(torch.int32)
     if do_sample:
@@ -185,15 +193,19 @@ def beam_search_loop(model, cfg, enc_hidden, enc_mask, generator=None, *, batch_
         c = torch.tensor(float(cur_len), device=dev)
         return c if length_penalty == 1.0 else c ** length_penalty
 
+    def going():
+        live = ~done.all()
+        return bool(live) if tp is None else tp.any(live)
+
     cur_len = 1
-    while cur_len < L and not bool(done.all()):
+    while cur_len < L and going():
         prev = tokens[:, cur_len - 1:cur_len]
         # resolve each beam's history through its parent's ancestry (the
         # cache never moves), then claim the own slot for this step's row
         ancestry = ancestry[parent]
         ancestry[:, cur_len - 1] = own_slot
         hidden = bart.decode_step_stationary(trunk, cfg, prev, caches, cur_len - 1,
-                                             ancestry, enc_mask, num_beams=K)
+                                             ancestry, enc_mask, num_beams=K, tp=tp)
         logits = bart.lm_logits(trunk, cfg, hidden, model.final_logits_bias)[:, 0, :]
         if do_sample:
             if temperature != 1.0:
@@ -214,7 +226,7 @@ def beam_search_loop(model, cfg, enc_hidden, enc_mask, generator=None, *, batch_
         elif do_sample:
             cand_scores, cand_idx = _sample_candidates(
                 logits, scores, beam_scores, generator, K=K, top_k=top_k, top_p=top_p,
-                fast=fast_sample)
+                fast=fast_sample, noise_rows=noise_rows)
         else:
             flat = (scores + beam_scores.reshape(BK, 1)).reshape(B, K * V)
             cand_scores, cand_idx = exact_top_k(flat, 2 * K)

@@ -4,7 +4,8 @@ Counterpart of kmbart_tpu/generation/driver.py (the reference's
 ``generate_text``): loop over the loader, generate with the CLI's
 settings, decode with skip_special_tokens, and group ``num_gen`` outputs
 per input row into ``[{index, task_type, generations}]``. Sampling draws
-from ``generator`` across the whole run.
+from ``generator`` across the whole run. Under a process grid (``grid``)
+every rank decodes its part of each batch and returns the same list.
 """
 
 from datetime import datetime
@@ -13,7 +14,7 @@ from kmbart_tpu_torch.generation.api import generate
 
 
 def generate_text(model, cfg, gen_loader, tokenizer, args, *, logger=None,
-                  log_interval=1, generator=None):
+                  log_interval=1, generator=None, grid=None):
     total_step = len(gen_loader)
     generated = []
     start_time = datetime.now()
@@ -31,7 +32,7 @@ def generate_text(model, cfg, gen_loader, tokenizer, args, *, logger=None,
             top_k=getattr(args, "top_k", 0),
             temperature=getattr(args, "temperature", None),
             max_length=getattr(args, "max_length", None),
-            early_stopping=True, generator=generator)
+            early_stopping=True, generator=generator, grid=grid)
         for j in range(len(batch["index"])):
             generated.append({
                 "index": batch["index"][j],

@@ -30,10 +30,24 @@ def _gumbel(shape, generator, device):
     return -torch.log(-torch.log(u))
 
 
-def categorical(logits, generator):
+def gumbel_rows(shape, generator, device, rows=None):
+    """``_gumbel`` noise of ``shape`` [n, ...]. With ``rows`` = (total,
+    offset): rows [offset, offset + n) of a [total, ...] draw. A data rank
+    decoding a block of a batch draws the whole batch's noise and keeps
+    its own rows, so that each sample gets the noise one process draws for
+    it from the same generator."""
+    if rows is None:
+        return _gumbel(shape, generator, device)
+    total, offset = rows
+    return _gumbel((total, *shape[1:]), generator, device)[offset:offset + shape[0]]
+
+
+def categorical(logits, generator, rows=None):
     """One draw per row from softmax(logits): the first argmax of logits
-    plus Gumbel noise (-inf entries are never drawn)."""
-    return torch.argmax(logits + _gumbel(logits.shape, generator, logits.device), dim=-1)
+    plus Gumbel noise (-inf entries are never drawn); ``rows`` as in
+    ``gumbel_rows``."""
+    noise = gumbel_rows(logits.shape, generator, logits.device, rows)
+    return torch.argmax(logits + noise, dim=-1)
 
 
 def force_token(scores, token_id):
@@ -132,9 +146,10 @@ def _top_p_remove(vals, top_p, min_tokens_to_keep):
     return remove
 
 
-def sample_from_top_k(logits, top_k, top_p, generator, min_tokens_to_keep=1):
+def sample_from_top_k(logits, top_k, top_p, generator, min_tokens_to_keep=1, rows=None):
     """A categorical draw restricted to each row's top-k candidates (and
-    the top-p nucleus among them): int64 [B] token ids.
+    the top-p nucleus among them): int64 [B] token ids; ``rows`` as in
+    ``gumbel_rows``.
 
     Distributed as ``top_k_top_p_filtering`` followed by a full-vocabulary
     draw, but the noise covers [B, k]. As in the JAX package, exact ties AT
@@ -144,7 +159,7 @@ def sample_from_top_k(logits, top_k, top_p, generator, min_tokens_to_keep=1):
     vals, idx = _top_k(logits, k)                      # sorted descending
     if top_p < 1.0:
         vals = torch.where(_top_p_remove(vals, top_p, min_tokens_to_keep), NEG_INF, vals)
-    slot = categorical(vals, generator)
+    slot = categorical(vals, generator, rows)
     return torch.gather(idx, 1, slot[:, None])[:, 0]
 
 

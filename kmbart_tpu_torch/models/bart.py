@@ -17,7 +17,8 @@ columns of q, k, v and fc1 and its rows of out_proj and fc2 and the layers
 call the model axis's collectives; under sequence parallelism the stream
 between them holds this rank's rows (parallel/sp.py). Pipeline
 parallelism (parallel/pp.py) runs these same layer functions stage by
-stage.
+stage. Generation's decode step runs the tensor-parallel split too
+(``decode_step_stationary``), each rank's cache holding its heads' columns.
 
 Generation runs on the beam-stationary cache: self K/V rows are written
 once into the writer beam's slot, in place, and never moved; the int32
@@ -407,12 +408,18 @@ def shift_tokens_right(input_ids, pad_token_id):
 # Incremental decode over the beam-stationary cache
 # --------------------------------------------------------------------------
 
-def init_decode_cache_layers(model, cfg, enc_hidden, max_len, num_beams):
+def init_decode_cache_layers(model, cfg, enc_hidden, max_len, num_beams, tp=None):
     """Per-layer decode cache: a list of L dicts {self_k, self_v
     [B, num_beams, max_len, D] zeros; cross_k, cross_v [B, Tenc, D]
-    projected once from the encoder output}, in the compute dtype."""
+    projected once from the encoder output}, in the compute dtype.
+
+    Under tensor parallelism (``tp``, parallel/tp.py ``TensorParallel``, on
+    this rank's part of the model) D is the rank's D/tp columns: the self
+    K/V of its heads, and the cross K/V from its rows of k_proj and v_proj
+    (kmbart_tpu/parallel/tp.py:21-34 ``_LAYER_RULES``)."""
     dtype = compute_dtype(cfg)
-    B, _, D = enc_hidden.shape
+    B = enc_hidden.shape[0]
+    D = cfg.d_model if tp is None else cfg.d_model // tp.size
     caches = []
     for layer in model.decoder.layers:
         ea = layer.encoder_attn
@@ -429,7 +436,7 @@ def init_decode_cache_layers(model, cfg, enc_hidden, max_len, num_beams):
 
 def decode_step_stationary(model, cfg, token_ids, caches, cache_index, ancestry,
                            enc_attention_mask=None, num_beams=1, seq_positions=None,
-                           valid_counts=None):
+                           valid_counts=None, tp=None):
     """One incremental decoder step over the beam-stationary cache.
 
     token_ids [B·K, 1]; caches from ``init_decode_cache_layers`` (updated
@@ -442,11 +449,26 @@ def decode_step_stationary(model, cfg, token_ids, caches, cache_index, ancestry,
     ``valid_counts`` (int32 [B], each sample's window length including this
     step); cache_index is then the ring column every slot writes this tick
     (continuous.py:20-29), and K3 reads each window in ring mode.
-    Returns hidden [B·K, 1, D] in the compute dtype.
+
+    ``tp``: tensor parallelism, the caches made with the same ``tp``. Each
+    rank runs K3 and the cross-attention at its H/tp heads, both
+    out_proj and fc2 are row-parallel (the parts summed over the model axis
+    in fp32, then the bias once), and the FFN takes the composite path (K2
+    adds b2 inside its body).
+    Returns hidden [B·K, 1, D] in the compute dtype, whole on every rank.
     """
     dtype = compute_dtype(cfg)
-    H = cfg.decoder_attention_heads
+    # sequence parallelism never splits a one-token step: tp.stack keeps the
+    # stream whole where the length does not split over the model axis
+    stack = None if tp is None else tp.stack(1)
+    H = cfg.decoder_attention_heads if stack is None else stack.heads(
+        cfg.decoder_attention_heads)
     B, K, _, D = caches[0]["self_k"].shape
+    head_dim = cfg.d_model // cfg.decoder_attention_heads
+    if D != H * head_dim:
+        raise ValueError(f"decode cache of {D} columns for {H} heads of {head_dim}: the "
+                         "cache and the head count must both be this rank's")
+    out_proj = dense if stack is None else stack.row
     x = _decoder_embed(model, cfg, token_ids,
                        cache_index if seq_positions is None else seq_positions)
     cross_bias = (None if enc_attention_mask is None
@@ -456,7 +478,7 @@ def decode_step_stationary(model, cfg, token_ids, caches, cache_index, ancestry,
         w = torch.cat([sa.q_proj.weight, sa.k_proj.weight, sa.v_proj.weight])
         b = torch.cat([sa.q_proj.bias, sa.k_proj.bias, sa.v_proj.bias])
         q, k_new, v_new = dense(x, w, b, dtype).chunk(3, dim=-1)    # [BK, 1, D]
-        q_flat = scale_as(q[:, 0, :], (D // H) ** -0.5).contiguous()
+        q_flat = scale_as(q[:, 0, :], head_dim ** -0.5).contiguous()
         # In place, where the JAX package returns a new buffer from
         # dynamic_update_slice (bart.py:612-617): each step writes only its
         # own row per beam slot, so the cache is never copied.
@@ -465,13 +487,14 @@ def decode_step_stationary(model, cfg, token_ids, caches, cache_index, ancestry,
         attn = beam_gather_attention(q_flat, cache["self_k"], cache["self_v"],
                                      ancestry, cache_index, num_beams=num_beams,
                                      num_heads=H, valid_counts=valid_counts)
-        h = dense(attn[:, None, :], sa.out_proj.weight, sa.out_proj.bias, dtype)
+        h = out_proj(attn[:, None, :], sa.out_proj.weight, sa.out_proj.bias, dtype)
         x = _ln(x + h, layer.self_attn_layer_norm)
-        h = multi_head_attention(layer.encoder_attn, x, bias=cross_bias, num_heads=H,
-                                 dtype=dtype, cross_cache={"k": cache["cross_k"],
-                                                           "v": cache["cross_v"]})
+        h = multi_head_attention(layer.encoder_attn, x, bias=cross_bias,
+                                 num_heads=cfg.decoder_attention_heads, dtype=dtype,
+                                 cross_cache={"k": cache["cross_k"], "v": cache["cross_v"]},
+                                 tp=stack)
         x = _ln(x + h, layer.encoder_attn_layer_norm)
-        x = _residual_ffn(x, layer, cfg, dtype)
+        x = _residual_ffn(x, layer, cfg, dtype, tp=stack)
     if cfg.add_final_layer_norm:
         x = _ln(x, model.decoder.layer_norm)
     return x

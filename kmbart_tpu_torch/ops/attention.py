@@ -105,11 +105,13 @@ def multi_head_attention(attn, hidden, kv_hidden=None, bias=None, *, num_heads,
     ``num_heads / tp`` heads (K1 at that head count), out_proj is
     row-parallel with its bias added after the sum, and the attention-prob
     dropout draws from the rank's own generator. ``kv_hidden`` is then
-    already whole on the rank (the decoder enters the encoder output once).
+    already whole on the rank (the decoder enters the encoder output once);
+    a ``cross_cache`` holds the rank's columns (the decode step's grouped
+    cross-attention at the rank's heads).
     """
     out_proj = dense
     if tp is not None:
-        assert cross_cache is None and self_cache is None, "tensor parallelism trains only"
+        assert self_cache is None, "no flat self-attention cache under tensor parallelism"
         hidden = tp.enter(hidden)
         num_heads = tp.heads(num_heads)
         generator, out_proj = tp.generator, tp.row
@@ -156,8 +158,8 @@ def multi_head_attention(attn, hidden, kv_hidden=None, bias=None, *, num_heads,
             assert tq == 1, "grouped cross-attention requires Tq == 1"
             q = q.reshape(bq // group, group, nh, hd)
             out = attention_core(q, k, v, bias, **core).reshape(bq, 1, nh, hd)
-            return dense(merge_heads(out), attn.out_proj.weight,
-                         attn.out_proj.bias, dtype)
+            return out_proj(merge_heads(out), attn.out_proj.weight,
+                            attn.out_proj.bias, dtype)
     else:
         if k_flat is None:
             k_flat, v_flat = project_kv()

@@ -230,6 +230,23 @@ def all_gather_flat(local, axis=None):
     return out
 
 
+def all_gather_blocks(block, max_rows, fill, axis, tag=0):
+    """Each rank's integer ``block`` [n, W] (n <= ``max_rows``) and an int
+    ``tag`` -> (the ranks' blocks joined in axis order [sum n, W], [each
+    rank's tag]) on every rank of ``axis``. One ``all_gather_flat`` of
+    int32: the block padded to ``max_rows`` rows with ``fill``, its row
+    count and the tag appended. The gather copies the bits, so int32
+    round-trips exactly (generation's token blocks over the data axis)."""
+    n, W = block.shape
+    flat = torch.full((max_rows * W + 2,), fill, dtype=torch.int32, device=block.device)
+    flat[:n * W] = block.reshape(-1).to(torch.int32)
+    flat[-2], flat[-1] = n, tag
+    rows = all_gather_flat(flat, axis).cpu()
+    counts, tags = rows[:, -2].tolist(), rows[:, -1].tolist()
+    joined = torch.cat([rows[i, :c * W].view(c, W) for i, c in enumerate(counts)])
+    return joined.to(block.device), tags
+
+
 def broadcast(t, src_index, axis):
     """``t`` in place from the rank at ``src_index`` on ``axis``."""
     if axis.size == 1:

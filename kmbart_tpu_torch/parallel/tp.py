@@ -123,6 +123,16 @@ class TensorParallel:
                              f"{num_heads} attention heads")
         return num_heads // self.size
 
+    def any(self, flag):
+        """Whether the bool tensor ``flag`` holds on any rank of the model
+        axis, read on the host: one scalar all-reduce. The decode loops
+        agree their stop test with it, so that no rank leaves the loop while
+        another waits in the next step's all-reduce (the all-reduced logits
+        need not be bit-equal on every rank)."""
+        votes = flag.reshape(1).to(torch.float32)
+        distributed.all_reduce_axis(votes, self.axis)
+        return bool(votes.item() > 0)
+
     def stack(self, length, generator=None, salt=0):
         """The context of one stack run on ``length`` tokens: sequence
         parallel when asked for and the length splits evenly

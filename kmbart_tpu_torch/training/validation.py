@@ -9,6 +9,7 @@ from datetime import datetime
 
 from kmbart_tpu_torch.eval.metrics import compute_metric_inference
 from kmbart_tpu_torch.generation.driver import generate_text
+from kmbart_tpu_torch.parallel import distributed
 from kmbart_tpu_torch.training.trainer import to_device
 
 
@@ -45,12 +46,15 @@ def validate_loss(epoch, model, eval_step, val_loader, *, device, logger=None,
     return loss
 
 
-
 def validate_generation_score(epoch, model, cfg, gen_loader, reference, tokenizer, args, *,
-                              logger=None, log_interval=1, tb_writer=None):
-    """Decode the eval split with the port and score it."""
+                              logger=None, log_interval=1, tb_writer=None, grid=None):
+    """Decode the eval split with the port and score it. Under a process
+    grid (``grid``, without pipeline stages) every rank decodes on its part
+    of the model and rank 0 scores; the other ranks return None."""
     generated = generate_text(model, cfg, gen_loader, tokenizer, args, logger=logger,
-                              log_interval=log_interval)
+                              log_interval=log_interval, grid=grid)
+    if not distributed.is_main_process():
+        return None
     scores = compute_metric_inference(gens_list=generated, refs_list=reference)
     if logger is not None:
         logger.info("Validation scores", pad=True)

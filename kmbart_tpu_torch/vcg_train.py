@@ -14,8 +14,11 @@ side by side), and with ``--model_parallel``, ``--sequence_parallel`` and
 ``--sharded_checkpoints`` writes the port's sharded format. Only rank 0
 logs and writes npz checkpoints (the parts of a split model gathered
 first), which are in the JAX package's format, so either package resumes
-the other's; the sample decode and the generation score run on rank 0 on
-the gathered whole model.
+the other's. The sample decode and the generation score run on every
+rank, each on its part of the model and its block of the rows
+(``generate(..., grid=grid)``), as the JAX package decodes on the sharded
+parameters; under ``--pipeline_stages`` they run on rank 0 alone on the
+gathered whole model, where the JAX package gathers too.
 """
 
 import argparse
@@ -140,22 +143,30 @@ def main(args):
                                   zero1=zero1, grid=grid)
     eval_step = build_eval_step(eval_loss_fn, grid=grid)
 
+    def decode_model(params):
+        """(model, grid) to decode with: every rank's own part under the
+        grid; under pipeline stages the whole model gathered to rank 0
+        (None elsewhere), decoding alone."""
+        if pp_active:
+            return whole_model(params, cfg, grid, init_conditional_model), None
+        return params, grid
+
     def callback(step, epoch, state, logger, **kwargs):
         if args.save_every_steps and (step + 1) % args.save_every_steps == 0:
             path = os.path.join(checkpoint_path, 'step{}'.format(state.step))
             save_train_checkpoint(path, cfg, state, epoch, args, zero1, grid)
             logger.info('Saved mid-epoch checkpoint at "{}"'.format(path))
         if (step + 1) % 100 == 0:
-            # generate() runs on one rank, on the whole model
-            whole = whole_model(state.params, cfg, grid, init_conditional_model)
+            inputs = collate_fn([train_dataset[0]])
+            model, decode_grid = decode_model(state.params)
+            if model is not None:
+                out = generate(model, cfg,
+                               {'input_ids': inputs['input_ids'],
+                                'attention_mask': inputs['attention_mask'],
+                                'image_features': inputs['image_features']},
+                               max_length=args.max_length, grid=decode_grid)
             if not is_main:
                 return
-            inputs = collate_fn([train_dataset[0]])
-            out = generate(whole, cfg,
-                           {'input_ids': inputs['input_ids'],
-                            'attention_mask': inputs['attention_mask'],
-                            'image_features': inputs['image_features']},
-                           max_length=args.max_length)
             ans = tokenizer.decode(out[0], skip_special_tokens=True)
             event = tokenizer.decode(inputs['input_ids'][0], skip_special_tokens=True)
             logger.info('Input ({} image): "{}"'.format(
@@ -177,11 +188,12 @@ def main(args):
             validate_loss(epoch, state.params, eval_step, val_loader, device=device,
                           logger=logger, tb_writer=tb_writer)
         if args.validate_score:
-            # decode and score on rank 0, as the JAX package does
-            whole = whole_model(state.params, cfg, grid, init_conditional_model)
-            if is_main:
-                validate_generation_score(epoch, whole, cfg, gen_loader, val_ref,
-                                          tokenizer, args, logger=logger, tb_writer=tb_writer)
+            # every rank decodes (its part); rank 0 scores
+            model, decode_grid = decode_model(state.params)
+            if model is not None:
+                validate_generation_score(epoch, model, cfg, gen_loader, val_ref,
+                                          tokenizer, args, logger=logger, tb_writer=tb_writer,
+                                          grid=decode_grid)
 
         current = os.path.join(checkpoint_path, 'model{}'.format(epoch))
         save_train_checkpoint(current, cfg, state, epoch, args, zero1, grid)

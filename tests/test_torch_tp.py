@@ -17,6 +17,9 @@ CPU, held against the JAX package.
   process (fp32 config, losses within 2e-3), its npz written by rank 0 from
   gathered parts, then resumed (the counterpart of
   tests/test_multiprocess.py:174).
+- ``vcg_train --validate_score`` at TP 2: each rank decodes on its part
+  (no call to ``cli_common.whole_model``), and the generations and scores
+  equal one process's.
 """
 
 import json
@@ -184,6 +187,31 @@ def test_vcg_train_tp_zero1_matches_one_process_and_resumes(fixture_f32, tmp_pat
     assert loaded["params"]["model.encoder.layers.0.fc1.weight"].shape == (64, 32)
     assert loaded["opt_state"].mu["model.decoder.layers.1.fc2.weight"].shape == (32, 64)
     assert loaded["epoch"] == 1
+
+
+def test_vcg_train_tp_validate_score_decodes_on_parts(fixture_f32, tmp_path):
+    """``--validate_score`` at TP 2 without pipeline stages: both ranks
+    decode on their parts (``whole_model`` raises if called), and rank 0's
+    generations and scores equal one process's."""
+    from tests.test_torch_multiprocess import _run, _train_argv
+    data, cfg_path, _ = fixture_f32
+
+    def argv(name, *extra):
+        flags = _train_argv(data, str(tmp_path / name), 4, "--model_config", cfg_path,
+                            "--validate_score", "--num_beams", "3", "--num_gen", "2", *extra)[2:]
+        return ["-m", "tests._torch_generate_workers", "cli", str(tmp_path / f"{name}.json"),
+                *flags]
+
+    _run(argv("tp", "--multihost", "--model_parallel", "2"), 2)
+    _run(argv("single"), 1)
+    with open(tmp_path / "tp.json") as f:
+        tp = json.load(f)
+    with open(tmp_path / "single.json") as f:
+        single = json.load(f)
+    assert tp["tokens"] and tp["generated"] and tp["generated"][0], tp
+    assert tp["tokens"] == single["tokens"]
+    assert tp["generated"] == single["generated"]
+    assert tp["scores"] == single["scores"] and "CIDEr" in tp["scores"][0]
 
 
 @pytest.fixture(scope="module")
