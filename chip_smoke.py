@@ -30,15 +30,24 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                serving pool's shape (windows 1..32 with most wrapping past
                column 0, all 32, all 1; each window's output equal bit for
                bit to the scalar mode's on the window rotated to columns
-               [0, n)); a planted-tie top-k;
+               [0, n)); K4's statistics and top-k against the statistics'
+               plain version and the stable sort (values and int64 indices
+               bit for bit) at the beam step's, sampling's, the serving
+               pool's and the flat rows' shapes, at k 1024 (its largest) and
+               on tie-heavy rows, with torch.topk's and the sort's times; at
+               k 2000 the wrapper refuses and the route (stats_top_k,
+               exact_top_k) equals the plain version; a planted-tie top-k;
   4. generate  beam-5 VCG generation at BART-base width (config/vcg_base.json,
                random weights from a seed, batch 64): every generation kernel
-               must have launched, outputs finite, and the encoder output and
-               first-step log-probs close to the plain path's on the card;
-               one real K3 call (the cache and ancestry of the last step)
-               against its plain version; a torch.profiler trace of one call
-               (device-busy share, K2's and K3's device time, K3's summed
-               bound);
+               must have launched (K4 and its merge once a step), outputs
+               finite, and the encoder output and first-step log-probs close
+               to the plain path's on the card; every row's tokens equal to
+               a call with only the selection swapped to the stable sort, and
+               no torch.sort of vocabulary-wide rows; one real K3 call (the
+               cache and ancestry of the last step) against its plain
+               version; a torch.profiler trace of one call (device-busy
+               share, K2's, K3's, K4's and the sorts' device time, K3's
+               summed bound, no segmented sort kernel);
   5. cli       ``python -m kmbart_tpu_torch.vcg_generate --device cuda`` on a
                fixture dataset;
   6. train     fine-tuning at full width and depth (batch 128, 72 encoder and
@@ -75,7 +84,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                the vcg_train twin fine-tunes one epoch from its model0/;
  11. sample    generate() with do_sample, top_k 50 and top_p 0.9 at batch 64,
                beam 5 and greedy: one generator seed gives the same tokens
-               twice, K1-K4 launch (K4 on the beam path), sentences/s;
+               twice, K1-K4 launch (K4's top-k on both), sentences/s; beam 5
+               at top_k 2000, over K4's largest k, takes K4's statistics and
+               the sort's top-k;
  12. serve     the continuous engine at serve.py's defaults (pool 112, chunk
                4, beam 5, max_length 32, 96 encoder tokens, 30 image slots) on
                224 requests in four staggered bursts: every request's tokens
@@ -182,7 +193,8 @@ TRAIN_GRAD_NORM_RTOL = 5e-2
 # 6 cross attentions, K2 over 12 FFNs, K7/K8 once
 TRAIN_LAUNCHES = {"train_attention": 18, "train_attention_bwd": 18, "ffn": 12,
                   "ffn_bwd": 12, "lm_ce_fwd": 1, "lm_ce_bwd": 1}
-GENERATE_KERNELS = ("train_attention", "ffn", "beam_attention", "vocab_stats")
+GENERATE_KERNELS = ("train_attention", "ffn", "beam_attention", "vocab_stats_topk",
+                    "vocab_topk_merge")
 # K11's fp32 output against its plain version, in units of max|v|: the
 # bf16 kernel multiplies V by p_hi + p_lo (two bf16 terms, within 2^-16 p of
 # the fp32 p), so the output, a convex combination of v rows, moves by at
@@ -396,6 +408,29 @@ def _check(name, err, tol):
 
 def _max_err(got, ref):
     return float((got.float() - ref.float()).abs().max())
+
+
+def _tie_rows(n, seed=0):
+    """tests/test_torch_topk.py's eight tie-heavy [n] fp32 rows (numpy seed):
+    planted ties across and at chunk borders, a constant row, -inf stripes,
+    one finite column, halves, mixed +-0.0, a tied group straddling a chunk
+    border, integers."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(8, n)) * 4).astype(np.float32)
+    x[0, [n - 1, 123, n // 2, 1023, 1024]] = 9.0
+    x[1, :] = 1.25
+    x[2, ::7] = -np.inf
+    x[2, [5, 6, 8, 1022, 1025]] = 7.5
+    x[3, :] = -np.inf
+    x[3, n // 3] = 0.5
+    x[4] = np.round(x[4] * 2) / 2
+    zeros = rng.choice(n, 40, replace=False)
+    x[5] = -np.abs(x[5]) - 1.0
+    x[5, zeros] = np.where(rng.random(40) < 0.5, -0.0, 0.0)
+    x[6, 1020:1028] = x[6].max() + 1.0
+    x[7] = np.round(x[7])
+    return x
 
 
 def check_kernels(torch, dev):
@@ -927,34 +962,107 @@ def check_kernels(torch, dev):
     if results["beam_attention_ring"][0]["windows_wrapping"] * 3 < 112:
         raise AssertionError("ring rows: fewer than a third of the windows wrap")
 
-    # K4: [B*K, V] = [320, 50320] logits (ragged tail chunk); edge: forced
-    # rows that are -inf except one column (49 all--inf chunks per row)
-    def k4(R, V, forced, timed):
-        x = randn(R, V, std=4.0, dtype=torch.float32)
-        if forced:
-            keep = torch.arange(V, device=dev) == 2
-            x = torch.where(keep[None, :], x, -math.inf)
-        cm, es = vs.chunk_stats(x)
-        rcm, res_ = vs.chunk_stats_plain(x)
-        if not (torch.equal(cm, rcm) and torch.isfinite(es).all()):
-            raise AssertionError("chunk_stats: chunk maxima differ or exp-sums not finite")
-        rel = float(((es - res_).abs() / res_.clamp(min=1e-30)).max())
-        _check(f"chunk_stats {R}x{V} forced={forced}", rel, ES_RTOL)
-        lse = vs.logsumexp_from_stats(cm, es)
-        if forced and not torch.equal(lse, x[:, 2]):
-            raise AssertionError("chunk_stats: forced-row logsumexp is not the kept logit")
-        finite = torch.isfinite(rcm)  # equal -inf maxima already checked
-        err = max(float((cm - rcm)[finite].abs().max()), float((es - res_).abs().max()))
-        out = {"shape": [R, V], "forced": forced, "max_abs_err": err,
-               "es_max_rel_err": rel, "tol": ES_RTOL}
+    # K4: the statistics and each row's top-k in one pass, held to the
+    # statistics' plain version and the stable sort on the same rows:
+    # values and int64 indices bit-equal, cm equal, es within ES_RTOL.
+    # Main-path shapes: the beam step's [B*K, V] = [320, 50320] at k 10
+    # (2K) and fast sampling's k 50, the serving pool's [560, 50320] at k
+    # 10, the flat [64, 5 * 50320] rows of the postprocessed paths at k 10
+    # with the statistics off (exact_top_k's route); edges: forced rows
+    # (-inf but one column), the tie-heavy rows of tests/test_torch_topk.py
+    # at V 50320, 5 * 50320 and 3000, and the statistics alone (k 0)
+    def k4(x, k, stats=True, timed=False, label=None):
+        R, N = x.shape
+        cm, es, vals, idx = vs.chunk_stats_topk(x, k, stats)
+        rcm, res_, rvals, ridx = vs.chunk_stats_topk_plain(x, k, stats)
+        torch.cuda.synchronize()
+        name = f"chunk_stats_topk {label or [R, N]} k={k} stats={stats}"
+        if not (torch.equal(vals.view(torch.int32), rvals.view(torch.int32))
+                and torch.equal(idx, ridx) and idx.dtype == torch.int64):
+            bad = (idx != ridx).any(dim=1).nonzero()[:4, 0].tolist()
+            raise AssertionError(f"{name}: top-k differs from the stable sort in rows {bad}")
+        finite = torch.isfinite(rvals)
+        err = float((vals - rvals)[finite].abs().max()) if finite.any() else 0.0
+        out = {"shape": [R, N], "k": k, "stats": stats, "label": label}
+        if stats:
+            if not (torch.equal(cm, rcm) and torch.isfinite(es).all()):
+                raise AssertionError(f"{name}: chunk maxima differ or exp-sums not finite")
+            rel = float(((es - res_).abs() / res_.clamp(min=1e-30)).max())
+            _check(name, rel, ES_RTOL)
+            cfin = torch.isfinite(rcm)  # equal -inf maxima already checked
+            err = max(err, float((cm - rcm)[cfin].abs().max()) if cfin.any() else 0.0,
+                      float((es - res_).abs().max()))
+            out.update(es_max_rel_err=rel, tol=ES_RTOL)
+        out["max_abs_err"] = err
         if timed:
-            out["ms"] = _time_ms(torch, lambda: vs.chunk_stats(x))
-            out["plain_ms"] = _time_ms(torch, lambda: vs.chunk_stats_plain(x))
-            # a max, an exp and a sum for each logit, in fp32
-            out.update(_bound(4 * R * V + 8 * R * cm.shape[1], f32_flops=3.0 * R * V))
+            C = -(-N // 1024)
+            out["ms"] = _time_ms(torch, lambda: vs.chunk_stats_topk(x, k, stats))
+            out["plain_ms"] = _time_ms(torch, lambda: vs.chunk_stats_topk_plain(x, k, stats))
+            # the library calls beside it: torch.topk on the same rows and k
+            # (no documented tie order), and the stable sort it replaces
+            out["library_ms"] = _time_ms(torch, lambda: torch.topk(x, k, dim=1))
+            out["sort_ms"] = _time_ms(torch, lambda: top_k(x, k))
+            # the logits read once; cm, es, the values and the indices
+            # written once; with the statistics a max, an exp and a sum for
+            # each logit in fp32
+            out.update(_bound(4 * R * N + (8 * R * C if stats else 0) + 12 * R * k,
+                              f32_flops=3.0 * R * N if stats else 0.0))
         return out
 
-    results["vocab_stats"] = [k4(320, 50320, False, True), k4(8, 50320, True, False)]
+    x320 = randn(320, 50320, std=4.0, dtype=torch.float32)
+    forced = torch.where(torch.arange(50320, device=dev)[None, :] == 2,
+                         randn(320, 50320, std=4.0, dtype=torch.float32), -math.inf)
+    rows_k4 = [k4(x320, 10, timed=True), k4(x320, 50, timed=True),
+               k4(randn(560, 50320, std=4.0, dtype=torch.float32), 10, timed=True),
+               k4(randn(64, 5 * 50320, std=4.0, dtype=torch.float32), 10, stats=False,
+                  timed=True),
+               k4(forced, 10, timed=True, label="forced")]
+    cm_f, es_f, _, _ = vs.chunk_stats_topk(forced, 10)
+    if not torch.equal(vs.logsumexp_from_stats(cm_f, es_f), forced[:, 2]):
+        raise AssertionError("chunk_stats_topk: forced-row logsumexp is not the kept logit")
+    # exact_top_k's other rows on the main path, statistics off: sampling's
+    # postprocessed [320, 50320] at k 50 and greedy sampling's [64, 50320]
+    # at k 50; and the kernel's largest k, 1024
+    rows_k4 += [k4(x320, 50, stats=False, timed=True),
+                k4(randn(64, 50320, std=4.0, dtype=torch.float32), 50, stats=False,
+                   timed=True),
+                k4(x320, 1024, label="largest k")]
+    # a k over 1024: the wrapper refuses it, and the route (stats_top_k,
+    # exact_top_k) takes the statistics from K4 at k 0, the top-k from the sort
+    try:
+        vs.chunk_stats_topk(x320, 2000)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("chunk_stats_topk: the kernel took k 2000")
+    cm2, es2, v2, i2 = vs.stats_top_k(x320, 2000)
+    rcm2, res2, rv2, ri2 = vs.chunk_stats_topk_plain(x320, 2000)
+    ev2, ei2 = vs.exact_top_k(x320, 2000)
+    bits = lambda t: t.view(torch.int32)
+    if not (torch.equal(cm2, rcm2) and all(torch.equal(bits(v), bits(rv2)) for v in (v2, ev2))
+            and torch.equal(i2, ri2) and torch.equal(ei2, ri2)):
+        raise AssertionError("stats_top_k / exact_top_k at k 2000 differ from the plain version")
+    rel2 = float(((es2 - res2).abs() / res2).max())
+    _check("stats_top_k 320x50320 k=2000", rel2, ES_RTOL)
+    results["vocab_stats_topk_route"] = {
+        "shape": [320, 50320], "k": 2000, "es_max_rel_err": rel2, "tol": ES_RTOL,
+        "route": "statistics from K4 at k 0, top-k from the stable sort"}
+    for label, n in (("ties", 50320), ("ties flat", 5 * 50320), ("ties ragged", 3000)):
+        x = torch.as_tensor(_tie_rows(n), device=dev)
+        for k in (2, 10, 50):
+            rows_k4.append(k4(x, k, label=label))
+        rows_k4.append(k4(x, 10, stats=False, label=label))
+    # the statistics alone (chunk_stats, k 0): the old K4's function
+    stats_only = {"shape": [320, 50320], "k": 0}
+    cm0, es0 = vs.chunk_stats(x320)
+    rcm0, res0 = vs.chunk_stats_plain(x320)
+    if not torch.equal(cm0, rcm0):
+        raise AssertionError("chunk_stats: chunk maxima differ")
+    _check("chunk_stats 320x50320", float(((es0 - res0).abs() / res0).max()), ES_RTOL)
+    stats_only["ms"] = _time_ms(torch, lambda: vs.chunk_stats(x320))
+    stats_only.update(_bound(4 * 320 * 50320 + 8 * 320 * 50, f32_flops=3.0 * 320 * 50320))
+    results["vocab_stats_topk"] = rows_k4
+    results["vocab_stats_only"] = stats_only
 
     # planted ties: the top-k must list equal values lowest index first
     x = torch.randn((4, 50320), generator=g, device=dev)
@@ -1030,10 +1138,11 @@ def plain_path():
     """Route every kernel call site of the model (both directions) to the
     plain versions, to hold the kernel path against the plain path on the
     same card."""
-    from kmbart_tpu_torch.generation import beam
-    from kmbart_tpu_torch.models import bart
+    from kmbart_tpu_torch.generation import beam, logits
+    from kmbart_tpu_torch.models import bart, utils
     from kmbart_tpu_torch.ops import beam_attention, ffn, lm_ce, train_attention, vocab_stats
     from kmbart_tpu_torch.ops import flash_attention
+    from kmbart_tpu_torch.ops.topk import top_k
     swaps = [(train_attention, "train_attention_flat", train_attention.train_attention_plain),
              (train_attention, "train_attention_bwd", train_attention.train_attention_bwd_plain),
              (ffn, "fused_ffn", ffn.fused_ffn_plain),
@@ -1044,7 +1153,15 @@ def plain_path():
              (lm_ce, "lm_ce_recompute_bwd", lm_ce.lm_ce_recompute_bwd_plain),
              (flash_attention, "flash_attention", flash_attention.flash_attention_plain),
              (bart, "beam_gather_attention", beam_attention.beam_gather_attention_plain),
-             (beam, "chunk_stats", vocab_stats.chunk_stats_plain)]
+             (beam, "stats_top_k", vocab_stats.chunk_stats_topk_plain),
+             (beam, "exact_top_k", top_k), (logits, "exact_top_k", top_k),
+             (utils, "exact_top_k", top_k)]
+    with _swapped(swaps):
+        yield
+
+
+@contextlib.contextmanager
+def _swapped(swaps):
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -1053,6 +1170,20 @@ def plain_path():
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+
+
+def sort_selection():
+    """Only the selection swapped to the stable sort it replaces: the beam
+    step's statistics still from K4 (at k 0), its top-k from top_k."""
+    from kmbart_tpu_torch.generation import beam
+    from kmbart_tpu_torch.ops import vocab_stats
+    from kmbart_tpu_torch.ops.topk import top_k
+
+    def stats_then_sort(x, k):
+        return (*vocab_stats.chunk_stats(x), *top_k(x, k))
+
+    return _swapped([(beam, "stats_top_k", stats_then_sort),
+                     (beam, "exact_top_k", top_k)])
 
 
 def _generate_batch(torch, cfg, dev, B=64, T=72):
@@ -1106,6 +1237,10 @@ def run_generate(torch, dev, card):
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     steps = launches["beam_attention"] // cfg.decoder_layers
+    # K4 once a decode step: its statistics and chunk candidates, then the merge
+    if not launches["vocab_stats_topk"] == launches["vocab_topk_merge"] == steps:
+        raise AssertionError(f"K4: {launches['vocab_stats_topk']} launches and "
+                             f"{launches['vocab_topk_merge']} merges over {steps} steps")
     if out.shape != (B, 32) or not (1 <= width <= 32) or out.min() < 0 \
             or out.max() >= cfg.vocab_size:
         raise AssertionError(f"bad generate output {tuple(out.shape)} width {width}")
@@ -1151,6 +1286,37 @@ def run_generate(torch, dev, card):
     seconds, plain_seconds = (sorted(times[p])[1] for p in (False, True))
     same_rows = float((out == out_p).all(axis=1).mean())
 
+    # the same call with only the selection swapped to the stable sort: the
+    # same function, so every row's tokens must be equal; and no torch.sort
+    # of vocabulary-wide rows runs on the kernel path
+    with sort_selection():
+        out_s, _ = gen()
+    rows_equal_sort = float((out == out_s).all(axis=1).mean())
+    # and the two in turns (sort, K4, K4, sort): what the selection moves end to end
+    sel_times = {False: [], True: []}
+    for sort_sel in (True, False, False, True):
+        with sort_selection() if sort_sel else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            gen()
+            sel_times[sort_sel].append(time.perf_counter() - t0)
+    if rows_equal_sort != 1.0:
+        raise AssertionError(f"generate: {int((1 - rows_equal_sort) * B)} of {B} rows differ "
+                             "from the sort selection's")
+    sort_shapes, torch_sort = [], torch.sort
+
+    def recording_sort(t, *a, **kw):
+        sort_shapes.append(list(t.shape))
+        return torch_sort(t, *a, **kw)
+
+    torch.sort = recording_sort
+    try:
+        gen()
+    finally:
+        torch.sort = torch_sort
+    wide_sorts = [sh for sh in sort_shapes if sh and sh[-1] >= cfg.vocab_size]
+    if wide_sorts:
+        raise AssertionError(f"generate: torch.sort over vocabulary rows {wide_sorts[:3]}")
+
     # one real K3 call, held against its plain version: the cache and the
     # ancestry of the last step of the first decoder layer, recorded in a
     # further generate call (each call's inputs copied as it is made)
@@ -1188,10 +1354,20 @@ def run_generate(torch, dev, card):
          encoder_max_abs_err=enc_err, encoder_mean_abs_err=float((enc_k - enc_p).abs().mean()),
          encoder_max_abs=float(enc_p.abs().max()), encoder_tol=enc_tol,
          first_step_logprob_max_abs_err=lp_err, logprob_tol=LOGPROB_ATOL,
-         rows_equal_to_plain=same_rows, k3_real_step=ci_r,
+         rows_equal_to_plain=same_rows, rows_equal_to_sort_selection=rows_equal_sort,
+         k4_selection_runs_s=sel_times[False], sort_selection_runs_s=sel_times[True],
+         widest_sort=max((sh[-1] for sh in sort_shapes if sh), default=0),
+         sorts_a_call=len(sort_shapes), k3_real_step=ci_r,
          k3_real_step_max_abs_err=k3_err, k3_real_step_tol=_bf16_tol(k3_ref),
          k3_real_step_ancestor_slots=int(anc_r[:, :ci_r + 1].unique().numel()))
     profile = _profile_steps(torch, gen, n=1)
+    with sort_selection():
+        sorted_profile = _profile_steps(torch, gen, n=1)
+    profile["sort_selection"] = {key: sorted_profile[key] for key in (
+        "wall_ms", "device_busy_ms", "device_busy_share", "k4_ms_per_step", "sort_ms_per_step")}
+    if profile["segmented_sort_kernels"]:
+        raise AssertionError(f"generate profile: segmented sort kernels "
+                             f"{profile['segmented_sort_kernels']}")
     # K3 over one call: its device time beside the summed bound of the
     # launches recorded above (the rows each step's ancestry reads)
     profile.update(k3_launches=len(steps_read), k3_bound_ms_per_call=k3_bound_ms)
@@ -1209,13 +1385,15 @@ def run_generate(torch, dev, card):
             events = json.load(f)["traceEvents"]
     kernel_names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
     k3 = sum("beam_attention_bf16" in n for n in kernel_names)
-    k4 = sum("vocab_stats_kernel" in n for n in kernel_names)
-    if not (k3 and k4):
-        raise AssertionError(f"profiling.trace: {k3} K3 and {k4} K4 kernels in the trace")
+    k4 = sum("vocab_stats_topk_kernel" in n for n in kernel_names)
+    k4m = sum("topk_merge_kernel" in n for n in kernel_names)
+    if not (k3 and k4 and k4m):
+        raise AssertionError(f"profiling.trace: {k3} K3, {k4} K4 and {k4m} K4 merge kernels "
+                             "in the trace")
     emit("generate_trace", card=card, file=name, size_mb=size_mb, events=len(events),
          kernel_events=len(kernel_names), k3_kernel_events=k3, k4_kernel_events=k4,
-         k3_launches_a_call=launches["beam_attention"],
-         k4_launches_a_call=launches["vocab_stats"])
+         k4_merge_kernel_events=k4m, k3_launches_a_call=launches["beam_attention"],
+         k4_launches_a_call=launches["vocab_stats_topk"])
     return launches
 
 
@@ -1491,6 +1669,14 @@ def _profile_steps(torch, run_step, n=3):
             "k10_ms_per_step": k10, "k10_share": k10 * n / busy_ms,
             "k11_ms_per_step": k11, "k11_share": k11 * n / busy_ms,
             "k3_ms_per_step": per_step("beam_attention_bf16"),
+            # K4 (statistics, chunk candidates and merge) and every sort kernel
+            "k4_ms_per_step": per_step("vocab_stats_topk_kernel", "topk_merge_kernel"),
+            "sort_ms_per_step": per_step("sort", "Sort"),
+            # the vocabulary-wide sort that K4's selection replaced ran as
+            # cub's segmented radix sort behind fill_reverse_indices_kernel;
+            # rows of a few dozen sort in place (radixSortKVInPlace)
+            "segmented_sort_kernels": sorted({e.key[:80] for e in events if any(
+                t in e.key for t in ("SegmentedRadixSort", "fill_reverse_indices"))}),
             "top_device_ops": [{"name": e.key[:80], "calls": e.count,
                                 "ms_per_step": dev(e) / 1e3 / n,
                                 "share": dev(e) / 1e3 / busy_ms} for e in top]}
@@ -1834,7 +2020,9 @@ def _base_model(dev, seed):
 def run_sample(torch, dev, card):
     """generate() with do_sample, top_k 50 and top_p 0.9 at batch 64, beam 5
     and greedy: one generator seed gives the same tokens twice, and the
-    kernels of the path launch (K4 on the beam path's fast sampling)."""
+    kernels of the path launch (K4's top-k on the beam path's fast sampling
+    and greedy sampling's draw). Beam 5 at top_k 2000 (over the 1024 K4's
+    selection takes) runs K4's statistics alone and the sort's top-k."""
     import numpy as np
     from kmbart_tpu_torch.generation.api import generate
     from kmbart_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -1842,10 +2030,11 @@ def run_sample(torch, dev, card):
     B, T = 64, 72
     batch = _generate_batch(torch, cfg, dev, B, T)
     result = {}
-    for mode, beams in (("beam5", 5), ("greedy", 1)):
+    for mode, beams, top_k in (("beam5", 5, 50), ("greedy", 1, 50),
+                               ("beam5_top_k2000", 5, 2000)):
         def gen(seed=7):
             return generate(model, cfg, batch, num_beams=beams, max_length=32,
-                            early_stopping=True, do_sample=True, top_k=50, top_p=0.9,
+                            early_stopping=True, do_sample=True, top_k=top_k, top_p=0.9,
                             trim=False, generator=torch.Generator(device=dev).manual_seed(seed))
         gen(seed=1)   # warm-up
         reset_launch_counts()
@@ -1853,16 +2042,18 @@ def run_sample(torch, dev, card):
         first = gen()
         seconds = time.perf_counter() - t0
         counts = launch_counts()
-        want = ("train_attention", "ffn", "beam_attention") + (("vocab_stats",) if beams > 1
-                                                                else ())
+        want = ("train_attention", "ffn", "beam_attention", "vocab_stats_topk") + (
+            ("vocab_topk_merge",) if top_k <= 1024 else ())
         missing = [k for k in want if counts[k] == 0]
         if missing:
             raise AssertionError(f"sample {mode}: kernels not launched: {missing}")
+        if top_k > 1024 and counts["vocab_topk_merge"]:
+            raise AssertionError(f"sample {mode}: K4's selection launched at k {top_k}")
         if not np.array_equal(first, gen()):
             raise AssertionError(f"sample {mode}: one generator seed gave two outputs")
         if first.shape != (B, 32) or first.min() < 0 or first.max() >= cfg.vocab_size:
             raise AssertionError(f"sample {mode}: bad output {first.shape}")
-        result[mode] = {"sentences_per_s": B / seconds, "seconds": seconds,
+        result[mode] = {"top_k": top_k, "sentences_per_s": B / seconds, "seconds": seconds,
                         "launches": {k: counts[k] for k in want}, "same_seed_identical": True,
                         "distinct_rows": int(len({r.tobytes() for r in first}))}
     emit("sample", card=card, config="config/vcg_base.json", batch=B, enc_len=T,
@@ -1870,7 +2061,8 @@ def run_sample(torch, dev, card):
 
 
 SERVE_POOL, SERVE_CHUNK, SERVE_BEAMS, SERVE_MAXLEN, SERVE_ENC = 112, 4, 5, 32, 96
-SERVE_KERNELS = ("train_attention", "ffn", "beam_attention_ring", "vocab_stats")
+SERVE_KERNELS = ("train_attention", "ffn", "beam_attention_ring", "vocab_stats_topk",
+                 "vocab_topk_merge")
 
 
 def _serve_requests(np, cfg, n, seed):
@@ -2113,7 +2305,8 @@ def run_serve(torch, dev, card):
                   latency_p99_s=float(np.percentile(lat, 99)),
                   latency_max_s=float(lat.max()), launches=launches,
                   k3_ring_launches=launches["beam_attention_ring"],
-                  k4_launches=launches["vocab_stats"],
+                  k4_launches=launches["vocab_stats_topk"],
+                  k4_merge_launches=launches["vocab_topk_merge"],
                   device_busy_share=profile["device_busy_share"], profile=profile,
                   rows_equal_to_generate=float(equal.mean()))
     if not equal.all():
@@ -3096,7 +3289,8 @@ def run_parallel(torch, dev, card, cards=1):
 PGEN_ROWS, PGEN_ENC, PGEN_BEAMS, PGEN_MAXLEN = 64, 72, 5, 32
 # case -> Grid options: TP 2 and DP 2 on one card, TP 2 x DP 2 on four
 PGEN_CASES = {"tp2": dict(model_parallel=2), "dp2": {}, "tp2_dp2": dict(model_parallel=2)}
-PGEN_KERNELS = ("train_attention", "ffn", "beam_attention", "vocab_stats")
+PGEN_KERNELS = ("train_attention", "ffn", "beam_attention", "vocab_stats_topk",
+                "vocab_topk_merge")
 
 
 def parallel_generate_worker():
@@ -3262,7 +3456,7 @@ def run_parallel_generate(torch, dev, card, cards=1):
                 lo, hi = _block(PGEN_ROWS, n_data, d)
                 if not r["traced_equals_timed"]:
                     raise AssertionError(f"{what}: two calls gave two outputs")
-                missing = [k for k in ("train_attention", "beam_attention", "vocab_stats")
+                missing = [k for k in ("train_attention", "beam_attention", "vocab_stats_topk")
                            if r["launches"][k] == 0]
                 if missing:
                     raise AssertionError(f"{what}: kernels not launched: {missing}")
@@ -3615,8 +3809,8 @@ KERNEL_INFO = {
                        "kmbart_tpu/ops/pallas_beam_attention.py:214"),
     "beam_attention_ring": ("kmbart_tpu_torch/csrc/beam_attention.cu",
                             "kmbart_tpu/ops/pallas_beam_attention.py:214"),
-    "vocab_stats": ("kmbart_tpu_torch/csrc/vocab_stats.cu",
-                    "kmbart_tpu/ops/pallas_vocab_stats.py:60"),
+    "vocab_stats_topk": ("kmbart_tpu_torch/csrc/vocab_stats.cu",
+                         "kmbart_tpu/ops/pallas_vocab_stats.py:60"),
     "lm_ce_fwd": ("kmbart_tpu_torch/csrc/lm_ce.cu", "kmbart_tpu/ops/pallas_lm_ce.py:250"),
     "lm_ce_bwd": ("kmbart_tpu_torch/csrc/lm_ce.cu", "kmbart_tpu/ops/pallas_lm_ce.py:289"),
     "lm_ce_fwd_stats": ("kmbart_tpu_torch/csrc/lm_ce.cu",
@@ -3737,14 +3931,19 @@ def main(argv=None):
                         ("beam_attention", [64, 5, 32, 384, 6])):
         rows[name + "_tp2_local"] = next(r for r in kernels[name] if r["shape"] == shape)
         launches[name + "_tp2_local"] = tp_launches[name]
-    print(card)
-    print(json.dumps({"kernels": [
+    line = [
         {"name": name, "route": "cuda", "source": KERNEL_INFO[name.replace("_tp2_local", "")][0],
          "replaces": KERNEL_INFO[name.replace("_tp2_local", "")][1], "launches": launches[name],
          "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
          "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
          "library_ms": row.get("library_ms")}
-        for name, row in rows.items()]}))
+        for name, row in rows.items()]
+    # K4's row: its merges on the main path, and the stable sort it replaced
+    k4_entry = next(e for e in line if e["name"] == "vocab_stats_topk")
+    k4_entry.update(merge_launches=launches["vocab_topk_merge"],
+                    sort_ms=rows["vocab_stats_topk"]["sort_ms"])
+    print(card)
+    print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

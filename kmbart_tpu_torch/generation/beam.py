@@ -9,16 +9,21 @@ pool, early stopping, finalisation and the HF output width). The JAX
 With every score postprocessor inert (the VCG default) candidates are
 chosen on the raw logits: log_softmax is monotonic per row, so each beam's
 top-2K survivors are the same, and only they are normalised with the row
-logsumexp from the vocab-stats kernel K4. Otherwise the general path takes
-log_softmax, the postprocessors, and the top-2K of the flat [B, K·V]
-scores.
+logsumexp: one call of the vocab-stats kernel K4 gives both, the
+statistics and each row's top-2K (``stats_top_k``). Otherwise the general
+path takes log_softmax, the postprocessors, and the top-2K of the flat
+[B, K·V] scores (``exact_top_k``). Both route by shape
+(``ops/vocab_stats.py``): on the card a k up to 1024 takes K4's
+selection, a larger one the stable sort. The small selections (the hypothesis pool, the merge of the beams'
+candidates, the Gumbel draw over [B, K·kk]) stay on the stable sort, as
+the JAX package leaves them to ``lax.top_k``.
 
 Sampling (HF: beam scores start at zero, no forced BOS/EOS, temperature)
 draws the 2K candidates without replacement by a Gumbel top-2K. With a
 top-k it draws over each row's top-k survivors ([B, K·kk] noise): on the
-fast path the survivors of the raw logits, normalised with K4's
-logsumexp, else the top-k of the postprocessed scores; top-p then keeps at
-least 2 tokens a row. Without a top-k it draws over the filtered
+fast path the survivors of the raw logits, K4's top-k normalised with
+its logsumexp, else the top-k of the postprocessed scores; top-p then
+keeps at least 2 tokens a row. Without a top-k it draws over the filtered
 [B, K·V] scores. The noise is ``logits._gumbel``'s (``logits.gumbel_rows``:
 a data rank decoding a block draws the whole batch's and keeps its rows).
 
@@ -31,8 +36,8 @@ import torch
 
 from kmbart_tpu_torch.generation import logits as lp
 from kmbart_tpu_torch.models import bart
-from kmbart_tpu_torch.ops.topk import top_k as exact_top_k
-from kmbart_tpu_torch.ops.vocab_stats import chunk_stats, logsumexp_from_stats
+from kmbart_tpu_torch.ops.topk import top_k as sort_top_k
+from kmbart_tpu_torch.ops.vocab_stats import exact_top_k, logsumexp_from_stats, stats_top_k
 
 NEG_1E9 = -1e9
 
@@ -52,7 +57,7 @@ def _merge_pool(hyp, cand_scores, cand_tokens, cand_lens, K):
     all_scores = torch.cat([hyp_scores, cand_scores], dim=1)
     all_tokens = torch.cat([hyp_tokens, cand_tokens], dim=1)
     all_lens = torch.cat([hyp_lens, cand_lens], dim=1)
-    top_scores, top_idx = exact_top_k(all_scores, K)
+    top_scores, top_idx = sort_top_k(all_scores, K)
     new_tokens = torch.gather(all_tokens, 1, top_idx[..., None].expand(-1, -1, L))
     new_lens = torch.gather(all_lens, 1, top_idx)
     n_new = (cand_scores > NEG_1E9 / 2).sum(dim=1)
@@ -66,18 +71,17 @@ def _merge_pool(hyp, cand_scores, cand_tokens, cand_lens, K):
 def fast_candidates(logits, beam_scores, K, trace=None):
     """The top-2K candidates of [B, K·V] normalised scores, chosen on the
     raw logits [B·K, V] (inert postprocessors, no sampling): each beam's
-    top-2K, normalised with K4's logsumexp, then merged in flat-index
-    order. Returns (scores [B, 2K], flat indices [B, 2K]); ``trace``, a
-    list, gets the step's numbers (STEP_TRACE)."""
+    top-2K and K4's logsumexp from one K4 call, the top-2K normalised,
+    then merged in flat-index order. Returns (scores [B, 2K], flat indices
+    [B, 2K]); ``trace``, a list, gets the step's numbers (STEP_TRACE)."""
     BK, V = logits.shape
     B = BK // K
-    cm, es = chunk_stats(logits.contiguous())
+    cm, es, row_vals, row_idx = stats_top_k(logits.contiguous(), 2 * K)
     lse = logsumexp_from_stats(cm, es)
-    row_vals, row_idx = exact_top_k(logits, 2 * K)
     norm = (row_vals - lse[:, None]) + beam_scores.reshape(BK, 1)
     beam_base = (torch.arange(K, device=logits.device) * V)[None, :, None]
     flat_idx = (row_idx.reshape(B, K, 2 * K) + beam_base).reshape(B, 2 * K * K)
-    cand_scores, pos = exact_top_k(norm.reshape(B, 2 * K * K), 2 * K)
+    cand_scores, pos = sort_top_k(norm.reshape(B, 2 * K * K), 2 * K)
     cand_idx = torch.gather(flat_idx, 1, pos)
     if trace is not None:
         trace.append({"cand_scores": cand_scores.cpu(), "cand_idx": cand_idx.cpu(),
@@ -120,10 +124,10 @@ def _sample_candidates(logits, scores, beam_scores, generator, *, K, top_k, top_
         kk = max(top_k, 2)
         if fast:
             # the top-k of the raw logits is the top-k of the normalised
-            # scores; normalise the survivors with K4's logsumexp
-            cm, es = chunk_stats(logits.contiguous())
+            # scores; normalise the survivors with K4's logsumexp, both from
+            # one K4 call (a kk over 1024: K4's statistics, the sort's top-k)
+            cm, es, raw_vals, vidx = stats_top_k(logits.contiguous(), kk)
             lse = logsumexp_from_stats(cm, es)
-            raw_vals, vidx = exact_top_k(logits, kk)
             vals = (raw_vals - lse[:, None]) + beam_scores.reshape(BK, 1)
         else:
             vals, vidx = exact_top_k(scores + beam_scores.reshape(BK, 1), kk)
@@ -134,7 +138,7 @@ def _sample_candidates(logits, scores, beam_scores, generator, *, K, top_k, top_
         flat_gidx = (beam_of_row * V + vidx).reshape(B, K * kk)
         noise = lp.gumbel_rows(flat.shape, generator, dev, noise_rows)
         noisy = torch.where(flat > NEG_1E9 / 2, flat + noise, -float("inf"))
-        _, pos = exact_top_k(noisy, 2 * K)
+        _, pos = sort_top_k(noisy, 2 * K)
         cand_scores = torch.gather(flat, 1, pos)
         cand_idx = torch.gather(flat_gidx, 1, pos)
     else:

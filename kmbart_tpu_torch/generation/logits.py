@@ -17,7 +17,7 @@ package the same noise.
 
 import torch
 
-from kmbart_tpu_torch.ops.topk import top_k as _top_k
+from kmbart_tpu_torch.ops.vocab_stats import exact_top_k
 
 NEG_INF = -float("inf")
 
@@ -156,7 +156,7 @@ def sample_from_top_k(logits, top_k, top_p, generator, min_tokens_to_keep=1, row
     the k-th rank keep only the lowest-index tokens, where the filter keeps
     the whole tied group."""
     k = max(top_k, min_tokens_to_keep)
-    vals, idx = _top_k(logits, k)                      # sorted descending
+    vals, idx = exact_top_k(logits, k)                 # sorted descending
     if top_p < 1.0:
         vals = torch.where(_top_p_remove(vals, top_p, min_tokens_to_keep), NEG_INF, vals)
     slot = categorical(vals, generator, rows)

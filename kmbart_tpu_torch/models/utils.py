@@ -11,7 +11,7 @@ import torch
 
 from kmbart_tpu_torch.generation import logits as lp
 from kmbart_tpu_torch.models import bart
-from kmbart_tpu_torch.ops.topk import top_k as exact_top_k
+from kmbart_tpu_torch.ops.vocab_stats import exact_top_k
 
 
 @torch.no_grad()

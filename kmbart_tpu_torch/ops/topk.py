@@ -1,11 +1,12 @@
 """Exact top-k with ``lax.top_k``'s tie order, and the chunk view.
 
-Counterpart of kmbart_tpu/ops/topk.py. There the chunk-max and radix top-k
-exist because ``lax.top_k`` lowers to a full sort on the TPU (topk.py:3-7);
-they are TPU workarounds and are not ported. What the port needs is the
-order: values descending, and among equal values the lowest index first
-(topk.py:22-24). ``torch.topk`` does not document its tie order; a stable
-descending sort does give it.
+Counterpart of kmbart_tpu/ops/topk.py. The order: values descending, and
+among equal values the lowest index first (topk.py:22-24); -0.0 equals
++0.0. ``torch.topk`` does not document its tie order; a stable descending
+sort does give it, and ``top_k`` is that sort. There the chunk-max walk and
+the radix select stand in for ``lax.top_k``, which lowers to a full sort on
+the TPU (topk.py:3-7); on the card the same function is K4's selection,
+and ``ops/vocab_stats.exact_top_k`` routes to it.
 """
 
 import math
