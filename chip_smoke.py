@@ -14,7 +14,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                edge shapes (K1 and its backward also on the fused QKV
                projection's strided chunks, at Tk 256 and ragged lengths;
                K2 and K2b at every training row, ragged rows and a wide
-               FFN), with the device times of both from CUDA events, the
+               FFN; K2's inference route at generation's and serving's rows
+               held bit for bit to the partials route in every F2 mode, its
+               first 320 rows equal at every N, its partials route's and
+               each mode's times and the device kernels of one call), with
+               the device times of both from CUDA events, the
                bound the card sets for the same work (bytes or FLOPs, each
                input read once and each output written once), for the
                attention kernels the time of one
@@ -43,11 +47,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                finite, and the encoder output and first-step log-probs close
                to the plain path's on the card; every row's tokens equal to
                a call with only the selection swapped to the stable sort, and
-               no torch.sort of vocabulary-wide rows; one real K3 call (the
+               to one with K2's inference calls on the partials route (and
+               the two timed in turns), no torch.sort of vocabulary-wide
+               rows; one real K3 call (the
                cache and ancestry of the last step) against its plain
                version; a torch.profiler trace of one call (device-busy
                share, K2's, K3's, K4's and the sorts' device time, K3's
-               summed bound, no segmented sort kernel);
+               summed bound, no segmented sort kernel, no ffn_finalize; the
+               same on the partials route);
   5. cli       ``python -m kmbart_tpu_torch.vcg_generate --device cuda`` on a
                fixture dataset;
   6. train     fine-tuning at full width and depth (batch 128, 72 encoder and
@@ -293,6 +300,22 @@ def _host_us(torch, fn, iters=50):
     return host_us
 
 
+def _device_kernels(torch, fn, calls=4):
+    """{device kernel name: launches a call} over ``calls`` calls
+    (torch.profiler; a single call's first kernel can fall outside the
+    window)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names = [e.name[:80] for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return {name: names.count(name) / calls for name in sorted(set(names))}
+
+
 def _bound(nbytes, bf16_flops=0.0, f32_flops=0.0):
     """{"bound_ms", "bound_by"}: the larger of the bytes over the memory
     rate and the operations over the peak rate of their type."""
@@ -523,17 +546,27 @@ def check_kernels(torch, dev):
         k1(4, 40, 72, 768, 12, 9, False, False, False, dtype=torch.float32)]
 
     # K2 at the rows its callers give it: generation's encoder (64 x 72) and
-    # decode step (64 x 5) without the pre-activation; with it (the
-    # backward's residual), fine-tuning's encoder (128 x 72, also
-    # pretraining's decoder) and decoder (128 x 40) and pretraining's
-    # encoder (128 x 96); edges: ragged rows at tiny widths, a wide FFN.
-    # Timed rows carry gemm_ms, the two bf16 torch.mm products of the same
-    # shapes (a yardstick the port never calls), and host_us.
-    def k2(N, D, F, timed, with_a=False, path="edge"):
-        x = randn(N, D)
-        w1, w2 = randn(F, D, std=0.02), randn(D, F, std=0.02)
-        b1 = randn(F, std=0.02, dtype=torch.float32)
-        b2 = randn(D, std=0.02, dtype=torch.float32)
+    # decode step (64 x 5), the serving pool's decode step (112 x 5) and its
+    # admit's encoder (32 x 96), without the pre-activation (the inference
+    # route, infer_plan); with it (the backward's residual), fine-tuning's
+    # encoder (128 x 72, also pretraining's decoder) and decoder (128 x 40)
+    # and pretraining's encoder (128 x 96); edges: ragged rows at tiny
+    # widths, a wide FFN (eight parts: a cluster of eight). Timed rows carry
+    # gemm_ms, the two bf16 torch.mm products of the same shapes (a
+    # yardstick the port never calls), and host_us. Every inference row is
+    # held bit for bit to the partials route (fused_ffn_partials: the same
+    # parts through an fp32 buffer and a third launch), with F2's depth
+    # mode as the plan picks it and forced to each mode the plan weighs; the
+    # timed ones also give the partials route's and each forced mode's
+    # times, and the device kernels of one call. The four main-path rows share their
+    # weights and the first rows of x: the first 320 rows' bits must be the
+    # same in every call (row-count invariance).
+    def k2(N, D, F, timed, with_a=False, path="edge", x=None, weights=None):
+        x = randn(N, D) if x is None else x
+        if weights is None:
+            weights = (randn(F, D, std=0.02), randn(F, std=0.02, dtype=torch.float32),
+                       randn(D, F, std=0.02), randn(D, std=0.02, dtype=torch.float32))
+        w1, b1, w2, b2 = weights
         outs = ffn.fused_ffn(x, w1, b1, w2, b2, with_a=with_a)
         refs = ffn.fused_ffn_plain(x, w1, b1, w2, b2, with_a=with_a)
         outs, refs = (outs, refs) if with_a else ((outs,), (refs,))
@@ -543,6 +576,27 @@ def check_kernels(torch, dev):
             _check(f"fused_ffn {name} {N}x{D}x{F} with_a={with_a}", err, tol)
             res[f"{name}_err"], res[f"{name}_tol"] = err, tol
         res["max_abs_err"] = max(res[f"{name}_err"] for name in ("y", "a")[:len(outs)])
+        if not with_a:
+            sms, slots = ffn.sm_count(dev), ffn.cluster_slots(dev)
+            first, second = ffn.infer_plan(N, D, F, sms, slots)
+            res["plan"] = {"f1_tile_rows": first.tile_rows, "f1_ctas": first.ctas,
+                           "f2_mode": second.mode, "f2_tile_rows": second.tile_rows,
+                           "f2_cluster": second.cluster, "f2_ctas": second.ctas,
+                           "f2_parts": second.splits, "f2_kper": second.kper}
+            partials = ffn.fused_ffn_partials(x, w1, b1, w2, b2)
+            # every F2 mode the plan weighs: "sum", "cluster<parts a block>@<tile>"
+            cands = ffn._f2_candidates(N, D, second.splits, second.kper, -(-F // ffn.K_TILE),
+                                       sms, slots)
+            res["plan"]["f2_estimated_us"] = {m: c[3] for m, c in cands.items()}
+            modes = list(cands)
+            differ = {"plan": int((outs[0] != partials).sum())}
+            for mode in modes:
+                got = ffn._fused_ffn_infer(x, w1, b1, w2, b2, mode=mode)
+                differ[mode] = int((got != partials).sum())
+            res["elements_differing_from_partials"] = differ
+            if any(differ.values()):
+                raise AssertionError(f"fused_ffn {N}x{D}x{F}: elements differing from the "
+                                     f"partials route {differ}")
         if timed:
             call = lambda: ffn.fused_ffn(x, w1, b1, w2, b2, with_a=with_a)  # noqa: E731
             res["ms"] = _time_ms(torch, call)
@@ -553,16 +607,43 @@ def check_kernels(torch, dev):
             res["host_us"] = _host_us(torch, call)
             res.update(_bound(2 * (2 * N * D + 2 * F * D) + 4 * (F + D)
                               + (2 * N * F if with_a else 0), bf16_flops=4.0 * N * D * F))
+            if not with_a:
+                part = lambda: ffn.fused_ffn_partials(x, w1, b1, w2, b2)  # noqa: E731
+                res["partials_ms"] = _time_ms(torch, part)
+                res["partials_host_us"] = _host_us(torch, part)
+                res["mode_ms"] = {m: _time_ms(torch, lambda m=m: ffn._fused_ffn_infer(
+                    x, w1, b1, w2, b2, mode=m)) for m in modes}
+                res["device_kernels_a_call"] = _device_kernels(torch, call)
+                res["partials_device_kernels_a_call"] = _device_kernels(torch, part)
+                if any("ffn_finalize" in k for k in res["device_kernels_a_call"]):
+                    raise AssertionError(f"fused_ffn {N}: the inference route launched "
+                                         f"{res['device_kernels_a_call']}")
         return res
 
-    results["ffn"] = [k2(64 * 72, 768, 3072, True, path="generate encoder"),
-                      k2(64 * 5, 768, 3072, True, path="generate decode step"),
-                      k2(128 * 72, 768, 3072, True, with_a=True,
-                         path="fine-tune encoder, pretraining decoder"),
-                      k2(128 * 40, 768, 3072, True, with_a=True, path="fine-tune decoder"),
-                      k2(128 * 96, 768, 3072, True, with_a=True, path="pretraining encoder"),
-                      k2(37, 32, 64, False), k2(37, 32, 64, False, with_a=True),
-                      k2(1000, 1024, 4096, False), k2(1000, 1024, 4096, False, with_a=True)]
+    k2_x = randn(64 * 72, 768)
+    k2_w = (randn(3072, 768, std=0.02), randn(3072, std=0.02, dtype=torch.float32),
+            randn(768, 3072, std=0.02), randn(768, std=0.02, dtype=torch.float32))
+    k2_rows = [k2(n, 768, 3072, True, path=path, x=k2_x[:n], weights=k2_w)
+               for n, path in ((64 * 72, "generate encoder"), (64 * 5, "generate decode step"),
+                               (112 * 5, "serving decode step (pool 112, beam 5)"),
+                               (32 * 96, "serving encoder (admit 32 x 96)"))]
+    # row-count invariance: the first 320 rows inside the 560-, 3072- and
+    # 4608-row calls against the 320-row call
+    w1, b1, w2, b2 = k2_w
+    y320 = ffn.fused_ffn(k2_x[:320], w1, b1, w2, b2)
+    for n in (560, 32 * 96, 64 * 72):
+        same = torch.equal(ffn.fused_ffn(k2_x[:n], w1, b1, w2, b2)[:320], y320)
+        k2_rows[1].setdefault("first_320_rows_equal_at", {})[n] = same
+        if not same:
+            raise AssertionError(f"fused_ffn: the first 320 rows differ between N 320 and N {n}")
+    k2_rows[0]["cluster_slots"] = ffn.cluster_slots(dev)
+    results["ffn"] = k2_rows + [
+        k2(128 * 72, 768, 3072, True, with_a=True, path="fine-tune encoder, pretraining decoder"),
+        k2(128 * 40, 768, 3072, True, with_a=True, path="fine-tune decoder"),
+        k2(128 * 96, 768, 3072, True, with_a=True, path="pretraining encoder"),
+        k2(37, 32, 64, False), k2(37, 32, 64, False, with_a=True),
+        k2(1000, 1024, 4096, False), k2(1000, 1024, 4096, False, with_a=True),
+        k2(1, 768, 3072, False), k2(37, 768, 3072, False)]
 
     # K3: decoder self-attention, B 64, K 5, T 32, D 768, 12 heads, with
     # branching ancestry, at the last position (the kernels line's row) and
@@ -1186,6 +1267,22 @@ def sort_selection():
                      (beam, "exact_top_k", top_k)])
 
 
+def partials_route():
+    """Only K2's inference calls swapped to the partials route
+    (ffn.fused_ffn_partials: the same parts through an fp32 buffer and a
+    third launch); calls with ``a`` (training) unchanged."""
+    from kmbart_tpu_torch.ops import ffn
+    fused = ffn.fused_ffn
+
+    def route(x, w1, b1, w2, b2, with_a=False):
+        if with_a:
+            return fused(x, w1, b1, w2, b2, with_a=True)
+        return ffn.fused_ffn_partials(x, w1, b1, w2, b2)
+
+    route.launches = 0   # the wrappers count into the name they find in ffn
+    return _swapped([(ffn, "fused_ffn", route)])
+
+
 def _generate_batch(torch, cfg, dev, B=64, T=72):
     """bench.py's decode batch on ``dev``: B rows of T tokens from seed 0,
     positions 1-30 image slots, 30 ROI features a row."""
@@ -1302,6 +1399,21 @@ def run_generate(torch, dev, card):
     if rows_equal_sort != 1.0:
         raise AssertionError(f"generate: {int((1 - rows_equal_sort) * B)} of {B} rows differ "
                              "from the sort selection's")
+    # the same call with K2's inference calls on the partials route: the
+    # same bits, so every row's tokens must be equal; and the two in turns
+    # (partials, K2's route, K2's route, partials)
+    with partials_route():
+        out_pr, _ = gen()
+    rows_equal_partials = float((out == out_pr).all(axis=1).mean())
+    if rows_equal_partials != 1.0:
+        raise AssertionError(f"generate: {int((1 - rows_equal_partials) * B)} of {B} rows "
+                             "differ from the K2 partials route's")
+    k2_times = {False: [], True: []}
+    for partial in (True, False, False, True):
+        with partials_route() if partial else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            gen()
+            k2_times[partial].append(time.perf_counter() - t0)
     sort_shapes, torch_sort = [], torch.sort
 
     def recording_sort(t, *a, **kw):
@@ -1356,6 +1468,8 @@ def run_generate(torch, dev, card):
          first_step_logprob_max_abs_err=lp_err, logprob_tol=LOGPROB_ATOL,
          rows_equal_to_plain=same_rows, rows_equal_to_sort_selection=rows_equal_sort,
          k4_selection_runs_s=sel_times[False], sort_selection_runs_s=sel_times[True],
+         rows_equal_to_k2_partials_route=rows_equal_partials,
+         k2_route_runs_s=k2_times[False], k2_partials_route_runs_s=k2_times[True],
          widest_sort=max((sh[-1] for sh in sort_shapes if sh), default=0),
          sorts_a_call=len(sort_shapes), k3_real_step=ci_r,
          k3_real_step_max_abs_err=k3_err, k3_real_step_tol=_bf16_tol(k3_ref),
@@ -1365,6 +1479,14 @@ def run_generate(torch, dev, card):
         sorted_profile = _profile_steps(torch, gen, n=1)
     profile["sort_selection"] = {key: sorted_profile[key] for key in (
         "wall_ms", "device_busy_ms", "device_busy_share", "k4_ms_per_step", "sort_ms_per_step")}
+    with partials_route():
+        partials_profile = _profile_steps(torch, gen, n=1)
+    profile["k2_partials_route"] = {key: partials_profile[key] for key in (
+        "wall_ms", "device_busy_ms", "device_busy_share", "k2_ms_per_step",
+        "k2_union_ms_per_step", "k2_kernel_calls")}
+    if any("ffn_finalize" in k for k in profile["k2_kernel_calls"]):
+        raise AssertionError(f"generate profile: K2's inference route launched "
+                             f"{profile['k2_kernel_calls']}")
     if profile["segmented_sort_kernels"]:
         raise AssertionError(f"generate profile: segmented sort kernels "
                              f"{profile['segmented_sort_kernels']}")
@@ -1614,6 +1736,23 @@ def run_train(torch, dev, card):
     return launches
 
 
+def _union_ms(prof, tags):
+    """Device time during which a kernel whose name holds one of ``tags``
+    runs, in ms: the union of their intervals in a profile."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and any(t in e.name for t in tags))
+    total, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total / 1e3
+
+
 def _profile_steps(torch, run_step, n=3):
     """Device-busy share and the top device kernels over ``n`` steps (or
     generate calls) under torch.profiler (kernels run on one stream, so
@@ -1662,6 +1801,13 @@ def _profile_steps(torch, run_step, n=3):
             "k1_ms_per_step": per_step("attn_fwd_tc"),
             "k1b_ms_per_step": per_step("attn_bwd_tc"),
             "k2_ms_per_step": k2, "k2_share": k2 * n / busy_ms,
+            # K2's second launch of an inference call starts (a programmatic
+            # dependent) while the first still runs, so its kernel time
+            # includes that wait: the time some K2 kernel runs, the union
+            "k2_union_ms_per_step": _union_ms(prof, ("ffn_fwd_gemm", "ffn_finalize")) / n,
+            # K2's forward kernels by name (the instantiations), calls a step
+            "k2_kernel_calls": {e.key[:100]: e.count / n for e in events
+                                if "ffn_fwd_gemm" in e.key or "ffn_finalize" in e.key},
             "k2b_ms_per_step": k2b, "k2b_share": k2b * n / busy_ms,
             "k7_ms_per_step": k7, "k7_share": k7 * n / busy_ms,
             "k8_ms_per_step": k8, "k8_share": k8 * n / busy_ms,
@@ -2267,6 +2413,9 @@ def run_serve(torch, dev, card):
         profile = _profile_steps(torch, lambda: burst_run(list(range(SERVE_POOL)), 0.0), n=1)
     finally:
         engine.shutdown()
+    if any("ffn_finalize" in k for k in profile["k2_kernel_calls"]):
+        raise AssertionError(f"serve profile: K2's inference route launched "
+                             f"{profile['k2_kernel_calls']}")
     got = np.concatenate([outs[i] for i in range(N)])
 
     # the reference: generate() on the same padded rows, in batches of 112;
@@ -3830,7 +3979,8 @@ def main(argv=None):
                          "the kernels phase and stop (no paths driven, no ok line)")
     ap.add_argument("--only", default=None,
                     help="comma-separated paths to drive after the kernels phase "
-                         "(generate, sample, serve, extract, knowledge, reason_filter, "
+                         "(kernels: that phase alone; generate, sample, serve, extract, "
+                         "knowledge, reason_filter, "
                          "prep_twins, ddp, ddp_nccl, parallel, parallel_generate, "
                          "parallel_nccl, parallel_generate_nccl), then stop without the "
                          "ok line")
@@ -3867,7 +4017,8 @@ def main(argv=None):
     if args.kernels_only:
         return
     if args.only:
-        paths = {"generate": lambda: run_generate(torch, dev, card),
+        paths = {"kernels": lambda: None,   # it has run: the name alone stops there
+                 "generate": lambda: run_generate(torch, dev, card),
                  "sample": lambda: run_sample(torch, dev, card),
                  "serve": lambda: run_serve(torch, dev, card),
                  "extract": lambda: run_extract(torch, dev, card),

@@ -60,6 +60,27 @@
 // N 320 make 3 x 6 tiles), the host's plan (ops/ffn.py plan) splits the K
 // walk into fp32 partials that ffn_finalize adds in split order; no atomics,
 // so the result is deterministic.
+//
+// The inference forward (kmb_ffn_infer, no a) runs at every row count the
+// callers give it, from a decode step's N 320 to an encoder's 4608, and
+// walks F2's depth in the same 512-deep parts at every N, so a row's bits
+// never depend on the batch it shares. On the partials route that cost a
+// [6, N, D] fp32 round trip through device memory (85 MB at N 4608) and a
+// third launch, and at a decode step its 128-row tiles left most SMs idle
+// (F1 72 tiles, F2 108 on 132 SMs, three launches for 2.8 us of weight
+// bytes). Here the parts never leave the SM (ops/ffn.py infer_plan picks
+// the tiling from N; wgmma_gemm.cuh's note says how each keeps the
+// partials route's bits):
+//   F1  64-row tiles when 128-row ones leave SMs idle (120 CTAs at N 320),
+//       else the 128-row ping-pong tiles of training
+//   F2  MODE_CLUSTER: a tile's six parts on a cluster's CTAs, one or two a
+//       CTA, summed from distributed shared memory (at N 320: 15 tiles of
+//       64 x 256 on clusters of six, 90 CTAs in one wave); or MODE_SUM (large
+//       N): a 128 x 128 tile walks all six with a running fp32 sum, both
+//       consumers on its two 64-row halves
+// Two launches a call; the tensor maps come from a per-thread cache
+// (wgmma_gemm.cuh cached_map), so a call with the same weights encodes none
+// of theirs again.
 #include "wgmma_gemm.cuh"
 
 namespace {
@@ -68,13 +89,13 @@ using namespace kmb_wg;
 
 // K2's two GEMMs (B K-major) and K2b's (B MN-major), under their own names so
 // a profile tells the directions apart
-template <int EPI>
+template <int EPI, class L = Legacy>
 __global__ void __launch_bounds__(THREADS, 1)
     ffn_fwd_gemm(const __grid_constant__ CUtensorMap tma_a,
                  const __grid_constant__ CUtensorMap tma_b,
                  const __grid_constant__ CUtensorMap out_c,
                  const __grid_constant__ CUtensorMap out_d, const GemmArgs p) {
-  gemm_tiles<EPI, false>(&tma_a, &tma_b, &out_c, &out_d, p);
+  gemm_tiles<EPI, false, false, L>(&tma_a, &tma_b, &out_c, &out_d, p);
 }
 
 template <int EPI>
@@ -93,14 +114,14 @@ __global__ void ffn_finalize(const float* __restrict__ partial, const float* __r
 
 // C = A @ B (A [M, K] K-major; B = W [Ncols, K] (K-major) or W [K, Ncols]
 // (B_MN)); C and D bf16 [M, Ncols] (D: F1's a out or B1's a in, or null)
-template <int EPI, bool B_MN>
+template <int EPI, bool B_MN, class L = Legacy>
 cudaError_t gemm(const void* A, const void* W, void* C, const void* D, GemmArgs p, int K,
                  int ctas, cudaStream_t s) {
   static unsigned configured = 0;  // a bit per device
   GemmKernel kernel;
   if constexpr (B_MN) kernel = ffn_bwd_gemm<EPI>;
-  else kernel = ffn_fwd_gemm<EPI>;
-  return gemm_launch(kernel, configured, B_MN, A, K, W, C, D, p, K, ctas, s);
+  else kernel = ffn_fwd_gemm<EPI, L>;
+  return gemm_launch<L>(kernel, configured, B_MN, A, K, W, C, D, p, K, ctas, s);
 }
 
 cudaError_t finalize(const float* partial, const float* bias, bf16* out, int M, int Ncols,
@@ -145,4 +166,76 @@ KMB_EXPORT int kmb_ffn_bwd(const void* g, const void* a, const void* w1, const v
   err = gemm<EPI_OUT, true>(da, w1, dx, nullptr, p2, F, ctas2, s);
   if (err != cudaSuccess || nsplit == 1) return err;
   return finalize(part, nullptr, (bf16*)dx, N, D, nsplit, s);
+}
+
+// The inference forward (no a): y = bf16(gelu(x @ W1^T + b1) @ W2^T + b2)
+// through the h scratch, bit for bit kmb_ffn_fwd's at the same kper
+// (ops/ffn.py infer_plan gives the plan). rows1: F1's tile rows, 64 or 128
+// (128 columns); ctas1 its grid. rows2 x cols2: F2's tiles, 64 x 128, 128 x
+// 128 or 64 x 256 (MODE_SUM: 128 x 128). mode2: MODE_SUM (ctas2 persistent
+// blocks) or MODE_CLUSTER (clusters of cluster2 CTAs, ctas2 = F2's tiles
+// times cluster2); F2 walks its depth F in parts of kper 64-deep slices.
+// device: the tensors' card (set here when the runtime's current device is
+// another).
+KMB_EXPORT int kmb_ffn_infer(const void* x, const void* w1, const void* b1, const void* w2,
+                             const void* b2, void* y, void* h, int N, int D, int F, int rows1,
+                             int ctas1, int mode2, int rows2, int cols2, int ctas2, int kper,
+                             int cluster2, int device, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int tile2 = rows2 * 1000 + cols2;
+  const bool tiles_ok = (rows1 == 64 || rows1 == 128) &&
+                        (tile2 == 64128 || tile2 == 128128 || tile2 == 64256) &&
+                        (mode2 == MODE_CLUSTER || (mode2 == MODE_SUM && tile2 == 128128));
+  if (ctas1 < 1 || ctas2 < 1 || kper < 1 || cluster2 < 1 || !tiles_ok) return cudaErrorInvalidValue;
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const GemmArgs p1 = {(const float*)b1, nullptr, N, F, 0, 0, 1, 0};
+  err = rows1 == 64 ? gemm<EPI_GELU, false, Rows64>(x, w1, h, nullptr, p1, D, ctas1, s)
+                    : gemm<EPI_GELU, false>(x, w1, h, nullptr, p1, D, ctas1, s);
+  if (err != cudaSuccess) return err;
+  const int ksteps = (F + BK - 1) / BK;
+  const int splits = (ksteps + kper - 1) / kper;
+  GemmArgs p2 = {(const float*)b2, nullptr, N, D, 0, kper, splits, 0};
+  p2.out = (bf16*)y;
+  p2.ppc = splits / cluster2;
+  if (mode2 == MODE_SUM) return gemm<EPI_OUT, false, CoopSum>(h, w2, y, nullptr, p2, F, ctas2, s);
+  if (p2.ppc * cluster2 != splits) return cudaErrorInvalidValue;
+  return tile2 == 64128
+             ? gemm<EPI_OUT, false, Rows64Cluster>(h, w2, nullptr, nullptr, p2, F, ctas2, s)
+         : tile2 == 64256
+             ? gemm<EPI_OUT, false, WideCluster>(h, w2, nullptr, nullptr, p2, F, ctas2, s)
+             : gemm<EPI_OUT, false, CoopCluster>(h, w2, nullptr, nullptr, p2, F, ctas2, s);
+}
+
+// How many clusters of `size` CTAs of MODE_CLUSTER's F2 kernel the card
+// holds at once (cudaOccupancyMaxActiveClusters; 0: none of that size fits),
+// or a negative CUDA error:
+// the plan's wave count (ops/ffn.py cluster_slots). One block an SM (the
+// 64-row cluster kernel's shared memory and registers hold it to one too),
+// so a cluster needs `size` free SMs of one GPC.
+KMB_EXPORT int kmb_ffn_cluster_slots(int size, int device) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -(int)err;
+  GemmKernel kernel = ffn_fwd_gemm<EPI_OUT, CoopCluster>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             CoopCluster::SMEM_BYTES);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(size * 64);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = CoopCluster::SMEM_BYTES;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = size;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, (void*)kernel, &cfg);
+  return err == cudaSuccess ? clusters : -(int)err;
 }

@@ -34,9 +34,36 @@
 // alone leave SMs idle the host's plan (ops/ffn.py gemm_plan) splits the K
 // walk into fp32 partials that finalize_sum adds in split order; no
 // atomics, so the result is deterministic.
+//
+// A Layout picks the tiles and the depth walk (the default, Legacy, is all
+// of the above). K2's inference forward (ffn.cu, ops/ffn.py infer_plan)
+// adds other tiles, each consumer's share still m64n128k16 accumulators:
+// 64 x 128 with one consumer a tile (H 1), and both consumers on one tile
+// with ping-pong off, each with its own 64 rows of a 128 x 128 tile (COOP)
+// or its own 128 columns of a 64 x 256 one (WIDE), which leaves each the
+// registers for a second fp32 accumulator. And two ways to walk the second
+// GEMM's depth in the partials' fixed parts without writing them out.
+// MODE_SUM: one tile walks every part, each part in a fresh accumulator
+// that is then added to a running fp32 sum. MODE_CLUSTER: the parts of one
+// tile run on the CTAs of one thread-block cluster, one or two each (kept
+// in registers); each CTA leaves its parts in its own shared memory, and
+// after a cluster barrier each sums a band of the tile's rows from all of
+// them (distributed shared memory), in part order. Both add exactly what
+// finalize_sum adds, in its order: 0, then part 0, 1, ..., then the bias,
+// then one rounding. Each part's accumulator is the same chain of wgmma
+// instructions on the same slices, so the result is bit for bit the
+// partials route's at every row count. The second GEMM is launched as a
+// programmatic dependent of the first (DEPENDENT): its blocks start as the
+// first's end and load their first weight slices before waiting for it.
+// That is safe because the first GEMM is launched in stream order: it
+// starts only after every earlier kernel (a cast that wrote the weight,
+// say) has ended, and the second starts only after the first has. The
+// first is not a dependent itself for that reason.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
+
+#include <initializer_list>
 
 #include "common.cuh"
 
@@ -64,6 +91,65 @@ constexpr int CONSUMER_REGS = 232;
 
 enum { EPI_GELU = 0, EPI_OUT = 1, EPI_DGELU = 2, EPI_STATS = 3, EPI_DLOGITS = 4 };
 
+// how a tile walks its depth: whole, or in p.splits parts of p.kper slices
+// with fp32 partials out (EPI_OUT with p.partial); in parts summed in
+// registers; or in parts on the CTAs of a cluster (the header note)
+enum { MODE_PLAIN = 0, MODE_SUM = 1, MODE_CLUSTER = 2 };
+
+// One instantiation's tiles and shared memory. H: m64 halves a consumer
+// computes (its accumulator is H x 64 registers a thread); COOP: both
+// consumers on one 128-row tile, consumer cw on its rows [64 cw, 64 cw +
+// 64); WIDE: both on one 64 x 256 tile, consumer cw on its columns [128 cw,
+// 128 cw + 128) (every consumer's share is an m64n128 accumulator, as in
+// the other layouts).
+template <int H_, bool COOP_, int MODE_, int STAGES_, bool DEPENDENT_ = false,
+          bool WIDE_ = false>
+struct Layout {
+  static constexpr int H = H_;
+  static constexpr bool COOP = COOP_;
+  static constexpr bool WIDE = WIDE_;
+  static constexpr bool SHARED = COOP || WIDE;  // both consumers on every tile
+  static constexpr int MODE = MODE_;
+  static constexpr int STAGES = STAGES_;
+  // launched as a programmatic dependent of the kernel before it (its A is
+  // that kernel's output): B's first slices load before the wait for it
+  static constexpr bool DEPENDENT = DEPENDENT_;
+  static constexpr int WG_ROWS = 64 * H;                      // a consumer's rows of a tile
+  static constexpr int TILE_ROWS = WG_ROWS * (COOP ? 2 : 1);  // rows a stage's A slice covers
+  static constexpr int TILE_COLS = BN * (WIDE ? 2 : 1);       // columns its B slice covers
+  static constexpr int A_BYTES = TILE_ROWS * BK * 2;
+  static constexpr int STAGE_BYTES = A_BYTES + TILE_COLS * BK * 2;
+  static constexpr int TILE_BYTES = WG_ROWS * BN * 2;  // a consumer's bf16 buffer: two 64-col boxes
+  static constexpr int BOX_BYTES = TILE_BYTES / 2;
+  static constexpr int NBARS = 2 * STAGES + 4;
+  static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * TILE_BYTES + 8 * NBARS + 1024;
+  static constexpr int EMPTY_ARRIVES = SHARED ? 8 : 4;  // one arrive from each consumer warp
+  // MODE_CLUSTER: each CTA's fp32 parts of its tile (one or two, p.ppc),
+  // each row-major with the rows padded to PART_PITCH bytes (a warp's
+  // paired stores then take two wavefronts), PART_BYTES apart, over the
+  // stage ring once the main loop is done
+  static constexpr int PART_PITCH = (TILE_COLS + 8) * 4;
+  static constexpr int PART_BYTES = TILE_ROWS * PART_PITCH;
+  static_assert(MODE != MODE_SUM || H == 1, "a running sum needs a second accumulator's registers");
+  static_assert(MODE != MODE_CLUSTER || H == 1, "a cluster's parts are kept in registers");
+  static_assert(!SHARED || H == 1, "a shared tile is two m64n128 shares");
+  static_assert(!(COOP && WIDE), "one way to share a tile");
+  static_assert(MODE != MODE_CLUSTER || 2 * PART_BYTES <= STAGES * STAGE_BYTES,
+                "two parts over the ring");
+  static_assert(SMEM_BYTES <= 232448, "over the 227 KB a block may use");
+};
+using Legacy = Layout<2, false, MODE_PLAIN, STAGES>;
+static_assert(Legacy::SMEM_BYTES == SMEM_BYTES, "the Legacy layout is the constants above");
+// K2's inference forward: its first GEMM at 64-row tiles, its second with
+// the running sum or on a cluster (ops/ffn.py infer_plan picks them), as a
+// programmatic dependent of the first
+using Rows64 = Layout<1, false, MODE_PLAIN, 8>;
+using CoopSum = Layout<1, true, MODE_SUM, 6, true>;
+using CoopCluster = Layout<1, true, MODE_CLUSTER, 6, true>;
+using Rows64Cluster = Layout<1, false, MODE_CLUSTER, 8, true>;  // consumer 0 alone
+using WideCluster = Layout<1, false, MODE_CLUSTER, 4, true, true>;
+constexpr int MAX_CLUSTER = 8;  // the portable cluster size
+
 // Fields past store_d are zero in an aggregate initialiser that stops there.
 struct GemmArgs {
   const float* bias;  // added to the sum before the epilogue's rounding, or null (not EPI_STATS)
@@ -78,6 +164,8 @@ struct GemmArgs {
   const float* row_m;       // EPI_DLOGITS: each row's logit max, [M]
   const float* row_inv_se;  // EPI_DLOGITS: 1 / each row's exp-sum, [M]
   const float* row_scale;   // EPI_DLOGITS: each row's loss scale (0: an ignored label), [M]
+  bf16* out;                // MODE_CLUSTER: the bf16 result [M, Ncols], stored without a map
+  int ppc;                  // MODE_CLUSTER: parts a CTA (1 or 2): clusters of splits / ppc CTAs
 };
 
 __device__ __forceinline__ float gelu_exact(float z) {
@@ -179,6 +267,47 @@ __device__ __forceinline__ void bar_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// MODE_CLUSTER: this CTA's rank in its cluster; a barrier over every thread
+// of the cluster (release: this CTA's shared-memory writes before it;
+// acquire: the others' after it); a shared::cta address mapped into CTA
+// `rank`'s shared memory, and a 16-byte load from there
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  __syncwarp();
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t map_to_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// programmatic dependent launch: let the next kernel's blocks start (they
+// wait for this grid's end before reading what it writes), and wait for the
+// kernel before this one to end, its writes visible
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_prior_grid() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+
 // wgmma shared-memory matrix descriptor, 128-byte swizzle. K-major tiles:
 // rows of 128 bytes, 8-row groups 1024 bytes apart (SBO); LBO unused.
 // MN-major tiles: 64-element MN blocks LBO bytes apart, 8-deep K groups SBO.
@@ -223,51 +352,83 @@ __device__ __forceinline__ void fence_acc(float (&d)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// Byte offset of (row, col) of a 128 x 128 bf16 tile in a consumer's buffer:
-// two [128 rows][64 columns] boxes, each row 128 bytes with its 16-byte
-// chunks permuted by row % 8 (TMA's 128-byte swizzle).
+// Byte offset of (row, col) of a consumer's bf16 tile (128 columns) in its
+// buffer: two [rows][64 columns] boxes BOX bytes apart, each row 128 bytes
+// with its 16-byte chunks permuted by row % 8 (TMA's 128-byte swizzle).
+template <int BOX = BOX_BYTES>
 __device__ __forceinline__ uint32_t tile_offset(int row, int col) {
-  return (col >> 6) * BOX_BYTES + row * 128 + ((((col & 63) >> 3) ^ (row & 7)) << 4) +
+  return (col >> 6) * BOX + row * 128 + ((((col & 63) >> 3) ^ (row & 7)) << 4) +
          ((col & 7) << 1);
 }
 
 // Tile t of the block's share (t = blockIdx.x, + gridDim.x, ...; columns
-// fastest, or rows fastest with ROWS_FIRST, then splits) and its K slices
-// [kb, kb + nk).
+// fastest, or rows fastest with ROWS_FIRST, then splits; MODE_CLUSTER:
+// splits fastest, one tile a block) and its K slices [kb, kb + nk)
+// (MODE_SUM: all of them, in parts of kper).
 struct Tile {
   int row0, col0, split, kb, nk;
 };
 
-template <bool ROWS_FIRST>
+template <class L>
+__device__ __forceinline__ int tile_count(const GemmArgs& p) {
+  const int tiles_mn = ((p.Ncols + L::TILE_COLS - 1) / L::TILE_COLS) *
+                       ((p.M + L::TILE_ROWS - 1) / L::TILE_ROWS);
+  if constexpr (L::MODE == MODE_SUM) return tiles_mn;
+  if constexpr (L::MODE == MODE_CLUSTER) return tiles_mn * (p.splits / p.ppc);
+  return tiles_mn * p.splits;
+}
+
+template <bool ROWS_FIRST, class L>
 __device__ __forceinline__ Tile tile_at(int t, const GemmArgs& p) {
-  const int tiles_n = (p.Ncols + BN - 1) / BN, tiles_m = (p.M + BM - 1) / BM;
+  constexpr int TR = L::TILE_ROWS, TC = L::TILE_COLS;
+  const int tiles_n = (p.Ncols + TC - 1) / TC, tiles_m = (p.M + TR - 1) / TR;
   const int tiles_mn = tiles_n * tiles_m;
   Tile r;
-  r.split = t / tiles_mn;
-  if constexpr (ROWS_FIRST) {
-    r.row0 = t % tiles_mn % tiles_m * BM;
-    r.col0 = t % tiles_mn / tiles_m * BN;
+  int mn;
+  if constexpr (L::MODE == MODE_CLUSTER) {
+    r.split = t % (p.splits / p.ppc);  // the CTA's rank in its cluster: parts ppc r, ...
+    mn = t / (p.splits / p.ppc);
+  } else if constexpr (L::MODE == MODE_SUM) {
+    r.split = 0;
+    mn = t;
   } else {
-    r.row0 = (t % tiles_mn) / tiles_n * BM;
-    r.col0 = t % tiles_n * BN;
+    r.split = t / tiles_mn;
+    mn = t % tiles_mn;
   }
-  r.kb = r.split * p.kper;
-  r.nk = min(p.ksteps, r.kb + p.kper) - r.kb;
+  if constexpr (ROWS_FIRST) {
+    r.row0 = mn % tiles_m * TR;
+    r.col0 = mn / tiles_m * TC;
+  } else {
+    r.row0 = mn / tiles_n * TR;
+    r.col0 = mn % tiles_n * TC;
+  }
+  if constexpr (L::MODE == MODE_SUM) {
+    r.kb = 0;
+    r.nk = p.ksteps;
+  } else if constexpr (L::MODE == MODE_CLUSTER) {
+    r.kb = r.split * p.ppc * p.kper;
+    r.nk = min(p.ksteps, r.kb + p.ppc * p.kper) - r.kb;
+  } else {
+    r.kb = r.split * p.kper;
+    r.nk = min(p.ksteps, r.kb + p.kper) - r.kb;
+  }
   return r;
 }
 
 // The end of every epilogue that leaves through the consumer's tile buffer:
 // its threads' writes are made visible to TMA and waited for, then the
-// leader stores the buffer's two 64-column boxes through `map` at the tile's
-// place and, when `wait`, waits until the store has read the buffer (else
-// it calls tma_store_wait_read itself before the buffer is written again).
+// leader stores the buffer's two 64-column boxes (BOX bytes apart) through
+// `map` at the tile's place and, when `wait`, waits until the store has read
+// the buffer (else it calls tma_store_wait_read itself before the buffer is
+// written again).
+template <int BOX = BOX_BYTES>
 __device__ __forceinline__ void store_tile(const CUtensorMap* map, uint32_t buf, const Tile& tl,
                                            bool wait = true) {
   fence_async_smem();
   bar_sync(3 + threadIdx.x / 128, 128);
   if (threadIdx.x % 128 == 0) {
     tma_store(map, buf, tl.col0, tl.row0);
-    tma_store(map, buf + BOX_BYTES, tl.col0 + 64, tl.row0);
+    tma_store(map, buf + BOX, tl.col0 + 64, tl.row0);
     tma_store_commit();
     if (wait) tma_store_wait_read();
   }
@@ -305,6 +466,22 @@ __device__ __forceinline__ RowIn row_inputs(const GemmArgs& p, const Tile& tl) {
       in.inv_se[r] = live ? p.row_inv_se[row] : 0.f;
       in.scale[r] = live ? p.row_scale[row] : 0.f;
     }
+  }
+  return in;
+}
+
+// EPI_GELU's and EPI_OUT's bias pairs of the thread's columns of a 64-row
+// share (H 1), loaded before the share's main loop so that their latency
+// hides behind it (0 past Ncols or without a bias)
+__device__ __forceinline__ RowIn bias_inputs(const GemmArgs& p, const Tile& tl) {
+  const int c0 = 2 * (threadIdx.x % 4);
+  RowIn in;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = tl.col0 + c0 + 8 * j;
+    in.bias[j] = p.bias != nullptr && col < p.Ncols
+                     ? *reinterpret_cast<const float2*>(p.bias + col)
+                     : make_float2(0.f, 0.f);
   }
   return in;
 }
@@ -420,26 +597,46 @@ __device__ __forceinline__ void dlogits_epilogue(float (&acc)[2][64], const RowI
   store_tile(out_c, buf, tl);
 }
 
-// The epilogue of consumer cw on its tile. Thread t holds, for half hf, j <
-// 16 and h < 2, the pair acc[hf][4j + 2h], acc[hf][4j + 2h + 1] at tile row
-// 64 hf + 16 (t / 32) + t % 32 / 4 + 8h and columns 8j + 2 (t % 4) + {0, 1}.
+// EPI_GELU's pass 2, h = bf16(gelu(a)) in place over a tile buffer of bf16
+// a: N 16-byte chunks a thread (chunks i, i + stride, ...; stride the
+// threads taking part), eight erfs each
+template <int N>
+__device__ __forceinline__ void gelu_pass2(unsigned char* bufp, int i, int stride = 128) {
+#pragma unroll 2
+  for (int k = 0; k < N; ++k) {
+    uint4* chunk = reinterpret_cast<uint4*>(bufp + 16 * (stride * k + i));
+    uint4 v = *chunk;
+    __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const float2 a = __bfloat1622float2(e[m]);
+      e[m] = __floats2bfloat162_rn(gelu_exact(a.x), gelu_exact(a.y));
+    }
+    *chunk = v;
+  }
+}
+
+// The epilogue of consumer cw on its share of a tile (tl.row0 is its first
+// row). Thread t holds, for half hf < L::H, j < 16 and h < 2, the pair
+// acc[hf][4j + 2h], acc[hf][4j + 2h + 1] at row 64 hf + 16 (t / 32) +
+// t % 32 / 4 + 8h of its share and columns 8j + 2 (t % 4) + {0, 1}.
 // `bufp` is the consumer's tile buffer (`buf` its shared-memory address);
 // out_c is the result's map, out_d F1's a (stored when store_d) or B1's a
 // (loaded by the producer).
-template <int EPI>
-__device__ __forceinline__ void epilogue(float (&acc)[2][64], const RowIn& in,
+template <int EPI, class L>
+__device__ __forceinline__ void epilogue(float (&acc)[L::H][64], const RowIn& in,
                                          const GemmArgs& p, const Tile& tl,
                                          unsigned char* bufp, uint32_t buf, uint32_t aux_full,
                                          uint32_t aux_empty, uint32_t aux_parity,
-                                         const CUtensorMap* out_c, const CUtensorMap* out_d) {
+                                         const CUtensorMap* out_c, const CUtensorMap* out_d,
+                                         bool lone = false) {
   const int t = threadIdx.x % 128, cw = threadIdx.x / 128;
   const bool leader = t == 0;
   const int r0 = 16 * (t / 32) + (t % 32) / 4, c0 = 2 * (t % 4);
-  if (EPI == EPI_STATS) {
+  if constexpr (EPI == EPI_STATS) {
     stats_epilogue(acc, in, p, tl, bufp, buf, out_c);
     return;
-  }
-  if (EPI == EPI_DLOGITS) {
+  } else if constexpr (EPI == EPI_DLOGITS) {
     dlogits_epilogue(acc, in, p, tl, bufp, buf, out_c);
     return;
   }
@@ -447,7 +644,7 @@ __device__ __forceinline__ void epilogue(float (&acc)[2][64], const RowIn& in,
     // a split K walk: fp32 partial sums straight to global memory
     const size_t part = static_cast<size_t>(tl.split) * p.M * p.Ncols;
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf)
+    for (int hf = 0; hf < L::H; ++hf)
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
@@ -465,19 +662,32 @@ __device__ __forceinline__ void epilogue(float (&acc)[2][64], const RowIn& in,
   } else {
     bar_sync(3 + cw, 128);  // the leader's last store has read the buffer
   }
+  // the bias pairs, all loaded before pass 1's first store (the stores
+  // might alias them for all the compiler knows, which would hold each
+  // load back behind the stores before it); H 1 had them loaded before its
+  // main loop (bias_inputs)
+  float2 bias[BN / 8];
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    if constexpr (L::H == 1 && (EPI == EPI_GELU || EPI == EPI_OUT)) {
+      bias[j] = in.bias[j];
+    } else {
+      bias[j] = make_float2(0.f, 0.f);
+      if (p.bias != nullptr && tl.col0 + c0 + 8 * j < p.Ncols)
+        bias[j] = *reinterpret_cast<const float2*>(p.bias + tl.col0 + c0 + 8 * j);
+    }
+  }
   // pass 1, from the registers: a (F1), y or dx, or da (from a, in place)
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     const int col = c0 + 8 * j;
-    float2 b = make_float2(0.f, 0.f);
-    if (p.bias != nullptr && tl.col0 + col < p.Ncols)
-      b = *reinterpret_cast<const float2*>(p.bias + tl.col0 + col);
+    const float2 b = bias[j];
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf)
+    for (int hf = 0; hf < L::H; ++hf)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        __nv_bfloat162* pair =
-            reinterpret_cast<__nv_bfloat162*>(bufp + tile_offset(64 * hf + r0 + 8 * h, col));
+        __nv_bfloat162* pair = reinterpret_cast<__nv_bfloat162*>(
+            bufp + tile_offset<L::BOX_BYTES>(64 * hf + r0 + 8 * h, col));
         const float v0 = acc[hf][4 * j + 2 * h], v1 = acc[hf][4 * j + 2 * h + 1];
         if (EPI == EPI_DGELU) {
           const float2 a = __bfloat1622float2(*pair);
@@ -488,148 +698,325 @@ __device__ __forceinline__ void epilogue(float (&acc)[2][64], const RowIn& in,
       }
   }
   if (EPI == EPI_GELU) {
-    if (p.store_d) store_tile(out_d, buf, tl);
-    bar_sync(3 + cw, 128);  // pass 1 is in the buffer (and the store of a has read it)
-    // pass 2, h = bf16(gelu(a)) in place: 16-byte chunks, eight erfs each
-#pragma unroll 2
-    for (int k = 0; k < TILE_BYTES / 16 / 128; ++k) {
-      uint4* chunk = reinterpret_cast<uint4*>(bufp + 16 * (128 * k + t));
-      uint4 v = *chunk;
-      __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const float2 a = __bfloat1622float2(e[m]);
-        e[m] = __floats2bfloat162_rn(gelu_exact(a.x), gelu_exact(a.y));
-      }
-      *chunk = v;
+    if (p.store_d) store_tile<L::BOX_BYTES>(out_d, buf, tl);
+    if (lone) {
+      // the other consumer has no tile: it takes every other 128 chunks of
+      // pass 2 (gemm_tiles), between these two barriers
+      bar_sync(5, 256);  // pass 1 is in the buffer (and the store of a has read it)
+      gelu_pass2<L::TILE_BYTES / 16 / 256>(bufp, t, 256);
+      bar_sync(6, 256);
+    } else {
+      bar_sync(3 + cw, 128);  // pass 1 is in the buffer (and the store of a has read it)
+      gelu_pass2<L::TILE_BYTES / 16 / 128>(bufp, t);
     }
   }
-  store_tile(out_c, buf, tl);
+  store_tile<L::BOX_BYTES>(out_c, buf, tl);
   if (EPI == EPI_DGELU && leader) mbar_arrive(aux_empty);  // the buffer may take the next a tile
+}
+
+// MODE_CLUSTER, after the cluster barrier that follows every CTA's parts:
+// CTA `rank` of the cluster sums the rows [rank band, (rank + 1) band) of
+// the tile (band = ceil(TILE_ROWS / CTAs)) over the parts in the cluster's
+// shared memories (part q in CTA q / ppc at `part` + (q % ppc) PART_BYTES,
+// rows PART_PITCH bytes apart), in part order from 0, then adds the bias
+// and rounds once, as finalize_sum does; 16 bytes of a row a thread, the
+// 256 consumer threads together. (Pushing each part's rows to the CTA that
+// sums them instead, by 8-byte remote stores from the registers, measured
+// slower on an H100 than the local stores and this pull together.)
+template <class L>
+__device__ __forceinline__ void cluster_reduce(const GemmArgs& p, const Tile& tl, uint32_t part) {
+  constexpr int Q = L::TILE_COLS / 4;  // 16-byte items a row
+  const int S = p.splits;
+  const int band = (L::TILE_ROWS + S / p.ppc - 1) / (S / p.ppc);
+  const int r_lo = static_cast<int>(cluster_rank()) * band;
+  const int items = max(0, min(L::TILE_ROWS, r_lo + band) - r_lo) * Q;
+  // two items a thread at a time, every load of both issued before the
+  // first sum needs one
+  for (int i0 = threadIdx.x; i0 < items; i0 += 512) {
+    float4 v[2][MAX_CLUSTER], b[2];
+    int grow[2], gcol[2];
+    bool live[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int i = i0 + 256 * u;
+      const int row = r_lo + i / Q, col = 4 * (i % Q);
+      grow[u] = tl.row0 + row;
+      gcol[u] = tl.col0 + col;
+      // Ncols % 4 == 0: 4 columns are in or out whole
+      live[u] = i < items && grow[u] < p.M && gcol[u] < p.Ncols;
+      if (!live[u]) continue;
+      const uint32_t off = part + row * L::PART_PITCH + col * 4;
+#pragma unroll
+      for (int r = 0; r < MAX_CLUSTER; ++r)
+        if (r < S)
+          v[u][r] = p.ppc == 2
+                        ? ld_cluster_f4(map_to_rank(off + (r & 1) * L::PART_BYTES, r >> 1))
+                        : ld_cluster_f4(map_to_rank(off, r));
+      b[u] = p.bias != nullptr ? *reinterpret_cast<const float4*>(p.bias + gcol[u])
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (!live[u]) continue;
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int r = 0; r < MAX_CLUSTER; ++r)
+        if (r < S) {
+          s.x += v[u][r].x;
+          s.y += v[u][r].y;
+          s.z += v[u][r].z;
+          s.w += v[u][r].w;
+        }
+      if (p.bias != nullptr) {
+        s.x += b[u].x;
+        s.y += b[u].y;
+        s.z += b[u].z;
+        s.w += b[u].w;
+      }
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(s.x, s.y);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(s.z, s.w);
+      uint2 packed;
+      packed.x = *reinterpret_cast<const uint32_t*>(&lo);
+      packed.y = *reinterpret_cast<const uint32_t*>(&hi);
+      *reinterpret_cast<uint2*>(p.out + static_cast<size_t>(grow[u]) * p.Ncols + gcol[u]) =
+          packed;
+    }
+  }
 }
 
 // out = A @ B over the block's tiles (A [M, K] K-major; B K-major [Ncols, K]
 // or, B_MN, MN-major [K, Ncols]). q counts K slices through the ring, over
 // all the block's tiles in order: slice q sits in stage q % STAGES, in that
-// stage's (q / STAGES)-th round. ROWS_FIRST picks the tile order (tile_at).
-template <int EPI, bool B_MN, bool ROWS_FIRST = false>
+// stage's (q / STAGES)-th round. ROWS_FIRST picks the tile order (tile_at),
+// L the tiles and the depth walk (Layout).
+template <int EPI, bool B_MN, bool ROWS_FIRST = false, class L = Legacy>
 __device__ __forceinline__ void gemm_tiles(const CUtensorMap* tma_a, const CUtensorMap* tma_b,
                                            const CUtensorMap* out_c, const CUtensorMap* out_d,
                                            const GemmArgs& p) {
+  constexpr int NST = L::STAGES;
+  static_assert(!L::DEPENDENT || !B_MN, "a dependent's early B slices are K-major");
   extern __shared__ unsigned char smem_raw[];
   // 128-byte swizzled TMA boxes want 1024-byte aligned shared memory
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   const uint32_t base = smem_u32(smem);
-  const uint32_t bufs = base + STAGES * STAGE_BYTES;   // consumer cw's buffer at bufs + cw*TILE
-  const uint32_t full0 = bufs + 2 * TILE_BYTES;        // full[s] at full0 + 8s
-  const uint32_t empty0 = full0 + 8 * STAGES;          // empty[s] at empty0 + 8s
-  const uint32_t aux_full0 = empty0 + 8 * STAGES;      // aux_full[cw] at aux_full0 + 8cw
+  const uint32_t bufs = base + NST * L::STAGE_BYTES;   // consumer cw's buffer at bufs + cw*TILE
+  const uint32_t full0 = bufs + 2 * L::TILE_BYTES;     // full[s] at full0 + 8s
+  const uint32_t empty0 = full0 + 8 * NST;             // empty[s] at empty0 + 8s
+  const uint32_t aux_full0 = empty0 + 8 * NST;         // aux_full[cw] at aux_full0 + 8cw
   const uint32_t aux_empty0 = aux_full0 + 16;          // aux_empty[cw] at aux_empty0 + 8cw
-  const int tiles = ((p.Ncols + BN - 1) / BN) * ((p.M + BM - 1) / BM) * p.splits;
+  const int tiles = tile_count<L>(p);
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full0 + 8 * s, 1);       // the producer's arrive, plus the bytes
-      mbar_init(empty0 + 8 * s, 4);      // one arrive from each warp of the consumer
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(full0 + 8 * s, 1);                   // the producer's arrive, plus the bytes
+      mbar_init(empty0 + 8 * s, L::EMPTY_ARRIVES);   // one arrive from each consumer warp
     }
     for (int c = 0; c < 2; ++c) {
       mbar_init(aux_full0 + 8 * c, 1);
       mbar_init(aux_empty0 + 8 * c, 1);  // the consumer's leader
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    launch_dependents();  // a dependent's blocks wait for this grid's end before reading it
   }
   __syncthreads();
+  // EPI_GELU with at most one tile a block: consumer 1 has none, and takes
+  // half of consumer 0's pass 2
+  const bool lone = EPI == EPI_GELU && !L::SHARED && tiles <= static_cast<int>(gridDim.x);
 
   if (threadIdx.x >= 256) {
     // producer warpgroup: one thread keeps the ring full
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (threadIdx.x == 256) {
+      // DEPENDENT: the first tile's first B slices (a weight) load while the
+      // kernel before this one still runs; A only after it has ended
+      uint32_t early = 0;
+      if constexpr (L::DEPENDENT) {
+        if (static_cast<int>(blockIdx.x) < tiles) {
+          const Tile tl = tile_at<ROWS_FIRST, L>(blockIdx.x, p);
+          early = min(NST, tl.nk);
+          for (uint32_t j = 0; j < early; ++j) {
+            mbar_expect_tx(full0 + 8 * j, L::STAGE_BYTES);
+#pragma unroll
+            for (int c = 0; c < L::TILE_COLS / BN; ++c)
+              tma_load(base + j * L::STAGE_BYTES + L::A_BYTES + c * B_BYTES, tma_b, full0 + 8 * j,
+                       (tl.kb + j) * BK, tl.col0 + c * BN);
+          }
+        }
+        wait_prior_grid();
+      }
       uint32_t q = 0;
       int i = 0;
       for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++i) {
-        const Tile tl = tile_at<ROWS_FIRST>(t, p);
+        const Tile tl = tile_at<ROWS_FIRST, L>(t, p);
         for (int k = tl.kb; k < tl.kb + tl.nk; ++k, ++q) {
-          const uint32_t stage = q % STAGES;
-          mbar_wait(empty0 + 8 * stage, ((q / STAGES) & 1) ^ 1);  // round 0 finds it free
+          const uint32_t stage = q % NST;
           const uint32_t full = full0 + 8 * stage;
-          mbar_expect_tx(full, STAGE_BYTES);
-          const uint32_t a_s = base + stage * STAGE_BYTES, b_s = a_s + A_BYTES;
+          const uint32_t a_s = base + stage * L::STAGE_BYTES, b_s = a_s + L::A_BYTES;
+          if (q < early) {  // its B is on the way, its bytes expected
+            tma_load(a_s, tma_a, full, k * BK, tl.row0);
+            continue;
+          }
+          mbar_wait(empty0 + 8 * stage, ((q / NST) & 1) ^ 1);  // round 0 finds it free
+          mbar_expect_tx(full, L::STAGE_BYTES);
           tma_load(a_s, tma_a, full, k * BK, tl.row0);
           if (B_MN) {
 #pragma unroll
             for (int j = 0; j < BN / 64; ++j)
               tma_load(b_s + j * BK * 128, tma_b, full, tl.col0 + 64 * j, k * BK);
           } else {
-            tma_load(b_s, tma_b, full, k * BK, tl.col0);
+#pragma unroll
+            for (int c = 0; c < L::TILE_COLS / BN; ++c)
+              tma_load(b_s + c * B_BYTES, tma_b, full, k * BK, tl.col0 + c * BN);
           }
         }
         if (EPI == EPI_DGELU) {
           // the tile's a, into its consumer's buffer once that has been stored
           const int cw = i & 1;
           mbar_wait(aux_empty0 + 8 * cw, ((i >> 1) & 1) ^ 1);
-          const uint32_t full = aux_full0 + 8 * cw, buf = bufs + cw * TILE_BYTES;
-          mbar_expect_tx(full, TILE_BYTES);
+          const uint32_t full = aux_full0 + 8 * cw, buf = bufs + cw * L::TILE_BYTES;
+          mbar_expect_tx(full, L::TILE_BYTES);
           tma_load(buf, out_d, full, tl.col0, tl.row0);
-          tma_load(buf + BOX_BYTES, out_d, full, tl.col0 + 64, tl.row0);
+          tma_load(buf + L::BOX_BYTES, out_d, full, tl.col0 + 64, tl.row0);
         }
       }
     }
+    if constexpr (L::MODE == MODE_CLUSTER) {
+      cluster_sync();  // the cluster's parts are in shared memory
+      cluster_sync();  // and have been summed: no CTA leaves while another reads it
+    }
   } else {
-    // consumer warpgroup cw: the block's tiles 2i + cw
+    // consumer warpgroup cw: the block's tiles 2i + cw, or with COOP or
+    // WIDE its share of every tile
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
     const int cw = threadIdx.x / 128;
     const bool lane0 = threadIdx.x % 32 == 0;
-    const uint32_t buf = bufs + cw * TILE_BYTES;
-    unsigned char* bufp = smem + STAGES * STAGE_BYTES + cw * TILE_BYTES;
+    const uint32_t buf = bufs + cw * L::TILE_BYTES;
+    unsigned char* bufp = smem + NST * L::STAGE_BYTES + cw * L::TILE_BYTES;
+    const uint32_t a_share = L::COOP ? cw * L::WG_ROWS * 128 : 0;  // its rows of an A slice
+    const uint32_t b_share = L::WIDE ? cw * B_BYTES : 0;            // its columns of a B slice
     uint32_t q = 0;
     int i = 0;
+    Tile tl;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++i) {
-      const Tile tl = tile_at<ROWS_FIRST>(t, p);
-      if ((i & 1) != cw) {  // the other warpgroup's tile: skip its slices
+      tl = tile_at<ROWS_FIRST, L>(t, p);
+      if (!L::SHARED && (i & 1) != cw) {  // the other warpgroup's tile: skip its slices
         q += tl.nk;
         continue;
       }
       // A parity wait is unambiguous only within one round of the ring, so a
       // warpgroup starts its main loop once the other has passed every wait
       // of the tile before (the ping-pong order: main loops in turn, each
-      // epilogue beside the other warpgroup's main loop).
-      if (i > 0) bar_sync(1 + cw, 256);
+      // epilogue beside the other warpgroup's main loop). With COOP or
+      // WIDE both take every slice, and the empty barriers wait for both.
+      if (!L::SHARED && i > 0) bar_sync(1 + cw, 256);
+      Tile te = tl;  // the consumer's share of the tile
+      te.row0 += L::COOP ? cw * L::WG_ROWS : 0;
+      te.col0 += L::WIDE ? cw * BN : 0;
       RowIn in;
-      if (EPI == EPI_STATS || EPI == EPI_DLOGITS) in = row_inputs<EPI>(p, tl);
-      float acc[2][64];
+      if constexpr (EPI == EPI_STATS || EPI == EPI_DLOGITS) in = row_inputs<EPI>(p, tl);
+      if constexpr (L::H == 1 && L::MODE != MODE_CLUSTER && (EPI == EPI_GELU || EPI == EPI_OUT))
+        in = bias_inputs(p, te);
+      float acc[L::H][64];
+      // MODE_SUM: the parts so far; MODE_CLUSTER with two parts: the first
+      float sum[L::MODE == MODE_PLAIN ? 1 : L::H][64];
 #pragma unroll
-      for (int j = 0; j < 64; ++j) acc[0][j] = acc[1][j] = 0.f;
-      fence_acc(acc[0]);
-      fence_acc(acc[1]);
+      for (int hf = 0; hf < L::H; ++hf)
+#pragma unroll
+        for (int j = 0; j < 64; ++j) acc[hf][j] = 0.f;
+#pragma unroll
+      for (int hf = 0; hf < L::H; ++hf) fence_acc(acc[hf]);
+      if constexpr (L::MODE == MODE_SUM) {
+#pragma unroll
+        for (int j = 0; j < 64; ++j) sum[0][j] = 0.f;
+      }
       for (int it = 0; it < tl.nk; ++it, ++q) {
-        const uint32_t stage = q % STAGES;
-        mbar_wait(full0 + 8 * stage, (q / STAGES) & 1);
-        const uint32_t a_s = base + stage * STAGE_BYTES;
-        const uint32_t b_s = a_s + A_BYTES;
+        const uint32_t stage = q % NST;
+        mbar_wait(full0 + 8 * stage, (q / NST) & 1);
+        const uint32_t a_s = base + stage * L::STAGE_BYTES + a_share;
+        const uint32_t b_s = base + stage * L::STAGE_BYTES + L::A_BYTES + b_share;
         asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk) {
           const uint64_t db = B_MN ? sw128_desc(b_s + 2048 * kk, BK * 128, 1024)
                                    : sw128_desc(b_s + 32 * kk, 16, 1024);
-          wgmma_m64n128k16<B_MN ? 1 : 0>(acc[0], sw128_desc(a_s + 32 * kk, 16, 1024), db);
-          wgmma_m64n128k16<B_MN ? 1 : 0>(acc[1], sw128_desc(a_s + 8192 + 32 * kk, 16, 1024),
-                                         db);
+#pragma unroll
+          for (int hf = 0; hf < L::H; ++hf)
+            wgmma_m64n128k16<B_MN ? 1 : 0>(acc[hf],
+                                           sw128_desc(a_s + 8192 * hf + 32 * kk, 16, 1024), db);
         }
         asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
         // the slice before this one is read: hand its stage back to the producer
         asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-        if (it > 0 && lane0) mbar_arrive(empty0 + 8 * ((q - 1) % STAGES));
+        if (it > 0 && lane0) mbar_arrive(empty0 + 8 * ((q - 1) % NST));
+        if constexpr (L::MODE != MODE_PLAIN) {
+          if ((it + 1) % p.kper == 0 && it + 1 < tl.nk) {
+            // a part ends: add it to the sum (or keep it), and start the
+            // next from zero
+            asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+            fence_acc(acc[0]);
+#pragma unroll
+            for (int j = 0; j < 64; ++j) {
+              if constexpr (L::MODE == MODE_SUM) sum[0][j] += acc[0][j];
+              else sum[0][j] = acc[0][j];
+              acc[0][j] = 0.f;
+            }
+            fence_acc(acc[0]);
+          }
+        }
       }
-      if (t + gridDim.x < tiles) bar_arrive(2 - cw, 256);  // the next tile, the other's, may go
+      if (!L::SHARED && t + gridDim.x < tiles) bar_arrive(2 - cw, 256);  // the next tile, the other's, may go
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-      if (lane0) mbar_arrive(empty0 + 8 * ((q - 1) % STAGES));
-      fence_acc(acc[0]);
-      fence_acc(acc[1]);
-      epilogue<EPI>(acc, in, p, tl, bufp, buf, aux_full0 + 8 * cw, aux_empty0 + 8 * cw,
-                    (i >> 1) & 1, out_c, out_d);
+      if (lane0) mbar_arrive(empty0 + 8 * ((q - 1) % NST));
+#pragma unroll
+      for (int hf = 0; hf < L::H; ++hf) fence_acc(acc[hf]);
+      if constexpr (L::MODE == MODE_SUM) {
+#pragma unroll
+        for (int j = 0; j < 64; ++j) sum[0][j] += acc[0][j];
+        epilogue<EPI, L>(sum, in, p, te, bufp, buf, aux_full0 + 8 * cw, aux_empty0 + 8 * cw,
+                         (i >> 1) & 1, out_c, out_d);
+      } else if constexpr (L::MODE == MODE_CLUSTER) {
+        // the parts into this CTA's shared memory, over the ring once both
+        // consumers are done reading it (unless SHARED consumer 1 has no
+        // tile): the first (kept) and the last
+        if constexpr (L::SHARED) bar_sync(1, 256);
+        const int tt = threadIdx.x % 128;
+        const int r0 = 16 * (tt / 32) + (tt % 32) / 4, c0 = 2 * (tt % 4);
+        const bool two = tl.nk > p.kper;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float2* at = reinterpret_cast<float2*>(
+                smem + (te.row0 - tl.row0 + r0 + 8 * h) * L::PART_PITCH +
+                (te.col0 - tl.col0 + c0 + 8 * j) * 4);
+            const float2 last = make_float2(acc[0][4 * j + 2 * h], acc[0][4 * j + 2 * h + 1]);
+            if (two) {
+              *at = make_float2(sum[0][4 * j + 2 * h], sum[0][4 * j + 2 * h + 1]);
+              at[L::PART_BYTES / 8] = last;
+            } else {
+              *at = last;
+            }
+          }
+      } else {
+        epilogue<EPI, L>(acc, in, p, te, bufp, buf, aux_full0 + 8 * cw, aux_empty0 + 8 * cw,
+                         (i >> 1) & 1, out_c, out_d, lone);
+      }
+    }
+    if (lone && cw == 1 && static_cast<int>(blockIdx.x) < tiles) {
+      // no tile of its own: half of consumer 0's pass 2 (epilogue)
+      bar_sync(5, 256);
+      gelu_pass2<L::TILE_BYTES / 16 / 256>(smem + NST * L::STAGE_BYTES, 128 + threadIdx.x % 128,
+                                           256);
+      fence_async_smem();  // its writes, before consumer 0's TMA store reads them
+      bar_sync(6, 256);
     }
     if (threadIdx.x % 128 == 0) tma_store_wait_all();
+    if constexpr (L::MODE == MODE_CLUSTER) {
+      cluster_sync();
+      cluster_reduce<L>(p, tl, base);
+      cluster_sync();
+    }
   }
 }
 
@@ -694,20 +1081,72 @@ inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int inner, int ou
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// The maps a launch needs, kept per host thread (no lock; ctypes calls
+// may come from several threads) in a direct-mapped table. The key is every
+// input of the encoding (address, sizes, pitch, box) and the device; a map
+// holds those and nothing of the memory's contents or owner, so a hit is
+// exactly the map a fresh encoding would give. That is what keeps a freed
+// or moved tensor from meeting a stale map: a moved weight has another
+// address, hence another key, and a tensor allocated where a freed one was,
+// with the same sizes and pitch, is described by the freed one's map
+// correctly. Nothing is ever invalidated; a collision re-encodes.
+struct MapKey {
+  const void* ptr;
+  int inner, outer, ld, box_inner, box_outer, device;
+  bool operator==(const MapKey& o) const {
+    return ptr == o.ptr && inner == o.inner && outer == o.outer && ld == o.ld &&
+           box_inner == o.box_inner && box_outer == o.box_outer && device == o.device;
+  }
+};
+
+constexpr int MAP_CACHE = 256;
+
+inline cudaError_t cached_map(CUtensorMap* map, const void* ptr, int inner, int outer, int ld,
+                              int box_inner, int box_outer, int device) {
+  struct Entry {
+    CUtensorMap map;
+    MapKey key;
+    bool used;
+  };
+  static thread_local Entry table[MAP_CACHE];
+  const MapKey key = {ptr, inner, outer, ld, box_inner, box_outer, device};
+  uint64_t h = reinterpret_cast<uintptr_t>(ptr) >> 4;
+  for (const int v : {inner, outer, ld, box_inner, box_outer, device})
+    h = (h ^ static_cast<uint64_t>(v)) * 0x100000001B3ull;
+  Entry& e = table[(h ^ (h >> 29)) % MAP_CACHE];
+  if (e.used && e.key == key) {
+    *map = e.map;
+    return cudaSuccess;
+  }
+  const cudaError_t err = make_map(map, ptr, inner, outer, ld, box_inner, box_outer);
+  if (err == cudaSuccess) {
+    e.map = *map;
+    e.key = key;
+    e.used = true;
+  }
+  return err;
+}
+
 typedef void (*GemmKernel)(const CUtensorMap, const CUtensorMap, const CUtensorMap,
                            const CUtensorMap, const GemmArgs);
 
 // C = A @ B on `kernel`, an includer's __global__ wrapper of gemm_tiles<EPI,
-// B_MN>; `configured` holds a bit per device whose kernel attributes are
-// set. A [M, K] K-major with row pitch lda; B = W [Ncols, K] (K-major) or W
-// [K, Ncols] (b_mn); C bf16 [M, ldc] (ldc 0: Ncols), or null when the
-// epilogue stores nothing (EPI_STATS with store_c 0); D bf16 [M, Ncols]
-// (D: F1's a out or B1's a in, or null). C's map spans its whole row, so an
-// epilogue writes the columns [Ncols, ldc) of the last tile as well. p.splits
-// > 1 walks K in parts of p.kper slices into p.partial.
+// B_MN, ROWS_FIRST, L>; `configured` holds a bit per device whose kernel
+// attributes are set. A [M, K] K-major with row pitch lda; B = W [Ncols, K]
+// (K-major) or W [K, Ncols] (b_mn); C bf16 [M, ldc] (ldc 0: Ncols), or null
+// when the epilogue stores nothing (EPI_STATS with store_c 0, MODE_CLUSTER,
+// which stores through p.out); D bf16 [M, Ncols] (D: F1's a out or B1's a
+// in, or null). C's map spans its whole row, so an epilogue writes the
+// columns [Ncols, ldc) of the last tile as well. p.splits > 1 walks K in
+// parts of p.kper slices: into p.partial (MODE_PLAIN), summed in the tile
+// (MODE_SUM), or on a cluster of p.splits / p.ppc CTAs a tile, p.ppc parts
+// each (MODE_CLUSTER: ctas must be the tiles times the cluster's CTAs). A
+// L::DEPENDENT kernel is launched as a programmatic dependent of the kernel
+// before it on the stream.
+template <class L = Legacy>
 inline cudaError_t gemm_launch(GemmKernel kernel, unsigned& configured, bool b_mn, const void* A,
-                        int lda, const void* W, void* C, const void* D, GemmArgs p, int K,
-                        int ctas, cudaStream_t s, int ldc = 0) {
+                               int lda, const void* W, void* C, const void* D, GemmArgs p, int K,
+                               int ctas, cudaStream_t s, int ldc = 0) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
@@ -720,22 +1159,57 @@ inline cudaError_t gemm_launch(GemmKernel kernel, unsigned& configured, bool b_m
     if (regs < PRODUCER_REGS || regs > CONSUMER_REGS ||
         128 * (regs - PRODUCER_REGS) < 256 * (CONSUMER_REGS - regs))
       return cudaErrorInvalidConfiguration;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               L::SMEM_BYTES);
     if (err != cudaSuccess) return err;
     if (device < 32) configured |= 1u << device;
   }
   CUtensorMap ta, tb, tc = {}, td = {};  // a null C or D gets no map: nothing reads it
-  err = make_map(&ta, A, K, p.M, lda, BK, BM);
+  err = cached_map(&ta, A, K, p.M, lda, BK, L::TILE_ROWS, device);
   if (err == cudaSuccess)
-    err = b_mn ? make_map(&tb, W, p.Ncols, K, p.Ncols, 64, BK)
-               : make_map(&tb, W, K, p.Ncols, K, BK, BN);
+    err = b_mn ? cached_map(&tb, W, p.Ncols, K, p.Ncols, 64, BK, device)
+               : cached_map(&tb, W, K, p.Ncols, K, BK, BN, device);
   if (ldc <= 0) ldc = p.Ncols;
-  if (err == cudaSuccess && C != nullptr) err = make_map(&tc, C, ldc, p.M, ldc, 64, BM);
-  if (err == cudaSuccess && D != nullptr) err = make_map(&td, D, p.Ncols, p.M, p.Ncols, 64, BM);
+  if (err == cudaSuccess && C != nullptr)
+    err = cached_map(&tc, C, ldc, p.M, ldc, 64, L::WG_ROWS, device);
+  if (err == cudaSuccess && D != nullptr)
+    err = cached_map(&td, D, p.Ncols, p.M, p.Ncols, 64, L::WG_ROWS, device);
   if (err != cudaSuccess) return err;
   p.ksteps = (K + BK - 1) / BK;
   if (p.splits == 1) p.kper = p.ksteps;
-  kernel<<<ctas, THREADS, SMEM_BYTES, s>>>(ta, tb, tc, td, p);
+  cudaLaunchAttribute attr[2];
+  unsigned nattr = 0;
+  if constexpr (L::MODE == MODE_CLUSTER) {
+    const int tiles = ((p.Ncols + L::TILE_COLS - 1) / L::TILE_COLS) *
+                      ((p.M + L::TILE_ROWS - 1) / L::TILE_ROWS);
+    if (p.ppc < 1 || p.ppc > 2 || p.splits % p.ppc != 0 || p.splits / p.ppc > MAX_CLUSTER ||
+        ctas != tiles * (p.splits / p.ppc) || p.out == nullptr ||
+        (p.splits - 1) * p.kper >= p.ksteps || p.splits * p.kper < p.ksteps)
+      return cudaErrorInvalidValue;
+    attr[nattr].id = cudaLaunchAttributeClusterDimension;
+    attr[nattr].val.clusterDim.x = p.splits / p.ppc;
+    attr[nattr].val.clusterDim.y = 1;
+    attr[nattr].val.clusterDim.z = 1;
+    ++nattr;
+  }
+  if constexpr (L::DEPENDENT) {
+    attr[nattr].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[nattr].val.programmaticStreamSerializationAllowed = 1;
+    ++nattr;
+  }
+  if (nattr == 0) {
+    kernel<<<ctas, THREADS, L::SMEM_BYTES, s>>>(ta, tb, tc, td, p);
+  } else {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(ctas);
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = L::SMEM_BYTES;
+    cfg.stream = s;
+    cfg.attrs = attr;
+    cfg.numAttrs = nattr;
+    err = cudaLaunchKernelEx(&cfg, kernel, ta, tb, tc, td, p);
+    if (err != cudaSuccess) return err;
+  }
   return cudaGetLastError();
 }
 

@@ -39,6 +39,8 @@ _SIGNATURES = {
     "kmb_train_attention_bwd_smem_bytes": (ctypes.c_size_t, [_I, _I, _I, _I]),
     "kmb_ffn_fwd": (_I, [_P] * 9 + [_I] * 7 + [_P]),
     "kmb_ffn_bwd": (_I, [_P] * 7 + [_I] * 7 + [_P]),
+    "kmb_ffn_infer": (_I, [_P] * 7 + [_I] * 12 + [_P]),
+    "kmb_ffn_cluster_slots": (_I, [_I, _I]),
     "kmb_lm_ce_fwd": (_I, [_P] * 9 + [_I] * 5 + [_P]),
     "kmb_lm_ce_dlogits": (_I, [_P] * 6 + [_I] * 4 + [_P]),
     "kmb_lm_ce_dh": (_I, [_P] * 4 + [_I] * 7 + [_P]),

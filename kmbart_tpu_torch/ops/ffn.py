@@ -16,11 +16,17 @@ gradients to library products and reductions, as pallas_ffn.py:288-303
 leaves them to XLA. Weights are ``fc1.weight`` [F, D] and ``fc2.weight``
 [D, F].
 
-On the card each direction is two GEMMs (``plan`` lays them out): the
-forward writes h = bf16(gelu(a)) into an [N, F] scratch that the second
-GEMM reads back, the backward writes da and reads it back.
+On the card each direction is two GEMMs: the forward writes h =
+bf16(gelu(a)) into an [N, F] scratch that the second GEMM reads back, the
+backward writes da and reads it back. ``plan`` lays out the training
+forward (with ``a``) and the backward; ``infer_plan`` the inference
+forward (without ``a``), whose second GEMM walks its depth in the same
+INFERENCE_KPER parts at every N and sums them on the SM, bit for bit what
+``fused_ffn_partials`` (the same parts through an fp32 buffer and a third
+launch) gives.
 """
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -65,13 +71,18 @@ def supported(d, f):
 
 class GemmPlan(NamedTuple):
     """One GEMM of a K2 or K2b call (or K8's and K10's dh, ops/lm_ce.py
-    dh_plan): [rows, cols] = [rows, depth] @ [depth, cols] in ROW_TILE x
-    COL_TILE output tiles, with the depth walk in ``splits`` parts of
+    dh_plan): [rows, cols] = [rows, depth] @ [depth, cols] in ``tile_rows``
+    x ``tile_cols`` output tiles, with the depth walk in ``splits`` parts of
     ``kper`` K_TILE-deep slices each (the last part may be shorter): split
     p covers depth [p·kper·K_TILE, min(depth, (p+1)·kper·K_TILE)), and the
-    parts are added in split order. Tile t (of
-    row_tiles·col_tiles·splits; columns fastest, then rows, then splits) is
-    computed by block t % ctas of the persistent grid."""
+    parts are added in split order. ``mode`` says where the parts meet:
+    "plain" (each split is its own tile, t of row_tiles·col_tiles·splits,
+    columns fastest, then rows, then splits, computed by block t % ctas of
+    the persistent grid; the parts through an fp32 buffer), "sum" (tile t
+    of row_tiles·col_tiles walks every part, block t % ctas) or "cluster"
+    (clusters of ``cluster`` blocks, splits / cluster parts each: block t of
+    the ctas = row_tiles·col_tiles·cluster takes parts r·splits/cluster, ...
+    of tile t // cluster, r = t % cluster)."""
     rows: int
     cols: int
     depth: int
@@ -80,6 +91,10 @@ class GemmPlan(NamedTuple):
     splits: int
     kper: int
     ctas: int
+    tile_rows: int = ROW_TILE
+    mode: str = "plain"
+    cluster: int = 1
+    tile_cols: int = COL_TILE
 
 
 # An inference forward walks the second GEMM's depth in parts of this many
@@ -112,12 +127,125 @@ def plan(n, d, f, sms, invariant=False):
     ``sms`` SMs (one persistent block each): (first GEMM, second GEMM). The
     first (x @ W1ᵀ or g @ W2, [N, F] over depth D) feeds a nonlinear epilogue
     and never splits. The second (h @ W2ᵀ or da @ W1, [N, D] over depth F)
-    splits its depth walk into fp32 partials: with ``invariant`` (an
-    inference forward) in parts of INFERENCE_KPER slices at any N, else
-    when its tiles alone would leave SMs idle (training, where N is the
-    same every step and large)."""
+    splits its depth walk into fp32 partials: with ``invariant`` (the
+    inference forward on the partials route, ``fused_ffn_partials``) in
+    parts of INFERENCE_KPER slices at any N, else when its tiles alone would
+    leave SMs idle (training, where N is the same every step and large)."""
     return gemm_plan(n, f, d, sms, False), gemm_plan(
         n, d, f, sms, True, kper=INFERENCE_KPER if invariant else None)
+
+
+# csrc/wgmma_gemm.cuh: the depth modes (their codes), the cluster size the
+# card schedules without opting in, and the parts a cluster's block keeps
+MODES = {"plain": 0, "sum": 1, "cluster": 2}
+MAX_CLUSTER = 8
+MAX_PARTS_A_BLOCK = 2
+# The output tiles of csrc/wgmma_gemm.cuh's layouts, (rows, columns), each
+# a consumer's m64n128 accumulators: 128 x 128 (two halves a consumer, or
+# COOP's halves), 64 x 128 (one consumer a tile) and 64 x 256 (WIDE, F2
+# only: the two consumers' columns side by side); and what a slice of each
+# streams against a 128 x 128 one's 32 KB of A and B
+TILES = ((128, 128), (64, 128), (64, 256))
+_SLICE_SCALE = {(128, 128): 1.0, (64, 128): 0.75, (64, 256): 1.25}
+# What F2 costs, in microseconds, fitted to an H100 80GB HBM3 (700 W) at N
+# 320-4608 (chip_smoke.py's kernels phase times every mode): a slice of a
+# 128 x 128 tile's main loop, summed in one persistent block or on a
+# cluster block (whose short walk pays its pipeline's fill), times the
+# waves of blocks; a cluster block's fixed cost (its launch, its parts' trip
+# through distributed shared memory).
+SUM_SLICE_US, CLUSTER_SLICE_US = 0.5, 0.77
+SUM_FIXED_US, CLUSTER_FIXED_US = 1.6, 4.2
+
+
+def _tiles(n, cols, tile):
+    return -(-n // tile[0]), -(-cols // tile[1])
+
+
+def _f2_candidates(n, d, splits, kper, ksteps, sms, slots):
+    """{F2 mode: (tile, blocks a cluster, blocks, estimated us)}: "sum"
+    (128 x 128 tiles, persistent) and "cluster<ppc>@<rows>x<cols>" (ppc
+    parts a block)."""
+    def waves(blocks, at_once):
+        return -(-blocks // at_once)
+
+    rt, ct = _tiles(n, d, (128, 128))
+    out = {"sum": ((128, 128), 1, min(sms, rt * ct),
+                   waves(rt * ct, sms) * ksteps * SUM_SLICE_US + SUM_FIXED_US)}
+    for ppc in range(1, MAX_PARTS_A_BLOCK + 1):
+        size = splits // ppc
+        if splits % ppc or size > MAX_CLUSTER:
+            continue
+        at_once = (slots or {}).get(size, sms // size)
+        if at_once < 1:   # no cluster of this size fits the card
+            continue
+        for tile in TILES:
+            rt, ct = _tiles(n, d, tile)
+            out[f"cluster{ppc}@{tile[0]}x{tile[1]}"] = (
+                tile, size, rt * ct * size, waves(rt * ct, at_once) * (
+                    ppc * kper * CLUSTER_SLICE_US * _SLICE_SCALE[tile] + CLUSTER_FIXED_US))
+    return out
+
+
+def infer_plan(n, d, f, sms, slots=None, mode=None):
+    """The launch plan of an inference forward (no ``a``) at N rows, D and
+    F widths, on ``sms`` SMs: (F1, F2), as csrc/ffn.cu kmb_ffn_infer runs
+    them. F1 ([N, F] over depth D, the GELU epilogue; never split) takes
+    64- or 128-row tiles, whichever waves stream the fewer bytes (64 x 256
+    ones never did better at N 320-4608). F2 ([N, D] over depth F) walks its depth in INFERENCE_KPER-slice
+    parts at every N: the parts on the blocks of a cluster, one or two a
+    block, in any of TILES ("cluster"), or summed in one block over a 128 x
+    128 tile ("sum"), whichever takes the least time by the waves it needs:
+    ``slots`` {cluster size: clusters the card holds at once}
+    (``cluster_slots``; default sms // size). ``mode`` forces one of
+    ``_f2_candidates``' keys. N never changes a part or its order, so a
+    row's bits are the same at every N."""
+    def f1_cost(tile):
+        rt, ct = _tiles(n, f, tile)
+        return -(-(rt * ct) // sms) * _SLICE_SCALE[tile]
+
+    tile1 = min(TILES[:2], key=lambda t: (f1_cost(t), -t[0]))
+    rt1, ct1 = _tiles(n, f, tile1)
+    first = GemmPlan(n, f, d, rt1, ct1, 1, -(-d // K_TILE), min(sms, rt1 * ct1), tile1[0])
+
+    ksteps = -(-f // K_TILE)
+    kper = min(INFERENCE_KPER, ksteps)
+    splits = -(-ksteps // kper)
+    cands = _f2_candidates(n, d, splits, kper, ksteps, sms, slots)
+    if mode is None:   # on a tie the running sum (no cluster to schedule)
+        mode = min(cands, key=lambda m: (cands[m][3], m != "sum", m))
+    elif mode not in cands:
+        raise ValueError(f"infer_plan: mode {mode!r} not among {sorted(cands)} for F {f}")
+    tile2, size, ctas, _ = cands[mode]
+    rt2, ct2 = _tiles(n, d, tile2)
+    second = GemmPlan(n, d, f, rt2, ct2, splits, kper, ctas, tile2[0],
+                      "sum" if mode == "sum" else "cluster", size, tile2[1])
+    return first, second
+
+
+@functools.lru_cache(maxsize=1024)
+def _infer_args(n, d, f, device, mode=None):
+    """infer_plan's scalars for kmb_ffn_infer on ``device``, once a shape."""
+    first, second = infer_plan(n, d, f, sm_count(device), cluster_slots(device), mode)
+    return (first.tile_rows, first.ctas, MODES[second.mode], second.tile_rows,
+            second.tile_cols, second.ctas, second.kper, second.cluster)
+
+
+_CLUSTER_SLOTS = {}
+
+
+def cluster_slots(device):
+    """{cluster size: clusters of F2's cluster kernel the card holds at
+    once (0: none fits, and infer_plan takes no mode of that size)}, sizes
+    1-MAX_CLUSTER, read from the card once."""
+    if device not in _CLUSTER_SLOTS:
+        lib = _cuda.lib()
+        slots = {size: lib.kmb_ffn_cluster_slots(size, device.index or 0)
+                 for size in range(1, MAX_CLUSTER + 1)}
+        for size, n in slots.items():
+            if n < 0:
+                _cuda.check(-n, f"cudaOccupancyMaxActiveClusters at cluster size {size}")
+        _CLUSTER_SLOTS[device] = slots
+    return _CLUSTER_SLOTS[device]
 
 
 _SM_COUNTS = {}
@@ -152,10 +280,28 @@ def _launch_args(dev, N, D, F, invariant=False):
 
 def fused_ffn(x, w1, b1, w2, b2, with_a=False):
     """Fused FFN; same contract as ``fused_ffn_plain`` except that on a CUDA
-    device the weights must already be bf16 and the biases fp32."""
+    device the weights must already be bf16 and the biases fp32. Without
+    ``a`` (an inference forward) the call takes ``infer_plan``'s route; with
+    it (training) ``plan``'s."""
     if x.device.type == "cpu":
         return fused_ffn_plain(x, w1, b1, w2, b2, with_a=with_a)
-    dev = _cuda.require_cuda("fused_ffn", x, w1, b1, w2, b2)
+    if not with_a:
+        return _fused_ffn_infer(x, w1, b1, w2, b2)
+    return _fused_ffn_split(x, w1, b1, w2, b2, with_a=True)
+
+
+def fused_ffn_partials(x, w1, b1, w2, b2):
+    """The inference forward on the partials route: F2's INFERENCE_KPER
+    parts written to an fp32 [splits, N, D] buffer and added by a third
+    launch (csrc/ffn.cu kmb_ffn_fwd, training's route at the inference
+    split). The same function as ``fused_ffn`` without ``a``, bit for bit;
+    kept as that route's yardstick (chip_smoke.py holds the two equal)."""
+    if x.device.type == "cpu":
+        return fused_ffn_plain(x, w1, b1, w2, b2)
+    return _fused_ffn_split(x, w1, b1, w2, b2, with_a=False)
+
+
+def _check_fwd(x, w1, b1, w2, b2):
     D = x.shape[-1]
     F = w1.shape[0]
     if w1.shape != (F, D) or w2.shape != (D, F) or b1.shape != (F,) or b2.shape != (D,):
@@ -166,14 +312,57 @@ def fused_ffn(x, w1, b1, w2, b2, with_a=False):
         raise TypeError("fused_ffn kernel takes bf16 x and weights")
     if not (b1.dtype == b2.dtype == torch.float32):
         raise TypeError("fused_ffn kernel takes fp32 biases")
+    return D, F
+
+
+def _fused_ffn_infer(x, w1, b1, w2, b2, mode=None):
+    """``fused_ffn`` without ``a`` on a CUDA device: infer_plan's two
+    launches, with no more host work than the call needs (the plan cached a
+    shape, the weights' tensor maps cached in the library, PyTorch's raw
+    current stream). ``mode`` forces infer_plan's F2 mode (chip_smoke.py
+    holds each to the partials route and times it)."""
+    D, F, dev = x.shape[-1], w1.shape[0], x.device
+    # every check in one expression (the call's host time is the decode
+    # step's); the helpers below name what failed
+    if not (x.is_cuda and w1.device == dev and b1.device == dev and w2.device == dev
+            and b2.device == dev and x.is_contiguous() and w1.is_contiguous()
+            and b1.is_contiguous() and w2.is_contiguous() and b2.is_contiguous()
+            and x.dtype == w1.dtype == w2.dtype == torch.bfloat16
+            and b1.dtype == b2.dtype == torch.float32 and w1.shape == (F, D)
+            and w2.shape == (D, F) and b1.shape == (F,) and b2.shape == (D,)
+            and D % 16 == 0 and F % 64 == 0):
+        _cuda.require_cuda("fused_ffn", x, w1, b1, w2, b2)
+        _check_fwd(x, w1, b1, w2, b2)
+    N = x.numel() // D   # x is contiguous: its rows are [N, D] as they lie
+    y = torch.empty_like(x)
+    if N > 0:
+        h = torch.empty(N * F, dtype=torch.bfloat16, device=dev)   # [N, F]
+        ptrs = (x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                y.data_ptr(), h.data_ptr())
+        if (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3] | ptrs[4] | ptrs[5] | ptrs[6]) % 16:
+            raise ValueError("fused_ffn: kernel takes 16-byte aligned tensors")
+        index = dev.index or 0
+        # the raw handle of PyTorch's current stream (torch.cuda.current_stream
+        # builds a Stream object a call)
+        _cuda.check(_cuda.lib().kmb_ffn_infer(
+            *ptrs, N, D, F, *_infer_args(N, D, F, dev, mode), index,
+            torch._C._cuda_getCurrentRawStream(index)), "fused_ffn")
+        fused_ffn.launches += 1
+    return y
+
+
+def _fused_ffn_split(x, w1, b1, w2, b2, with_a):
+    """``plan``'s route on a CUDA device: the training forward (``with_a``,
+    the split from the row count) or the inference forward on the partials
+    (the INFERENCE_KPER split)."""
+    dev = _cuda.require_cuda("fused_ffn", x, w1, b1, w2, b2)
+    D, F = _check_fwd(x, w1, b1, w2, b2)
     xf = x.reshape(-1, D)
     N = xf.shape[0]
     y = torch.empty_like(xf)
     a = torch.empty((N, F), dtype=torch.bfloat16, device=dev) if with_a else None
     if N > 0:
         h = torch.empty((N, F), dtype=torch.bfloat16, device=dev)
-        # a call without ``a`` is an inference forward: its split is the
-        # same at every N; the training forward keeps the adaptive one
         partial, plan_args = _launch_args(dev, N, D, F, invariant=not with_a)
         check_aligned("fused_ffn", xf, w1, b1, w2, b2, y, h, partial, a)
         lib, stream = _cuda.prepare(dev)
