@@ -551,12 +551,14 @@ def check_kernels(torch, dev):
     # route, infer_plan); with it (the backward's residual), fine-tuning's
     # encoder (128 x 72, also pretraining's decoder) and decoder (128 x 40)
     # and pretraining's encoder (128 x 96); edges: ragged rows at tiny
-    # widths, a wide FFN (eight parts: a cluster of eight). Timed rows carry
+    # widths, a wide FFN (eight parts: a cluster of eight), and F 5120 and
+    # 8192 at a decode step's rows (10 and 16 parts, more than a cluster's
+    # tile takes: the running sum). Timed rows carry
     # gemm_ms, the two bf16 torch.mm products of the same shapes (a
     # yardstick the port never calls), and host_us. Every inference row is
     # held bit for bit to the partials route (fused_ffn_partials: the same
     # parts through an fp32 buffer and a third launch), with F2's depth
-    # mode as the plan picks it and forced to each mode the plan weighs; the
+    # mode as the plan picks it and forced to each mode the card can run; the
     # timed ones also give the partials route's and each forced mode's
     # times, and the device kernels of one call. The four main-path rows share their
     # weights and the first rows of x: the first 320 rows' bits must be the
@@ -581,14 +583,12 @@ def check_kernels(torch, dev):
             first, second = ffn.infer_plan(N, D, F, sms, slots)
             res["plan"] = {"f1_tile_rows": first.tile_rows, "f1_ctas": first.ctas,
                            "f2_mode": second.mode, "f2_tile_rows": second.tile_rows,
+                           "f2_tile_cols": second.tile_cols,
                            "f2_cluster": second.cluster, "f2_ctas": second.ctas,
                            "f2_parts": second.splits, "f2_kper": second.kper}
             partials = ffn.fused_ffn_partials(x, w1, b1, w2, b2)
-            # every F2 mode the plan weighs: "sum", "cluster<parts a block>@<tile>"
-            cands = ffn._f2_candidates(N, D, second.splits, second.kper, -(-F // ffn.K_TILE),
-                                       sms, slots)
-            res["plan"]["f2_estimated_us"] = {m: c[3] for m, c in cands.items()}
-            modes = list(cands)
+            # every F2 mode the card runs: "sum", "cluster<parts a block>@<tile>"
+            modes = list(ffn.f2_modes(second.splits, sms, slots))
             differ = {"plan": int((outs[0] != partials).sum())}
             for mode in modes:
                 got = ffn._fused_ffn_infer(x, w1, b1, w2, b2, mode=mode)
@@ -643,7 +643,8 @@ def check_kernels(torch, dev):
         k2(128 * 96, 768, 3072, True, with_a=True, path="pretraining encoder"),
         k2(37, 32, 64, False), k2(37, 32, 64, False, with_a=True),
         k2(1000, 1024, 4096, False), k2(1000, 1024, 4096, False, with_a=True),
-        k2(1, 768, 3072, False), k2(37, 768, 3072, False)]
+        k2(1, 768, 3072, False), k2(37, 768, 3072, False),
+        k2(320, 768, 5120, False), k2(320, 768, 8192, False)]
 
     # K3: decoder self-attention, B 64, K 5, T 32, D 768, 12 heads, with
     # branching ancestry, at the last position (the kernels line's row) and
@@ -2410,12 +2411,28 @@ def run_serve(torch, dev, card):
             raise AssertionError(f"serve: kernels not launched: {missing}")
         lat = np.array([done_at[i] - sent_at[i] for i in range(N)])
         wall = max(done_at.values()) - min(sent_at.values())
-        profile = _profile_steps(torch, lambda: burst_run(list(range(SERVE_POOL)), 0.0), n=1)
+        # one burst profiled on K2's route and one with K2's inference calls
+        # on the partials route, in turns (partials, K2's route, partials):
+        # K2's kernels summed and the union of their intervals, both routes
+        # from the same run
+        burst = lambda: burst_run(list(range(SERVE_POOL)), 0.0)  # noqa: E731
+        keys = ("wall_ms", "device_busy_ms", "device_busy_share", "k2_ms_per_step",
+                "k2_union_ms_per_step", "k2_kernel_calls")
+        partials_profiles = []
+        with partials_route():
+            partials_profiles.append(_profile_steps(torch, burst, n=1))
+        profile = _profile_steps(torch, burst, n=1)
+        with partials_route():
+            partials_profiles.append(_profile_steps(torch, burst, n=1))
+        profile["k2_partials_route"] = [{k: pp[k] for k in keys} for pp in partials_profiles]
     finally:
         engine.shutdown()
     if any("ffn_finalize" in k for k in profile["k2_kernel_calls"]):
         raise AssertionError(f"serve profile: K2's inference route launched "
                              f"{profile['k2_kernel_calls']}")
+    if not all(any("ffn_finalize" in k for k in pp["k2_kernel_calls"])
+               for pp in profile["k2_partials_route"]):
+        raise AssertionError("serve profile: the partials route launched no ffn_finalize")
     got = np.concatenate([outs[i] for i in range(N)])
 
     # the reference: generate() on the same padded rows, in batches of 112;

@@ -71,13 +71,13 @@
 // bytes). Here the parts never leave the SM (ops/ffn.py infer_plan picks
 // the tiling from N; wgmma_gemm.cuh's note says how each keeps the
 // partials route's bits):
-//   F1  64-row tiles when 128-row ones leave SMs idle (120 CTAs at N 320),
+//   F1  64-row tiles when they all fit in one wave (120 CTAs at N 320),
 //       else the 128-row ping-pong tiles of training
-//   F2  MODE_CLUSTER: a tile's six parts on a cluster's CTAs, one or two a
-//       CTA, summed from distributed shared memory (at N 320: 15 tiles of
-//       64 x 256 on clusters of six, 90 CTAs in one wave); or MODE_SUM (large
-//       N): a 128 x 128 tile walks all six with a running fp32 sum, both
-//       consumers on its two 64-row halves
+//   F2  MODE_CLUSTER, when one wave of clusters holds every tile: a tile's
+//       six parts on a cluster's CTAs, one or two a CTA, summed from
+//       distributed shared memory (at N 320: 15 tiles of 64 x 256 on
+//       clusters of six, 90 CTAs); else MODE_SUM: a 128 x 128 tile walks all
+//       six with a running fp32 sum, both consumers on its two 64-row halves
 // Two launches a call; the tensor maps come from a per-thread cache
 // (wgmma_gemm.cuh cached_map), so a call with the same weights encodes none
 // of theirs again.
@@ -171,10 +171,11 @@ KMB_EXPORT int kmb_ffn_bwd(const void* g, const void* a, const void* w1, const v
 // The inference forward (no a): y = bf16(gelu(x @ W1^T + b1) @ W2^T + b2)
 // through the h scratch, bit for bit kmb_ffn_fwd's at the same kper
 // (ops/ffn.py infer_plan gives the plan). rows1: F1's tile rows, 64 or 128
-// (128 columns); ctas1 its grid. rows2 x cols2: F2's tiles, 64 x 128, 128 x
-// 128 or 64 x 256 (MODE_SUM: 128 x 128). mode2: MODE_SUM (ctas2 persistent
-// blocks) or MODE_CLUSTER (clusters of cluster2 CTAs, ctas2 = F2's tiles
-// times cluster2); F2 walks its depth F in parts of kper 64-deep slices.
+// (128 columns); ctas1 its grid. rows2 x cols2: F2's tiles, 128 x 128 with
+// MODE_SUM (ctas2 persistent blocks), 64 x 128 or 64 x 256 with
+// MODE_CLUSTER (clusters of cluster2 CTAs, ctas2 = F2's tiles times
+// cluster2, at most MAX_CLUSTER parts); F2 walks its depth F in parts of
+// kper 64-deep slices.
 // device: the tensors' card (set here when the runtime's current device is
 // another).
 KMB_EXPORT int kmb_ffn_infer(const void* x, const void* w1, const void* b1, const void* w2,
@@ -184,8 +185,8 @@ KMB_EXPORT int kmb_ffn_infer(const void* x, const void* w1, const void* b1, cons
   const cudaStream_t s = (cudaStream_t)stream;
   const int tile2 = rows2 * 1000 + cols2;
   const bool tiles_ok = (rows1 == 64 || rows1 == 128) &&
-                        (tile2 == 64128 || tile2 == 128128 || tile2 == 64256) &&
-                        (mode2 == MODE_CLUSTER || (mode2 == MODE_SUM && tile2 == 128128));
+                        ((mode2 == MODE_CLUSTER && (tile2 == 64128 || tile2 == 64256)) ||
+                         (mode2 == MODE_SUM && tile2 == 128128));
   if (ctas1 < 1 || ctas2 < 1 || kper < 1 || cluster2 < 1 || !tiles_ok) return cudaErrorInvalidValue;
   int current = -1;
   cudaError_t err = cudaGetDevice(&current);
@@ -204,30 +205,28 @@ KMB_EXPORT int kmb_ffn_infer(const void* x, const void* w1, const void* b1, cons
   if (p2.ppc * cluster2 != splits) return cudaErrorInvalidValue;
   return tile2 == 64128
              ? gemm<EPI_OUT, false, Rows64Cluster>(h, w2, nullptr, nullptr, p2, F, ctas2, s)
-         : tile2 == 64256
-             ? gemm<EPI_OUT, false, WideCluster>(h, w2, nullptr, nullptr, p2, F, ctas2, s)
-             : gemm<EPI_OUT, false, CoopCluster>(h, w2, nullptr, nullptr, p2, F, ctas2, s);
+             : gemm<EPI_OUT, false, WideCluster>(h, w2, nullptr, nullptr, p2, F, ctas2, s);
 }
 
 // How many clusters of `size` CTAs of MODE_CLUSTER's F2 kernel the card
 // holds at once (cudaOccupancyMaxActiveClusters; 0: none of that size fits),
 // or a negative CUDA error:
 // the plan's wave count (ops/ffn.py cluster_slots). One block an SM (the
-// 64-row cluster kernel's shared memory and registers hold it to one too),
+// 64 x 128 cluster kernel's shared memory and registers hold it to one too),
 // so a cluster needs `size` free SMs of one GPC.
 KMB_EXPORT int kmb_ffn_cluster_slots(int size, int device) {
   int current = -1;
   cudaError_t err = cudaGetDevice(&current);
   if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return -(int)err;
-  GemmKernel kernel = ffn_fwd_gemm<EPI_OUT, CoopCluster>;
+  GemmKernel kernel = ffn_fwd_gemm<EPI_OUT, WideCluster>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             CoopCluster::SMEM_BYTES);
+                             WideCluster::SMEM_BYTES);
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(size * 64);
   cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = CoopCluster::SMEM_BYTES;
+  cfg.dynamicSmemBytes = WideCluster::SMEM_BYTES;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = size;

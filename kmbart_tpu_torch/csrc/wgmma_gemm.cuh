@@ -145,10 +145,12 @@ static_assert(Legacy::SMEM_BYTES == SMEM_BYTES, "the Legacy layout is the consta
 // programmatic dependent of the first
 using Rows64 = Layout<1, false, MODE_PLAIN, 8>;
 using CoopSum = Layout<1, true, MODE_SUM, 6, true>;
-using CoopCluster = Layout<1, true, MODE_CLUSTER, 6, true>;
 using Rows64Cluster = Layout<1, false, MODE_CLUSTER, 8, true>;  // consumer 0 alone
 using WideCluster = Layout<1, false, MODE_CLUSTER, 4, true, true>;
-constexpr int MAX_CLUSTER = 8;  // the portable cluster size
+// The portable cluster size, and the most parts a MODE_CLUSTER tile may have
+// (cluster_reduce reads that many at most): with two parts a block, clusters
+// of up to MAX_CLUSTER / 2 blocks
+constexpr int MAX_CLUSTER = 8;
 
 // Fields past store_d are zero in an aggregate initialiser that stops there.
 struct GemmArgs {
@@ -716,9 +718,10 @@ __device__ __forceinline__ void epilogue(float (&acc)[L::H][64], const RowIn& in
 
 // MODE_CLUSTER, after the cluster barrier that follows every CTA's parts:
 // CTA `rank` of the cluster sums the rows [rank band, (rank + 1) band) of
-// the tile (band = ceil(TILE_ROWS / CTAs)) over the parts in the cluster's
-// shared memories (part q in CTA q / ppc at `part` + (q % ppc) PART_BYTES,
-// rows PART_PITCH bytes apart), in part order from 0, then adds the bias
+// the tile (band = ceil(TILE_ROWS / CTAs)) over the p.splits <= MAX_CLUSTER
+// parts (gemm_launch refuses more) in the cluster's shared memories (part q
+// in CTA q / ppc at `part` + (q % ppc) PART_BYTES, rows PART_PITCH bytes
+// apart), in part order from 0, then adds the bias
 // and rounds once, as finalize_sum does; 16 bytes of a row a thread, the
 // 256 consumer threads together. (Pushing each part's rows to the CTA that
 // sums them instead, by 8-byte remote stores from the registers, measured
@@ -1182,7 +1185,7 @@ inline cudaError_t gemm_launch(GemmKernel kernel, unsigned& configured, bool b_m
   if constexpr (L::MODE == MODE_CLUSTER) {
     const int tiles = ((p.Ncols + L::TILE_COLS - 1) / L::TILE_COLS) *
                       ((p.M + L::TILE_ROWS - 1) / L::TILE_ROWS);
-    if (p.ppc < 1 || p.ppc > 2 || p.splits % p.ppc != 0 || p.splits / p.ppc > MAX_CLUSTER ||
+    if (p.ppc < 1 || p.ppc > 2 || p.splits % p.ppc != 0 || p.splits > MAX_CLUSTER ||
         ctas != tiles * (p.splits / p.ppc) || p.out == nullptr ||
         (p.splits - 1) * p.kper >= p.ksteps || p.splits * p.kper < p.ksteps)
       return cudaErrorInvalidValue;

@@ -135,54 +135,46 @@ def plan(n, d, f, sms, invariant=False):
         n, d, f, sms, True, kper=INFERENCE_KPER if invariant else None)
 
 
-# csrc/wgmma_gemm.cuh: the depth modes (their codes), the cluster size the
-# card schedules without opting in, and the parts a cluster's block keeps
+# csrc/wgmma_gemm.cuh: the depth modes (their codes), and the portable
+# cluster size, which is also the most parts a cluster's tile may have
+# (cluster_reduce reads that many at most): one or two parts a block
 MODES = {"plain": 0, "sum": 1, "cluster": 2}
 MAX_CLUSTER = 8
-MAX_PARTS_A_BLOCK = 2
-# The output tiles of csrc/wgmma_gemm.cuh's layouts, (rows, columns), each
-# a consumer's m64n128 accumulators: 128 x 128 (two halves a consumer, or
-# COOP's halves), 64 x 128 (one consumer a tile) and 64 x 256 (WIDE, F2
-# only: the two consumers' columns side by side); and what a slice of each
-# streams against a 128 x 128 one's 32 KB of A and B
-TILES = ((128, 128), (64, 128), (64, 256))
-_SLICE_SCALE = {(128, 128): 1.0, (64, 128): 0.75, (64, 256): 1.25}
-# What F2 costs, in microseconds, fitted to an H100 80GB HBM3 (700 W) at N
-# 320-4608 (chip_smoke.py's kernels phase times every mode): a slice of a
-# 128 x 128 tile's main loop, summed in one persistent block or on a
-# cluster block (whose short walk pays its pipeline's fill), times the
-# waves of blocks; a cluster block's fixed cost (its launch, its parts' trip
-# through distributed shared memory).
-SUM_SLICE_US, CLUSTER_SLICE_US = 0.5, 0.77
-SUM_FIXED_US, CLUSTER_FIXED_US = 1.6, 4.2
+# F2's cluster modes, "cluster<parts a block>@<rows>x<cols>": (parts a
+# block, tile), in the order infer_plan tries them. The tiles are
+# csrc/wgmma_gemm.cuh's layouts, each consumer's share an m64n128
+# accumulator: 64 x 128 (one consumer a tile), 64 x 256 (the two
+# consumers' columns side by side). "sum" takes 128 x 128 tiles (the two
+# consumers on their 64-row halves), F1 128 x 128 (ping-pong) or 64 x 128.
+CLUSTER_MODES = {"cluster1@64x128": (1, (64, 128)), "cluster1@64x256": (1, (64, 256)),
+                 "cluster2@64x256": (2, (64, 256))}
 
 
 def _tiles(n, cols, tile):
     return -(-n // tile[0]), -(-cols // tile[1])
 
 
-def _f2_candidates(n, d, splits, kper, ksteps, sms, slots):
-    """{F2 mode: (tile, blocks a cluster, blocks, estimated us)}: "sum"
-    (128 x 128 tiles, persistent) and "cluster<ppc>@<rows>x<cols>" (ppc
-    parts a block)."""
-    def waves(blocks, at_once):
-        return -(-blocks // at_once)
+def _one_wave(n, cols, tile, at_once):
+    """Whether ``at_once`` blocks (or clusters) take every tile at once."""
+    rt, ct = _tiles(n, cols, tile)
+    return rt * ct <= at_once
 
-    rt, ct = _tiles(n, d, (128, 128))
-    out = {"sum": ((128, 128), 1, min(sms, rt * ct),
-                   waves(rt * ct, sms) * ksteps * SUM_SLICE_US + SUM_FIXED_US)}
-    for ppc in range(1, MAX_PARTS_A_BLOCK + 1):
+
+def _at_once(size, sms, slots):
+    """Clusters of ``size`` blocks the card holds at once."""
+    return (slots or {}).get(size, sms // size)
+
+
+def f2_modes(splits, sms, slots=None):
+    """{F2 mode: (tile, blocks a cluster)} the card can run for ``splits``
+    parts: "sum" (128 x 128 tiles, persistent), and the cluster modes whose
+    tile has at most MAX_CLUSTER parts and whose cluster size the card holds
+    (``slots``, cluster_slots; default sms // size)."""
+    out = {"sum": ((128, 128), 1)}
+    for mode, (ppc, tile) in CLUSTER_MODES.items():
         size = splits // ppc
-        if splits % ppc or size > MAX_CLUSTER:
-            continue
-        at_once = (slots or {}).get(size, sms // size)
-        if at_once < 1:   # no cluster of this size fits the card
-            continue
-        for tile in TILES:
-            rt, ct = _tiles(n, d, tile)
-            out[f"cluster{ppc}@{tile[0]}x{tile[1]}"] = (
-                tile, size, rt * ct * size, waves(rt * ct, at_once) * (
-                    ppc * kper * CLUSTER_SLICE_US * _SLICE_SCALE[tile] + CLUSTER_FIXED_US))
+        if splits % ppc == 0 and splits <= MAX_CLUSTER and _at_once(size, sms, slots):
+            out[mode] = (tile, size)
     return out
 
 
@@ -190,33 +182,32 @@ def infer_plan(n, d, f, sms, slots=None, mode=None):
     """The launch plan of an inference forward (no ``a``) at N rows, D and
     F widths, on ``sms`` SMs: (F1, F2), as csrc/ffn.cu kmb_ffn_infer runs
     them. F1 ([N, F] over depth D, the GELU epilogue; never split) takes
-    64- or 128-row tiles, whichever waves stream the fewer bytes (64 x 256
-    ones never did better at N 320-4608). F2 ([N, D] over depth F) walks its depth in INFERENCE_KPER-slice
-    parts at every N: the parts on the blocks of a cluster, one or two a
-    block, in any of TILES ("cluster"), or summed in one block over a 128 x
-    128 tile ("sum"), whichever takes the least time by the waves it needs:
-    ``slots`` {cluster size: clusters the card holds at once}
-    (``cluster_slots``; default sms // size). ``mode`` forces one of
-    ``_f2_candidates``' keys. N never changes a part or its order, so a
-    row's bits are the same at every N."""
-    def f1_cost(tile):
-        rt, ct = _tiles(n, f, tile)
-        return -(-(rt * ct) // sms) * _SLICE_SCALE[tile]
-
-    tile1 = min(TILES[:2], key=lambda t: (f1_cost(t), -t[0]))
+    64-row tiles when they all fit in one wave of the SMs (a decode step),
+    else 128-row ones. F2 ([N, D] over depth F) walks its depth in
+    INFERENCE_KPER-slice parts at every N: on the blocks of a cluster (a
+    tile's parts, one or two a block, summed from distributed shared memory)
+    in the first of CLUSTER_MODES whose clusters all fit in one wave
+    (``slots`` {cluster size: clusters the card holds at once},
+    ``cluster_slots``; default sms // size), else summed in one block over a
+    128 x 128 tile ("sum"). ``mode`` forces one of ``f2_modes`` (a test's
+    hook). N never changes a part or its order, so a row's bits are the same
+    at every N."""
+    tile1 = (64, 128) if _one_wave(n, f, (64, 128), sms) else (128, 128)
     rt1, ct1 = _tiles(n, f, tile1)
     first = GemmPlan(n, f, d, rt1, ct1, 1, -(-d // K_TILE), min(sms, rt1 * ct1), tile1[0])
 
     ksteps = -(-f // K_TILE)
     kper = min(INFERENCE_KPER, ksteps)
     splits = -(-ksteps // kper)
-    cands = _f2_candidates(n, d, splits, kper, ksteps, sms, slots)
-    if mode is None:   # on a tie the running sum (no cluster to schedule)
-        mode = min(cands, key=lambda m: (cands[m][3], m != "sum", m))
-    elif mode not in cands:
-        raise ValueError(f"infer_plan: mode {mode!r} not among {sorted(cands)} for F {f}")
-    tile2, size, ctas, _ = cands[mode]
+    modes = f2_modes(splits, sms, slots)
+    if mode is None:   # modes lists "sum" first, then CLUSTER_MODES in order
+        mode = next((m for m, (tile, size) in modes.items()
+                     if m != "sum" and _one_wave(n, d, tile, _at_once(size, sms, slots))), "sum")
+    elif mode not in modes:
+        raise ValueError(f"infer_plan: mode {mode!r} not among {sorted(modes)} for F {f}")
+    tile2, size = modes[mode]
     rt2, ct2 = _tiles(n, d, tile2)
+    ctas = min(sms, rt2 * ct2) if mode == "sum" else rt2 * ct2 * size
     second = GemmPlan(n, d, f, rt2, ct2, splits, kper, ctas, tile2[0],
                       "sum" if mode == "sum" else "cluster", size, tile2[1])
     return first, second

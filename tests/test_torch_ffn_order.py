@@ -5,13 +5,24 @@ parts at every row count and adds them in part order from 0, then b2, then
 rounds once to bf16: in a running fp32 sum inside one block ("sum"), or
 from the parts of a cluster's blocks, one or two a block ("cluster"). The
 partials route (fused_ffn_partials) writes the same parts to an fp32
-buffer and adds them in the same order in a third launch. A torch emulation
-of each (every part's dot products taken in float64 from the bf16 operands
-and rounded once to fp32, so a part's value depends on its row alone) is
-held here: the three orders give the same bits, the result sits within the
-bf16 tolerance of the JAX package's Pallas kernel (interpret mode) and XLA
-composite, and a row's bits do not depend on the rows beside it.
+buffer and adds them in the same order in a third launch.
+
+Two things are held here. The indexing: a mirror of how
+csrc/wgmma_gemm.cuh's tile_at hands a cluster block its parts and of which
+(rank, slot) cluster_reduce reads for each part, run over every plan
+infer_plan can return (tied to the source by its constants and loop
+bounds), must add each part of a tile once, in order, for every row of it.
+The arithmetic: a torch emulation of each order (every part's dot products
+taken in float64 from the bf16 operands and rounded once to fp32, so a
+part's value depends on its row alone) gives the partials route's bits,
+sits within the bf16 tolerance of the JAX package's Pallas kernel
+(interpret mode) and XLA composite, and a row's bits do not depend on the
+rows beside it. Neither runs the kernel: chip_smoke.py holds its real
+summing order to the partials route on the card.
 """
+
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -26,12 +37,15 @@ from tests._torch_port import bf16_tol, to_jax, to_np, to_torch
 # D 64, F 1024: two parts of INFERENCE_KPER 64-deep slices
 D, F = 64, 1024
 PART = ffn.INFERENCE_KPER * ffn.K_TILE
+CUH = Path(ffn.__file__).resolve().parents[1] / "csrc" / "wgmma_gemm.cuh"
+# the cluster slots an H100 80GB HBM3 reported (test_torch_ffn_plan.py)
+H100_SLOTS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
 
 
-def _inputs(n, seed=0):
+def _inputs(n, seed=0, f=F):
     rng = np.random.default_rng(seed)
-    return (rng.normal(size=(n, D)), rng.normal(size=(D, F)) * 0.1,
-            rng.normal(size=(F,)) * 0.1, rng.normal(size=(F, D)) * 0.05,
+    return (rng.normal(size=(n, D)), rng.normal(size=(D, f)) * 0.1,
+            rng.normal(size=(f,)) * 0.1, rng.normal(size=(f, D)) * 0.05,
             rng.normal(size=(D,)) * 0.1)
 
 
@@ -55,6 +69,129 @@ def _parts(h, w2):
                         for p in range(0, h.shape[1], PART)])
 
 
+# ---------------------------------------------------------------------------
+# the kernel's indexing, mirrored from csrc/wgmma_gemm.cuh
+
+
+def _cuh():
+    return CUH.read_text()
+
+
+def _cluster_reduce_body():
+    src = _cuh()
+    start = src.index("__device__ __forceinline__ void cluster_reduce(")
+    return src[start:src.index("\n}\n", start)]
+
+
+def _kernel_max_parts():
+    """The parts cluster_reduce reads at most: its loops' bound."""
+    return int(re.search(r"constexpr int MAX_CLUSTER = (\d+);", _cuh()).group(1))
+
+
+def held_parts(g):
+    """{(tile, rank): [part in slot 0, slot 1, ...]}: tile_at gives block t
+    of a cluster grid rank t % (splits / ppc) of tile t // (splits / ppc) and
+    the depth slices [rank·ppc·kper, min(ksteps, (rank + 1)·ppc·kper)); the
+    main loop keeps a part in slot q every kper of them."""
+    ppc = g.splits // g.cluster
+    ksteps = -(-g.depth // ffn.K_TILE)
+    held = {}
+    for t in range(g.ctas):
+        rank, mn = t % (g.splits // ppc), t // (g.splits // ppc)
+        kb = rank * ppc * g.kper
+        nk = min(ksteps, kb + ppc * g.kper) - kb
+        held[(mn, rank)] = [(kb + q * g.kper) // g.kper for q in range(ppc) if q * g.kper < nk]
+    return held
+
+
+def reduce_reads(g, rank):
+    """(rows of the tile, [(source rank, slot) in the order added]) of
+    cluster_reduce on the block of ``rank``: band = ceil(TILE_ROWS / (S /
+    ppc)) rows from rank·band; for r < MAX_CLUSTER while r < S, part r from
+    rank r >> 1 slot r & 1 with two parts a block, else rank r slot 0."""
+    s = g.splits
+    ppc = s // g.cluster
+    band = (g.tile_rows + s // ppc - 1) // (s // ppc)
+    lo = rank * band
+    rows = range(lo, max(lo, min(g.tile_rows, lo + band)))
+    reads = [((r >> 1, r & 1) if ppc == 2 else (r, 0))
+             for r in range(_kernel_max_parts()) if r < s]
+    return rows, reads
+
+
+def test_mirror_follows_the_kernel_source():
+    """The mirror's constants and reads are the source's: MAX_CLUSTER is the
+    plan's, both of cluster_reduce's loops over the parts stop there, part r
+    comes from rank r >> 1 slot r & 1 (or rank r), the band is split over
+    S / ppc ranks, and gemm_launch refuses a cluster tile of more parts."""
+    assert _kernel_max_parts() == ffn.MAX_CLUSTER
+    body = _cluster_reduce_body()
+    assert body.count("for (int r = 0; r < MAX_CLUSTER; ++r)") == 2
+    assert body.count("if (r < S)") == 2
+    assert "map_to_rank(off + (r & 1) * L::PART_BYTES, r >> 1)" in body
+    assert "map_to_rank(off, r)" in body
+    assert "const int band = (L::TILE_ROWS + S / p.ppc - 1) / (S / p.ppc);" in body
+    assert "p.splits > MAX_CLUSTER" in _cuh()
+    assert "r.split = t % (p.splits / p.ppc);" in _cuh()
+    assert "r.kb = r.split * p.ppc * p.kper;" in _cuh()
+
+
+def _every_plan(f):
+    """Every F2 plan infer_plan returns at width F: chosen at the main-path
+    and edge row counts on 132 (H100 slots) and 114 SMs, and each mode
+    forced."""
+    for n in (1, 37, 320, 560, 3072, 4608):
+        for sms, slots in ((132, H100_SLOTS), (114, None)):
+            yield ffn.infer_plan(n, 768, f, sms, slots)[1]
+            splits = -(-(-(-f // ffn.K_TILE)) // ffn.INFERENCE_KPER)
+            for mode in ffn.f2_modes(splits, sms, slots):
+                yield ffn.infer_plan(n, 768, f, sms, slots, mode=mode)[1]
+
+
+@pytest.mark.parametrize("f", range(512, 8192 + 1, 512))
+def test_cluster_reduce_adds_each_part_once_in_order(f):
+    """For 1-16 parts: a cluster plan's every tile row is summed by one rank,
+    from every part once, in order; more than MAX_CLUSTER parts never go to
+    a cluster (the reduce would read the first MAX_CLUSTER alone)."""
+    clusters = 0
+    for g in _every_plan(f):
+        assert g.splits == -(-f // PART)
+        if g.mode == "sum":
+            continue
+        clusters += 1
+        assert g.splits <= ffn.MAX_CLUSTER and g.splits % g.cluster == 0
+        held = held_parts(g)
+        for mn in range(g.row_tiles * g.col_tiles):
+            # the cluster's blocks hold its parts once, in rank order
+            assert [p for rank in range(g.cluster) for p in held[(mn, rank)]] == \
+                list(range(g.splits))
+            covered = []
+            for rank in range(g.cluster):
+                rows, reads = reduce_reads(g, rank)
+                covered += list(rows)
+                if rows:
+                    assert [held[(mn, src)][slot] for src, slot in reads] == \
+                        list(range(g.splits))
+            assert covered == list(range(g.tile_rows))
+    # F up to 4096 (eight parts) has cluster plans; wider F has none
+    assert (clusters > 0) == (f <= ffn.MAX_CLUSTER * PART)
+
+
+def test_mirror_catches_a_cluster_of_more_parts_than_the_reduce_reads():
+    """The mirror is not vacuous: a plan of 16 parts on clusters of eight
+    (two a block), which the plan refuses, would have its last eight parts
+    dropped by the reduce."""
+    _, g = ffn.infer_plan(320, 768, 4096, 132, H100_SLOTS, mode="cluster2@64x256")
+    wide = g._replace(depth=8192, splits=16, cluster=8, ctas=g.row_tiles * g.col_tiles * 8)
+    held = held_parts(wide)
+    _, reads = reduce_reads(wide, 0)
+    assert [held[(0, src)][slot] for src, slot in reads] == list(range(8))
+
+
+# ---------------------------------------------------------------------------
+# the arithmetic, in the kernel's indexing
+
+
 def running_sum(x, w1, b1, w2, b2):
     """MODE_SUM: each part in a fresh accumulator added to a running sum."""
     parts = _parts(_h(x, w1, b1), w2)
@@ -65,15 +202,26 @@ def running_sum(x, w1, b1, w2, b2):
     return (s + b2).to(torch.bfloat16)
 
 
-def cluster_sum(x, w1, b1, w2, b2, ppc=2):
-    """MODE_CLUSTER: blocks of ``ppc`` parts each; every element summed from
-    the blocks' kept parts, part q from block q // ppc, slot q % ppc."""
+def cluster_sum(x, w1, b1, w2, b2, g):
+    """MODE_CLUSTER under plan ``g``: each block's parts held by slot
+    (held_parts), each tile's rows summed by the ranks of reduce_reads from
+    the parts they read, in their order, then b2, then bf16."""
     parts = _parts(_h(x, w1, b1), w2)
-    blocks = [parts[r:r + ppc] for r in range(0, len(parts), ppc)]
-    s = torch.zeros(parts.shape[1:])
-    for q in range(len(parts)):
-        s = s + blocks[q // ppc][q % ppc]
-    return (s + b2).to(torch.bfloat16)
+    held = held_parts(g)
+    out = torch.full((x.shape[0], w2.shape[0]), float("nan"), dtype=torch.bfloat16)
+    for mn in range(g.row_tiles * g.col_tiles):
+        r0, c0 = mn // g.col_tiles * g.tile_rows, mn % g.col_tiles * g.tile_cols
+        for rank in range(g.cluster):
+            rows, reads = reduce_reads(g, rank)
+            if not rows:
+                continue
+            rs = slice(r0 + rows.start, min(x.shape[0], r0 + rows.stop))
+            cs = slice(c0, min(w2.shape[0], c0 + g.tile_cols))
+            s = torch.zeros_like(parts[0][rs, cs])
+            for src, slot in reads:
+                s = s + parts[held[(mn, src)][slot]][rs, cs]
+            out[rs, cs] = (s + b2[cs]).to(torch.bfloat16)
+    return out
 
 
 def partials_finalize(x, w1, b1, w2, b2):
@@ -99,9 +247,23 @@ def test_two_parts_at_these_widths():
 def test_on_chip_orders_equal_the_partials_route_bit_for_bit(n):
     args = _port_args(*_inputs(n, seed=n))
     want = partials_finalize(*args)
-    for got in (running_sum(*args), cluster_sum(*args, ppc=1), cluster_sum(*args, ppc=2)):
+    gots = [running_sum(*args)]
+    for mode in ffn.f2_modes(2, 132, H100_SLOTS):
+        if mode != "sum":
+            gots.append(cluster_sum(*args, ffn.infer_plan(n, D, F, 132, H100_SLOTS, mode)[1]))
+    assert len(gots) == 4
+    for got in gots:
         assert got.dtype == torch.bfloat16 and got.shape == (n, D)
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", list(ffn.CLUSTER_MODES))
+def test_eight_part_clusters_equal_the_partials_route_bit_for_bit(mode):
+    """F 4096: eight parts, clusters of eight (or four, two parts a block)."""
+    args = _port_args(*_inputs(70, seed=11, f=4096))
+    g = ffn.infer_plan(70, D, 4096, 132, H100_SLOTS, mode)[1]
+    assert g.splits == 8 and g.cluster == 8 // ffn.CLUSTER_MODES[mode][0]
+    assert torch.equal(cluster_sum(*args, g), partials_finalize(*args))
 
 
 def test_running_sum_matches_jax_kernel_and_composite():

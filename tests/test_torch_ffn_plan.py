@@ -134,8 +134,8 @@ def test_infer_plan_covers_each_output_once_in_fixed_parts(n, sms):
     assert first.splits == 1 and first.mode == "plain" and first.tile_rows in (64, 128)
     # F2: INFERENCE_KPER-slice parts at every N, in order, covering the depth once
     assert second.kper == ffn.INFERENCE_KPER
-    assert (first.tile_rows, first.tile_cols) in ffn.TILES
-    assert (second.tile_rows, second.tile_cols) in ffn.TILES
+    assert (first.tile_rows, first.tile_cols) in ((128, 128), (64, 128))
+    assert (second.tile_rows, second.tile_cols) in ((128, 128), (64, 128), (64, 256))
     depth = _intervals(second.splits, second.kper * ffn.K_TILE, f)
     _assert_partition(depth, f)
     assert depth == _intervals(6, 512, 3072)
@@ -162,16 +162,16 @@ def test_infer_plan_covers_each_output_once_in_fixed_parts(n, sms):
         assert second.cluster <= ffn.MAX_CLUSTER and second.splits % second.cluster == 0
 
 
-@pytest.mark.parametrize("tile", ffn.TILES)
-@pytest.mark.parametrize("ppc", [1, 2])
+@pytest.mark.parametrize("f", [3072, 4096])
+@pytest.mark.parametrize("mode", list(ffn.CLUSTER_MODES))
 @pytest.mark.parametrize("n", INFER_ROWS)
-def test_infer_plan_cluster_holds_one_tiles_parts(n, ppc, tile):
+def test_infer_plan_cluster_holds_one_tiles_parts(n, mode, f):
     """A cluster's blocks (consecutive, ``cluster`` of them) are one output
     tile's, and hold its parts exactly once, rank r the r-th run of
     splits / cluster of them."""
-    mode = f"cluster{ppc}@{tile[0]}x{tile[1]}"
-    _, g = ffn.infer_plan(n, 768, 3072, 132, H100_SLOTS, mode=mode)
-    assert g.mode == "cluster" and g.cluster == 6 // ppc
+    ppc, tile = ffn.CLUSTER_MODES[mode]
+    _, g = ffn.infer_plan(n, 768, f, 132, H100_SLOTS, mode=mode)
+    assert g.mode == "cluster" and g.cluster == g.splits // ppc == f // 512 // ppc
     assert (g.tile_rows, g.tile_cols) == tile
     blocks = _infer_blocks(g)
     for c0 in range(0, g.ctas, g.cluster):
@@ -184,17 +184,50 @@ def test_infer_plan_fills_the_card_at_a_decode_step():
     first, second = ffn.infer_plan(320, 768, 3072, 132, H100_SLOTS)
     assert first.ctas >= 100
     # F2's clusters all fit the card at once (one wave) on 90 of its SMs:
-    # 15 tiles of 64 x 256, one part a block, clusters of six. Every plan of
-    # 100 blocks or more (128 x 128 or 64 x 128 tiles in clusters of six:
-    # 108 or 180) needs two waves, since an H100 holds 17 clusters of six
-    # at once, and measured slower (chip_smoke.py's mode_ms)
-    assert second.mode == "cluster"
+    # 15 tiles of 64 x 256, one part a block, clusters of six. Every cluster
+    # plan of 100 blocks or more (64 x 128 tiles in clusters of six: 180)
+    # needs two waves, since an H100 holds 17 clusters of six at once, and
+    # measured slower (chip_smoke.py's mode_ms)
+    assert (second.mode, second.cluster, second.tile_cols) == ("cluster", 6, 256)
     assert second.row_tiles * second.col_tiles <= H100_SLOTS[second.cluster]
     assert second.ctas >= 2 * 132 // 3
-    for m, (tile, size, ctas, _) in ffn._f2_candidates(320, 768, 6, 8, 48, 132,
-                                                        H100_SLOTS).items():
-        if m != "sum" and ctas >= 100:
-            assert ctas // size > H100_SLOTS[size]
+    for m, (tile, size) in ffn.f2_modes(6, 132, H100_SLOTS).items():
+        _, g = ffn.infer_plan(320, 768, 3072, 132, H100_SLOTS, mode=m)
+        if m != "sum" and g.ctas >= 100:
+            assert g.ctas // size > H100_SLOTS[size]
+
+
+@pytest.mark.parametrize("n,mode", [(1, "cluster1@64x128"), (64, "cluster1@64x128"),
+                                    (128, "cluster1@64x128"), (320, "cluster1@64x256"),
+                                    (560, "cluster2@64x256"), (832, "cluster2@64x256"),
+                                    (833, "sum"), (3072, "sum"), (4608, "sum")])
+def test_infer_plan_clusters_only_what_one_wave_holds(n, mode):
+    """F2 takes the first cluster mode whose clusters all fit the card at
+    once (an H100's slots), else the running sum; F1 takes 64-row tiles
+    while they fit in one wave."""
+    first, second = ffn.infer_plan(n, 768, 3072, 132, H100_SLOTS)
+    got = "sum" if second.mode == "sum" else next(
+        m for m, (ppc, tile) in ffn.CLUSTER_MODES.items()
+        if (second.tile_rows, second.tile_cols) == tile and second.cluster == 6 // ppc)
+    assert got == mode
+    if second.mode == "cluster":
+        assert second.row_tiles * second.col_tiles <= H100_SLOTS[second.cluster]
+    assert first.tile_rows == (64 if -(-n // 64) * 24 <= 132 else 128)
+
+
+@pytest.mark.parametrize("f", [5120, 6144, 7168, 8192])
+@pytest.mark.parametrize("n", [1, 320, 560])
+def test_infer_plan_sums_more_parts_than_a_cluster_takes_in_one_block(n, f):
+    """Past MAX_CLUSTER parts (F over 4096) no cluster mode is planned or
+    accepted: csrc/wgmma_gemm.cuh cluster_reduce reads MAX_CLUSTER parts at
+    most."""
+    _, g = ffn.infer_plan(n, 768, f, 132, H100_SLOTS)
+    assert g.splits == f // 512 > ffn.MAX_CLUSTER
+    assert g.mode == "sum" and g.cluster == 1
+    assert list(ffn.f2_modes(g.splits, 132, H100_SLOTS)) == ["sum"]
+    for mode in ffn.CLUSTER_MODES:
+        with pytest.raises(ValueError):
+            ffn.infer_plan(n, 768, f, 132, H100_SLOTS, mode=mode)
 
 
 def test_infer_plan_parts_do_not_depend_on_rows():
@@ -214,8 +247,8 @@ def test_infer_plan_takes_no_cluster_the_card_cannot_hold():
     slots = {**H100_SLOTS, 6: 0}
     _, g = ffn.infer_plan(320, 768, 3072, 132, slots)
     assert g.mode == "sum" or g.cluster != 6
-    cands = ffn._f2_candidates(320, 768, 6, 8, 48, 132, slots)
-    assert not [m for m, c in cands.items() if c[1] == 6]
+    modes = ffn.f2_modes(6, 132, slots)
+    assert not [m for m, c in modes.items() if c[1] == 6]
     with pytest.raises(ValueError):
         ffn.infer_plan(320, 768, 3072, 132, slots, mode="cluster1@64x256")
     # none at all: the running sum
