@@ -13,9 +13,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                the generation, fine-tune and pretraining paths' shapes and at
                edge shapes (K1 and its backward also on the fused QKV
                projection's strided chunks, at Tk 256 and ragged lengths;
-               K2 and K2b at every training row, ragged rows and a wide
-               FFN; K2's inference route at generation's and serving's rows
-               held bit for bit to the partials route in every F2 mode, its
+               K2 and K2b at every training row, ragged rows, an odd
+               count of row tiles and a wide FFN, on every training layout
+               (ops/ffn.py TRAIN_LAYOUTS: each held to the plain version,
+               its elements differing from Legacy's counted and, at the
+               training rows, timed), two calls of the plan's route equal
+               bit for bit; K2's inference route at generation's and
+               serving's rows held bit for bit to the partials route in
+               every F2 mode, its
                first 320 rows equal at every N, its partials route's and
                each mode's times and the device kernels of one call), with
                the device times of both from CUDA events, the
@@ -316,6 +321,32 @@ def _device_kernels(torch, fn, calls=4):
     return {name: names.count(name) / calls for name in sorted(set(names))}
 
 
+def _gemm_ms(torch, fn, calls=5):
+    """{GEMM: device ms a call} of a K2 or K2b call over ``calls`` calls
+    (torch.profiler): F1, F2 (ffn_fwd_gemm), B1, B2 (ffn_bwd_gemm) and
+    ffn_finalize, told apart by the kernels' epilogue codes."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names = {"ffn_fwd_gemm<0": "F1", "ffn_fwd_gemm<1": "F2", "ffn_bwd_gemm<2": "B1",
+             "ffn_bwd_gemm<1": "B2"}
+    out = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        m = re.search(r"ffn_(fwd|bwd)_gemm<\d", e.name)
+        key = names[m.group(0)] if m else ("finalize" if "ffn_finalize" in e.name else None)
+        if key is not None:
+            out[key] = out.get(key, 0.0) + e.device_time_total / 1e3 / calls
+    return out
+
+
 def _bound(nbytes, bf16_flops=0.0, f32_flops=0.0):
     """{"bound_ms", "bound_by"}: the larger of the bytes over the memory
     rate and the operations over the peak rate of their type."""
@@ -545,6 +576,44 @@ def check_kernels(torch, dev):
         k1(3, 16, 16, 32, 4, 5, True, True, False, dtype=torch.float32),
         k1(4, 40, 72, 768, 12, 9, False, False, False, dtype=torch.float32)]
 
+    # K2 with a and K2b on every training layout (ops/ffn.py TRAIN_LAYOUTS:
+    # the first GEMM's four with the second on Legacy, and the plan's first
+    # with the second on Pair256), each output held to the plain version and
+    # the elements differing from Legacy's counted; two calls of the plan's
+    # route must give the same bits. Timed rows time every layout
+    # (layout_ms, "first+second"; "legacy+legacy" is the parent's kernel) and
+    # split the plan's call and Legacy's by GEMM (gemm_split_ms).
+    def train_layouts(what, res, run, refs, N, D, F, timed, backward):
+        first, second = ffn.train_plan(N, D, F, ffn.sm_count(dev), backward)
+        res["plan"] = {"first": first.layout, "second": second.layout,
+                       "first_ctas": first.ctas, "second_ctas": second.ctas,
+                       "second_splits": second.splits, "second_waves": ffn.waves(second)}
+        outs = run(None)
+        if not all(torch.equal(u, v) for u, v in zip(outs, run(None))):
+            raise AssertionError(f"{what} {N}x{D}x{F}: two calls give different bits")
+        res["two_calls_equal"] = True
+        legacy = run(("legacy", "legacy"))
+        errs, differ, ms = {}, {}, {}
+        for lay in [(lay, "legacy") for lay in ffn.FIRST_LAYOUTS] + [(first.layout, "pair256")]:
+            key = "+".join(lay)
+            got = run(lay)
+            for name, out, ref in zip(what.split("/"), got, refs):
+                _check(f"{name} {N}x{D}x{F} layouts {key}", _max_err(out, ref),
+                       _bf16_tol(ref.float()))
+            errs[key] = max(_max_err(out, ref) for out, ref in zip(got, refs))
+            differ[key] = sum(int((u != v).sum()) for u, v in zip(got, legacy))
+            if timed:
+                ms[key] = _time_ms(torch, lambda lay=lay: run(lay), iters=10)
+        res["layout_max_abs_err"] = errs
+        res["elements_differing_from_legacy"] = differ
+        if timed:
+            res["layout_ms"] = ms
+            res["legacy_ms"] = ms["legacy+legacy"]
+            # each GEMM's share of a call, on the plan's route and Legacy's
+            res["gemm_split_ms"] = {"plan": _gemm_ms(torch, lambda: run(None)),
+                                    "legacy": _gemm_ms(torch, lambda: run(("legacy", "legacy")))}
+
+
     # K2 at the rows its callers give it: generation's encoder (64 x 72) and
     # decode step (64 x 5), the serving pool's decode step (112 x 5) and its
     # admit's encoder (32 x 96), without the pre-activation (the inference
@@ -618,6 +687,9 @@ def check_kernels(torch, dev):
                 if any("ffn_finalize" in k for k in res["device_kernels_a_call"]):
                     raise AssertionError(f"fused_ffn {N}: the inference route launched "
                                          f"{res['device_kernels_a_call']}")
+        if with_a:
+            train_layouts("y/a", res, lambda lay: ffn._fused_ffn_split(
+                x, w1, b1, w2, b2, True, layouts=lay), refs, N, D, F, timed, False)
         return res
 
     k2_x = randn(64 * 72, 768)
@@ -643,6 +715,7 @@ def check_kernels(torch, dev):
         k2(128 * 96, 768, 3072, True, with_a=True, path="pretraining encoder"),
         k2(37, 32, 64, False), k2(37, 32, 64, False, with_a=True),
         k2(1000, 1024, 4096, False), k2(1000, 1024, 4096, False, with_a=True),
+        k2(5157, 768, 3072, False, with_a=True, path="odd row tiles (41; pairs: a lone CTA)"),
         k2(1, 768, 3072, False), k2(37, 768, 3072, False),
         k2(320, 768, 5120, False), k2(320, 768, 8192, False)]
 
@@ -714,7 +787,7 @@ def check_kernels(torch, dev):
         k1b(4, 40, 72, 768, 12, 9, False, False, False, dtype=torch.float32)]
 
     # K2 backward at the training rows (as K2 with_a); edges: ragged rows at
-    # tiny widths, a wide FFN
+    # tiny widths, a wide FFN, an odd count of row tiles
     def k2b(N, D, F, timed, path="edge"):
         g, a = randn(N, D), randn(N, F)
         w1, w2 = randn(F, D, std=0.02), randn(D, F, std=0.02)
@@ -734,13 +807,16 @@ def check_kernels(torch, dev):
             res["host_us"] = _host_us(torch, call)
             res.update(_bound(2 * (2 * N * D + 2 * N * F + 2 * F * D),
                               bf16_flops=4.0 * N * D * F))
+        train_layouts("da/dx", res, lambda lay: ffn._fused_ffn_bwd(g, a, w1, w2, layouts=lay),
+                      refs, N, D, F, timed, True)
         return res
 
     results["ffn_bwd"] = [k2b(128 * 72, 768, 3072, True,
                               path="fine-tune encoder, pretraining decoder"),
                           k2b(128 * 40, 768, 3072, True, path="fine-tune decoder"),
                           k2b(128 * 96, 768, 3072, True, path="pretraining encoder"),
-                          k2b(37, 32, 64, False), k2b(1000, 1024, 4096, False)]
+                          k2b(37, 32, 64, False), k2b(1000, 1024, 4096, False),
+                          k2b(5157, 768, 3072, False, path="odd row tiles (41; pairs: a lone CTA)")]
 
     # K7 and K8 at the fine-tune head (N 128 x 40 = 5120 rows, V 50320, D 768,
     # ragged last vocab tile); edge: ragged rows and a small ragged vocab
@@ -3970,7 +4046,7 @@ KERNEL_INFO = {
     "train_attention_bwd": ("kmbart_tpu_torch/csrc/train_attention_tc.cuh",
                             "kmbart_tpu/ops/pallas_train_attention.py:223"),
     "ffn": ("kmbart_tpu_torch/csrc/ffn.cu", "kmbart_tpu/ops/pallas_ffn.py:160"),
-    "ffn_bwd": ("kmbart_tpu_torch/csrc/ffn.cu", "kmbart_tpu/ops/pallas_ffn.py:190"),
+    "ffn_bwd": ("kmbart_tpu_torch/csrc/ffn_bwd.cu", "kmbart_tpu/ops/pallas_ffn.py:190"),
     "beam_attention": ("kmbart_tpu_torch/csrc/beam_attention.cu",
                        "kmbart_tpu/ops/pallas_beam_attention.py:214"),
     "beam_attention_ring": ("kmbart_tpu_torch/csrc/beam_attention.cu",
@@ -4029,8 +4105,9 @@ def main(argv=None):
     _cuda.lib()
     emit("build", seconds=time.perf_counter() - t0, nvcc_seconds=_cuda.last_build_seconds)
 
+    t0 = time.perf_counter()
     kernels = check_kernels(torch, dev)
-    emit("kernels", card=card, **kernels)
+    emit("kernels", card=card, seconds=time.perf_counter() - t0, **kernels)
     if args.kernels_only:
         return
     if args.only:

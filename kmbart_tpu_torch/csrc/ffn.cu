@@ -81,14 +81,26 @@
 // Two launches a call; the tensor maps come from a per-thread cache
 // (wgmma_gemm.cuh cached_map), so a call with the same weights encodes none
 // of theirs again.
+//
+// The training forward (kmb_ffn_fwd with a) and the backward (ffn_bwd.cu)
+// run at 5120-12288 rows, where every GEMM is a few waves of 128 x 128
+// tiles. There the first GEMM's epilogue, not the L2 or the last wave,
+// sets the pace: F1 and B1 take longer than F2 and B2 for the same work
+// (chip_smoke.py's gemm_split_ms; PERF.md). train_plan
+// gives F1 the Table layout (h from a table of the bf16 a) and B1 Fast (the
+// formula, over a tile buffer read by address in batches), both bit for bit
+// Legacy's; F2 and B2 keep Legacy, whose waves the pairs (clusters of two
+// sharing each weight slice) and 128 x 256 tiles measured no better than
+// (wgmma_gemm.cuh's note; PERF.md). Below the training row counts both GEMMs
+// keep Legacy and plan's split.
 #include "wgmma_gemm.cuh"
 
 namespace {
 
 using namespace kmb_wg;
 
-// K2's two GEMMs (B K-major) and K2b's (B MN-major), under their own names so
-// a profile tells the directions apart
+// K2's two GEMMs (B K-major), under their own name so a profile tells the
+// directions apart (K2b's are ffn_bwd.cu's ffn_bwd_gemm)
 template <int EPI, class L = Legacy>
 __global__ void __launch_bounds__(THREADS, 1)
     ffn_fwd_gemm(const __grid_constant__ CUtensorMap tma_a,
@@ -98,74 +110,60 @@ __global__ void __launch_bounds__(THREADS, 1)
   gemm_tiles<EPI, false, false, L>(&tma_a, &tma_b, &out_c, &out_d, p);
 }
 
-template <int EPI>
-__global__ void __launch_bounds__(THREADS, 1)
-    ffn_bwd_gemm(const __grid_constant__ CUtensorMap tma_a,
-                 const __grid_constant__ CUtensorMap tma_b,
-                 const __grid_constant__ CUtensorMap out_c,
-                 const __grid_constant__ CUtensorMap out_d, const GemmArgs p) {
-  gemm_tiles<EPI, true>(&tma_a, &tma_b, &out_c, &out_d, p);
-}
-
 __global__ void ffn_finalize(const float* __restrict__ partial, const float* __restrict__ bias,
                              bf16* __restrict__ out, int M, int Ncols, int nsplit) {
   finalize_sum(partial, bias, out, M, Ncols, nsplit);
 }
 
-// C = A @ B (A [M, K] K-major; B = W [Ncols, K] (K-major) or W [K, Ncols]
-// (B_MN)); C and D bf16 [M, Ncols] (D: F1's a out or B1's a in, or null)
-template <int EPI, bool B_MN, class L = Legacy>
+// C = A @ W^T (A [M, K] K-major; W [Ncols, K]); C and D bf16 [M, Ncols]
+// (D: F1's a out, or null)
+template <int EPI, class L = Legacy>
 cudaError_t gemm(const void* A, const void* W, void* C, const void* D, GemmArgs p, int K,
                  int ctas, cudaStream_t s) {
   static unsigned configured = 0;  // a bit per device
-  GemmKernel kernel;
-  if constexpr (B_MN) kernel = ffn_bwd_gemm<EPI>;
-  else kernel = ffn_fwd_gemm<EPI, L>;
-  return gemm_launch<L>(kernel, configured, B_MN, A, K, W, C, D, p, K, ctas, s);
+  return gemm_launch<L>(ffn_fwd_gemm<EPI, L>, configured, false, A, K, W, C, D, p, K, ctas, s);
 }
 
-cudaError_t finalize(const float* partial, const float* bias, bf16* out, int M, int Ncols,
-                     int nsplit, cudaStream_t s) {
-  return finalize_launch(ffn_finalize, partial, bias, out, M, Ncols, nsplit, s);
+// the same on the training layout `layout` (TRAIN_*; wgmma_gemm.cuh says
+// which GEMM takes which)
+template <int EPI>
+cudaError_t gemm_train(int layout, const void* A, const void* W, void* C, const void* D,
+                       GemmArgs p, int K, int ctas, cudaStream_t s) {
+  if (layout == TRAIN_LEGACY) return gemm<EPI>(A, W, C, D, p, K, ctas, s);
+  if constexpr (EPI == EPI_OUT) {
+    if (layout == TRAIN_PAIR256) return gemm<EPI, Pair256>(A, W, C, D, p, K, ctas, s);
+  } else {
+    if (layout == TRAIN_FAST) return gemm<EPI, Fast>(A, W, C, D, p, K, ctas, s);
+    if (layout == TRAIN_TABLE) return gemm<EPI, Table>(A, W, C, D, p, K, ctas, s);
+    if (layout == TRAIN_PAIR_FAST) return gemm<EPI, PairFast>(A, W, C, D, p, K, ctas, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Every pointer 16-byte aligned (the wrapper checks). h: bf16 [N, F] scratch.
-// a_out: bf16 [N, F] pre-activations, or null to skip writing them. ctas1,
-// ctas2: the two GEMMs' grids (ops/ffn.py plan). The second GEMM (K = F)
-// walks K in nsplit parts of kper 64-deep slices; partial: fp32
-// [nsplit, N, D] scratch when nsplit > 1.
+// a_out: bf16 [N, F] pre-activations, or null to skip writing them (the
+// partials route, which keeps Legacy: lay1 = lay2 = 0). ctas1, ctas2,
+// lay1, lay2: the two GEMMs' grids and layouts (TRAIN_*; ops/ffn.py
+// train_plan, or plan for the partials route). The second GEMM (K = F)
+// walks K in nsplit parts of kper 64-deep slices (Legacy only); partial:
+// fp32 [nsplit, N, D] scratch when nsplit > 1.
 KMB_EXPORT int kmb_ffn_fwd(const void* x, const void* w1, const void* b1, const void* w2,
                            const void* b2, void* y, void* h, void* partial, void* a_out, int N,
-                           int D, int F, int ctas1, int ctas2, int nsplit, int kper,
-                           void* stream) {
+                           int D, int F, int ctas1, int ctas2, int nsplit, int kper, int lay1,
+                           int lay2, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  if (ctas1 < 1 || ctas2 < 1 || nsplit < 1) return cudaErrorInvalidValue;
+  if (ctas1 < 1 || ctas2 < 1 || nsplit < 1 || (a_out == nullptr && (lay1 || lay2)))
+    return cudaErrorInvalidValue;
   GemmArgs p1 = {(const float*)b1, nullptr, N, F, 0, 0, 1, a_out != nullptr};
-  cudaError_t err = gemm<EPI_GELU, false>(x, w1, h, a_out, p1, D, ctas1, s);
+  cudaError_t err = gemm_train<EPI_GELU>(lay1, x, w1, h, a_out, p1, D, ctas1, s);
   if (err != cudaSuccess) return err;
   float* part = nsplit > 1 ? (float*)partial : nullptr;
   GemmArgs p2 = {(const float*)b2, part, N, D, 0, kper, nsplit, 0};
-  err = gemm<EPI_OUT, false>(h, w2, y, nullptr, p2, F, ctas2, s);
+  err = gemm_train<EPI_OUT>(lay2, h, w2, y, nullptr, p2, F, ctas2, s);
   if (err != cudaSuccess || nsplit == 1) return err;
-  return finalize(part, (const float*)b2, (bf16*)y, N, D, nsplit, s);
-}
-
-// As kmb_ffn_fwd: the second GEMM (da @ W1, K = F) splits by the same plan.
-KMB_EXPORT int kmb_ffn_bwd(const void* g, const void* a, const void* w1, const void* w2, void* da,
-                           void* dx, void* partial, int N, int D, int F, int ctas1, int ctas2,
-                           int nsplit, int kper, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (ctas1 < 1 || ctas2 < 1 || nsplit < 1) return cudaErrorInvalidValue;
-  GemmArgs p1 = {nullptr, nullptr, N, F, 0, 0, 1, 0};
-  cudaError_t err = gemm<EPI_DGELU, true>(g, w2, da, a, p1, D, ctas1, s);
-  if (err != cudaSuccess) return err;
-  float* part = nsplit > 1 ? (float*)partial : nullptr;
-  GemmArgs p2 = {nullptr, part, N, D, 0, kper, nsplit, 0};
-  err = gemm<EPI_OUT, true>(da, w1, dx, nullptr, p2, F, ctas2, s);
-  if (err != cudaSuccess || nsplit == 1) return err;
-  return finalize(part, nullptr, (bf16*)dx, N, D, nsplit, s);
+  return finalize_launch(ffn_finalize, part, (const float*)b2, (bf16*)y, N, D, nsplit, s);
 }
 
 // The inference forward (no a): y = bf16(gelu(x @ W1^T + b1) @ W2^T + b2)
@@ -193,19 +191,19 @@ KMB_EXPORT int kmb_ffn_infer(const void* x, const void* w1, const void* b1, cons
   if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const GemmArgs p1 = {(const float*)b1, nullptr, N, F, 0, 0, 1, 0};
-  err = rows1 == 64 ? gemm<EPI_GELU, false, Rows64>(x, w1, h, nullptr, p1, D, ctas1, s)
-                    : gemm<EPI_GELU, false>(x, w1, h, nullptr, p1, D, ctas1, s);
+  err = rows1 == 64 ? gemm<EPI_GELU, Rows64>(x, w1, h, nullptr, p1, D, ctas1, s)
+                    : gemm<EPI_GELU>(x, w1, h, nullptr, p1, D, ctas1, s);
   if (err != cudaSuccess) return err;
   const int ksteps = (F + BK - 1) / BK;
   const int splits = (ksteps + kper - 1) / kper;
   GemmArgs p2 = {(const float*)b2, nullptr, N, D, 0, kper, splits, 0};
   p2.out = (bf16*)y;
   p2.ppc = splits / cluster2;
-  if (mode2 == MODE_SUM) return gemm<EPI_OUT, false, CoopSum>(h, w2, y, nullptr, p2, F, ctas2, s);
+  if (mode2 == MODE_SUM) return gemm<EPI_OUT, CoopSum>(h, w2, y, nullptr, p2, F, ctas2, s);
   if (p2.ppc * cluster2 != splits) return cudaErrorInvalidValue;
   return tile2 == 64128
-             ? gemm<EPI_OUT, false, Rows64Cluster>(h, w2, nullptr, nullptr, p2, F, ctas2, s)
-             : gemm<EPI_OUT, false, WideCluster>(h, w2, nullptr, nullptr, p2, F, ctas2, s);
+             ? gemm<EPI_OUT, Rows64Cluster>(h, w2, nullptr, nullptr, p2, F, ctas2, s)
+             : gemm<EPI_OUT, WideCluster>(h, w2, nullptr, nullptr, p2, F, ctas2, s);
 }
 
 // How many clusters of `size` CTAs of MODE_CLUSTER's F2 kernel the card
@@ -215,26 +213,16 @@ KMB_EXPORT int kmb_ffn_infer(const void* x, const void* w1, const void* b1, cons
 // 64 x 128 cluster kernel's shared memory and registers hold it to one too),
 // so a cluster needs `size` free SMs of one GPC.
 KMB_EXPORT int kmb_ffn_cluster_slots(int size, int device) {
-  int current = -1;
-  cudaError_t err = cudaGetDevice(&current);
-  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
-  if (err != cudaSuccess) return -(int)err;
-  GemmKernel kernel = ffn_fwd_gemm<EPI_OUT, WideCluster>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             WideCluster::SMEM_BYTES);
-  if (err != cudaSuccess) return -(int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(size * 64);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = WideCluster::SMEM_BYTES;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = size;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, (void*)kernel, &cfg);
-  return err == cudaSuccess ? clusters : -(int)err;
+  return max_active_clusters(ffn_fwd_gemm<EPI_OUT, WideCluster>, WideCluster::SMEM_BYTES, size,
+                             device);
 }
+
+// The pairs of K2's training layouts the card holds at once: the fewest
+// over its pair kernels (ops/ffn.py train_slots takes the least of this and
+// kmb_ffn_bwd_pair_slots), or a negative CUDA error.
+KMB_EXPORT int kmb_ffn_fwd_pair_slots(int device) {
+  const int a = max_active_clusters(ffn_fwd_gemm<EPI_GELU, PairFast>, PairFast::SMEM_BYTES, 2, device);
+  const int b = max_active_clusters(ffn_fwd_gemm<EPI_OUT, Pair256>, Pair256::SMEM_BYTES, 2, device);
+  return a < 0 ? a : b < 0 ? b : a < b ? a : b;
+}
+
