@@ -86,13 +86,14 @@
 // run at 5120-12288 rows, where every GEMM is a few waves of 128 x 128
 // tiles. There the first GEMM's epilogue, not the L2 or the last wave,
 // sets the pace: F1 and B1 take longer than F2 and B2 for the same work
-// (chip_smoke.py's gemm_split_ms; PERF.md). train_plan
-// gives F1 the Table layout (h from a table of the bf16 a) and B1 Fast (the
-// formula, over a tile buffer read by address in batches), both bit for bit
-// Legacy's; F2 and B2 keep Legacy, whose waves the pairs (clusters of two
-// sharing each weight slice) and 128 x 256 tiles measured no better than
-// (wgmma_gemm.cuh's note; PERF.md). Below the training row counts both GEMMs
-// keep Legacy and plan's split.
+// (chip_smoke.py's gemm_split_ms; PERF.md). train_plan gives B1 Fast (the
+// formula, over a tile buffer read by address in batches) at every row
+// count and F1 Table (h from a table of the bf16 a) where D is deep enough
+// for consumer 0's first main loop to hide the table's build (D >= 768;
+// Legacy below), both bit for bit Legacy's; F2 and B2 keep Legacy and
+// plan's split. Pairs of CTAs sharing each weight slice by multicast, and
+// 128 x 256 tiles, measured no faster than Legacy there (PERF.md) and are
+// not built.
 #include "wgmma_gemm.cuh"
 
 namespace {
@@ -124,19 +125,11 @@ cudaError_t gemm(const void* A, const void* W, void* C, const void* D, GemmArgs 
   return gemm_launch<L>(ffn_fwd_gemm<EPI, L>, configured, false, A, K, W, C, D, p, K, ctas, s);
 }
 
-// the same on the training layout `layout` (TRAIN_*; wgmma_gemm.cuh says
-// which GEMM takes which)
-template <int EPI>
-cudaError_t gemm_train(int layout, const void* A, const void* W, void* C, const void* D,
+// the same on F1's training layout (TRAIN_LEGACY or TRAIN_TABLE)
+cudaError_t gemm_first(int layout, const void* A, const void* W, void* C, const void* D,
                        GemmArgs p, int K, int ctas, cudaStream_t s) {
-  if (layout == TRAIN_LEGACY) return gemm<EPI>(A, W, C, D, p, K, ctas, s);
-  if constexpr (EPI == EPI_OUT) {
-    if (layout == TRAIN_PAIR256) return gemm<EPI, Pair256>(A, W, C, D, p, K, ctas, s);
-  } else {
-    if (layout == TRAIN_FAST) return gemm<EPI, Fast>(A, W, C, D, p, K, ctas, s);
-    if (layout == TRAIN_TABLE) return gemm<EPI, Table>(A, W, C, D, p, K, ctas, s);
-    if (layout == TRAIN_PAIR_FAST) return gemm<EPI, PairFast>(A, W, C, D, p, K, ctas, s);
-  }
+  if (layout == TRAIN_LEGACY) return gemm<EPI_GELU>(A, W, C, D, p, K, ctas, s);
+  if (layout == TRAIN_TABLE) return gemm<EPI_GELU, Table>(A, W, C, D, p, K, ctas, s);
   return cudaErrorInvalidValue;
 }
 
@@ -144,24 +137,24 @@ cudaError_t gemm_train(int layout, const void* A, const void* W, void* C, const 
 
 // Every pointer 16-byte aligned (the wrapper checks). h: bf16 [N, F] scratch.
 // a_out: bf16 [N, F] pre-activations, or null to skip writing them (the
-// partials route, which keeps Legacy: lay1 = lay2 = 0). ctas1, ctas2,
-// lay1, lay2: the two GEMMs' grids and layouts (TRAIN_*; ops/ffn.py
-// train_plan, or plan for the partials route). The second GEMM (K = F)
-// walks K in nsplit parts of kper 64-deep slices (Legacy only); partial:
-// fp32 [nsplit, N, D] scratch when nsplit > 1.
+// partials route, which keeps Legacy: lay1 = 0). ctas1, ctas2, lay1: the
+// two GEMMs' grids and F1's layout (TRAIN_*; ops/ffn.py train_plan, or
+// plan for the partials route). The second GEMM (K = F) walks K in nsplit
+// parts of kper 64-deep slices; partial: fp32 [nsplit, N, D] scratch when
+// nsplit > 1.
 KMB_EXPORT int kmb_ffn_fwd(const void* x, const void* w1, const void* b1, const void* w2,
                            const void* b2, void* y, void* h, void* partial, void* a_out, int N,
                            int D, int F, int ctas1, int ctas2, int nsplit, int kper, int lay1,
-                           int lay2, void* stream) {
+                           void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  if (ctas1 < 1 || ctas2 < 1 || nsplit < 1 || (a_out == nullptr && (lay1 || lay2)))
+  if (ctas1 < 1 || ctas2 < 1 || nsplit < 1 || (a_out == nullptr && lay1))
     return cudaErrorInvalidValue;
   GemmArgs p1 = {(const float*)b1, nullptr, N, F, 0, 0, 1, a_out != nullptr};
-  cudaError_t err = gemm_train<EPI_GELU>(lay1, x, w1, h, a_out, p1, D, ctas1, s);
+  cudaError_t err = gemm_first(lay1, x, w1, h, a_out, p1, D, ctas1, s);
   if (err != cudaSuccess) return err;
   float* part = nsplit > 1 ? (float*)partial : nullptr;
   GemmArgs p2 = {(const float*)b2, part, N, D, 0, kper, nsplit, 0};
-  err = gemm_train<EPI_OUT>(lay2, h, w2, y, nullptr, p2, F, ctas2, s);
+  err = gemm<EPI_OUT>(h, w2, y, nullptr, p2, F, ctas2, s);
   if (err != cudaSuccess || nsplit == 1) return err;
   return finalize_launch(ffn_finalize, part, (const float*)b2, (bf16*)y, N, D, nsplit, s);
 }
@@ -213,16 +206,26 @@ KMB_EXPORT int kmb_ffn_infer(const void* x, const void* w1, const void* b1, cons
 // 64 x 128 cluster kernel's shared memory and registers hold it to one too),
 // so a cluster needs `size` free SMs of one GPC.
 KMB_EXPORT int kmb_ffn_cluster_slots(int size, int device) {
-  return max_active_clusters(ffn_fwd_gemm<EPI_OUT, WideCluster>, WideCluster::SMEM_BYTES, size,
-                             device);
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -(int)err;
+  GemmKernel kernel = ffn_fwd_gemm<EPI_OUT, WideCluster>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             WideCluster::SMEM_BYTES);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(size * 64);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = WideCluster::SMEM_BYTES;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = size;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, (void*)kernel, &cfg);
+  return err == cudaSuccess ? clusters : -(int)err;
 }
-
-// The pairs of K2's training layouts the card holds at once: the fewest
-// over its pair kernels (ops/ffn.py train_slots takes the least of this and
-// kmb_ffn_bwd_pair_slots), or a negative CUDA error.
-KMB_EXPORT int kmb_ffn_fwd_pair_slots(int device) {
-  const int a = max_active_clusters(ffn_fwd_gemm<EPI_GELU, PairFast>, PairFast::SMEM_BYTES, 2, device);
-  const int b = max_active_clusters(ffn_fwd_gemm<EPI_OUT, Pair256>, Pair256::SMEM_BYTES, 2, device);
-  return a < 0 ? a : b < 0 ? b : a < b ? a : b;
-}
-

@@ -33,46 +33,29 @@ cudaError_t gemm(const void* A, const void* W, void* C, const void* D, GemmArgs 
   return gemm_launch<L>(ffn_bwd_gemm<EPI, L>, configured, true, A, K, W, C, D, p, K, ctas, s);
 }
 
-// the same on the training layout `layout` (TRAIN_*; wgmma_gemm.cuh says
-// which GEMM takes which)
-template <int EPI>
-cudaError_t gemm_train(int layout, const void* A, const void* W, void* C, const void* D,
+// the same on B1's training layout (TRAIN_LEGACY or TRAIN_FAST)
+cudaError_t gemm_first(int layout, const void* A, const void* W, void* C, const void* D,
                        GemmArgs p, int K, int ctas, cudaStream_t s) {
-  if (layout == TRAIN_LEGACY) return gemm<EPI>(A, W, C, D, p, K, ctas, s);
-  if constexpr (EPI == EPI_OUT) {
-    if (layout == TRAIN_PAIR256) return gemm<EPI, Pair256>(A, W, C, D, p, K, ctas, s);
-  } else {
-    if (layout == TRAIN_FAST) return gemm<EPI, Fast>(A, W, C, D, p, K, ctas, s);
-    if (layout == TRAIN_TABLE) return gemm<EPI, Table>(A, W, C, D, p, K, ctas, s);
-    if (layout == TRAIN_PAIR_FAST) return gemm<EPI, PairFast>(A, W, C, D, p, K, ctas, s);
-  }
+  if (layout == TRAIN_LEGACY) return gemm<EPI_DGELU>(A, W, C, D, p, K, ctas, s);
+  if (layout == TRAIN_FAST) return gemm<EPI_DGELU, Fast>(A, W, C, D, p, K, ctas, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// As kmb_ffn_fwd: the second GEMM (da @ W1, K = F) splits by the same plan
-// (Legacy only), lay1 and lay2 the two GEMMs' layouts (ops/ffn.py
-// train_plan).
+// As kmb_ffn_fwd: the second GEMM (da @ W1, K = F) splits by the same
+// plan, lay1 B1's layout (ops/ffn.py train_plan).
 KMB_EXPORT int kmb_ffn_bwd(const void* g, const void* a, const void* w1, const void* w2, void* da,
                            void* dx, void* partial, int N, int D, int F, int ctas1, int ctas2,
-                           int nsplit, int kper, int lay1, int lay2, void* stream) {
+                           int nsplit, int kper, int lay1, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   if (ctas1 < 1 || ctas2 < 1 || nsplit < 1) return cudaErrorInvalidValue;
   GemmArgs p1 = {nullptr, nullptr, N, F, 0, 0, 1, 0};
-  cudaError_t err = gemm_train<EPI_DGELU>(lay1, g, w2, da, a, p1, D, ctas1, s);
+  cudaError_t err = gemm_first(lay1, g, w2, da, a, p1, D, ctas1, s);
   if (err != cudaSuccess) return err;
   float* part = nsplit > 1 ? (float*)partial : nullptr;
   GemmArgs p2 = {nullptr, part, N, D, 0, kper, nsplit, 0};
-  err = gemm_train<EPI_OUT>(lay2, da, w1, dx, nullptr, p2, F, ctas2, s);
+  err = gemm<EPI_OUT>(da, w1, dx, nullptr, p2, F, ctas2, s);
   if (err != cudaSuccess || nsplit == 1) return err;
   return finalize_launch(ffn_finalize, part, nullptr, (bf16*)dx, N, D, nsplit, s);
 }
-
-// As kmb_ffn_fwd_pair_slots, over K2b's pair kernels.
-KMB_EXPORT int kmb_ffn_bwd_pair_slots(int device) {
-  const int a = max_active_clusters(ffn_bwd_gemm<EPI_DGELU, PairFast>, PairFast::SMEM_BYTES, 2, device);
-  const int b = max_active_clusters(ffn_bwd_gemm<EPI_OUT, Pair256>, Pair256::SMEM_BYTES, 2, device);
-  return a < 0 ? a : b < 0 ? b : a < b ? a : b;
-}
-

@@ -67,24 +67,10 @@
 // it reads before it stores. Legacy's epilogue goes through generic
 // pointers; the compiler cannot tell its loads from the stores before them
 // and ran the buffer one element pair or chunk at a time behind each load.
-// LUT (Table) reads h = bf16(gelu(a)), or gelu'(a), from a table of every
-// bf16 a of magnitude in [2^-16, 16) (10 KB of bf16 h, 20 KB of fp32
-// gelu'; the formula for the other a), which consumer 1 fills while
-// consumer 0 runs the first main loop, at one ring stage less. Both give
-// Legacy's bits; the plan takes Table for F1 and Fast for B1. Measured for the record and not planned (slower
-// at every training shape, PERF.md): pairs (CLUSTER 2), the two CTAs of a
-// cluster on adjacent row tiles of one column block. Each producer loads
-// its CTA's A slice and alternate 8 KB boxes of the B slice, each box
-// multicast into both CTAs' stage; the stage's full barrier expects all of
-// A and B whichever CTA sent them, and its empty barrier takes the arrivals
-// of both CTAs' consumers (mapa, then mbarrier.arrive.shared::cluster), so
-// neither producer refills a stage its partner still reads. The second CTA
-// of an odd count of row tiles runs its pair's loop on rows past M (TMA
-// zero-fills its A, and its stores are clipped or skipped) and arrives like
-// its partner; both end on a cluster barrier, so neither leaves while the
-// other may still load into it or arrive on it. Pair256 adds 128 x 256
-// tiles (both consumers, one m64n256k16 chain each, stored from the
-// registers: DIRECT).
+// Fast is B1's. Table (LUT, F1's) reads h = bf16(gelu(a)) from a 10 KB
+// table of every bf16 a of magnitude in [2^-16, 16) (the formula for the
+// other a), which consumer 1 fills while consumer 0 runs the first main
+// loop, at one ring stage less. Both give Legacy's bits.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
@@ -122,23 +108,22 @@ enum { EPI_GELU = 0, EPI_OUT = 1, EPI_DGELU = 2, EPI_STATS = 3, EPI_DLOGITS = 4 
 // registers; or in parts on the CTAs of a cluster (the header note)
 enum { MODE_PLAIN = 0, MODE_SUM = 1, MODE_CLUSTER = 2 };
 
-// The LUT layouts' epilogue table: for every bf16 a of magnitude in
-// [2^(LUT_E0 - 127), 2^(LUT_E0 - 127 + LUT_NE)), EPI_GELU's bf16(gelu(a))
-// (2 bytes) or EPI_DGELU's fp32 gelu'(a), each computed by the formula the
-// other a take (lut_index)
+// The LUT layout's epilogue table: EPI_GELU's bf16(gelu(a)) for every bf16
+// a of magnitude in [2^(LUT_E0 - 127), 2^(LUT_E0 - 127 + LUT_NE)), each
+// computed by the formula the other a take (lut_index)
 constexpr int LUT_E0 = 127 - 16, LUT_NE = 20;
 constexpr int LUT_HALF = LUT_NE * 128;  // entries a sign
-constexpr int LUT_BYTES = 2 * LUT_HALF * 4;
+constexpr int LUT_BYTES = 2 * LUT_HALF * 2;
 
 // One instantiation's tiles and shared memory. H: m64 halves a consumer
-// computes (its accumulator is H x WN / 2 registers a thread); COOP: both
+// computes (its accumulator is H x 64 registers a thread); COOP: both
 // consumers on one 128-row tile, consumer cw on its rows [64 cw, 64 cw +
 // 64); WIDE: both on one 64 x 256 tile, consumer cw on its columns [128 cw,
-// 128 cw + 128). WN: a consumer's accumulator width (m64nWNk16); past 128
-// (DIRECT) the epilogue stores from the registers, with no tile buffer
-// (EPI_OUT). CLUSTER 2: the training layouts' pairs of CTAs (the header note).
+// 128 cw + 128) (every consumer's share is an m64n128 accumulator, as in
+// the other layouts). FAST, LUT: the training layouts' first-GEMM
+// epilogues (the header note).
 template <int H_, bool COOP_, int MODE_, int STAGES_, bool DEPENDENT_ = false,
-          bool WIDE_ = false, int WN_ = BN, int CLUSTER_ = 1, bool FAST_ = false, bool LUT_ = false>
+          bool WIDE_ = false, bool FAST_ = false, bool LUT_ = false>
 struct Layout {
   static constexpr int H = H_;
   static constexpr bool COOP = COOP_;
@@ -149,32 +134,20 @@ struct Layout {
   // launched as a programmatic dependent of the kernel before it (its A is
   // that kernel's output): B's first slices load before the wait for it
   static constexpr bool DEPENDENT = DEPENDENT_;
-  static constexpr int WN = WN_;
-  static constexpr int ACC = WN / 2;                          // accumulator registers a half
-  static constexpr bool DIRECT = WN != BN;
-  static constexpr int CLUSTER = CLUSTER_;
-  // FAST: fast_epilogue (EPI_GELU, EPI_DGELU); LUT: its gelu or gelu' from a table (lut_index)
+  // FAST: fast_epilogue (EPI_GELU, EPI_DGELU); LUT: its gelu from a table (lut_index)
   static constexpr bool FAST = FAST_ || LUT_;
   static constexpr bool LUT = LUT_;
   static constexpr int WG_ROWS = 64 * H;                      // a consumer's rows of a tile
   static constexpr int TILE_ROWS = WG_ROWS * (COOP ? 2 : 1);  // rows a stage's A slice covers
-  static constexpr int TILE_COLS = WIDE ? 2 * BN : WN;        // columns its B slice covers
-  // B's K-major TMA box rows: the pairs split B in 64-row boxes
-  static constexpr int B_BOX = CLUSTER > 1 || DIRECT ? 64 : BN;
+  static constexpr int TILE_COLS = BN * (WIDE ? 2 : 1);       // columns its B slice covers
   static constexpr int A_BYTES = TILE_ROWS * BK * 2;
   static constexpr int STAGE_BYTES = A_BYTES + TILE_COLS * BK * 2;
-  // a consumer's bf16 buffer: two 64-col boxes (none when DIRECT)
-  static constexpr int TILE_BYTES = DIRECT ? 0 : WG_ROWS * BN * 2;
+  static constexpr int TILE_BYTES = WG_ROWS * BN * 2;  // a consumer's bf16 buffer: two 64-col boxes
   static constexpr int BOX_BYTES = TILE_BYTES / 2;
   static constexpr int NBARS = 2 * STAGES + 4;
   static constexpr int SMEM_BYTES =
       STAGES * STAGE_BYTES + 2 * TILE_BYTES + 8 * NBARS + (LUT ? LUT_BYTES : 0) + 1024;
-  // one arrive from each consumer warp of every CTA the stage's B goes to
-  static constexpr int EMPTY_ARRIVES = (SHARED ? 8 : 4) * CLUSTER;
-  static_assert(WN == 128 || WN == 256, "wgmma_tile's widths");
-  static_assert(!DIRECT || (H == 1 && COOP && MODE == MODE_PLAIN), "DIRECT: COOP, whole depth");
-  static_assert(CLUSTER == 1 || (CLUSTER == 2 && MODE == MODE_PLAIN && !DEPENDENT && !WIDE),
-                "a pair shares B over the whole depth walk");
+  static constexpr int EMPTY_ARRIVES = SHARED ? 8 : 4;  // one arrive from each consumer warp
   static_assert(!LUT || (!SHARED && MODE == MODE_PLAIN), "consumer 1 builds the table");
   // MODE_CLUSTER: each CTA's fp32 parts of its tile (one or two, p.ppc),
   // each row-major with the rows padded to PART_PITCH bytes (a warp's
@@ -199,20 +172,14 @@ using Rows64 = Layout<1, false, MODE_PLAIN, 8>;
 using CoopSum = Layout<1, true, MODE_SUM, 6, true>;
 using Rows64Cluster = Layout<1, false, MODE_CLUSTER, 8, true>;  // consumer 0 alone
 using WideCluster = Layout<1, false, MODE_CLUSTER, 4, true, true>;
-// K2's training forward and K2b (ops/ffn.py train_plan picks them): the
-// first GEMM on Legacy's tiles and ring with fast_epilogue (Fast), and the
-// GELU's from a table at one stage less (Table); for the record (measured
-// slower, chip_smoke.py's layout_ms), pairs of CTAs sharing each B slice:
-// Fast's in pairs (PairFast), and the second GEMM on 128 x 256 tiles shared
-// by both consumers, one m64n256k16 chain each, stored from the registers
-// (Pair256).
-using Fast = Layout<2, false, MODE_PLAIN, STAGES, false, false, BN, 1, true>;
-using Table = Layout<2, false, MODE_PLAIN, 4, false, false, BN, 1, true, true>;
-using PairFast = Layout<2, false, MODE_PLAIN, STAGES, false, false, BN, 2, true>;
-using Pair256 = Layout<1, true, MODE_PLAIN, 4, false, false, 256, 2>;
-// the training layouts' codes (ops/ffn.py TRAIN_LAYOUTS): the first GEMM
-// takes the first four, the second Legacy and Pair256
-enum { TRAIN_LEGACY = 0, TRAIN_FAST = 1, TRAIN_TABLE = 2, TRAIN_PAIR_FAST = 3, TRAIN_PAIR256 = 4 };
+// K2's training forward and K2b's first GEMMs (ops/ffn.py train_plan picks
+// them): B1 on Legacy's tiles and ring with fast_epilogue (Fast), F1 the
+// same with its GELU from a table, at one stage less (Table)
+using Fast = Layout<2, false, MODE_PLAIN, STAGES, false, false, true>;
+using Table = Layout<2, false, MODE_PLAIN, 4, false, false, true, true>;
+// the training layouts' codes (ops/ffn.py TRAIN_LAYOUTS): F1 takes Legacy
+// or Table, B1 Legacy or Fast, the second GEMMs Legacy
+enum { TRAIN_LEGACY = 0, TRAIN_FAST = 1, TRAIN_TABLE = 2 };
 // The portable cluster size, and the most parts a MODE_CLUSTER tile may have
 // (cluster_reduce reads that many at most): with two parts a block, clusters
 // of up to MAX_CLUSTER / 2 blocks
@@ -232,7 +199,7 @@ struct GemmArgs {
   const float* row_m;       // EPI_DLOGITS: each row's logit max, [M]
   const float* row_inv_se;  // EPI_DLOGITS: 1 / each row's exp-sum, [M]
   const float* row_scale;   // EPI_DLOGITS: each row's loss scale (0: an ignored label), [M]
-  bf16* out;                // MODE_CLUSTER, DIRECT: the bf16 result [M, Ncols], stored without a map
+  bf16* out;                // MODE_CLUSTER: the bf16 result [M, Ncols], stored without a map
   int ppc;                  // MODE_CLUSTER: parts a CTA (1 or 2): clusters of splits / ppc CTAs
 };
 
@@ -296,17 +263,6 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// the same box into the shared memory of every CTA of the cluster in
-// `mask` (at the same offset), completing on each one's barrier at `bar`
-__device__ __forceinline__ void tma_load_mc(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "h"(mask)
       : "memory");
 }
 
@@ -379,18 +335,6 @@ __device__ __forceinline__ void wait_prior_grid() {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
-// an arrive on the barrier at `bar` of CTA `rank` of the cluster
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t rank) {
-  asm volatile(
-      "{\n"
-      ".reg .b32 ra;\n"
-      "mapa.shared::cluster.u32 ra, %0, %1;\n"
-      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n"
-      "}\n" ::"r"(bar),
-      "r"(rank)
-      : "memory");
-}
-
 __device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
   float4 v;
   asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
@@ -436,61 +380,11 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       : "l"(da), "l"(db), "r"(1), "n"(TRANS_B));
 }
 
-// Pair256's wider accumulator: d[64 x 256] += A[64 x 16] * B[16 x 256]
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, "
-      "%128, %129, p, 1, 1, 0, %131;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
-        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
-        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
-        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
-        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
-        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]),
-        "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
-        "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1), "n"(TRANS_B));
-}
-
-// d[64 x WN] += A[64 x 16] * B[16 x WN] at a layout's accumulator width
-template <int WN, int TRANS_B>
-__device__ __forceinline__ void wgmma_tile(float (&d)[WN / 2], uint64_t da, uint64_t db) {
-  if constexpr (WN == 128) wgmma_m64n128k16<TRANS_B>(d, da, db);
-  else wgmma_m64n256k16<TRANS_B>(d, da, db);
-}
-
 // keeps the compiler from moving accumulator reads or writes across the
 // asynchronous wgmma (its registers change behind the compiler's back)
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
 #pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // Byte offset of (row, col) of a consumer's bf16 tile (128 columns) in its
@@ -505,10 +399,7 @@ __device__ __forceinline__ uint32_t tile_offset(int row, int col) {
 // Tile t of the block's share (t = blockIdx.x, + gridDim.x, ...; columns
 // fastest, or rows fastest with ROWS_FIRST, then splits; MODE_CLUSTER:
 // splits fastest, one tile a block) and its K slices [kb, kb + nk)
-// (MODE_SUM: all of them, in parts of kper). CLUSTER 2: t is the pair's
-// (t = blockIdx.x / 2, + gridDim.x / 2, ...), a column block of two row
-// tiles, columns fastest; the CTA of rank r takes row tile 2 (t / tiles_n)
-// + r.
+// (MODE_SUM: all of them, in parts of kper).
 struct Tile {
   int row0, col0, split, kb, nk;
 };
@@ -516,26 +407,18 @@ struct Tile {
 template <class L>
 __device__ __forceinline__ int tile_count(const GemmArgs& p) {
   const int tiles_mn = ((p.Ncols + L::TILE_COLS - 1) / L::TILE_COLS) *
-                       ((p.M + L::TILE_ROWS * L::CLUSTER - 1) / (L::TILE_ROWS * L::CLUSTER));
+                       ((p.M + L::TILE_ROWS - 1) / L::TILE_ROWS);
   if constexpr (L::MODE == MODE_SUM) return tiles_mn;
   if constexpr (L::MODE == MODE_CLUSTER) return tiles_mn * (p.splits / p.ppc);
   return tiles_mn * p.splits;
 }
 
 template <bool ROWS_FIRST, class L>
-__device__ __forceinline__ Tile tile_at(int t, const GemmArgs& p, int rank = 0) {
+__device__ __forceinline__ Tile tile_at(int t, const GemmArgs& p) {
   constexpr int TR = L::TILE_ROWS, TC = L::TILE_COLS;
   const int tiles_n = (p.Ncols + TC - 1) / TC, tiles_m = (p.M + TR - 1) / TR;
   const int tiles_mn = tiles_n * tiles_m;
   Tile r;
-  if constexpr (L::CLUSTER > 1) {
-    static_assert(!ROWS_FIRST, "a pair's tiles run columns first");
-    r.row0 = (t / tiles_n * L::CLUSTER + rank) * TR;
-    r.col0 = t % tiles_n * TC;
-    r.split = r.kb = 0;
-    r.nk = p.ksteps;
-    return r;
-  }
   int mn;
   if constexpr (L::MODE == MODE_CLUSTER) {
     r.split = t % (p.splits / p.ppc);  // the CTA's rank in its cluster: parts ppc r, ...
@@ -760,16 +643,11 @@ __device__ __forceinline__ int lut_index(uint32_t u) {
 }
 
 // consumer 1's thread t (of 128) fills its share of the table at `lut`
-template <int EPI>
 __device__ __forceinline__ void lut_build(unsigned char* lut, int t) {
   for (int i = t; i < 2 * LUT_HALF; i += 128) {
     const uint32_t u = (i >= LUT_HALF ? 0x8000u : 0u) | static_cast<uint32_t>(
                                                              i % LUT_HALF + (LUT_E0 << 7));
-    const float a = __uint_as_float(u << 16);
-    if constexpr (EPI == EPI_GELU)
-      reinterpret_cast<__nv_bfloat16*>(lut)[i] = __float2bfloat16_rn(gelu_exact(a));
-    else
-      reinterpret_cast<float*>(lut)[i] = dgelu_exact(a);
+    reinterpret_cast<__nv_bfloat16*>(lut)[i] = __float2bfloat16_rn(gelu_exact(__uint_as_float(u << 16)));
   }
 }
 
@@ -821,12 +699,6 @@ __device__ __forceinline__ void sts128(uint32_t addr, uint4 v) {
 
 // a table entry (the table is written once, before any read: plain asm,
 // free to move)
-__device__ __forceinline__ float lut_f32(uint32_t addr) {
-  float v;
-  asm("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
-  return v;
-}
-
 __device__ __forceinline__ uint32_t lut_u16(uint32_t addr) {
   uint16_t v;
   asm("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(addr));
@@ -838,14 +710,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&r);
 }
 
-// EPI_GELU's h pairs (bf16(gelu(a)), packed) or EPI_DGELU's gelu'(a) pairs
-// of G pairs of bf16 a (u): by the formula, or from the table at shared
-// address lut, all G read before any is used, and by the formula for the a
-// the table does not hold, in a branch the whole warp takes or skips (a
-// select would run the formula for every a)
-template <int EPI, int G, bool LUT>
+// the h pairs (bf16(gelu(a)), packed) of G pairs of bf16 a (u): by the
+// formula, or from the table at shared address lut, all G read before any
+// is used, and by the formula for the a the table does not hold, in a
+// branch the whole warp takes or skips (a select would run the formula for
+// every a)
+template <int G, bool LUT>
 __device__ __forceinline__ void gelu_group(const uint32_t (&u)[G], uint32_t (&h)[G],
-                                           float2 (&d)[G], uint32_t lut) {
+                                           uint32_t lut) {
   bool out = false;
   int i0[G], i1[G];
   if constexpr (LUT) {
@@ -854,27 +726,19 @@ __device__ __forceinline__ void gelu_group(const uint32_t (&u)[G], uint32_t (&h)
       i0[g] = lut_index(u[g] & 0xFFFF);
       i1[g] = lut_index(u[g] >> 16);
       out |= (i0[g] | i1[g]) < 0;
-      if constexpr (EPI == EPI_GELU)
-        h[g] = lut_u16(lut + 2 * max(i0[g], 0)) | lut_u16(lut + 2 * max(i1[g], 0)) << 16;
-      else
-        d[g] = make_float2(lut_f32(lut + 4 * max(i0[g], 0)), lut_f32(lut + 4 * max(i1[g], 0)));
+      h[g] = lut_u16(lut + 2 * max(i0[g], 0)) | lut_u16(lut + 2 * max(i1[g], 0)) << 16;
     }
     if (!__any_sync(0xffffffffu, out)) return;
   }
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     const float lo = __uint_as_float(u[g] << 16), hi = __uint_as_float(u[g] & 0xFFFF0000u);
-    if constexpr (EPI == EPI_GELU && !LUT) {
-      h[g] = pack_bf16(gelu_exact(lo), gelu_exact(hi));
-    } else if constexpr (EPI == EPI_GELU) {
-      const uint32_t f = pack_bf16(gelu_exact(lo), gelu_exact(hi));
+    const uint32_t f = pack_bf16(gelu_exact(lo), gelu_exact(hi));
+    if constexpr (!LUT) {
+      h[g] = f;
+    } else {
       if (i0[g] < 0) h[g] = (h[g] & 0xFFFF0000u) | (f & 0xFFFF);
       if (i1[g] < 0) h[g] = (h[g] & 0xFFFF) | (f & 0xFFFF0000u);
-    } else if constexpr (!LUT) {
-      d[g] = make_float2(dgelu_exact(lo), dgelu_exact(hi));
-    } else {
-      if (i0[g] < 0) d[g].x = dgelu_exact(lo);
-      if (i1[g] < 0) d[g].y = dgelu_exact(hi);
     }
   }
 }
@@ -887,7 +751,6 @@ __device__ __forceinline__ void gelu_pass2_fast(uint32_t buf, int i, int stride,
 #pragma unroll 1
   for (int k0 = 0; k0 < N; k0 += 4) {
     uint32_t a[16], h[16];
-    float2 unused[16];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const uint4 v = lds128(buf + 16 * (stride * (k0 + u) + i));
@@ -896,46 +759,11 @@ __device__ __forceinline__ void gelu_pass2_fast(uint32_t buf, int i, int stride,
       a[4 * u + 2] = v.z;
       a[4 * u + 3] = v.w;
     }
-    gelu_group<EPI_GELU, 16, LUT>(a, h, unused, lut);
+    gelu_group<16, LUT>(a, h, lut);
 #pragma unroll
     for (int u = 0; u < 4; ++u)
       sts128(buf + 16 * (stride * (k0 + u) + i),
              make_uint4(h[4 * u], h[4 * u + 1], h[4 * u + 2], h[4 * u + 3]));
-  }
-}
-
-// DIRECT's epilogue (EPI_OUT) on a consumer's 64 x WN share at (te.row0,
-// te.col0): out = bf16(acc + bias) from the registers (layout as in
-// epilogue below), a 4-byte pair a store, rows past M and columns past
-// Ncols skipped; the bias pairs of eight column groups loaded ahead of
-// their stores.
-template <class L>
-__device__ __forceinline__ void direct_epilogue(const float (&acc)[L::ACC], const GemmArgs& p,
-                                                const Tile& te) {
-  const int t = threadIdx.x % 128;
-  const int r0 = te.row0 + 16 * (t / 32) + (t % 32) / 4, c0 = te.col0 + 2 * (t % 4);
-#pragma unroll
-  for (int j0 = 0; j0 < L::WN / 8; j0 += 8) {
-    float2 b[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = c0 + 8 * (j0 + j);
-      b[j] = p.bias != nullptr && col < p.Ncols
-                 ? __ldg(reinterpret_cast<const float2*>(p.bias + col))
-                 : make_float2(0.f, 0.f);
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = c0 + 8 * (j0 + j);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = r0 + 8 * h;
-        if (row < p.M && col < p.Ncols)  // Ncols is even: a pair is in or out whole
-          *reinterpret_cast<__nv_bfloat162*>(p.out + static_cast<size_t>(row) * p.Ncols + col) =
-              __floats2bfloat162_rn(acc[4 * (j0 + j) + 2 * h] + b[j].x,
-                                    acc[4 * (j0 + j) + 2 * h + 1] + b[j].y);
-      }
-    }
   }
 }
 
@@ -947,7 +775,7 @@ __device__ __forceinline__ void direct_epilogue(const float (&acc)[L::ACC], cons
 // out_c is the result's map, out_d F1's a (stored when store_d) or B1's a
 // (loaded by the producer).
 template <int EPI, class L>
-__device__ __forceinline__ void epilogue(float (&acc)[L::H][L::ACC], const RowIn& in,
+__device__ __forceinline__ void epilogue(float (&acc)[L::H][64], const RowIn& in,
                                          const GemmArgs& p, const Tile& tl,
                                          unsigned char* bufp, uint32_t buf, uint32_t aux_full,
                                          uint32_t aux_empty, uint32_t aux_parity,
@@ -956,11 +784,7 @@ __device__ __forceinline__ void epilogue(float (&acc)[L::H][L::ACC], const RowIn
   const int t = threadIdx.x % 128, cw = threadIdx.x / 128;
   const bool leader = t == 0;
   const int r0 = 16 * (t / 32) + (t % 32) / 4, c0 = 2 * (t % 4);
-  if constexpr (L::DIRECT) {
-    static_assert(EPI == EPI_OUT, "DIRECT stores a plain product");
-    direct_epilogue<L>(acc[0], p, tl);
-    return;
-  } else if constexpr (EPI == EPI_STATS) {
+  if constexpr (EPI == EPI_STATS) {
     stats_epilogue(acc, in, p, tl, bufp, buf, out_c);
     return;
   } else if constexpr (EPI == EPI_DLOGITS) {
@@ -1047,15 +871,16 @@ __device__ __forceinline__ void epilogue(float (&acc)[L::H][L::ACC], const RowIn
 // loads what it reads before it stores: with generic pointers the compiler
 // cannot tell a load from the store before it, and ran the buffer one
 // element pair (DGELU) or chunk (GELU's pass 2) at a time, each waiting on
-// its load. DGELU loads a tile half's a pairs, then computes and stores
-// them; GELU's pass 2 goes in fours of 16-byte chunks.
+// its load. DGELU loads eight a pairs, then computes and stores them;
+// GELU's pass 2 goes in fours of 16-byte chunks.
 template <int EPI, class L>
-__device__ __forceinline__ void fast_epilogue(float (&acc)[L::H][L::ACC], const GemmArgs& p,
+__device__ __forceinline__ void fast_epilogue(float (&acc)[L::H][64], const GemmArgs& p,
                                               const Tile& tl, uint32_t buf, uint32_t aux_full,
                                               uint32_t aux_empty, uint32_t aux_parity,
                                               const CUtensorMap* out_c, const CUtensorMap* out_d,
                                               bool lone, uint32_t lut) {
   static_assert(EPI == EPI_GELU || EPI == EPI_DGELU, "FAST: the first GEMMs' epilogues");
+  static_assert(!L::LUT || EPI == EPI_GELU, "the table holds gelu");
   const int t = threadIdx.x % 128, cw = threadIdx.x / 128;
   const int r0 = 16 * (t / 32) + (t % 32) / 4, c0 = 2 * (t % 4);
   if constexpr (EPI == EPI_DGELU) {
@@ -1065,12 +890,15 @@ __device__ __forceinline__ void fast_epilogue(float (&acc)[L::H][L::ACC], const 
     for (int hf = 0; hf < L::H; ++hf)
 #pragma unroll
       for (int j0 = 0; j0 < BN / 8; j0 += 4) {
-        uint32_t u[8], unused[8];
+        uint32_t u[8];
         float2 d[8];
 #pragma unroll
         for (int g = 0; g < 8; ++g)
           u[g] = lds32(buf + tile_offset<L::BOX_BYTES>(64 * hf + r0 + 8 * (g % 2), c0 + 8 * (j0 + g / 2)));
-        gelu_group<EPI_DGELU, 8, L::LUT>(u, unused, d, lut);
+#pragma unroll
+        for (int g = 0; g < 8; ++g)
+          d[g] = make_float2(dgelu_exact(__uint_as_float(u[g] << 16)),
+                             dgelu_exact(__uint_as_float(u[g] & 0xFFFF0000u)));
 #pragma unroll
         for (int g = 0; g < 8; ++g) {
           const int j = j0 + g / 2, h = g % 2;
@@ -1186,19 +1014,7 @@ __device__ __forceinline__ void cluster_reduce(const GemmArgs& p, const Tile& tl
 // or, B_MN, MN-major [K, Ncols]). q counts K slices through the ring, over
 // all the block's tiles in order: slice q sits in stage q % STAGES, in that
 // stage's (q / STAGES)-th round. ROWS_FIRST picks the tile order (tile_at),
-// L the tiles and the depth walk (Layout). A consumer gives a stage back by
-// an arrive on its empty barrier in every CTA whose producer loaded part of
-// it (release).
-template <class L>
-__device__ __forceinline__ void release(uint32_t bar) {
-  if constexpr (L::CLUSTER == 1) {
-    mbar_arrive(bar);
-  } else {
-#pragma unroll
-    for (int r = 0; r < L::CLUSTER; ++r) mbar_arrive_cluster(bar, r);
-  }
-}
-
+// L the tiles and the depth walk (Layout).
 template <int EPI, bool B_MN, bool ROWS_FIRST = false, class L = Legacy>
 __device__ __forceinline__ void gemm_tiles(const CUtensorMap* tma_a, const CUtensorMap* tma_b,
                                            const CUtensorMap* out_c, const CUtensorMap* out_d,
@@ -1218,9 +1034,6 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap* tma_a, const CUten
   // LUT: the epilogue's table, after the barriers (16-byte aligned)
   const uint32_t lut = full0 + 8 * L::NBARS;
   const int tiles = tile_count<L>(p);
-  // the block's (or with CLUSTER 2 its pair's) tiles: first, first + stride, ...
-  const int first = blockIdx.x / L::CLUSTER, stride = gridDim.x / L::CLUSTER;
-  const int rank = L::CLUSTER > 1 ? static_cast<int>(cluster_rank()) : 0;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < NST; ++s) {
@@ -1234,12 +1047,10 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap* tma_a, const CUten
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     launch_dependents();  // a dependent's blocks wait for this grid's end before reading it
   }
-  // a pair's barriers are all initialised before either producer loads into both
-  if constexpr (L::CLUSTER > 1) cluster_sync();
-  else __syncthreads();
+  __syncthreads();
   // EPI_GELU with at most one tile a block: consumer 1 has none, and takes
   // half of consumer 0's pass 2
-  const bool lone = EPI == EPI_GELU && !L::SHARED && tiles <= stride;
+  const bool lone = EPI == EPI_GELU && !L::SHARED && tiles <= static_cast<int>(gridDim.x);
 
   if (threadIdx.x >= 256) {
     // producer warpgroup: one thread keeps the ring full
@@ -1264,8 +1075,8 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap* tma_a, const CUten
       }
       uint32_t q = 0;
       int i = 0;
-      for (int t = first; t < tiles; t += stride, ++i) {
-        const Tile tl = tile_at<ROWS_FIRST, L>(t, p, rank);
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++i) {
+        const Tile tl = tile_at<ROWS_FIRST, L>(t, p);
         for (int k = tl.kb; k < tl.kb + tl.nk; ++k, ++q) {
           const uint32_t stage = q % NST;
           const uint32_t full = full0 + 8 * stage;
@@ -1275,24 +1086,16 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap* tma_a, const CUten
             continue;
           }
           mbar_wait(empty0 + 8 * stage, ((q / NST) & 1) ^ 1);  // round 0 finds it free
-          mbar_expect_tx(full, L::STAGE_BYTES);  // A, and B's boxes from either CTA
+          mbar_expect_tx(full, L::STAGE_BYTES);
           tma_load(a_s, tma_a, full, k * BK, tl.row0);
-          if constexpr (L::CLUSTER > 1) {
-            // B's 64-row (K-major) or 64-column (MN-major) boxes, each 8 KB,
-            // alternately; every box into both CTAs
+          if (B_MN) {
 #pragma unroll
-            for (int c = 0; c < L::TILE_COLS / 64; ++c)
-              if (c % L::CLUSTER == rank)
-                tma_load_mc(b_s + c * BK * 128, tma_b, full, B_MN ? tl.col0 + 64 * c : k * BK,
-                            B_MN ? k * BK : tl.col0 + 64 * c, (1 << L::CLUSTER) - 1);
-          } else if (B_MN) {
-#pragma unroll
-            for (int j = 0; j < L::TILE_COLS / 64; ++j)
+            for (int j = 0; j < BN / 64; ++j)
               tma_load(b_s + j * BK * 128, tma_b, full, tl.col0 + 64 * j, k * BK);
           } else {
 #pragma unroll
-            for (int c = 0; c < L::TILE_COLS / L::B_BOX; ++c)
-              tma_load(b_s + c * L::B_BOX * 128, tma_b, full, k * BK, tl.col0 + c * L::B_BOX);
+            for (int c = 0; c < L::TILE_COLS / BN; ++c)
+              tma_load(b_s + c * B_BYTES, tma_b, full, k * BK, tl.col0 + c * BN);
           }
         }
         if (EPI == EPI_DGELU) {
@@ -1328,13 +1131,13 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap* tma_a, const CUten
     bool lut_ready = !L::LUT || cw == 1;
     if constexpr (L::LUT) {
       if (cw == 1) {
-        lut_build<EPI>(smem + (lut - base), threadIdx.x % 128);
+        lut_build(smem + (lut - base), threadIdx.x % 128);
         bar_sync(4, 128);  // the whole table, for consumer 1's own epilogues
         bar_arrive(7, 256);
       }
     }
-    for (int t = first; t < tiles; t += stride, ++i) {
-      tl = tile_at<ROWS_FIRST, L>(t, p, rank);
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++i) {
+      tl = tile_at<ROWS_FIRST, L>(t, p);
       if (!L::SHARED && (i & 1) != cw) {  // the other warpgroup's tile: skip its slices
         q += tl.nk;
         continue;
@@ -1350,16 +1153,15 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap* tma_a, const CUten
       te.col0 += L::WIDE ? cw * BN : 0;
       RowIn in;
       if constexpr (EPI == EPI_STATS || EPI == EPI_DLOGITS) in = row_inputs<EPI>(p, tl);
-      if constexpr (L::H == 1 && !L::DIRECT && L::MODE != MODE_CLUSTER &&
-                    (EPI == EPI_GELU || EPI == EPI_OUT))
+      if constexpr (L::H == 1 && L::MODE != MODE_CLUSTER && (EPI == EPI_GELU || EPI == EPI_OUT))
         in = bias_inputs(p, te);
-      float acc[L::H][L::ACC];
+      float acc[L::H][64];
       // MODE_SUM: the parts so far; MODE_CLUSTER with two parts: the first
-      float sum[L::MODE == MODE_PLAIN ? 1 : L::H][L::ACC];
+      float sum[L::MODE == MODE_PLAIN ? 1 : L::H][64];
 #pragma unroll
       for (int hf = 0; hf < L::H; ++hf)
 #pragma unroll
-        for (int j = 0; j < L::ACC; ++j) acc[hf][j] = 0.f;
+        for (int j = 0; j < 64; ++j) acc[hf][j] = 0.f;
 #pragma unroll
       for (int hf = 0; hf < L::H; ++hf) fence_acc(acc[hf]);
       if constexpr (L::MODE == MODE_SUM) {
@@ -1378,13 +1180,13 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap* tma_a, const CUten
                                    : sw128_desc(b_s + 32 * kk, 16, 1024);
 #pragma unroll
           for (int hf = 0; hf < L::H; ++hf)
-            wgmma_tile<L::WN, B_MN ? 1 : 0>(acc[hf],
-                                            sw128_desc(a_s + 8192 * hf + 32 * kk, 16, 1024), db);
+            wgmma_m64n128k16<B_MN ? 1 : 0>(acc[hf],
+                                           sw128_desc(a_s + 8192 * hf + 32 * kk, 16, 1024), db);
         }
         asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
         // the slice before this one is read: hand its stage back to the producer
         asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-        if (it > 0 && lane0) release<L>(empty0 + 8 * ((q - 1) % NST));
+        if (it > 0 && lane0) mbar_arrive(empty0 + 8 * ((q - 1) % NST));
         if constexpr (L::MODE != MODE_PLAIN) {
           if ((it + 1) % p.kper == 0 && it + 1 < tl.nk) {
             // a part ends: add it to the sum (or keep it), and start the
@@ -1401,9 +1203,9 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap* tma_a, const CUten
           }
         }
       }
-      if (!L::SHARED && t + stride < tiles) bar_arrive(2 - cw, 256);  // the next tile, the other's, may go
+      if (!L::SHARED && t + gridDim.x < tiles) bar_arrive(2 - cw, 256);  // the next tile, the other's, may go
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-      if (lane0) release<L>(empty0 + 8 * ((q - 1) % NST));
+      if (lane0) mbar_arrive(empty0 + 8 * ((q - 1) % NST));
 #pragma unroll
       for (int hf = 0; hf < L::H; ++hf) fence_acc(acc[hf]);
       if constexpr (L::MODE == MODE_SUM) {
@@ -1448,7 +1250,7 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap* tma_a, const CUten
       }
     }
     if (!lut_ready) bar_sync(7, 256);  // consumer 0 had no tile
-    if (lone && cw == 1 && first < tiles) {
+    if (lone && cw == 1 && static_cast<int>(blockIdx.x) < tiles) {
       // no tile of its own: half of consumer 0's pass 2 (epilogue)
       bar_sync(5, 256);
       if constexpr (L::FAST)
@@ -1466,9 +1268,6 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap* tma_a, const CUten
       cluster_sync();
     }
   }
-  // a pair: neither CTA leaves while the other may still load into its
-  // shared memory or arrive on its barriers
-  if constexpr (L::CLUSTER > 1) cluster_sync();
 }
 
 
@@ -1593,8 +1392,7 @@ typedef void (*GemmKernel)(const CUtensorMap, const CUtensorMap, const CUtensorM
 // (MODE_SUM), or on a cluster of p.splits / p.ppc CTAs a tile, p.ppc parts
 // each (MODE_CLUSTER: ctas must be the tiles times the cluster's CTAs). A
 // L::DEPENDENT kernel is launched as a programmatic dependent of the kernel
-// before it on the stream. CLUSTER 2 launches pairs (ctas even, at most two
-// a pair's tile, no split); DIRECT stores C without a map (ldc = Ncols).
+// before it on the stream.
 template <class L = Legacy>
 inline cudaError_t gemm_launch(GemmKernel kernel, unsigned& configured, bool b_mn, const void* A,
                                int lda, const void* W, void* C, const void* D, GemmArgs p, int K,
@@ -1620,14 +1418,10 @@ inline cudaError_t gemm_launch(GemmKernel kernel, unsigned& configured, bool b_m
   err = cached_map(&ta, A, K, p.M, lda, BK, L::TILE_ROWS, device);
   if (err == cudaSuccess)
     err = b_mn ? cached_map(&tb, W, p.Ncols, K, p.Ncols, 64, BK, device)
-               : cached_map(&tb, W, K, p.Ncols, K, BK, L::B_BOX, device);
+               : cached_map(&tb, W, K, p.Ncols, K, BK, BN, device);
   if (ldc <= 0) ldc = p.Ncols;
-  if constexpr (L::DIRECT) {
-    if (C == nullptr || ldc != p.Ncols) return cudaErrorInvalidValue;
-    p.out = static_cast<bf16*>(C);
-  } else if (err == cudaSuccess && C != nullptr) {
+  if (err == cudaSuccess && C != nullptr)
     err = cached_map(&tc, C, ldc, p.M, ldc, 64, L::WG_ROWS, device);
-  }
   if (err == cudaSuccess && D != nullptr)
     err = cached_map(&td, D, p.Ncols, p.M, p.Ncols, 64, L::WG_ROWS, device);
   if (err != cudaSuccess) return err;
@@ -1635,18 +1429,6 @@ inline cudaError_t gemm_launch(GemmKernel kernel, unsigned& configured, bool b_m
   if (p.splits == 1) p.kper = p.ksteps;
   cudaLaunchAttribute attr[2];
   unsigned nattr = 0;
-  if constexpr (L::CLUSTER > 1) {
-    // whole depth walks, and no pair without a tile
-    const int pairs = ((p.Ncols + L::TILE_COLS - 1) / L::TILE_COLS) *
-                      ((p.M + L::TILE_ROWS * L::CLUSTER - 1) / (L::TILE_ROWS * L::CLUSTER));
-    if (p.splits != 1 || ctas < L::CLUSTER || ctas % L::CLUSTER != 0 || ctas / L::CLUSTER > pairs)
-      return cudaErrorInvalidValue;
-    attr[nattr].id = cudaLaunchAttributeClusterDimension;
-    attr[nattr].val.clusterDim.x = L::CLUSTER;
-    attr[nattr].val.clusterDim.y = 1;
-    attr[nattr].val.clusterDim.z = 1;
-    ++nattr;
-  }
   if constexpr (L::MODE == MODE_CLUSTER) {
     const int tiles = ((p.Ncols + L::TILE_COLS - 1) / L::TILE_COLS) *
                       ((p.M + L::TILE_ROWS - 1) / L::TILE_ROWS);
@@ -1679,32 +1461,6 @@ inline cudaError_t gemm_launch(GemmKernel kernel, unsigned& configured, bool b_m
     if (err != cudaSuccess) return err;
   }
   return cudaGetLastError();
-}
-
-// How many clusters of `size` CTAs of `kernel` (at `smem` bytes a CTA, one
-// CTA an SM) the card holds at once (cudaOccupancyMaxActiveClusters; 0: none
-// of that size fits), or a negative CUDA error; on card `device`
-inline int max_active_clusters(GemmKernel kernel, int smem, int size, int device) {
-  int current = -1;
-  cudaError_t err = cudaGetDevice(&current);
-  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return -(int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(size * 64);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = size;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, (void*)kernel, &cfg);
-  return err == cudaSuccess ? clusters : -(int)err;
 }
 
 typedef void (*FinalizeKernel)(const float*, const float*, bf16*, int, int, int);

@@ -20,8 +20,9 @@ On the card each direction is two GEMMs: the forward writes h =
 bf16(gelu(a)) into an [N, F] scratch that the second GEMM reads back, the
 backward writes da and reads it back. ``train_plan`` lays out the
 training forward (with ``a``) and the backward: ``plan``'s Legacy tiles,
-the first GEMM's epilogue on a training layout at the training row
-counts; ``infer_plan`` the inference forward (without ``a``), whose
+the first GEMM's epilogue on its direction's training layout (F1's from
+TABLE_MIN_DEPTH);
+``infer_plan`` the inference forward (without ``a``), whose
 second GEMM walks its depth in the same INFERENCE_KPER parts at every N
 and sums them on the SM, bit for bit what ``fused_ffn_partials``
 (``plan``'s Legacy layout with the same parts through an fp32 buffer and
@@ -85,11 +86,7 @@ class GemmPlan(NamedTuple):
     (clusters of ``cluster`` blocks, splits / cluster parts each: block t of
     the ctas = row_tiles·col_tiles·cluster takes parts r·splits/cluster, ...
     of tile t // cluster, r = t % cluster). ``layout`` names a training
-    layout (TRAIN_LAYOUTS); past "legacy" the blocks run in pairs
-    (``cluster`` 2, one split): pair tile t of ⌈row_tiles / 2⌉·col_tiles
-    (columns fastest) is row tiles 2·(t // col_tiles) + {0, 1} of column
-    tile t % col_tiles, block 2p + r of pair p (p = t % (ctas / 2)) taking
-    row tile 2·(t // col_tiles) + r."""
+    layout (TRAIN_LAYOUTS): the first GEMM's epilogue, on Legacy's tiles."""
     rows: int
     cols: int
     depth: int
@@ -229,69 +226,44 @@ def _infer_args(n, d, f, device, mode=None):
             second.tile_cols, second.ctas, second.kper, second.cluster)
 
 
-# The training layouts (csrc/wgmma_gemm.cuh Legacy, Fast, Table, PairFast,
-# Pair256): {name: (code, tile)}. "legacy" is the parent's kernel: 128 x 128
-# ping-pong tiles, one block a tile. "fast" keeps its tiles and ring, with
-# the first GEMM's epilogue reading and writing the tile buffer in batches
-# by shared-memory address; "table" is "fast" with gelu(a) read from a table
-# of the bf16 a (one ring stage less). "pair_fast" and "pair256" run in pairs
-# of blocks (clusters of two) on adjacent row tiles of one column block,
-# each block loading half of every weight slice into both; "pair256" on 128
-# x 256 tiles of the second GEMM. Both pair layouts measured slower than
-# "legacy" at every training row count (chip_smoke.py's layout_ms) and are
-# kept for that comparison; train_plan picks neither.
-TRAIN_LAYOUTS = {"legacy": (0, (128, 128)), "fast": (1, (128, 128)), "table": (2, (128, 128)),
-                 "pair_fast": (3, (128, 128)), "pair256": (4, (128, 256))}
-FIRST_LAYOUTS = ("legacy", "fast", "table", "pair_fast")
-SECOND_LAYOUTS = ("legacy", "pair256")
-# train_plan's first GEMM where every block gets two tiles or more: the
-# forward's GELU from the table, the backward's gelu' by the formula (its
-# fp32 table costs a ring stage and measured slower)
+# The training layouts of the first GEMM (csrc/wgmma_gemm.cuh Legacy, Fast,
+# Table): {name: code}. "legacy" is the parent kernel's epilogue; "fast"
+# keeps its tiles and ring, with the epilogue reading and writing the tile
+# buffer in batches by shared-memory address; "table" is "fast" with
+# gelu(a) read from a table of the bf16 a (one ring stage less). Both give
+# Legacy's bits. TRAIN_FIRST is each direction's: the forward's GELU from
+# the table, the backward's gelu' by the formula.
+TRAIN_LAYOUTS = {"legacy": 0, "fast": 1, "table": 2}
 TRAIN_FIRST = {False: "table", True: "fast"}
-PAIR = 2
+# Consumer 1 builds Table's table while consumer 0 runs its first main loop
+# (D / 64 slices); at D 32 the build outlasted it and Table measured slower
+# than Legacy, at D 768 and 1024 faster (PERF.md §6). F1 takes Table
+# from this depth, Legacy below it.
+TABLE_MIN_DEPTH = 768
 
 
 def waves(g):
-    """The most tiles one block (one pair, for a pair layout) of a training
-    plan's persistent grid runs."""
-    tiles = -(-g.row_tiles // g.cluster) * g.col_tiles * g.splits
-    return -(-tiles // (g.ctas // g.cluster))
+    """The most tiles one block of a ``plan`` GEMM's persistent grid runs."""
+    return -(-(g.row_tiles * g.col_tiles * g.splits) // g.ctas)
 
 
-def _layout_plan(g, layout, sms, slots):
-    """``g`` (a ``plan`` GEMM) on training layout ``layout``."""
-    if layout == "legacy":
-        return g
-    tile = TRAIN_LAYOUTS[layout][1]
-    rt, ct = _tiles(g.rows, g.cols, tile)
-    pair = layout.startswith("pair")
-    ctas = PAIR * min(slots, -(-rt // PAIR) * ct) if pair else min(sms, rt * ct)
-    return GemmPlan(g.rows, g.cols, g.depth, rt, ct, 1, -(-g.depth // K_TILE), ctas, tile[0],
-                    "plain", PAIR if pair else 1, tile[1], layout)
-
-
-def train_plan(n, d, f, sms, backward=False, slots=None, layouts=None):
+def train_plan(n, d, f, sms, backward=False, layout=None):
     """The launch plan of a training call at N rows, D and F widths, on
     ``sms`` SMs: (first GEMM, second GEMM), as csrc/ffn.cu kmb_ffn_fwd (the
     forward with ``a``) and csrc/ffn_bwd.cu kmb_ffn_bwd (``backward``) run
-    them. Both start from ``plan``: where the first GEMM's 128 x 128 tiles
-    give every block two or more (each ping-pong consumer a tile; the
-    training row counts), it takes TRAIN_FIRST's layout, else "legacy". The
-    second GEMM keeps "legacy" with ``plan``'s depth split. ``layouts``
-    (first, second) forces the layouts (a test's hook); a pair layout
-    takes at most ``slots`` pairs (``train_slots``; default sms // 2)."""
-    legacy = plan(n, d, f, sms)
-    if layouts is None:
-        first = legacy[0]
-        busy = first.row_tiles * first.col_tiles >= 2 * sms
-        layouts = (TRAIN_FIRST[backward] if busy else "legacy", "legacy")
-    if layouts[0] not in FIRST_LAYOUTS or layouts[1] not in SECOND_LAYOUTS:
-        raise ValueError(f"train_plan: layouts {layouts!r}: the first GEMM takes "
-                         f"{FIRST_LAYOUTS}, the second {SECOND_LAYOUTS}")
-    slots = sms // PAIR if slots is None else slots
-    if slots < 1 and any(layout.startswith("pair") for layout in layouts):
-        raise ValueError("train_plan: the card holds no pair")
-    return tuple(_layout_plan(g, layout, sms, slots) for g, layout in zip(legacy, layouts))
+    them: ``plan``'s, the second GEMM on Legacy with ``plan``'s depth split,
+    the first on TRAIN_FIRST's layout (B1 at every N; F1 where D is at least
+    TABLE_MIN_DEPTH, else "legacy"). ``layout`` forces the first GEMM's
+    layout, "legacy" or TRAIN_FIRST's (a test's hook: chip_smoke.py times
+    both in one run)."""
+    own = TRAIN_FIRST[backward]
+    if layout is None:
+        layout = own if backward or d >= TABLE_MIN_DEPTH else "legacy"
+    elif layout not in ("legacy", own):
+        raise ValueError(f"train_plan: the {'backward' if backward else 'forward'}'s first "
+                         f"GEMM runs 'legacy' or {own!r}, not {layout!r}")
+    first, second = plan(n, d, f, sms)
+    return first._replace(layout=layout), second
 
 
 _CLUSTER_SLOTS = {}
@@ -310,24 +282,6 @@ def cluster_slots(device):
                 _cuda.check(-n, f"cudaOccupancyMaxActiveClusters at cluster size {size}")
         _CLUSTER_SLOTS[device] = slots
     return _CLUSTER_SLOTS[device]
-
-
-_PAIR_SLOTS = {}
-
-
-def train_slots(device):
-    """The pairs of the pair layouts' kernels the card holds at once (the
-    least over K2's and K2b's; cudaOccupancyMaxActiveClusters), read from
-    the card once: a forced pair layout's grid."""
-    if device not in _PAIR_SLOTS:
-        lib = _cuda.lib()
-        index = device.index or 0
-        slots = [lib.kmb_ffn_fwd_pair_slots(index), lib.kmb_ffn_bwd_pair_slots(index)]
-        for n in slots:
-            if n < 0:
-                _cuda.check(-n, "cudaOccupancyMaxActiveClusters of the pair kernels")
-        _PAIR_SLOTS[device] = min(slots)
-    return _PAIR_SLOTS[device]
 
 
 _SM_COUNTS = {}
@@ -352,25 +306,22 @@ def check_aligned(name, *tensors):
 
 
 @functools.lru_cache(maxsize=1024)
-def _plan_args(N, D, F, device, invariant=False, backward=False, layouts=None):
+def _plan_args(N, D, F, device, invariant=False, backward=False, layout=None):
     """The scalars of kmb_ffn_fwd and kmb_ffn_bwd on ``device``, once a
-    shape: ``train_plan``'s (``layouts`` forced, or its own), or with
-    ``invariant`` (the partials route) ``plan``'s at the inference split;
-    and the second GEMM's splits."""
+    shape: ``train_plan``'s, or with ``invariant`` (the partials route)
+    ``plan``'s at the inference split; and the second GEMM's splits."""
     if invariant:
         first, second = plan(N, D, F, sm_count(device), True)
     else:
-        pairs = layouts is not None and any(lay.startswith("pair") for lay in layouts)
-        first, second = train_plan(N, D, F, sm_count(device), backward,
-                                   train_slots(device) if pairs else None, layouts)
+        first, second = train_plan(N, D, F, sm_count(device), backward, layout)
     return second.splits, (first.ctas, second.ctas, second.splits, second.kper,
-                           TRAIN_LAYOUTS[first.layout][0], TRAIN_LAYOUTS[second.layout][0])
+                           TRAIN_LAYOUTS[first.layout])
 
 
-def _launch_args(dev, N, D, F, invariant=False, backward=False, layouts=None):
+def _launch_args(dev, N, D, F, invariant=False, backward=False, layout=None):
     """The plan's scalars for the C entry points, and the partial-sum
     scratch of the second GEMM when it splits."""
-    splits, args = _plan_args(N, D, F, dev, invariant, backward, layouts)
+    splits, args = _plan_args(N, D, F, dev, invariant, backward, layout)
     partial = (torch.empty((splits, N, D), dtype=torch.float32, device=dev)
                if splits > 1 else None)
     return partial, args
@@ -450,11 +401,11 @@ def _fused_ffn_infer(x, w1, b1, w2, b2, mode=None):
     return y
 
 
-def _fused_ffn_split(x, w1, b1, w2, b2, with_a, layouts=None):
+def _fused_ffn_split(x, w1, b1, w2, b2, with_a, layout=None):
     """The training forward on a CUDA device (``with_a``: ``train_plan``'s
-    route; ``layouts`` forces its layouts, a test's hook), or the inference
-    forward on the partials route (``plan``'s, at the INFERENCE_KPER
-    split)."""
+    route; ``layout`` forces its first GEMM's, a test's hook), or the
+    inference forward on the partials route (``plan``'s, at the
+    INFERENCE_KPER split)."""
     dev = _cuda.require_cuda("fused_ffn", x, w1, b1, w2, b2)
     D, F = _check_fwd(x, w1, b1, w2, b2)
     xf = x.reshape(-1, D)
@@ -463,7 +414,7 @@ def _fused_ffn_split(x, w1, b1, w2, b2, with_a, layouts=None):
     a = torch.empty((N, F), dtype=torch.bfloat16, device=dev) if with_a else None
     if N > 0:
         h = torch.empty((N, F), dtype=torch.bfloat16, device=dev)
-        partial, plan_args = _launch_args(dev, N, D, F, not with_a, layouts=layouts)
+        partial, plan_args = _launch_args(dev, N, D, F, not with_a, layout=layout)
         check_aligned("fused_ffn", xf, w1, b1, w2, b2, y, h, partial, a)
         lib, stream = _cuda.prepare(dev)
         _cuda.check(lib.kmb_ffn_fwd(
@@ -502,9 +453,9 @@ def fused_ffn_bwd(g, a, w1, w2):
     return _fused_ffn_bwd(g, a, w1, w2)
 
 
-def _fused_ffn_bwd(g, a, w1, w2, layouts=None):
+def _fused_ffn_bwd(g, a, w1, w2, layout=None):
     """``fused_ffn_bwd`` on a CUDA device, on ``train_plan``'s route
-    (``layouts`` forces its layouts, a test's hook)."""
+    (``layout`` forces its first GEMM's, a test's hook)."""
     dev = _cuda.require_cuda("fused_ffn_bwd", g, a, w1, w2)
     N, D = g.shape
     F = w1.shape[0]
@@ -518,7 +469,7 @@ def _fused_ffn_bwd(g, a, w1, w2, layouts=None):
     dx = torch.empty_like(g)
     if N == 0:
         return da, dx
-    partial, plan_args = _launch_args(dev, N, D, F, backward=True, layouts=layouts)
+    partial, plan_args = _launch_args(dev, N, D, F, backward=True, layout=layout)
     check_aligned("fused_ffn_bwd", g, a, w1, w2, da, dx, partial)
     lib, stream = _cuda.prepare(dev)
     _cuda.check(lib.kmb_ffn_bwd(

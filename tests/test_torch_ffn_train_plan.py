@@ -4,18 +4,15 @@ train_plan) and the Table layout's indexing, on the CPU.
 csrc/ffn.cu kmb_ffn_fwd (with ``a``) and csrc/ffn_bwd.cu kmb_ffn_bwd decode
 their tiles from the plan's numbers, as csrc/wgmma_gemm.cuh tile_at does:
 one 128 x 128 tile a block (persistent, columns fastest, then rows, then
-splits) on the Legacy, Fast and Table layouts, and on the pair layouts
-(clusters of two) pair tile t = block // 2, + ctas / 2, ..., the block of
-rank r taking row tile 2 (t // col_tiles) + r of column tile t % col_tiles.
-These tests decode every plan the same way and hold it: every output
-element of both GEMMs computed exactly once, the depth walked in order, a
-pair's two blocks on one column block, the second block of an odd count of
-row tiles on rows past the end, the waves the plan reports. The Table
+splits) on the Legacy, Fast and Table layouts. These tests decode every
+plan the same way and hold it: every output element of both GEMMs computed
+exactly once, the depth walked in order, the waves the plan reports, each
+direction's first GEMM on the layout the plan's rule gives it. The Table
 layout's epilogue reads gelu(a) of a bf16 a from a table indexed by a's
 bits; a mirror of that index, tied to the source's constants, must map
 every bf16 of the table's range to its own entry and every other to the
 formula. The kernels themselves run only on the card (chip_smoke.py holds
-every layout to the plain version there).
+each layout to the plain version and to Legacy's bits there).
 """
 
 import re
@@ -41,37 +38,19 @@ def _intervals(n_parts, step, total):
 
 
 def _schedule(g):
-    """[(unit, rank, split, row tile, column tile)] in each unit's walk
-    order, decoded as tile_at decodes the plan: a unit is a block, or a
-    pair of blocks (ranks 0 and 1) for a pair layout."""
-    out = []
-    if g.cluster == 1:
-        per_split = g.row_tiles * g.col_tiles
-        for t in range(per_split * g.splits):
-            mn = t % per_split
-            out.append((t % g.ctas, 0, t // per_split, mn // g.col_tiles, mn % g.col_tiles))
-        return out
-    pairs = -(-g.row_tiles // 2) * g.col_tiles
-    for t in range(pairs):
-        for rank in range(2):
-            out.append((t % (g.ctas // 2), rank, 0, 2 * (t // g.col_tiles) + rank,
-                        t % g.col_tiles))
-    return out
+    """[(block, split, row tile, column tile)] in each block's walk order,
+    decoded as tile_at decodes the plan."""
+    per_split = g.row_tiles * g.col_tiles
+    return [(t % g.ctas, t // per_split, t % per_split // g.col_tiles, t % g.col_tiles)
+            for t in range(per_split * g.splits)]
 
 
 def _plans(n, d, f, sms):
-    """Every plan train_plan gives at this shape: its own, forward and
-    backward, and each forced pair of layouts."""
+    """Every plan train_plan gives at this shape: forward and backward, its
+    own and with each first-GEMM layout forced."""
     for backward in (False, True):
-        yield train_plan(n, d, f, sms, backward)
-    for first in ffn.FIRST_LAYOUTS:
-        for second in ffn.SECOND_LAYOUTS:
-            yield train_plan(n, d, f, sms, layouts=(first, second))
-
-
-def train_plan(n, d, f, sms, backward=False, layouts=None):
-    # the pair slots an H100 reports for the pair kernels (66), or sms // 2
-    return ffn.train_plan(n, d, f, sms, backward, 66 if sms == 132 else None, layouts)
+        for layout in (None, "legacy", ffn.TRAIN_FIRST[backward]):
+            yield ffn.train_plan(n, d, f, sms, backward, layout)
 
 
 @pytest.mark.parametrize("sms", SMS)
@@ -83,59 +62,46 @@ def test_every_output_element_once_in_depth_order(n, d, f, sms):
         assert first.splits == 1   # its epilogue needs whole sums
         for g in (first, second):
             assert g.layout in ffn.TRAIN_LAYOUTS
-            assert (g.tile_rows, g.tile_cols) == ffn.TRAIN_LAYOUTS[g.layout][1]
-            assert 1 <= g.ctas and g.ctas % g.cluster == 0
+            assert (g.tile_rows, g.tile_cols, g.mode, g.cluster) == (128, 128, "plain", 1)
+            assert 1 <= g.ctas <= sms
             depth = _intervals(g.splits, g.kper * ffn.K_TILE, g.depth)
             assert depth[0][0] == 0 and depth[-1][1] == g.depth   # in order, back to back
             assert all(a1 == b0 for (_, a1), (b0, _) in zip(depth, depth[1:]))
             assert all(lo < hi for lo, hi in depth)
-            rows = _intervals(-(-g.row_tiles // g.cluster) * g.cluster, g.tile_rows, g.rows)
+            rows = _intervals(g.row_tiles, g.tile_rows, g.rows)
             cols = _intervals(g.col_tiles, g.tile_cols, g.cols)
+            assert rows[-1][1] == g.rows and cols[-1][1] == g.cols
             count = np.zeros((g.splits, g.rows, g.cols), np.uint8)
-            for unit, _, split, r, c in _schedule(g):
-                assert 0 <= unit < g.ctas // g.cluster
+            for block, split, r, c in _schedule(g):
+                assert 0 <= block < g.ctas
                 count[split, rows[r][0]:rows[r][1], cols[c][0]:cols[c][1]] += 1
             assert (count == 1).all()
 
 
-@pytest.mark.parametrize("sms", SMS)
-@pytest.mark.parametrize("n,d,f", SHAPES)
-def test_pairs_share_a_column_block_and_account_for_the_lone_block(n, d, f, sms):
-    for g in train_plan(n, d, f, sms, layouts=("pair_fast", "pair256")):
-        assert g.cluster == ffn.PAIR and g.splits == 1
-        sched = _schedule(g)
-        for k in range(0, len(sched), 2):
-            (u0, r0, _, row0, col0), (u1, r1, _, row1, col1) = sched[k], sched[k + 1]
-            assert (u0, r0, r1) == (u1, 0, 1)
-            assert col0 == col1 and row1 == row0 + 1   # adjacent row tiles, one column block
-        lone = [(row, col) for _, _, _, row, col in sched if row >= g.row_tiles]
-        # an odd count of row tiles leaves the second block of each last
-        # pair on rows past the end: it runs the loop (every row zero,
-        # every store clipped) and writes nothing
-        assert len(lone) == (g.col_tiles if g.row_tiles % 2 else 0)
-        assert all(row * g.tile_rows >= g.rows for row, _ in lone)
-
-
 def test_odd_row_tiles_at_5157():
-    first, second = train_plan(5157, 768, 3072, 132, layouts=("pair_fast", "pair256"))
+    """41 row tiles, the last of 37 rows (TMA zero-fills its reads past N
+    and clips its stores): the first GEMM's 984 tiles give every block of
+    132 seven or eight, the second's 246 two or one."""
+    first, second = ffn.train_plan(5157, 768, 3072, 132)
     assert first.row_tiles == second.row_tiles == 41
-    assert second.ctas == 2 * 21 * 3   # 63 pairs: every pair tile at once on 66 slots
-    assert ffn.waves(second) == 1
+    assert 5157 - 40 * 128 == 37
+    assert (first.col_tiles, second.col_tiles, second.splits) == (24, 6, 1)
+    assert (ffn.waves(first), ffn.waves(second)) == (8, 2)
 
 
 @pytest.mark.parametrize("sms", SMS)
 @pytest.mark.parametrize("n,d,f", SHAPES)
-def test_waves_are_the_longest_units_walk(n, d, f, sms):
+def test_waves_are_the_longest_blocks_walk(n, d, f, sms):
     for plan in _plans(n, d, f, sms):
         for g in plan:
             walks = {}
-            for unit, rank, *_ in _schedule(g):
-                if rank == 0:
-                    walks[unit] = walks.get(unit, 0) + 1
+            for block, *_ in _schedule(g):
+                walks[block] = walks.get(block, 0) + 1
+            assert len(walks) == g.ctas   # no block without a tile
             assert ffn.waves(g) == max(walks.values())
     # the second GEMM at the training rows: 128 x 128 tiles a block, so many
     # waves of the card's blocks
-    assert [ffn.waves(train_plan(n, 768, 3072, 132)[1]) for n in (5120, 9216, 12288)] == \
+    assert [ffn.waves(ffn.train_plan(n, 768, 3072, 132)[1]) for n in (5120, 9216, 12288)] == \
         [2, 4, 5]
 
 
@@ -143,61 +109,75 @@ def test_waves_are_the_longest_units_walk(n, d, f, sms):
 @pytest.mark.parametrize("sms", SMS)
 @pytest.mark.parametrize("n,d,f", SHAPES)
 def test_the_plans_stated_rule(n, d, f, sms, backward):
-    """The first GEMM takes TRAIN_FIRST's layout where its 128 x 128 tiles
-    give every block two or more, else Legacy; the second keeps plan's
-    Legacy GEMM (and its split) at every N; Legacy's numbers are plan's."""
-    first, second = train_plan(n, d, f, sms, backward)
+    """B1 takes "fast" at every shape, F1 "table" where D is at least
+    TABLE_MIN_DEPTH and "legacy" below it, on plan's tiles and grid; the
+    second GEMM keeps plan's Legacy GEMM (and its split); forcing "legacy"
+    gives plan's numbers whole."""
+    first, second = ffn.train_plan(n, d, f, sms, backward)
     legacy = ffn.plan(n, d, f, sms)
-    busy = legacy[0].row_tiles * legacy[0].col_tiles >= 2 * sms
-    assert first.layout == (ffn.TRAIN_FIRST[backward] if busy else "legacy")
+    want = "fast" if backward else ("table" if d >= ffn.TABLE_MIN_DEPTH else "legacy")
+    assert first.layout == want
     assert first._replace(layout="legacy") == legacy[0]   # Fast and Table keep its tiles
     assert second == legacy[1]
+    assert ffn.train_plan(n, d, f, sms, backward, "legacy") == legacy
     assert ffn.TRAIN_FIRST == {False: "table", True: "fast"}
 
 
-def test_the_training_rows_take_the_new_first_layouts():
-    for n in (5120, 9216, 12288):
-        assert train_plan(n, 768, 3072, 132)[0].layout == "table"
-        assert train_plan(n, 768, 3072, 132, backward=True)[0].layout == "fast"
-    # a decode step's rows and the ragged edges keep Legacy
-    for n, d, f in ((320, 768, 3072), (37, 32, 64), (1000, 1024, 4096)):
-        assert {g.layout for g in train_plan(n, d, f, 132)} == {"legacy"}
+def test_the_rule_at_the_measured_depths():
+    """D 768 and 1024 (measured faster on Table) take it, D 32 (measured
+    slower) keeps Legacy; the main path's rows all take Table."""
+    assert ffn.TABLE_MIN_DEPTH == 768
+    for n, d, f, want in ((9216, 768, 3072, "table"), (1000, 1024, 4096, "table"),
+                          (37, 32, 64, "legacy"), (5157, 704, 3072, "legacy")):
+        assert ffn.train_plan(n, d, f, 132)[0].layout == want
+        assert ffn.train_plan(n, d, f, 132, backward=True)[0].layout == "fast"
 
 
-def test_refused_layouts():
+def test_a_forced_layout_is_one_the_direction_runs():
     with pytest.raises(ValueError):
-        ffn.train_plan(9216, 768, 3072, 132, layouts=("pair256", "legacy"))
+        ffn.train_plan(9216, 768, 3072, 132, backward=False, layout="fast")
     with pytest.raises(ValueError):
-        ffn.train_plan(9216, 768, 3072, 132, layouts=("table", "table"))
-    with pytest.raises(ValueError):   # no pair fits the card
-        ffn.train_plan(9216, 768, 3072, 132, slots=0, layouts=("pair_fast", "legacy"))
-    assert ffn.train_plan(9216, 768, 3072, 132, slots=0)[0].layout == "table"
+        ffn.train_plan(9216, 768, 3072, 132, backward=True, layout="table")
+    with pytest.raises(ValueError):
+        ffn.train_plan(9216, 768, 3072, 132, layout="pair256")
+    assert ffn.train_plan(37, 32, 64, 132, layout="table")[0].layout == "table"
+
+
+def test_each_entry_takes_legacy_and_its_own_layout():
+    """kmb_ffn_fwd's first GEMM runs Legacy or Table, kmb_ffn_bwd's Legacy
+    or Fast; any other code is refused (cudaErrorInvalidValue), and the
+    codes are the source's."""
+    src = (CSRC / "wgmma_gemm.cuh").read_text()
+    codes = dict((name.lower(), int(v)) for name, v in re.findall(r"TRAIN_(\w+) = (\d+)", src))
+    assert codes == ffn.TRAIN_LAYOUTS
+    for name, own in (("ffn.cu", "Table"), ("ffn_bwd.cu", "Fast")):
+        body = (CSRC / name).read_text().split("cudaError_t gemm_first(")[1].split("\n}\n")[0]
+        assert re.findall(r"if \(layout == TRAIN_(\w+)\)", body) == ["LEGACY", own.upper()]
+        assert body.rstrip().endswith("return cudaErrorInvalidValue;")
+        assert f", {own}>(" in body
 
 
 def test_without_a_the_partials_route_keeps_legacy(monkeypatch):
     """kmb_ffn_fwd without a (fused_ffn_partials) gets plan's Legacy
-    numbers at the inference split, layout codes 0, which the entry point
+    numbers at the inference split, layout code 0, which the entry point
     requires of a call without a."""
     monkeypatch.setattr(ffn, "sm_count", lambda device: 132)
-    monkeypatch.setattr(ffn, "train_slots", lambda device: 66)
     for n in (320, 4608, 9216):
         first, second = ffn.plan(n, 768, 3072, 132, True)
         splits, args = ffn._plan_args.__wrapped__(n, 768, 3072, "card", invariant=True)
-        assert args == (first.ctas, second.ctas, second.splits, second.kper, 0, 0)
+        assert args == (first.ctas, second.ctas, second.splits, second.kper, 0)
         assert splits == second.splits == 6
-        # with a: train_plan's codes
-        _, args = ffn._plan_args.__wrapped__(n, 768, 3072, "card")
-        fwd = train_plan(n, 768, 3072, 132)
-        assert args[4:] == tuple(ffn.TRAIN_LAYOUTS[g.layout][0] for g in fwd)
+        # with a: train_plan's numbers and code, or Legacy's when asked
+        for backward in (False, True):
+            fwd = ffn.train_plan(n, 768, 3072, 132, backward)
+            _, args = ffn._plan_args.__wrapped__(n, 768, 3072, "card", backward=backward)
+            assert args == (fwd[0].ctas, fwd[1].ctas, fwd[1].splits, fwd[1].kper,
+                            ffn.TRAIN_LAYOUTS[ffn.TRAIN_FIRST[backward]])
+            _, args = ffn._plan_args.__wrapped__(n, 768, 3072, "card", backward=backward,
+                                                 layout="legacy")
+            assert args[4] == 0
     src = (CSRC / "ffn.cu").read_text()
-    assert "(a_out == nullptr && (lay1 || lay2))" in src
-
-
-def test_layout_codes_match_the_source():
-    src = (CSRC / "wgmma_gemm.cuh").read_text()
-    codes = dict((name.lower(), int(v)) for name, v in
-                 re.findall(r"TRAIN_(\w+) = (\d+)", src))
-    assert codes == {name: code for name, (code, _) in ffn.TRAIN_LAYOUTS.items()}
+    assert "(a_out == nullptr && lay1)" in src
 
 
 # ---------------------------------------------------------------------------
@@ -244,16 +224,3 @@ def test_table_index_is_a_bijection_onto_its_range():
     for v in (0.0, -0.0, 1e-6, -1e-6, 16.0, -16.0, 1e30, float("inf"), float("nan")):
         bits = int(torch.tensor([v], dtype=torch.bfloat16).view(torch.int16).item()) & 0xFFFF
         assert _lut_index(np.int64(bits), e0, ne) == -1, v
-
-
-def test_table_holds_what_training_activations_need():
-    """The pre-activations of training (|a| of a bf16 x at std 1 through
-    W1 at std 0.02, D 768: about 0.55) lie in the table's range but for a
-    few in a million (|a| < 2^-16), so a warp takes the formula's branch
-    rarely."""
-    e0, ne = _lut_constants()
-    rng = np.random.default_rng(0)
-    a = torch.from_numpy(rng.normal(scale=0.55, size=1 << 20).astype(np.float32))
-    bits = a.to(torch.bfloat16).view(torch.int16).numpy().astype(np.int64) & 0xFFFF
-    outside = (_lut_index(bits, e0, ne) < 0).mean()
-    assert outside < 1e-4
