@@ -12,7 +12,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   3. kernels   each kernel against its plain PyTorch version on the card, at
                the generation, fine-tune and pretraining paths' shapes and at
                edge shapes (K1 and its backward also on the fused QKV
-               projection's strided chunks, at Tk 256 and ragged lengths;
+               projection's strided chunks, at Tk 256 and ragged lengths,
+               on the plan's route (ops/train_attention.py plan: the
+               persistent TMA + wgmma kernels wherever they take the shape)
+               and, where that is "wg", on PR 4's kernels too: the elements
+               that differ between the two, the largest difference in bf16
+               ulps, PR 4's time (legacy_ms) and the host's time a call;
                K2 and K2b at every training row, ragged rows, an odd
                count of row tiles and a wide FFN, the first GEMM on each
                of its layouts (ops/ffn.py train_plan: held to the plain
@@ -203,7 +208,9 @@ TRAIN_GRAD_NORM_RTOL = 5e-2
 # launches per fine-tune step: K1 over 6 encoder self + 6 decoder self +
 # 6 cross attentions, K2 over 12 FFNs, K7/K8 once
 TRAIN_LAUNCHES = {"train_attention": 18, "train_attention_bwd": 18, "ffn": 12,
-                  "ffn_bwd": 12, "lm_ce_fwd": 1, "lm_ce_bwd": 1}
+                  "ffn_bwd": 12, "lm_ce_fwd": 1, "lm_ce_bwd": 1,
+                  # of those, on PR 4's kernels (ops/train_attention.py plan): none
+                  "train_attention_legacy": 0, "train_attention_bwd_legacy": 0}
 GENERATE_KERNELS = ("train_attention", "ffn", "beam_attention", "vocab_stats_topk",
                     "vocab_topk_merge")
 # K11's fp32 output against its plain version, in units of max|v|: the
@@ -468,6 +475,16 @@ def _max_err(got, ref):
     return float((got.float() - ref.float()).abs().max())
 
 
+def _bf16_ulps(torch, a, b):
+    """The largest difference of two bf16 tensors in ulps of the larger
+    magnitude of each pair (0 where they are equal)."""
+    a, b = a.float(), b.float()
+    diff = (a - b).abs()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    ulp = torch.ldexp(torch.ones_like(diff), (e - 8).clamp(min=-133))
+    return float(torch.where(diff > 0, diff / ulp, torch.zeros_like(diff)).max())
+
+
 def _tie_rows(n, seed=0):
     """tests/test_torch_topk.py's eight tie-heavy [n] fp32 rows (numpy seed):
     planted ties across and at chunk borders, a constant row, -inf stripes,
@@ -489,6 +506,38 @@ def _tie_rows(n, seed=0):
     x[6, 1020:1028] = x[6].max() + 1.0
     x[7] = np.round(x[7])
     return x
+
+
+# K1 and K1b's shapes (see check_kernels); the timed rows are the main
+# path's: G, F (three), P (three), T (three), G-TP
+K1_SHAPES = [  # (B, Tq, Tk, D, H, padded keys, causal, fused QKV, timed)
+    (64, 72, 72, 768, 12, 0, False, True, True),
+    (128, 72, 72, 768, 12, 9, False, True, True),
+    (128, 40, 40, 768, 12, 7, True, True, True),
+    (128, 40, 72, 768, 12, 9, False, False, True),
+    (128, 96, 96, 768, 12, 6, False, True, True),
+    (128, 72, 72, 768, 12, 6, True, True, True),
+    (128, 72, 96, 768, 12, 6, False, False, True),
+    (2, 256, 256, 768, 12, 7, False, False, False),
+    (2, 256, 256, 768, 12, 0, True, True, False),
+    (3, 24, 40, 768, 12, 5, False, False, False),
+    (3, 16, 16, 32, 4, 5, False, True, False),
+    (3, 16, 16, 32, 4, 5, True, True, False),
+    (3, 8, 16, 32, 4, 5, False, False, False),
+    (4, 72, 72, 1024, 8, 9, False, True, False),
+    (4, 40, 40, 1024, 8, 7, True, True, False),
+    (3, 24, 40, 288, 4, 5, False, False, False),
+    (2, 72, 72, 1024, 4, 6, True, True, False),
+    # a TP 2 rank's local heads at the parallel phase's 32 rows: 6 heads
+    # of 64 over the [B, T, 384] column slice (encoder self, decoder
+    # causal self, cross)
+    (32, 72, 72, 384, 6, 9, False, True, True),
+    (32, 40, 40, 384, 6, 0, True, True, True),
+    (32, 40, 72, 384, 6, 9, False, False, True),
+    # generation's encoder on a TP 2 rank (the parallel_generate phase):
+    # B 64, 72 x 72, 6 heads over the [B, T, 384] columns
+    (64, 72, 72, 384, 6, 0, False, True, True),
+]
 
 
 def check_kernels(torch, dev):
@@ -527,34 +576,30 @@ def check_kernels(torch, dev):
             mask[1::2, Tk - pad:] = 0
         return mask
 
-    K1_SHAPES = [  # (B, Tq, Tk, D, H, padded keys, causal, fused QKV, timed)
-        (64, 72, 72, 768, 12, 0, False, True, True),
-        (128, 72, 72, 768, 12, 9, False, True, True),
-        (128, 40, 40, 768, 12, 7, True, True, True),
-        (128, 40, 72, 768, 12, 9, False, False, True),
-        (128, 96, 96, 768, 12, 6, False, True, True),
-        (128, 72, 72, 768, 12, 6, True, True, True),
-        (128, 72, 96, 768, 12, 6, False, False, True),
-        (2, 256, 256, 768, 12, 7, False, False, False),
-        (2, 256, 256, 768, 12, 0, True, True, False),
-        (3, 24, 40, 768, 12, 5, False, False, False),
-        (3, 16, 16, 32, 4, 5, False, True, False),
-        (3, 16, 16, 32, 4, 5, True, True, False),
-        (3, 8, 16, 32, 4, 5, False, False, False),
-        (4, 72, 72, 1024, 8, 9, False, True, False),
-        (4, 40, 40, 1024, 8, 7, True, True, False),
-        (3, 24, 40, 288, 4, 5, False, False, False),
-        (2, 72, 72, 1024, 4, 6, True, True, False),
-        # a TP 2 rank's local heads at the parallel phase's 32 rows: 6 heads
-        # of 64 over the [B, T, 384] column slice (encoder self, decoder
-        # causal self, cross)
-        (32, 72, 72, 384, 6, 9, False, True, True),
-        (32, 40, 40, 384, 6, 0, True, True, True),
-        (32, 40, 72, 384, 6, 9, False, False, True),
-        # generation's encoder on a TP 2 rank (the parallel_generate phase):
-        # B 64, 72 x 72, 6 heads over the [B, T, 384] columns
-        (64, 72, 72, 384, 6, 0, False, True, True),
-    ]
+    # K1 and K1b on the plan's route (ops/train_attention.py plan: "wg", the
+    # persistent TMA + wgmma kernels, wherever they take the shape, else PR
+    # 4's "legacy" kernels). Where the plan takes "wg", the legacy kernel
+    # runs on the same inputs too: the elements where the two differ and the
+    # largest difference in bf16 ulps (both are held to the plain version;
+    # they may differ only in the order of fp32 sums), and at timed rows its
+    # time (legacy_ms) and the host's time to enqueue a call (host_us).
+    def k1_route(res, run, outs, Tq, Tk, D, H, B, causal, dtype, timed, backward):
+        p = ta.plan(Tq, Tk, D // H, dtype, causal, backward=backward)
+        res["plan"] = {"kernel": p.kernel}
+        if p.kernel == "wg":
+            res["plan"].update(
+                grid=ta.launch_grid(dev, Tq, Tk, B * H, backward),
+                resident=ta.resident(dev, Tq, Tk, backward), smem_bytes=p.smem_bytes,
+                consumers=p.consumers, stages=p.stages)
+            legacy = run("legacy")
+            res["elements_differing_from_legacy"] = sum(int((u != w).sum())
+                                                        for u, w in zip(outs, legacy))
+            res["max_ulps_from_legacy"] = max(_bf16_ulps(torch, u, w)
+                                              for u, w in zip(outs, legacy))
+            if timed:
+                res["legacy_ms"] = _time_ms(torch, lambda: run("legacy"))
+        if timed:
+            res["host_us"] = _host_us(torch, lambda: run(None))
 
     def k1(B, Tq, Tk, D, H, pad, causal, fused, timed, dtype=bf16):
         q, k, v = qkv(B, Tq, Tk, D, fused, dtype)
@@ -567,6 +612,8 @@ def check_kernels(torch, dev):
                err, tol)
         res = {"shape": [B, Tq, Tk, D, H], "pad": pad, "causal": causal, "fused_qkv": fused,
                "dtype": str(dtype).split(".")[-1], "max_abs_err": err, "tol": tol}
+        k1_route(res, lambda kernel: (ta._fwd_launch(q, k, v, mask, H, causal, kernel),),
+                 (out,), Tq, Tk, D, H, B, causal, dtype, timed, False)
         if timed:
             res["ms"] = _time_ms(torch, lambda: ta.train_attention_flat(q, k, v, mask, **kw))
             res["plain_ms"] = _time_ms(torch, lambda: ta.train_attention_plain(q, k, v, mask,
@@ -775,6 +822,8 @@ def check_kernels(torch, dev):
             res[f"{name}_err"], res[f"{name}_tol"] = err, tol
             errs.append(err)
         res["max_abs_err"] = max(errs)
+        k1_route(res, lambda kernel: ta._bwd_launch(q, k, v, mask, g, H, causal, kernel), outs,
+                 Tq, Tk, D, H, B, causal, dtype, timed, True)
         if timed:
             res["ms"] = _time_ms(torch, lambda: ta.train_attention_bwd(q, k, v, mask, g, **kw))
             res["plain_ms"] = _time_ms(
@@ -1413,6 +1462,8 @@ def run_generate(torch, dev, card):
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
+    if launch_counts()["train_attention_legacy"]:
+        raise AssertionError("generate: K1 launched PR 4's kernel, not the plan's")
     steps = launches["beam_attention"] // cfg.decoder_layers
     # K4 once a decode step: its statistics and chunk candidates, then the merge
     if not launches["vocab_stats_topk"] == launches["vocab_topk_merge"] == steps:
@@ -1878,8 +1929,9 @@ def _profile_steps(torch, run_step, n=3):
     k11 = per_step("flash_attention_wg", "flash_attention_tc")
     return {"steps": n, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / wall_ms,
-            "k1_ms_per_step": per_step("attn_fwd_tc"),
-            "k1b_ms_per_step": per_step("attn_bwd_tc"),
+            # K1 and K1b on either route (ops/train_attention.py plan)
+            "k1_ms_per_step": per_step("attn_fwd_wg", "attn_fwd_tc"),
+            "k1b_ms_per_step": per_step("attn_bwd_wg", "attn_bwd_tc"),
             "k2_ms_per_step": k2, "k2_share": k2 * n / busy_ms,
             # K2's second launch of an inference call starts (a programmatic
             # dependent) while the first still runs, so its kernel time
@@ -3177,7 +3229,8 @@ PARALLEL_CASES = {
 # stage (3 + 3 + 3 layers' worth) on each of 2 micro-batches under PP 2; the
 # LM-CE pair once on every rank (the head is whole everywhere); K2 off
 PARALLEL_LAUNCHES = {"train_attention": 18, "train_attention_bwd": 18, "ffn": 0,
-                     "ffn_bwd": 0}
+                     "ffn_bwd": 0, "train_attention_legacy": 0,
+                     "train_attention_bwd_legacy": 0}
 
 
 def _parallel_setup(torch, dev, pretrain, rows):
@@ -3462,11 +3515,11 @@ def _hold_parallel(case, rank_rows, ref, expect_heads):
         if set(r["k1_heads"]) != {str(expect_heads)}:
             raise AssertionError(f"{what}: K1 ran at heads {r['k1_heads']}, not {expect_heads}")
         seen = " ".join(r["top_device_ops"])
-        kernels = ["attn_fwd_tc", "attn_bwd_tc"] + (
+        kernels = ["attn_fwd_wg", "attn_bwd_wg"] + (
             ["lm_ce_stats_gemm", "lm_ce_dlogits_gemm"] if pretrain
             else ["lm_ce_logits_gemm", "lm_ce_dlogits_kernel"])
-        profiled = {"attn_fwd_tc": r["profile"]["k1_ms_per_step"],
-                    "attn_bwd_tc": r["profile"]["k1b_ms_per_step"],
+        profiled = {"attn_fwd_wg": r["profile"]["k1_ms_per_step"],
+                    "attn_bwd_wg": r["profile"]["k1b_ms_per_step"],
                     "lm_ce_stats_gemm": r["profile"]["k9_ms_per_step"],
                     "lm_ce_dlogits_gemm": r["profile"]["k10_ms_per_step"],
                     "lm_ce_logits_gemm": r["profile"]["k7_ms_per_step"],
@@ -3535,7 +3588,7 @@ PGEN_ROWS, PGEN_ENC, PGEN_BEAMS, PGEN_MAXLEN = 64, 72, 5, 32
 # case -> Grid options: TP 2 and DP 2 on one card, TP 2 x DP 2 on four
 PGEN_CASES = {"tp2": dict(model_parallel=2), "dp2": {}, "tp2_dp2": dict(model_parallel=2)}
 PGEN_KERNELS = ("train_attention", "ffn", "beam_attention", "vocab_stats_topk",
-                "vocab_topk_merge")
+                "vocab_topk_merge", "train_attention_legacy")
 
 
 def parallel_generate_worker():
@@ -3705,6 +3758,8 @@ def run_parallel_generate(torch, dev, card, cards=1):
                            if r["launches"][k] == 0]
                 if missing:
                     raise AssertionError(f"{what}: kernels not launched: {missing}")
+                if r["launches"]["train_attention_legacy"]:
+                    raise AssertionError(f"{what}: K1 launched PR 4's kernel")
                 if (r["launches"]["ffn"] == 0) != (tp > 1):
                     raise AssertionError(f"{what}: K2 launched {r['launches']['ffn']} times "
                                          f"at TP {tp}")
@@ -4044,9 +4099,9 @@ def run_reason_filter(torch, dev, card, extractor=None):
 
 
 KERNEL_INFO = {
-    "train_attention": ("kmbart_tpu_torch/csrc/train_attention_tc.cuh",
+    "train_attention": ("kmbart_tpu_torch/csrc/train_attention_wg.cu",
                         "kmbart_tpu/ops/pallas_train_attention.py:194"),
-    "train_attention_bwd": ("kmbart_tpu_torch/csrc/train_attention_tc.cuh",
+    "train_attention_bwd": ("kmbart_tpu_torch/csrc/train_attention_wg_bwd.cu",
                             "kmbart_tpu/ops/pallas_train_attention.py:223"),
     "ffn": ("kmbart_tpu_torch/csrc/ffn.cu", "kmbart_tpu/ops/pallas_ffn.py:160"),
     "ffn_bwd": ("kmbart_tpu_torch/csrc/ffn_bwd.cu", "kmbart_tpu/ops/pallas_ffn.py:190"),

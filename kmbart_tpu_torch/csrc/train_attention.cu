@@ -31,7 +31,12 @@
 // other main-path shapes (causal 40 x 40, cross 40 x 72, pretraining's 96
 // and 72 tokens) are memory-bound by the same margin.
 //
-// bf16 design (the main path). Every product above is a bf16 x bf16 sum in
+// The main path (bf16, head_dim 64, lengths up to 128) runs the persistent
+// TMA + wgmma kernels of train_attention_wg.cu instead (ops/train_attention.py
+// plan); the kernels below serve the other shapes: head_dim other than 64,
+// lengths past 128, float.
+//
+// bf16 design (mma.sync). Every product above is a bf16 x bf16 sum in
 // fp32, which is what mma.sync.m16n8k16 (bf16 in, fp32 accumulate)
 // computes, so the tensor cores change only the order of the fp32 sums.
 // One block owns one (head, batch) pair and stages that head's rows of q,

@@ -3,7 +3,8 @@
 // train_attention.cu (the forward, head_dim <= 64), train_attention_bwd.cu
 // (the backward, head_dim <= 64) and train_attention_wide.cu (both, wider
 // heads). What they compute and why they are built so: train_attention.cu's
-// source note.
+// source note. The main path's shapes run train_attention_wg.cu's kernels;
+// these take the rest (ops/train_attention.py plan).
 #pragma once
 
 #include "common.cuh"

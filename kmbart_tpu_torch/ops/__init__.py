@@ -1,8 +1,9 @@
 """Tensor ops of the port. Eleven of them wrap hand-written Hopper kernels
 (``csrc/``); each wrapper counts its kernel launches in ``.launches``,
-K3's wrapper its ring-mode launches also in ``.ring_launches`` and K4's
-wrapper the launches of its second stage, the merge of the rows' top-k, in
-``.merge_launches``."""
+K1's wrappers those on PR 4's kernels (their plan's "legacy" route) also in
+``.legacy_launches``, K3's wrapper its ring-mode launches also in
+``.ring_launches`` and K4's wrapper the launches of its second stage, the
+merge of the rows' top-k, in ``.merge_launches``."""
 
 
 def kernel_wrappers():
@@ -26,10 +27,13 @@ def kernel_wrappers():
 
 
 def launch_counts():
-    """{name: launches}, with K3's ring-mode launches as "beam_attention_ring"
-    and K4's merges as "vocab_topk_merge"."""
+    """{name: launches}, with K1's and K1b's launches on PR 4's kernels as
+    "train_attention_legacy" and "train_attention_bwd_legacy", K3's ring-mode
+    launches as "beam_attention_ring" and K4's merges as "vocab_topk_merge"."""
     wrappers = kernel_wrappers()
     counts = {name: fn.launches for name, fn in wrappers.items()}
+    for name in ("train_attention", "train_attention_bwd"):
+        counts[name + "_legacy"] = wrappers[name].legacy_launches
     counts["beam_attention_ring"] = wrappers["beam_attention"].ring_launches
     counts["vocab_topk_merge"] = wrappers["vocab_stats_topk"].merge_launches
     return counts
@@ -38,5 +42,7 @@ def launch_counts():
 def reset_launch_counts():
     for fn in kernel_wrappers().values():
         fn.launches = 0
+    for name in ("train_attention", "train_attention_bwd"):
+        kernel_wrappers()[name].legacy_launches = 0
     kernel_wrappers()["beam_attention"].ring_launches = 0
     kernel_wrappers()["vocab_stats_topk"].merge_launches = 0

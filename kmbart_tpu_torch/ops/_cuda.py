@@ -37,6 +37,9 @@ _SIGNATURES = {
     "kmb_train_attention_smem_bytes": (ctypes.c_size_t, [_I, _I, _I, _I]),
     "kmb_train_attention_bwd": (_I, [_P] * 8 + [_I] * 9 + [_F, _F, _I, _P]),
     "kmb_train_attention_bwd_smem_bytes": (ctypes.c_size_t, [_I, _I, _I, _I]),
+    "kmb_train_attention_wg_fwd": (_I, [_P] * 5 + [_I] * 9 + [_F, _I, _I, _P]),
+    "kmb_train_attention_wg_bwd": (_I, [_P] * 8 + [_I] * 9 + [_F, _F, _I, _I, _P]),
+    "kmb_train_attention_wg_resident": (_I, [_I, _I, _I]),
     "kmb_ffn_fwd": (_I, [_P] * 9 + [_I] * 8 + [_P]),
     "kmb_ffn_bwd": (_I, [_P] * 7 + [_I] * 8 + [_P]),
     "kmb_ffn_infer": (_I, [_P] * 7 + [_I] * 12 + [_P]),

@@ -1,10 +1,14 @@
 """K1: fused multi-head attention on the flat QKV projections, forward and
 backward.
 
-Counterpart of kmbart_tpu/ops/pallas_train_attention.py. Both kernels are
-in ``csrc/train_attention_tc.cuh`` (bf16, tensor cores) and
-``csrc/train_attention.cu`` (fp32); the latter's source note says what
-bounds them on an H100 and how the design answers that.
+Counterpart of kmbart_tpu/ops/pallas_train_attention.py. Two routes, chosen
+by ``plan``: "wg", the persistent TMA + wgmma kernels of
+``csrc/train_attention_wg.cu`` (forward) and ``train_attention_wg_bwd.cu``
+(backward), for bf16 at head_dim 64 and lengths up to 128 (every shape of
+the main path); "legacy", PR 4's kernels in ``csrc/train_attention_tc.cuh``
+(bf16, mma.sync) and ``csrc/train_attention.cu`` (fp32), for the rest. The
+source notes say what bounds them on an H100 and how each design answers
+that.
 
 ``train_attention_flat`` wraps the forward: on CPU tensors it runs
 ``train_attention_plain``, on CUDA tensors it launches the kernel or
@@ -19,12 +23,24 @@ differentiable op the model calls: forward K1, backward the K1 backward,
 as the JAX package's custom VJP pairs them (:368-381).
 """
 
+from collections import namedtuple
+
 import torch
 
-from kmbart_tpu_torch.ops import _cuda
+from kmbart_tpu_torch.ops import _cuda, ffn
 
 NEG_INF = -1e9
 MAX_LEN = 256  # whole score rows stay on chip
+
+# The "wg" kernels' reach and shared memory (csrc/train_attention_wg.cuh
+# geometry, mirrored by _geometry; the launch refuses a plan whose bytes
+# differ from its own).
+WG_HEAD_DIM = 64
+WG_MAX_LEN = 128      # past it a row's S and dP outgrow one pass's registers
+STAGES = 2            # pairs in the shared-memory ring
+SMEM_MAX = 232448     # shared memory a block may use on an H100
+
+Plan = namedtuple("Plan", "kernel stages smem_bytes consumers")
 
 
 def _key_bias(key_mask, B, Tk, device):
@@ -45,6 +61,18 @@ def _kernel_mask(key_mask, B, Tk, device):
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+_SCALES = {}
+
+
+def _scale(head_dim, dtype):
+    """head_dim**-0.5 rounded to ``dtype``, as a Python float (cached: a
+    launch's host time counts)."""
+    key = (head_dim, dtype)
+    if key not in _SCALES:
+        _SCALES[key] = float(torch.tensor(head_dim ** -0.5, dtype=dtype))
+    return _SCALES[key]
 
 
 def _scaled(q, head_dim):
@@ -130,6 +158,79 @@ def _check_args(name, q_flat, k_flat, v_flat, num_heads, causal, g_flat=None):
     return dev, B, Tq, Tk, D, hd, lds
 
 
+def _round(n, m):
+    return -(-n // m) * m
+
+
+def _geometry(Tq, Tk, backward):
+    """(shared-memory bytes, consumer warpgroups) of a "wg" block, as
+    csrc/train_attention_wg.cuh geometry carves it: a stage a pair (forward:
+    Q at Tq rounded to 16 rows, K and V at Tk rounded to 16, at least Tq
+    rounded to 64 rows in all; backward: Q and G at Tq rounded to 64, K and
+    V at Tk rounded to 16), 128 bytes a row; the stages' key biases, to 1024
+    bytes; the backward's P and dS tiles and an 8 KB dQ staging tile a
+    consumer; the barriers; 1024 bytes to align the base."""
+    rq, rk, rk64 = _round(Tq, 64 if backward else 16), _round(Tk, 16), _round(Tk, 64)
+    cw = 2 if backward and (rq > 64 or rk64 > 64) else 1
+    stage = max(((2 if backward else 1) * rq + 2 * rk) * 128, _round(Tq, 64) * 128)
+    tiles = 2 * (rk64 // 64) * rq * 128 + cw * 8192 if backward else 0
+    return _round(STAGES * (stage + 4 * rk), 1024) + tiles + 2 * STAGES * 8 + 1024, cw
+
+
+def wg_takes(Tq, Tk, head_dim, dtype, causal):
+    """Shapes the "wg" kernels take: bf16, head_dim 64, 1 <= Tq, Tk <= 128
+    (causal: square)."""
+    return (dtype == torch.bfloat16 and head_dim == WG_HEAD_DIM and 1 <= Tq <= WG_MAX_LEN
+            and 1 <= Tk <= WG_MAX_LEN and (not causal or Tq == Tk))
+
+
+def plan(Tq, Tk, head_dim, dtype, causal, backward=False, kernel=None):
+    """The route of a K1 (or, ``backward``, K1b) call: ``Plan(kernel,
+    stages, smem_bytes, consumers)`` (consumer warpgroups a block, each
+    block one producer warp more). "wg" wherever it takes the shape
+    (``wg_takes``), else "legacy" (PR 4's kernels; their own launch sizes
+    them, so the other fields are None). ``kernel`` forces a route (a
+    test's hook: chip_smoke.py times both in one run)."""
+    if kernel is None:
+        kernel = "wg" if wg_takes(Tq, Tk, head_dim, dtype, causal) else "legacy"
+    if kernel == "legacy":
+        return Plan("legacy", None, None, None)
+    if kernel != "wg" or not wg_takes(Tq, Tk, head_dim, dtype, causal):
+        raise ValueError(f"train_attention: no {kernel!r} kernel for Tq {Tq}, Tk {Tk}, "
+                         f"head_dim {head_dim}, {dtype}, causal={causal}")
+    smem, cw = _geometry(Tq, Tk, backward)
+    return Plan("wg", STAGES, smem, cw)
+
+
+def grid(pairs, sms, resident):
+    """The persistent grid: every block the card holds at once, or one a
+    (b, h) pair when there are fewer pairs. Block x walks the pairs x, x +
+    grid, ... (the kernels' loops)."""
+    return max(1, min(pairs, sms * resident))
+
+
+_RESIDENT = {}
+
+
+def resident(device, Tq, Tk, backward):
+    """Blocks of the "wg" kernel for (Tq, Tk) an SM of ``device`` holds
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), read once."""
+    key = (device, Tq, Tk, backward)
+    if key not in _RESIDENT:
+        n = _cuda.lib().kmb_train_attention_wg_resident(Tq, Tk, int(backward))
+        if n < 0:
+            _cuda.check(-n, "train_attention resident blocks")
+        if n < 1:
+            raise RuntimeError(f"train_attention: no block of {Tq}/{Tk} fits on an SM")
+        _RESIDENT[key] = n
+    return _RESIDENT[key]
+
+
+def launch_grid(device, Tq, Tk, pairs, backward):
+    """The grid a "wg" launch on ``device`` takes."""
+    return grid(pairs, ffn.sm_count(device), resident(device, Tq, Tk, backward))
+
+
 def train_attention_flat(q_flat, k_flat, v_flat, key_mask, *, num_heads,
                          causal=False):
     """Fused attention on flat projections; same contract as
@@ -137,25 +238,39 @@ def train_attention_flat(q_flat, k_flat, v_flat, key_mask, *, num_heads,
     if q_flat.device.type == "cpu":
         return train_attention_plain(q_flat, k_flat, v_flat, key_mask,
                                      num_heads=num_heads, causal=causal)
+    return _fwd_launch(q_flat, k_flat, v_flat, key_mask, num_heads, causal)
+
+
+def _fwd_launch(q_flat, k_flat, v_flat, key_mask, num_heads, causal, kernel=None):
+    """The forward kernel on CUDA tensors, on ``plan``'s route (``kernel``
+    forces one)."""
     dev, B, Tq, Tk, D, hd, lds = _check_args("train_attention_flat", q_flat, k_flat,
                                              v_flat, num_heads, causal)
     code = _cuda.dtype_code(q_flat)
     lib, stream = _cuda.prepare(dev)
-    if lib.kmb_train_attention_smem_bytes(Tq, Tk, hd, code) > 227 * 1024:
+    p = plan(Tq, Tk, hd, q_flat.dtype, causal, kernel=kernel)
+    if (p.kernel == "legacy"
+            and lib.kmb_train_attention_smem_bytes(Tq, Tk, hd, code) > 227 * 1024):
         raise ValueError(f"train_attention_flat: {Tq}/{Tk} x {hd} do not fit in shared "
                          "memory")
     mask = _kernel_mask(key_mask, B, Tk, dev)
-    scale = float(torch.tensor(hd ** -0.5, dtype=q_flat.dtype))
+    scale = _scale(hd, q_flat.dtype)
     out = torch.empty((B, Tq, D), dtype=q_flat.dtype, device=dev)
-    _cuda.check(lib.kmb_train_attention_fwd(
-        q_flat.data_ptr(), k_flat.data_ptr(), v_flat.data_ptr(), _ptr(mask),
-        out.data_ptr(), B, Tq, Tk, D, num_heads, *lds, int(causal), scale, code,
-        stream), "train_attention_flat")
+    ptrs = (q_flat.data_ptr(), k_flat.data_ptr(), v_flat.data_ptr(), _ptr(mask),
+            out.data_ptr(), B, Tq, Tk, D, num_heads, *lds, int(causal), scale)
+    if p.kernel == "wg":
+        blocks = launch_grid(dev, Tq, Tk, B * num_heads, False)
+        err = lib.kmb_train_attention_wg_fwd(*ptrs, blocks, p.smem_bytes, stream)
+    else:
+        err = lib.kmb_train_attention_fwd(*ptrs, code, stream)
+    _cuda.check(err, "train_attention_flat")
     train_attention_flat.launches += 1
+    train_attention_flat.legacy_launches += int(p.kernel == "legacy")
     return out
 
 
 train_attention_flat.launches = 0
+train_attention_flat.legacy_launches = 0  # of those, on PR 4's kernels
 
 
 def train_attention_bwd_plain(q_flat, k_flat, v_flat, key_mask, g_flat, *, num_heads,
@@ -199,27 +314,41 @@ def train_attention_bwd(q_flat, k_flat, v_flat, key_mask, g_flat, *, num_heads,
     if q_flat.device.type == "cpu":
         return train_attention_bwd_plain(q_flat, k_flat, v_flat, key_mask, g_flat,
                                          num_heads=num_heads, causal=causal)
+    return _bwd_launch(q_flat, k_flat, v_flat, key_mask, g_flat, num_heads, causal)
+
+
+def _bwd_launch(q_flat, k_flat, v_flat, key_mask, g_flat, num_heads, causal, kernel=None):
+    """The backward kernel on CUDA tensors, on ``plan``'s route (``kernel``
+    forces one)."""
     dev, B, Tq, Tk, D, hd, lds = _check_args("train_attention_bwd", q_flat, k_flat,
                                              v_flat, num_heads, causal, g_flat)
     code = _cuda.dtype_code(q_flat)
     lib, stream = _cuda.prepare(dev)
-    if lib.kmb_train_attention_bwd_smem_bytes(Tq, Tk, hd, code) > 227 * 1024:
+    p = plan(Tq, Tk, hd, q_flat.dtype, causal, backward=True, kernel=kernel)
+    if (p.kernel == "legacy"
+            and lib.kmb_train_attention_bwd_smem_bytes(Tq, Tk, hd, code) > 227 * 1024):
         raise ValueError(f"train_attention_bwd: q, k, v, g of {Tq}/{Tk} x {hd} do not "
                          "fit in shared memory")
     mask = _kernel_mask(key_mask, B, Tk, dev)
-    scale_q = float(torch.tensor(hd ** -0.5, dtype=q_flat.dtype))
+    scale_q = _scale(hd, q_flat.dtype)
     dq = torch.empty((B, Tq, D), dtype=q_flat.dtype, device=dev)
     dk, dv = (torch.empty((B, Tk, D), dtype=q_flat.dtype, device=dev) for _ in range(2))
-    _cuda.check(lib.kmb_train_attention_bwd(
-        q_flat.data_ptr(), k_flat.data_ptr(), v_flat.data_ptr(), _ptr(mask),
-        g_flat.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Tq, Tk, D,
-        num_heads, *lds, int(causal), scale_q, hd ** -0.5, code, stream),
-        "train_attention_bwd")
+    ptrs = (q_flat.data_ptr(), k_flat.data_ptr(), v_flat.data_ptr(), _ptr(mask),
+            g_flat.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Tq, Tk, D,
+            num_heads, *lds, int(causal), scale_q, hd ** -0.5)
+    if p.kernel == "wg":
+        blocks = launch_grid(dev, Tq, Tk, B * num_heads, True)
+        err = lib.kmb_train_attention_wg_bwd(*ptrs, blocks, p.smem_bytes, stream)
+    else:
+        err = lib.kmb_train_attention_bwd(*ptrs, code, stream)
+    _cuda.check(err, "train_attention_bwd")
     train_attention_bwd.launches += 1
+    train_attention_bwd.legacy_launches += int(p.kernel == "legacy")
     return dq, dk, dv
 
 
 train_attention_bwd.launches = 0
+train_attention_bwd.legacy_launches = 0  # of those, on PR 4's kernels
 
 
 class _TrainAttention(torch.autograd.Function):
