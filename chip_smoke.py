@@ -33,8 +33,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                attention kernels the time of one
                F.scaled_dot_product_attention call on the same data and for
                K2, K2b and K7-K10 the time of the bf16 torch.mm products
-               of their GEMMs (the port never calls either), K8's two
-               launches and K10's first pass timed alone, K9's statistics
+               of their GEMMs (the port never calls either), K8's plan
+               (work units, vocab parts), K8's dlogits also element by
+               element in bf16 ulps, K8 at one part and with a negative
+               loss scale against its plain version too, K8's kernel with
+               its transform off (K10's second pass) and K10's first pass
+               timed alone, K9's statistics
                and K10's outputs held equal to K7's and K8's (on K7's
                logits) bit for bit, K11's error split into what its bf16
                p terms cost and the rest, and K2's and K2b's host time a
@@ -910,8 +914,31 @@ def check_kernels(torch, dev):
             err, tol = _max_err(out, ref), _bf16_tol(ref.float(), floor=0.0)
             _check(f"lm_ce_bwd {name} {N}x{V}", err, tol)
             bwd[f"{name}_err"], bwd[f"{name}_tol"] = err, tol
+        bwd["dlogits_ulps"] = _check_dlogits_ulps(f"lm_ce_bwd {N}x{V}", dl, rdl)
         bwd["max_abs_err"] = max(bwd["dlogits_err"], bwd["dh_err"])
+        # a negative loss scale (the cotangent of -loss): the same checks
+        nargs = (logits, w, m, inv_se, (-scale).contiguous(), labels)
+        for name, out, ref in zip(("dlogits", "dh"), lm_ce.lm_ce_bwd(*nargs),
+                                  lm_ce.lm_ce_bwd_plain(*nargs)):
+            err, tol = _max_err(out, ref), _bf16_tol(ref.float(), floor=0.0)
+            _check(f"lm_ce_bwd negative scale {name} {N}x{V}", err, tol)
+            bwd[f"negative_scale_{name}_err"] = err
+            if name == "dlogits":
+                _check_dlogits_ulps(f"lm_ce_bwd negative scale {N}x{V}", out, ref)
+        # the pad columns of K8's buffer are zero
+        pitch = lm_ce.padded_vocab(V)
+        if dl.stride(0) != pitch or bool(dl.as_strided(
+                (N, pitch - V), (dl.stride(0), 1), dl.storage_offset() + V).ne(0).any()):
+            raise AssertionError(f"lm_ce_bwd {N}x{V}: pad columns not zero")
         if timed:
+            # the plan's vocab parts written straight out (one part: no
+            # partials, no finalize_sum), held to the plain version too
+            one_dl, one_dh = lm_ce._bwd_launch("lm_ce_bwd", *bargs, splits=1)
+            for name, out, ref in (("dlogits", one_dl[:, :V], rdl), ("dh", one_dh, rdh)):
+                err, tol = _max_err(out, ref), _bf16_tol(ref.float(), floor=0.0)
+                _check(f"lm_ce_bwd one part {name} {N}x{V}", err, tol)
+                bwd[f"one_part_{name}_err"] = err
+            _check_dlogits_ulps(f"lm_ce_bwd one part {N}x{V}", one_dl[:, :V], rdl)
             # K10 at these rows too (its own path is the pretraining head's)
             rargs = (h, w, fbias, m, inv_se, scale, labels)
             for name, out, ref in zip(("dlogits", "dh"), lm_ce.lm_ce_recompute_bwd(*rargs),
@@ -926,16 +953,28 @@ def check_kernels(torch, dev):
                                        iters=10)
             bwd["ms"] = _time_ms(torch, lambda: lm_ce.lm_ce_bwd(*bargs), iters=10)
             bwd["plain_ms"] = _time_ms(torch, lambda: lm_ce.lm_ce_bwd_plain(*bargs), iters=10)
-            _lm_ce_parts(fwd, bwd, h, w, rdl, bargs)
+            _lm_ce_parts(fwd, bwd, h, w, rdl)
             fwd.update(_k7_bound(N, V, D))
             bwd.update(_k8_bound(N, V, D))
         return fwd, bwd
 
-    def _lm_ce_parts(fwd, bwd, h, w, dl, bargs=None):
+    def _check_dlogits_ulps(what, got, ref):
+        """K8's dlogits element by element: each within BF16_ULPS bf16 ulps
+        of its own reference value (the largest-magnitude tolerance above is
+        set by the label columns, about 1 / (valid rows), far above a typical
+        dlogit). Returns the largest difference in ulps."""
+        ulps = _bf16_ulps(torch, got, ref)
+        if not ulps <= BF16_ULPS:
+            raise AssertionError(f"{what}: dlogits {ulps} bf16 ulps from the plain version's "
+                                 f"(at most {BF16_ULPS})")
+        return ulps
+
+    def _lm_ce_parts(fwd, bwd, h, w, dl):
         """Where K7-K10's time goes beside their yardsticks: ``gemm_ms``, one
         bf16 torch.mm of the same GEMM ([N, D] x [D, V] forward, [N, V] x
-        [V, D] backward; the port calls neither), and, with K8's arguments,
-        the time of K8's two launches alone."""
+        [V, D] backward; the port calls neither), K8's plan, and ``dh_ms``,
+        K8's kernel with its transform off (K10's second pass: the dlogits
+        loaded, not formed) on the same dlogits."""
         dl = dl.contiguous()
         fwd["gemm_ms"] = _time_ms(torch, lambda: torch.mm(h, w.t()), iters=10)
         bwd["gemm_ms"] = _time_ms(torch, lambda: torch.mm(dl, w), iters=10)
@@ -943,10 +982,9 @@ def check_kernels(torch, dev):
         buf = torch.zeros((dl.shape[0], lm_ce.padded_vocab(V)), dtype=dl.dtype, device=dev)
         buf[:, :V] = dl
         bwd["dh_ms"] = _time_ms(torch, lambda: lm_ce.dh_gemm("dh", buf, V, w), iters=10)
-        if bargs is not None:
-            logits, _, m, inv_se, scale, labels = bargs
-            bwd["dlogits_ms"] = _time_ms(
-                torch, lambda: lm_ce.dlogits_pass(logits, m, inv_se, scale, labels), iters=10)
+        plan = lm_ce.bwd_plan(dl.shape[0], w.shape[1], V, ffn.sm_count(dev))
+        bwd.update({"units": plan.units, "splits": plan.splits, "kper": plan.kper,
+                    "ctas": plan.ctas})
 
     def _k7_bound(N, V, D):
         return _bound(2 * N * D + 2 * V * D + 4 * V + 4 * N + 2 * N * V + 12 * N,
@@ -956,7 +994,10 @@ def check_kernels(torch, dev):
         return _bound(2 * 2 * N * V + 2 * V * D + 16 * N + 2 * N * D,
                       bf16_flops=2.0 * N * V * D)
 
-    head = [k78(5120, 50320, 768, True), k78(24, 1100, 128, False)]
+    # and a 1024-wide head (BART-large's): K8's two column groups, the
+    # second's last warpgroup idle, over ragged rows and a ragged vocab
+    head = [k78(5120, 50320, 768, True), k78(24, 1100, 128, False),
+            k78(136, 2100, 1024, False)]
     results["lm_ce_fwd"] = [f for f, _ in head]
     results["lm_ce_bwd"] = [b for _, b in head]
 
@@ -1012,6 +1053,8 @@ def check_kernels(torch, dev):
             err, tol = _max_err(out, ref), _bf16_tol(ref.float(), floor=0.0)
             _check(f"lm_ce_bwd {name} {N}x{V}", err, tol)
             bwd[f"k8_{name}_err"], bwd[f"k8_{name}_tol"] = err, tol
+            if name == "dlogits":
+                bwd["k8_dlogits_ulps"] = _check_dlogits_ulps(f"lm_ce_bwd {N}x{V}", out, ref)
         bwd["equal_to_k8"] = torch.equal(dl, k8_dl) and torch.equal(dh, k8_dh)
         if not bwd["equal_to_k8"]:
             raise AssertionError(f"lm_ce_recompute_bwd {N}x{V}: outputs differ from K8's "
@@ -1032,9 +1075,8 @@ def check_kernels(torch, dev):
             bwd["k8_ms"] = _time_ms(torch, lambda: lm_ce.lm_ce_bwd(*k8args), iters=10)
             fwd["k7_bound_ms"] = _k7_bound(N, V, D)["bound_ms"]
             bwd["k8_bound_ms"] = _k8_bound(N, V, D)["bound_ms"]
-            _lm_ce_parts(fwd, bwd, h, w, rdl, k8args)
-            bwd["k8_dlogits_ms"] = bwd.pop("dlogits_ms")   # K8's first launch at these rows
-            # K10's first pass alone, beside K8's two launches
+            _lm_ce_parts(fwd, bwd, h, w, rdl)
+            # K10's first pass alone
             bwd["dlogits_ms"] = _time_ms(
                 torch, lambda: lm_ce.recompute_dlogits_pass(*bargs), iters=10)
             fwd.update(_bound(2 * N * D + 2 * V * D + 4 * V + 4 * N + 12 * N,
@@ -1043,7 +1085,8 @@ def check_kernels(torch, dev):
                               bf16_flops=4.0 * N * V * D))
         return fwd, bwd
 
-    nomat = [k910(9216, 50320, 768, True), k910(24, 1100, 128, False)]
+    nomat = [k910(9216, 50320, 768, True), k910(24, 1100, 128, False),
+             k910(136, 2100, 1024, False)]
     results["lm_ce_fwd_stats"] = [f for f, _ in nomat]
     results["lm_ce_recompute_bwd"] = [b for _, b in nomat]
 
@@ -1911,21 +1954,24 @@ def _profile_steps(torch, run_step, n=3):
     per_step = lambda *tags: sum(dev(e) for e in events
                                  if any(t in e.key for t in tags)) / 1e3 / n
     k2, k2b = per_step("ffn_fwd_gemm", "ffn_finalize"), per_step("ffn_bwd_gemm")
-    # the LM-CE kernels: K7 or K9 (a projection and the merge), K8 or K10
-    # (a dlogits launch and the dh GEMM with its split-K finalize); a step
-    # runs one pair, "fwdbwd" or "nomat", so the shared merge and dh GEMM
-    # go to the pair whose own kernel ran. K11, K3 (the bf16 cache's kernel)
-    merge, dh = per_step("lm_ce_merge_kernel"), per_step("lm_ce_dh_")
+    # the LM-CE kernels: K7 or K9 (a projection and the merge), K8 (one
+    # launch, lm_ce_bwd_gemm) or K10 (its first pass and K8's kernel with
+    # the transform off, lm_ce_dh_gemm), each with the split vocab walk's
+    # finalize; a step runs one pair, "fwdbwd" or "nomat", so the shared
+    # merge and finalize go to the pair whose own kernel ran. K11, K3 (the
+    # bf16 cache's kernel)
+    merge, fin = per_step("lm_ce_merge_kernel"), per_step("lm_ce_dh_finalize")
     k7, k9 = per_step("lm_ce_logits_gemm"), per_step("lm_ce_stats_gemm")
-    k8, k10 = per_step("lm_ce_dlogits_kernel"), per_step("lm_ce_dlogits_gemm")
+    k8 = per_step("lm_ce_bwd_gemm")
+    k10 = per_step("lm_ce_dlogits_gemm", "lm_ce_dh_gemm")
     if k7:
         k7 += merge
     elif k9:
         k9 += merge
     if k8:
-        k8 += dh
+        k8 += fin
     elif k10:
-        k10 += dh
+        k10 += fin
     k11 = per_step("flash_attention_wg", "flash_attention_tc")
     return {"steps": n, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / wall_ms,
@@ -3517,13 +3563,13 @@ def _hold_parallel(case, rank_rows, ref, expect_heads):
         seen = " ".join(r["top_device_ops"])
         kernels = ["attn_fwd_wg", "attn_bwd_wg"] + (
             ["lm_ce_stats_gemm", "lm_ce_dlogits_gemm"] if pretrain
-            else ["lm_ce_logits_gemm", "lm_ce_dlogits_kernel"])
+            else ["lm_ce_logits_gemm", "lm_ce_bwd_gemm"])
         profiled = {"attn_fwd_wg": r["profile"]["k1_ms_per_step"],
                     "attn_bwd_wg": r["profile"]["k1b_ms_per_step"],
                     "lm_ce_stats_gemm": r["profile"]["k9_ms_per_step"],
                     "lm_ce_dlogits_gemm": r["profile"]["k10_ms_per_step"],
                     "lm_ce_logits_gemm": r["profile"]["k7_ms_per_step"],
-                    "lm_ce_dlogits_kernel": r["profile"]["k8_ms_per_step"]}
+                    "lm_ce_bwd_gemm": r["profile"]["k8_ms_per_step"]}
         missing = [k for k in kernels if not profiled[k] > 0]
         if missing:
             raise AssertionError(f"{what}: the profile shows no device time of {missing} "
@@ -4112,7 +4158,7 @@ KERNEL_INFO = {
     "vocab_stats_topk": ("kmbart_tpu_torch/csrc/vocab_stats.cu",
                          "kmbart_tpu/ops/pallas_vocab_stats.py:60"),
     "lm_ce_fwd": ("kmbart_tpu_torch/csrc/lm_ce.cu", "kmbart_tpu/ops/pallas_lm_ce.py:250"),
-    "lm_ce_bwd": ("kmbart_tpu_torch/csrc/lm_ce.cu", "kmbart_tpu/ops/pallas_lm_ce.py:289"),
+    "lm_ce_bwd": ("kmbart_tpu_torch/csrc/lm_ce_bwd.cu", "kmbart_tpu/ops/pallas_lm_ce.py:289"),
     "lm_ce_fwd_stats": ("kmbart_tpu_torch/csrc/lm_ce.cu",
                         "kmbart_tpu/ops/pallas_lm_ce.py:348"),
     "lm_ce_recompute_bwd": ("kmbart_tpu_torch/csrc/lm_ce.cu",

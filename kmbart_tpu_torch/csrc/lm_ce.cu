@@ -39,37 +39,30 @@
 //      a vocab that is not a multiple of 8 the logits live in an [N,
 //      ceil(V / 8) x 8] buffer (the wrapper returns the [:, :V] view; the
 //      store's map spans the pitch, so the pad columns get bf16(0 + 0) =
-//      0), and K8's first launch reads them at that pitch;
+//      0), and K8 reads them at that pitch;
 //   K9 is K7's launch with the epilogue's store turned off (store_c = 0,
 //      under its own kernel name, lm_ce_stats_gemm): the same accumulators,
 //      rounding, partials and merge, so its statistics equal K7's bit for
 //      bit, and no [N, V] tensor reaches memory;
-//   K8 is two launches. An elementwise pass reads the logits once (16-byte
-//      loads where V % 8 == 0) and writes the dlogits, which the dW product
-//      needs anyway: 2 x N x V x 2 bytes, 1.03 GB at N 5120 (0.31 ms at
-//      3.35 TB/s). Then dh = dlogits @ W on the persistent wgmma + TMA main
-//      loop of wgmma_gemm.cuh (K2b's B2 GEMM: A = dlogits K-major, B = W
-//      [V, D] read MN-major, K = V, the plain bf16 epilogue). TMA wants a
-//      row pitch of a multiple of 16 bytes, so the dlogits live in an [N,
-//      ceil(V / 8) x 8] buffer with zero pad columns (the wrapper returns
-//      the [:, :V] view); the GEMM's map of them is V
-//      wide, and TMA zero-fills the ragged last K slice (50320 = 786 x 64 +
-//      16) of both operands. The output is 128 x 128 tiles walked columns
-//      first, so the six D tiles of a row block read each dlogits slice
-//      together (from L2 for five of them). When the tiles alone leave SMs
-//      idle, the plan (ops/lm_ce.py dh_plan) splits the V walk into fp32
-//      partials added in split order, so the result is deterministic;
-//   K10 cannot keep the TPU's [tn, D] fp32 dh accumulator on chip (768 fp32
-//      columns per row tile) and recomputing a logits tile once per 128-wide
-//      D tile would repeat the projection six times. So it runs in two
-//      passes: K7's projection with the EPI_DLOGITS epilogue, which rounds
-//      the logits as K7 does, forms the dlogits in registers with the
-//      function K8's first launch uses (kmb_wg::dlogit) and stores them in
-//      bf16 by TMA into K8's padded buffer (the dW product needs them
-//      anyway, pallas_lm_ce.py:426-431), then K8's dh GEMM. K10's outputs
-//      thus equal K8's on K7's logits bit for bit. The price against one
-//      fused pass is a second read of the dlogits, N x V x 2 bytes (0.93 GB,
-//      about 0.3 ms at N 9216).
+//   K8 is one launch of its own kernel (lm_ce_bwd.cu, its source note): the
+//      dlogits formed on chip from each logits slice, stored once by TMA
+//      into an [N, ceil(V / 8) x 8] buffer with zero pad columns (the dW
+//      product reads them; the wrapper returns the [:, :V] view), and fed
+//      as wgmma's A straight into the dh product, 64 rows across the whole
+//      of D in registers; the vocab walk split in parts summed in part
+//      order (ops/lm_ce.py bwd_plan) when 64-row units alone would leave
+//      SMs idle. The dlogits never come back from memory;
+//   K10 cannot keep the TPU's [tn, D] fp32 dh accumulator beside a
+//      recomputed logits tile (the projection's accumulators already fill
+//      the registers), so it runs in two passes: K7's projection with the
+//      EPI_DLOGITS epilogue, which rounds the logits as K7 does, forms the
+//      dlogits in registers with the function K8 uses (kmb_wg::dlogit) and
+//      stores them in bf16 by TMA into K8's padded buffer (the dW product
+//      needs them anyway, pallas_lm_ce.py:426-431), then K8's kernel with
+//      its transform off (the dlogits loaded as A) on K8's plan. K10's
+//      outputs thus equal K8's on K7's logits bit for bit. The price
+//      against one fused pass is a second read of the dlogits, N x V x 2
+//      bytes (0.93 GB, about 0.3 ms at N 9216).
 // The ragged vocab tail (50320 = 393 x 128 + 16) is masked: W rows past V
 // load as zero, and those columns take no part in the statistics and get
 // zero dlogits, as _masked_w (:93-102) and the NEG floor do on the TPU.
@@ -108,40 +101,6 @@ __global__ void lm_ce_merge_kernel(const float* __restrict__ part_m,
   }
 }
 
-// K8's first launch: grid (N, ceil(ldo / 2048)), a thread per 8 columns.
-// dl[n, v] = bf16(scale (exp(logit - m) inv_se - [v == label])) for v < V,
-// 0 on the pad columns [V, ldo). The logits rows are ldl apart (K7's padded
-// pitch, or V); 16-byte loads where ldl % 8 == 0 (every row then starts
-// aligned, and a pad column's value is read and dropped), else element by
-// element.
-__global__ void __launch_bounds__(256)
-lm_ce_dlogits_kernel(const bf16* __restrict__ logits, const float* __restrict__ m,
-                     const float* __restrict__ inv_se, const float* __restrict__ scale,
-                     const int* __restrict__ labels, bf16* __restrict__ dl, int V, int ldl,
-                     int ldo) {
-  const int n = blockIdx.x;
-  const int c = (blockIdx.y * blockDim.x + threadIdx.x) * 8;
-  if (c >= ldo) return;
-  const float rm = m[n], rinv = inv_se[n], rscale = scale[n];
-  const int label = labels[n];
-  const bf16* row = logits + (size_t)n * ldl;
-  __align__(16) bf16 x[8];
-  if ((ldl & 7) == 0 && c < ldl) {
-    *reinterpret_cast<uint4*>(x) = *reinterpret_cast<const uint4*>(row + c);
-  } else {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) x[e] = c + e < V ? row[c + e] : __float2bfloat16(0.f);
-  }
-  __align__(16) bf16 y[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const int v = c + e;
-    y[e] = __float2bfloat16(
-        v < V ? kmb_wg::dlogit(__bfloat162float(x[e]), rm, rinv, rscale, v == label) : 0.f);
-  }
-  *reinterpret_cast<uint4*>(dl + (size_t)n * ldo + c) = *reinterpret_cast<const uint4*>(y);
-}
-
 // K7's projection on the shared main loop (wgmma_gemm.cuh): A = h [N, D]
 // K-major, B = W [V, D] K-major, the EPI_STATS epilogue, rows fastest
 __global__ void __launch_bounds__(kmb_wg::THREADS, 1)
@@ -168,22 +127,6 @@ __global__ void __launch_bounds__(kmb_wg::THREADS, 1)
                        const __grid_constant__ CUtensorMap out_c,
                        const __grid_constant__ CUtensorMap out_d, const kmb_wg::GemmArgs p) {
   kmb_wg::gemm_tiles<kmb_wg::EPI_DLOGITS, false, true>(&tma_a, &tma_b, &out_c, &out_d, p);
-}
-
-// dh = dl @ W on the shared main loop (wgmma_gemm.cuh): A = dl [N, V] at row
-// pitch ldl, K-major; B = W [V, D] read MN-major; K = V
-__global__ void __launch_bounds__(kmb_wg::THREADS, 1)
-    lm_ce_dh_gemm(const __grid_constant__ CUtensorMap tma_a,
-                  const __grid_constant__ CUtensorMap tma_b,
-                  const __grid_constant__ CUtensorMap out_c,
-                  const __grid_constant__ CUtensorMap out_d, const kmb_wg::GemmArgs p) {
-  kmb_wg::gemm_tiles<kmb_wg::EPI_OUT, true>(&tma_a, &tma_b, &out_c, &out_d, p);
-}
-
-__global__ void lm_ce_dh_finalize(const float* __restrict__ partial,
-                                  const float* __restrict__ bias, bf16* __restrict__ out, int M,
-                                  int Ncols, int nsplit) {
-  kmb_wg::finalize_sum(partial, bias, out, M, Ncols, nsplit);
 }
 
 }  // namespace
@@ -217,39 +160,9 @@ KMB_EXPORT int kmb_lm_ce_fwd(const void* h, const void* w, const void* bias,
   return cudaGetLastError();
 }
 
-// K8's first launch. logits bf16 [N, V] at row pitch ldl >= V; dl bf16 [N,
-// ldo] (ldo % 8 == 0, ldo >= V); both 16-byte aligned.
-KMB_EXPORT int kmb_lm_ce_dlogits(const void* logits, const void* m, const void* inv_se,
-                                 const void* scale, const void* labels, void* dl, int N, int V,
-                                 int ldl, int ldo, void* stream) {
-  if (N < 1 || ldl < V || ldo < V || ldo % 8) return cudaErrorInvalidValue;
-  lm_ce_dlogits_kernel<<<dim3(N, (ldo / 8 + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
-      (const bf16*)logits, (const float*)m, (const float*)inv_se, (const float*)scale,
-      (const int*)labels, (bf16*)dl, V, ldl, ldo);
-  return cudaGetLastError();
-}
-
-// K8's and K10's dh GEMM: dh bf16 [N, D] = dl [N, V] (row pitch ldl) @ w [V,
-// D], on `ctas` persistent blocks, the V walk in nsplit parts of kper
-// 64-deep slices (ops/lm_ce.py dh_plan); partial: fp32 [nsplit, N, D] scratch
-// when nsplit > 1. Every pointer 16-byte aligned, ldl % 8 == 0, D % 8 == 0.
-KMB_EXPORT int kmb_lm_ce_dh(const void* dl, const void* w, void* dh, void* partial, int N,
-                            int V, int ldl, int D, int ctas, int nsplit, int kper,
-                            void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (ctas < 1 || nsplit < 1 || ldl < V || ldl % 8 || D % 8) return cudaErrorInvalidValue;
-  static unsigned configured = 0;  // a bit per device
-  float* part = nsplit > 1 ? (float*)partial : nullptr;
-  const kmb_wg::GemmArgs p = {nullptr, part, N, D, 0, kper, nsplit, 0};
-  cudaError_t err =
-      kmb_wg::gemm_launch(lm_ce_dh_gemm, configured, true, dl, ldl, w, dh, nullptr, p, V, ctas, s);
-  if (err != cudaSuccess || nsplit == 1) return err;
-  return kmb_wg::finalize_launch(lm_ce_dh_finalize, part, nullptr, (bf16*)dh, N, D, nsplit, s);
-}
-
 // K10's first pass: the dlogits from the recomputed logits into dl [N, ldo]
 // (K8's padded buffer: ldo % 8 == 0, V <= ldo < V + 8; its pad columns get
-// zeros), for kmb_lm_ce_dh after it; m, inv_se, scale fp32 [N]; ctas as
+// zeros), for kmb_lm_ce_dh (lm_ce_bwd.cu) after it; m, inv_se, scale fp32 [N]; ctas as
 // K7's. h, w, dl 16-byte aligned; D % 8 == 0.
 KMB_EXPORT int kmb_lm_ce_recompute_dlogits(const void* h, const void* w, const void* bias,
                                            const void* m, const void* inv_se,

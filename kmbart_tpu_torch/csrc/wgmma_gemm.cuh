@@ -1,12 +1,14 @@
 // The persistent, warp-specialised wgmma + TMA GEMM main loop of K2, K2b
-// (ffn.cu) and K7-K10's products (lm_ce.cu), shared by the files that
-// instantiate it under their own kernel names (a profile tells them apart):
+// (ffn.cu) and of the LM head's projection in K7, K9 and K10's first pass
+// (lm_ce.cu), shared by the files that instantiate it under their own
+// kernel names (a profile tells them apart), and the helpers (barriers,
+// TMA, descriptors, maps, dlogit) of K8's own kernel (lm_ce_bwd.cu):
 // C = A @ B with A [M, K] read K-major and B either K-major [Ncols, K] or
 // MN-major [K, Ncols] (B_MN, through wgmma's transpose of 16-bit operands),
 // bf16 operands, fp32 accumulation, and one of five epilogues: EPI_GELU and
 // EPI_DGELU are K2's and K2b's (ffn.cu's source note), EPI_OUT rounds the
-// sum (plus an optional fp32 bias) to bf16 (the second GEMMs of K2 and K2b,
-// and the dh product of K8 and K10), EPI_STATS is K7's and K9's (the LM
+// sum (plus an optional fp32 bias) to bf16 (the second GEMMs of K2 and
+// K2b), EPI_STATS is K7's and K9's (the LM
 // head's logits and a partial cross-entropy statistic per row of each
 // 128-column tile) and EPI_DLOGITS is K10's first pass (the dlogits formed
 // from the logits in registers; lm_ce.cu's source note).
@@ -213,10 +215,19 @@ __device__ __forceinline__ float dgelu_exact(float z) {
          z * 0.39894228040143268f * expf(-0.5f * z * z);
 }
 
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x by the special function unit (ex2.approx: 2 ulps; 2^-inf = 0)
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // one element of the LM loss's dlogits, scale (exp(logit - m) inv_se - [the
-// label's column]), from the bf16-rounded logit: K8's first launch and
-// K10's EPI_DLOGITS both call it, and the _rn intrinsics keep the compiler
-// from contracting either into an FMA, so the two agree bit for bit
+// label's column]), from the bf16-rounded logit: K8's transform and K10's
+// EPI_DLOGITS both call it, and the _rn intrinsics keep the compiler from
+// contracting either into an FMA, so the two agree bit for bit
 __device__ __forceinline__ float dlogit(float logit, float m, float inv_se, float scale,
                                         bool label) {
   const float p = __fmul_rn(expf(logit - m), inv_se);
@@ -382,9 +393,10 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
 
 // keeps the compiler from moving accumulator reads or writes across the
 // asynchronous wgmma (its registers change behind the compiler's back)
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // Byte offset of (row, col) of a consumer's bf16 tile (128 columns) in its
@@ -529,7 +541,10 @@ __device__ __forceinline__ RowIn bias_inputs(const GemmArgs& p, const Tile& tl) 
 // 32 values of each of its four rows; the four lanes t % 4 of a row reduce
 // by shuffles. Columns past Ncols (W's rows there load as zero) count as
 // -inf: exp gives them exactly 0, and the row max stays finite because
-// col0 < Ncols.
+// col0 < Ncols. Each exponential is ex2.approx of one FFMA, (v - max) log2
+// e, where expf took about ten instructions: the statistics' share of the
+// epilogue, which a clock64 timeline on an H100 put at about 4,200 of its
+// 9,200 cycles a tile, as long as the buffer's writes.
 __device__ __forceinline__ void stats_epilogue(float (&acc)[2][64], const RowIn& in,
                                                const GemmArgs& p, const Tile& tl,
                                                unsigned char* bufp, uint32_t buf,
@@ -573,12 +588,13 @@ __device__ __forceinline__ void stats_epilogue(float (&acc)[2][64], const RowIn&
       m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
       m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
       const int label = in.label[2 * hf + h];
+      const float ml = __fmul_rn(m, LOG2E);
       float se = 0.f, ll = 0.f;
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
         const float v0 = acc[hf][4 * j + 2 * h], v1 = acc[hf][4 * j + 2 * h + 1];
-        se += expf(v0 - m);
-        se += expf(v1 - m);
+        se += ex2_approx(fmaf(v0, LOG2E, -ml));
+        se += ex2_approx(fmaf(v1, LOG2E, -ml));
         if (label == 8 * j) ll = v0;
         if (label == 8 * j + 1) ll = v1;
       }
@@ -1312,69 +1328,101 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// A bf16 tensor map's shape: rank 2 or 3, the sizes innermost first, the
+// byte pitches of dimensions 1 and 2, the box, and the swizzle of the box
+// in shared memory. TMA zero-fills reads past the sizes and clips writes
+// there.
+struct MapShape {
+  int rank;
+  long long dims[3], pitch[2];
+  int box[3], swizzle;
+  bool operator==(const MapShape& o) const {
+    return rank == o.rank && dims[0] == o.dims[0] && dims[1] == o.dims[1] &&
+           dims[2] == o.dims[2] && pitch[0] == o.pitch[0] && pitch[1] == o.pitch[1] &&
+           box[0] == o.box[0] && box[1] == o.box[1] && box[2] == o.box[2] &&
+           swizzle == o.swizzle;
+  }
+};
+
 // a bf16 row-major [outer, inner] tensor with a row pitch of ld elements
 // (ld * 2 a multiple of 16 bytes), read or written in boxes of [box_outer,
-// box_inner], 128-byte swizzled in shared memory; TMA zero-fills reads past
-// [outer, inner] and clips writes there
-inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int inner, int outer, int ld,
-                     int box_inner, int box_outer) {
+// box_inner], swizzled in 128-byte rows unless `swizzle` says otherwise
+inline MapShape rows_shape(int inner, int outer, int ld, int box_inner, int box_outer,
+                           CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+  return {2, {inner, outer, 1}, {static_cast<long long>(ld) * 2, 0},
+          {box_inner, box_outer, 1}, static_cast<int>(swizzle)};
+}
+
+inline cudaError_t make_map(CUtensorMap* map, const void* ptr, const MapShape& s) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
-  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * sizeof(bf16)};
-  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
-                            strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  cuuint64_t dims[3], strides[2];
+  cuuint32_t box[3];
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  for (int i = 0; i < 3; ++i) {
+    dims[i] = static_cast<cuuint64_t>(s.dims[i]);
+    box[i] = static_cast<cuuint32_t>(s.box[i]);
+  }
+  for (int i = 0; i < 2; ++i) strides[i] = static_cast<cuuint64_t>(s.pitch[i]);
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, s.rank, const_cast<void*>(ptr),
+                            dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            static_cast<CUtensorMapSwizzle>(s.swizzle),
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // The maps a launch needs, kept per host thread (no lock; ctypes calls
 // may come from several threads) in a direct-mapped table. The key is every
-// input of the encoding (address, sizes, pitch, box) and the device; a map
-// holds those and nothing of the memory's contents or owner, so a hit is
-// exactly the map a fresh encoding would give. That is what keeps a freed
-// or moved tensor from meeting a stale map: a moved weight has another
-// address, hence another key, and a tensor allocated where a freed one was,
-// with the same sizes and pitch, is described by the freed one's map
-// correctly. Nothing is ever invalidated; a collision re-encodes.
-struct MapKey {
-  const void* ptr;
-  int inner, outer, ld, box_inner, box_outer, device;
-  bool operator==(const MapKey& o) const {
-    return ptr == o.ptr && inner == o.inner && outer == o.outer && ld == o.ld &&
-           box_inner == o.box_inner && box_outer == o.box_outer && device == o.device;
-  }
-};
-
+// input of the encoding (address, shape) and the device; a map holds those
+// and nothing of the memory's contents or owner, so a hit is exactly the
+// map a fresh encoding would give. That is what keeps a freed or moved
+// tensor from meeting a stale map: a moved weight has another address,
+// hence another key, and a tensor allocated where a freed one was, with the
+// same sizes and pitch, is described by the freed one's map correctly.
+// Nothing is ever invalidated; a collision re-encodes.
 constexpr int MAP_CACHE = 256;
 
-inline cudaError_t cached_map(CUtensorMap* map, const void* ptr, int inner, int outer, int ld,
-                              int box_inner, int box_outer, int device) {
+inline cudaError_t cached_map(CUtensorMap* map, const void* ptr, const MapShape& shape,
+                              int device) {
   struct Entry {
     CUtensorMap map;
-    MapKey key;
+    const void* ptr;
+    MapShape shape;
+    int device;
     bool used;
   };
   static thread_local Entry table[MAP_CACHE];
-  const MapKey key = {ptr, inner, outer, ld, box_inner, box_outer, device};
   uint64_t h = reinterpret_cast<uintptr_t>(ptr) >> 4;
-  for (const int v : {inner, outer, ld, box_inner, box_outer, device})
+  for (const long long v : {static_cast<long long>(shape.rank), shape.dims[0], shape.dims[1],
+                            shape.dims[2], shape.pitch[0], shape.pitch[1],
+                            static_cast<long long>(shape.box[0]),
+                            static_cast<long long>(shape.box[1]),
+                            static_cast<long long>(shape.box[2]),
+                            static_cast<long long>(shape.swizzle),
+                            static_cast<long long>(device)})
     h = (h ^ static_cast<uint64_t>(v)) * 0x100000001B3ull;
   Entry& e = table[(h ^ (h >> 29)) % MAP_CACHE];
-  if (e.used && e.key == key) {
+  if (e.used && e.ptr == ptr && e.shape == shape && e.device == device) {
     *map = e.map;
     return cudaSuccess;
   }
-  const cudaError_t err = make_map(map, ptr, inner, outer, ld, box_inner, box_outer);
+  const cudaError_t err = make_map(map, ptr, shape);
   if (err == cudaSuccess) {
     e.map = *map;
-    e.key = key;
+    e.ptr = ptr;
+    e.shape = shape;
+    e.device = device;
     e.used = true;
   }
   return err;
+}
+
+// the map of a row-major [outer, inner] tensor (rows_shape)
+inline cudaError_t cached_map(CUtensorMap* map, const void* ptr, int inner, int outer, int ld,
+                              int box_inner, int box_outer, int device,
+                              CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+  return cached_map(map, ptr, rows_shape(inner, outer, ld, box_inner, box_outer, swizzle),
+                    device);
 }
 
 typedef void (*GemmKernel)(const CUtensorMap, const CUtensorMap, const CUtensorMap,

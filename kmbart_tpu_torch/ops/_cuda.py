@@ -45,7 +45,7 @@ _SIGNATURES = {
     "kmb_ffn_infer": (_I, [_P] * 7 + [_I] * 12 + [_P]),
     "kmb_ffn_cluster_slots": (_I, [_I, _I]),
     "kmb_lm_ce_fwd": (_I, [_P] * 9 + [_I] * 5 + [_P]),
-    "kmb_lm_ce_dlogits": (_I, [_P] * 6 + [_I] * 4 + [_P]),
+    "kmb_lm_ce_bwd": (_I, [_P] * 9 + [_I] * 8 + [_P]),
     "kmb_lm_ce_dh": (_I, [_P] * 4 + [_I] * 7 + [_P]),
     "kmb_lm_ce_recompute_dlogits": (_I, [_P] * 8 + [_I] * 5 + [_P]),
     "kmb_beam_attention": (_I, [_P, _I, _P, _P, _I, _P, _P, _P] + [_I] * 7 + [_P]),

@@ -14,22 +14,27 @@ recomputed from (h, W, bias) with the same bf16 rounding. On CPU tensors
 each runs its plain version (``*_plain``); on CUDA tensors it launches its
 kernel or raises.
 
-On the card K7-K10 run on the wgmma + TMA GEMM of ``csrc/wgmma_gemm.cuh``
-that K2 uses. K7 is the projection (``logits_plan`` lays it out, its tiles
-walking rows fastest) with an epilogue that stores the bf16 logits and one
-partial (max, exp-sum, label logit) per row and 128-column tile, then a
-merge of each row's partials in a fixed order. TMA's row pitch is a
-multiple of 16 bytes, so the logits live in an [N, ``padded_vocab(V)``]
-buffer and K7 returns its [:, :V] view (the whole buffer when V % 8 == 0).
-K9 is the same launch with the store turned off, so its statistics equal
-K7's bit for bit. K8 is two launches: ``dlogits_pass`` reads the logits at
-their row pitch and writes the dlogits into an [N, ``padded_vocab(V)``]
-buffer (the pad columns are zero), then dh = dlogits @ W runs on the same
-GEMM, laid out by ``dh_plan``. K10's first pass (``recompute_dlogits_pass``)
-is K7's projection with an epilogue that forms the same dlogits from the
-logits in registers and writes them into the same padded buffer; its second
-pass is K8's dh GEMM. K10's outputs thus equal K8's on K7's logits bit for
-bit. Both return the [:, :V] view of the buffer as their dlogits.
+On the card K7, K9 and K10's first pass run on the wgmma + TMA GEMM of
+``csrc/wgmma_gemm.cuh`` that K2 uses. K7 is the projection (``logits_plan``
+lays it out, its tiles walking rows fastest) with an epilogue that stores
+the bf16 logits and one partial (max, exp-sum, label logit) per row and
+128-column tile, then a merge of each row's partials in a fixed order.
+TMA's row pitch is a multiple of 16 bytes, so the logits live in an [N,
+``padded_vocab(V)``] buffer and K7 returns its [:, :V] view (the whole
+buffer when V % 8 == 0). K9 is the same launch with the store turned off,
+so its statistics equal K7's bit for bit. K8 is one launch of its own
+kernel (``csrc/lm_ce_bwd.cu``, laid out by ``bwd_plan``): a 64-row block
+across the whole of D keeps its fp32 dh sum in registers while it walks
+the vocab in 32-deep slices; each logits slice is turned into dlogits in
+shared memory, stored once into an [N, ``padded_vocab(V)``] buffer (the pad
+columns are zero) and fed as A to the dh product, so the dlogits never
+come back from memory; the vocab walk splits into parts, summed in part
+order, when 64-row blocks alone would leave SMs idle. K10's first pass
+(``recompute_dlogits_pass``) is K7's projection with an epilogue that forms
+the same dlogits from the logits in registers and writes them into the same
+padded buffer; its second pass (``dh_gemm``) is K8's kernel with the
+transform off, on K8's plan. K10's outputs thus equal K8's on K7's logits
+bit for bit. Both return the [:, :V] view of the buffer as their dlogits.
 
 ``fused_lm_ce`` is the differentiable loss, in one of the JAX package's
 modes (pallas_lm_ce.py:385-396): "fwdbwd" (K7 + K8, the default), "nomat"
@@ -40,6 +45,7 @@ gradient.
 """
 
 import os
+from typing import NamedTuple
 
 import torch
 
@@ -163,12 +169,62 @@ def padded_vocab(vocab_size):
     return -(-vocab_size // 8) * 8
 
 
-def dh_plan(n_rows, d_model, vocab_size, sms):
-    """The launch plan of the dh GEMM ([N, D] = [N, V] @ [V, D], depth V) on
-    a card with ``sms`` SMs: K2b's second GEMM's plan (``ffn.gemm_plan``),
-    which splits the V walk into fp32 partials, added in split order, only
-    when the output tiles alone would leave SMs idle."""
-    return gemm_plan(n_rows, d_model, vocab_size, sms, True)
+BWD_ROWS = 64      # csrc/lm_ce_bwd.cu ROWS: a work unit's rows
+BWD_SLICE = 32     # SK: the vocab slice depth
+BWD_GROUP = 768    # GROUP_COLS: a unit's columns (two warpgroups x 384)
+# bwd_plan's cost of an extra vocab part, in slices: finalize_sum writes and
+# reads its fp32 partials (8 N D bytes) at about 3 TB/s, and a 32-deep slice
+# of a 64 x 768 unit takes 0.5-0.75 us on an H100, so 1.5-2.2 MB cost one
+# slice (the plans over that range take 3 parts at N 5120 and 7 or 8 at N
+# 9216, which a sweep of part counts timed alike)
+PARTIAL_BYTES_PER_SLICE = 1.5e6
+MAX_SPLITS = 64
+
+
+class BwdPlan(NamedTuple):
+    """K8's launch plan (``bwd_plan``): N rows, D columns, V deep, in units
+    of 64 rows by 768 columns by ``kper`` 32-deep vocab slices."""
+    rows: int
+    cols: int
+    depth: int
+    row_blocks: int
+    groups: int
+    splits: int
+    kper: int
+    ctas: int
+
+    @property
+    def units(self):
+        return self.row_blocks * self.groups * self.splits
+
+
+def bwd_plan(n_rows, d_model, vocab_size, sms, splits=None):
+    """The launch plan of K8's kernel (and K10's second pass, the same
+    kernel with its transform off) on a card with ``sms`` SMs. A unit is a
+    64-row block across a 768-column group of D (one group at D 768) over
+    one part of the vocab walk; units run parts slowest, then row blocks,
+    then groups, block b taking units b, b + ctas, ... The vocab walk of
+    ceil(V / 32) slices is split into parts of ``kper`` slices (the last may
+    be shorter, none empty) when that shortens the critical path, the
+    persistent waves times kper, by more than the parts' fp32 partials cost
+    (``PARTIAL_BYTES_PER_SLICE``); ``splits`` forces a part count (a test
+    hook). finalize_sum adds the parts in part order."""
+    row_blocks = -(-n_rows // BWD_ROWS)
+    groups = -(-d_model // BWD_GROUP)
+    ksteps = -(-vocab_size // BWD_SLICE)
+    best = None
+    for want in ([splits] if splits else range(1, min(MAX_SPLITS, ksteps) + 1)):
+        kper = -(-ksteps // want)
+        parts = -(-ksteps // kper)
+        units = row_blocks * groups * parts
+        cost = -(-units // sms) * kper
+        if parts > 1:
+            cost += parts * 8 * n_rows * d_model / PARTIAL_BYTES_PER_SLICE
+        if best is None or cost < best[0]:
+            best = (cost, parts, kper, units)
+    _, parts, kper, units = best
+    return BwdPlan(n_rows, d_model, vocab_size, row_blocks, groups, parts, kper,
+                   min(sms, units))
 
 
 def _check_stats(name, N, m, inv_se, scale, labels):
@@ -179,27 +235,42 @@ def _check_stats(name, N, m, inv_se, scale, labels):
         raise ValueError(f"{name}: labels must be int32 [N]")
 
 
-def dlogits_pass(logits, m, inv_se, scale, labels):
-    """K8's first launch on CUDA tensors (checked by the caller; the logits
-    rows may be any pitch apart, as K7's view): the bf16 dlogits in an [N,
-    padded_vocab(V)] buffer with zero pad columns."""
+def _bwd_launch(name, logits, w, m, inv_se, scale, labels, splits=None):
+    """K8's launch on CUDA tensors (checked by the caller): the bf16 dlogits
+    in an [N, padded_vocab(V)] buffer with zero pad columns, and dh. The
+    kernel reads the logits by TMA, whose row pitch must be a multiple of 16
+    bytes: K7's buffer is, a contiguous [N, V] with V % 8 != 0 is copied
+    into one that is. ``splits`` forces the plan's part count (a test
+    hook)."""
     N, V = logits.shape
+    D = w.shape[1]
+    if N > 1 and logits.stride(0) % 8:
+        padded = torch.empty((N, padded_vocab(V)), dtype=logits.dtype, device=logits.device)
+        padded[:, :V] = logits
+        logits = padded[:, :V]
     dl = torch.empty((N, padded_vocab(V)), dtype=torch.bfloat16, device=logits.device)
-    check_aligned("lm_ce_bwd", logits, dl)
+    dh = torch.empty((N, D), dtype=torch.bfloat16, device=logits.device)
+    g = bwd_plan(N, D, V, sm_count(logits.device), splits)
+    partial = (torch.empty((g.splits, N, D), dtype=torch.float32, device=logits.device)
+               if g.splits > 1 else None)
+    check_aligned(name, logits, w, dl, dh, partial)
     lib, stream = _cuda.prepare(logits.device)
-    _cuda.check(lib.kmb_lm_ce_dlogits(
-        logits.data_ptr(), m.data_ptr(), inv_se.data_ptr(), scale.data_ptr(),
-        labels.data_ptr(), dl.data_ptr(), N, V, logits.stride(0), dl.shape[1], stream),
-        "lm_ce_bwd dlogits")
-    return dl
+    _cuda.check(lib.kmb_lm_ce_bwd(
+        logits.data_ptr(), w.data_ptr(), m.data_ptr(), inv_se.data_ptr(), scale.data_ptr(),
+        labels.data_ptr(), dl.data_ptr(), dh.data_ptr(),
+        None if partial is None else partial.data_ptr(), N, V, D,
+        logits.stride(0) if N > 1 else padded_vocab(V), dl.shape[1],
+        g.ctas, g.splits, g.kper, stream), name)
+    return dl, dh
 
 
 def dh_gemm(name, dl, V, w):
-    """K8's second launch and K10's second pass on CUDA tensors (checked by
-    the caller): dh = dl[:, :V] @ w on the wgmma + TMA main loop."""
+    """K10's second pass on CUDA tensors (checked by the caller): dh =
+    dl[:, :V] @ w on K8's kernel with the transform off, on K8's plan, so
+    its dh equals K8's bit for bit on the same dlogits."""
     N, D = dl.shape[0], w.shape[1]
     dh = torch.empty((N, D), dtype=torch.bfloat16, device=dl.device)
-    g = dh_plan(N, D, V, sm_count(dl.device))
+    g = bwd_plan(N, D, V, sm_count(dl.device))
     partial = (torch.empty((g.splits, N, D), dtype=torch.float32, device=dl.device)
                if g.splits > 1 else None)
     check_aligned(name, dl, w, dh, partial)
@@ -230,8 +301,7 @@ def lm_ce_bwd(logits, w, m, inv_se, scale, labels):
     _check_stats("lm_ce_bwd", N, m, inv_se, scale, labels)
     if N == 0:
         return torch.empty_like(logits), torch.empty((0, D), dtype=w.dtype, device=w.device)
-    dl = dlogits_pass(logits, m, inv_se, scale, labels)
-    dh = dh_gemm("lm_ce_bwd", dl, V, w)
+    dl, dh = _bwd_launch("lm_ce_bwd", logits, w, m, inv_se, scale, labels)
     lm_ce_bwd.launches += 1
     return dl[:, :V], dh
 
@@ -269,7 +339,7 @@ def lm_ce_recompute_bwd_plain(h, w, fbias, m, inv_se, scale, labels):
 def recompute_dlogits_pass(h, w, fbias, m, inv_se, scale, labels):
     """K10's first pass on CUDA tensors (checked by the caller): K7's
     projection with the dlogits epilogue, into an [N, padded_vocab(V)]
-    buffer with zero pad columns, as ``dlogits_pass`` writes it."""
+    buffer with zero pad columns, as K8 writes it."""
     (N, D), V = h.shape, w.shape[0]
     dl = torch.empty((N, padded_vocab(V)), dtype=torch.bfloat16, device=h.device)
     check_aligned("lm_ce_recompute_bwd", h, w, fbias, dl)
@@ -285,8 +355,9 @@ def recompute_dlogits_pass(h, w, fbias, m, inv_se, scale, labels):
 def lm_ce_recompute_bwd(h, w, fbias, m, inv_se, scale, labels):
     """K10; same contract as ``lm_ce_recompute_bwd_plain`` except that on a
     CUDA device h and w must be bf16, fbias and the statistics fp32 and
-    labels int32. ``recompute_dlogits_pass``, then K8's dh GEMM over its
-    padded buffer; the dlogits come back as ``lm_ce_bwd`` returns them."""
+    labels int32. ``recompute_dlogits_pass``, then K8's kernel with the
+    transform off over its padded buffer (``dh_gemm``); the dlogits come
+    back as ``lm_ce_bwd`` returns them."""
     if h.device.type == "cpu":
         return lm_ce_recompute_bwd_plain(h, w, fbias, m, inv_se, scale, labels)
     dev, N, V, D = _check_fwd("lm_ce_recompute_bwd", h, w, fbias, labels)

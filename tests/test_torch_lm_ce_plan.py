@@ -1,17 +1,18 @@
-"""K8's and K10's dh GEMM launch plan (kmbart_tpu_torch/ops/lm_ce.py dh_plan)
-and the padded row pitch of their dlogits buffer; K7's projection plan
-(logits_plan, which K9 and K10's first pass share) with its rows-fastest
-tile order; emulations of K7's (and K9's) statistics epilogue and merge and
-of K10's dlogits epilogue against the JAX package's Pallas kernels.
+"""K8's launch plan (kmbart_tpu_torch/ops/lm_ce.py bwd_plan), which K10's
+second pass shares, and the padded row pitch of their dlogits buffer; K7's
+projection plan (logits_plan, which K9 and K10's first pass share) with
+its rows-fastest tile order; emulations of K7's (and K9's) statistics
+epilogue and merge and of K10's dlogits epilogue against the JAX package's
+Pallas kernels.
 
-csrc/lm_ce.cu runs dh = dlogits @ W on the main loop of csrc/wgmma_gemm.cuh
-with the depth K = V, read through TMA maps whose row pitch must be a
-multiple of 16 bytes. These tests hold on the CPU what the kernel decodes
-from the plan: every output element is computed once in each split, the
-splits walk the whole vocab (its ragged last 64-deep slice included) in
-order, the persistent grid visits every tile once, the six D tiles of a row
-block are neighbours in the tile order, and the pitch is the least multiple
-of 8 bf16 columns that holds the vocab.
+csrc/lm_ce_bwd.cu walks the vocab in 32-deep slices for 64-row units
+across 768-column groups of D, read through TMA maps whose row pitch must
+be a multiple of 16 bytes. These tests hold on the CPU what the kernel
+decodes from the plan: every (part, row block, column group) unit is one
+persistent block's, each output element is summed once in each part, the
+parts walk the whole vocab (its ragged last slice included) in order, the
+persistent blocks walk it in step, and the pitch is the least multiple of
+8 bf16 columns that holds the vocab.
 """
 
 import jax.numpy as jnp
@@ -24,14 +25,14 @@ from kmbart_tpu.ops.pallas_lm_ce import (_fwd_project_stats_call, _fwd_stats_cal
 from kmbart_tpu_torch.ops import ffn, lm_ce
 from tests._torch_port import bf16_tol, to_jax, to_np, to_torch
 from tests.test_torch_beam_plan import _bf16, _butterfly
-from tests.test_torch_ffn_plan import _assert_partition, _intervals, _tile
 
 # (rows, d_model, vocab): the fine-tune head (N 128 x 40), the pretraining
-# head (N 128 x 72), chip_smoke.py's edge (ragged rows, a small ragged
-# vocab), the CPU tests' heads, and a vocab that is a multiple of 8 but not
-# of 64
-SHAPES = [(5120, 768, 50320), (9216, 768, 50320), (24, 128, 1100), (48, 128, 1100),
-          (64, 128, 2500), (1000, 768, 50264)]
+# head (N 128 x 72), the 12288-row head of the K2 rows, chip_smoke.py's
+# edge (ragged rows, a small ragged vocab), the CPU tests' heads, a vocab
+# that is a multiple of 8 but not of 64, and a 1024-wide head (two column
+# groups of K8's units)
+SHAPES = [(5120, 768, 50320), (9216, 768, 50320), (12288, 768, 50320), (24, 128, 1100),
+          (48, 128, 1100), (64, 128, 2500), (1000, 768, 50264), (4608, 1024, 50265)]
 
 
 @pytest.mark.parametrize("vocab,pitch", [(50320, 50320), (1100, 1104), (2500, 2504),
@@ -42,60 +43,87 @@ def test_padded_vocab(vocab, pitch):
     assert (2 * pitch) % 16 == 0   # TMA's row pitch in bytes
 
 
+def bwd_unit(t, g):
+    """K8's unit t as (part, row block, column group), decoded as
+    csrc/lm_ce_bwd.cu unit_at does: parts slowest, then row blocks, then
+    column groups."""
+    per = g.row_blocks * g.groups
+    return t // per, t % per // g.groups, t % g.groups
+
+
+def bwd_parts(g):
+    """The vocab slices [kb, kb + nk) of each part, as unit_at takes them."""
+    ksteps = -(-g.depth // lm_ce.BWD_SLICE)
+    return [(s * g.kper, min(ksteps, (s + 1) * g.kper)) for s in range(g.splits)]
+
+
 @pytest.mark.parametrize("sms", [132, 114])
 @pytest.mark.parametrize("n,d,v", SHAPES)
-def test_dh_plan_covers_each_output_once_in_split_order(n, d, v, sms):
-    g = lm_ce.dh_plan(n, d, v, sms)
+def test_bwd_plan_covers_each_unit_once_in_split_order(n, d, v, sms):
+    g = lm_ce.bwd_plan(n, d, v, sms)
     assert (g.rows, g.cols, g.depth) == (n, d, v)
-    rows = _intervals(g.row_tiles, ffn.ROW_TILE, n)
-    cols = _intervals(g.col_tiles, ffn.COL_TILE, d)
-    depth = _intervals(g.splits, g.kper * ffn.K_TILE, v)
-    _assert_partition(rows, n)
-    _assert_partition(cols, d)
-    _assert_partition(depth, v)   # split p sums vocab range p, added in p order
-    ksteps = -(-v // ffn.K_TILE)
-    assert sum(-(-(hi - lo) // ffn.K_TILE) for lo, hi in depth) == ksteps
-    tiles = g.row_tiles * g.col_tiles * g.splits
-    assert 1 <= g.ctas <= min(sms, tiles)
-    visits = np.zeros(tiles, np.int64)
+    assert g.row_blocks == -(-n // lm_ce.BWD_ROWS) and g.groups == -(-d // lm_ce.BWD_GROUP)
+    ksteps = -(-v // lm_ce.BWD_SLICE)
+    # the parts partition the vocab slices in order, none empty, and cover
+    # the ragged last slice
+    parts = bwd_parts(g)
+    assert parts[0][0] == 0 and parts[-1][1] == ksteps
+    assert all(lo < hi for lo, hi in parts)
+    assert all(a[1] == b[0] for a, b in zip(parts, parts[1:]))
+    assert (ksteps - 1) * lm_ce.BWD_SLICE < v <= ksteps * lm_ce.BWD_SLICE
+    assert 1 <= g.ctas <= min(sms, g.units)
+    visits = np.zeros(g.units, np.int64)
     for b in range(g.ctas):
         visits[b::g.ctas] += 1
     assert (visits == 1).all()
+    # each (part, row block, group) once; within each part every output
+    # element is summed by exactly one unit
+    seen = {bwd_unit(t, g) for t in range(g.units)}
+    assert len(seen) == g.units
     count = np.zeros((g.splits, n, d), np.uint8)
-    for t in range(tiles):
-        s, r, c = _tile(t, g)
-        count[s, rows[r][0]:rows[r][1], cols[c][0]:cols[c][1]] += 1
+    for s, r, c in seen:
+        row0, col0 = r * lm_ce.BWD_ROWS, c * lm_ce.BWD_GROUP
+        assert row0 < n and col0 < d
+        count[s, row0:row0 + lm_ce.BWD_ROWS, col0:col0 + lm_ce.BWD_GROUP] += 1
     assert (count == 1).all()
 
 
-def test_dh_plan_at_the_heads():
-    # fine-tune head: 40 x 6 output tiles, 1.8 waves on 132 SMs, no split;
-    # the vocab walk is 786 full slices and one of 16 columns
-    g = lm_ce.dh_plan(5120, 768, 50320, 132)
-    assert (g.row_tiles, g.col_tiles, g.splits, g.kper, g.ctas) == (40, 6, 1, 787, 132)
-    assert 50320 - 786 * ffn.K_TILE == 16
-    # pretraining head: 72 x 6 tiles
-    g = lm_ce.dh_plan(9216, 768, 50320, 132)
-    assert (g.row_tiles, g.col_tiles, g.splits, g.ctas) == (72, 6, 1, 132)
-    # the edge: one output tile, so the 18-slice vocab walk splits fully
-    g = lm_ce.dh_plan(24, 128, 1100, 132)
-    assert (g.row_tiles, g.col_tiles, g.splits, g.kper, g.ctas) == (1, 1, 18, 1, 18)
+def test_bwd_plan_at_the_heads():
+    # fine-tune head: 80 row blocks, the 1573-slice vocab walk (1572 full
+    # slices and one of 16 columns) in three parts: 240 units in two waves
+    g = lm_ce.bwd_plan(5120, 768, 50320, 132)
+    assert (g.row_blocks, g.groups, g.splits, g.kper, g.ctas) == (80, 1, 3, 525, 132)
+    assert 50320 - 1572 * lm_ce.BWD_SLICE == 16
+    # pretraining head: 144 row blocks in seven parts (1008 units)
+    g = lm_ce.bwd_plan(9216, 768, 50320, 132)
+    assert (g.row_blocks, g.groups, g.splits, g.kper, g.ctas) == (144, 1, 7, 225, 132)
+    # 132 row blocks fill the card at once: no split, no partials
+    g = lm_ce.bwd_plan(8448, 768, 50320, 132)
+    assert (g.splits, g.ctas) == (1, 132)
+    # the edge: one unit, so the 35-slice vocab walk splits fully
+    g = lm_ce.bwd_plan(24, 128, 1100, 132)
+    assert (g.row_blocks, g.groups, g.splits, g.kper, g.ctas) == (1, 1, 35, 1, 35)
+    # a 1024-wide head takes two column groups
+    assert lm_ce.bwd_plan(4608, 1024, 50265, 132).groups == 2
+    # a forced part count (the chip check's one-part launch)
+    g = lm_ce.bwd_plan(5120, 768, 50320, 132, splits=1)
+    assert (g.splits, g.kper, g.ctas) == (1, 1573, 80)
 
 
 @pytest.mark.parametrize("n", [5120, 9216])
-def test_dh_tile_order_keeps_a_row_block_together(n):
-    """Columns fastest: the six D tiles of a row block are consecutive, so
-    in each wave of the persistent grid all but the last row block run
-    with every D tile, and the dlogits slice they share comes from L2."""
-    g = lm_ce.dh_plan(n, 768, 50320, 132)
-    order = [_tile(t, g)[1:] for t in range(g.row_tiles * g.col_tiles)]
-    for r in range(g.row_tiles):
-        assert order[r * g.col_tiles:(r + 1) * g.col_tiles] == [(r, c) for c in
-                                                                range(g.col_tiles)]
-    wave = order[:g.ctas]
-    blocks = sorted({r for r, _ in wave})
-    assert blocks == list(range(len(blocks)))
-    assert all(sum(1 for r2, _ in wave if r2 == r) == g.col_tiles for r in blocks[:-1])
+def test_bwd_units_walk_the_vocab_in_step(n):
+    """Parts slowest: at any moment the persistent blocks hold units of at
+    most two neighbouring parts, so they read the same W slices at about
+    the same time and each comes from HBM about once, and a part's row
+    blocks are consecutive."""
+    g = lm_ce.bwd_plan(n, 768, 50320, 132)
+    order = [bwd_unit(t, g) for t in range(g.units)]
+    for s in range(g.splits):
+        block = order[s * g.row_blocks:(s + 1) * g.row_blocks]
+        assert block == [(s, r, 0) for r in range(g.row_blocks)]
+    for w0 in range(0, g.units, g.ctas):
+        wave = sorted({s for s, _, _ in order[w0:w0 + g.ctas]})
+        assert len(wave) <= 2 and wave == list(range(wave[0], wave[-1] + 1))
 
 
 def _tile_rows_first(t, g):
