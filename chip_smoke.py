@@ -36,8 +36,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                of their GEMMs (the port never calls either), K8's plan
                (work units, vocab parts), K8's dlogits also element by
                element in bf16 ulps, K8 at one part and with a negative
-               loss scale against its plain version too, K8's kernel with
-               its transform off (K10's second pass) and K10's first pass
+               loss scale against its plain version too, K10's two passes
                timed alone, K9's statistics
                and K10's outputs held equal to K7's and K8's (on K7's
                logits) bit for bit, K11's error split into what its bf16
@@ -973,8 +972,8 @@ def check_kernels(torch, dev):
         """Where K7-K10's time goes beside their yardsticks: ``gemm_ms``, one
         bf16 torch.mm of the same GEMM ([N, D] x [D, V] forward, [N, V] x
         [V, D] backward; the port calls neither), K8's plan, and ``dh_ms``,
-        K8's kernel with its transform off (K10's second pass: the dlogits
-        loaded, not formed) on the same dlogits."""
+        K10's second pass (the dlogits loaded, not formed; 128-row units) on
+        the same dlogits."""
         dl = dl.contiguous()
         fwd["gemm_ms"] = _time_ms(torch, lambda: torch.mm(h, w.t()), iters=10)
         bwd["gemm_ms"] = _time_ms(torch, lambda: torch.mm(dl, w), iters=10)
@@ -1076,9 +1075,11 @@ def check_kernels(torch, dev):
             fwd["k7_bound_ms"] = _k7_bound(N, V, D)["bound_ms"]
             bwd["k8_bound_ms"] = _k8_bound(N, V, D)["bound_ms"]
             _lm_ce_parts(fwd, bwd, h, w, rdl)
-            # K10's first pass alone
+            # each of K10's passes alone beside the torch.mm of its GEMM
+            # (dh_ms: the second pass)
             bwd["dlogits_ms"] = _time_ms(
                 torch, lambda: lm_ce.recompute_dlogits_pass(*bargs), iters=10)
+            bwd["dlogits_gemm_ms"] = fwd["gemm_ms"]
             fwd.update(_bound(2 * N * D + 2 * V * D + 4 * V + 4 * N + 12 * N,
                               bf16_flops=2.0 * N * V * D))
             bwd.update(_bound(2 * N * D + 2 * V * D + 4 * V + 16 * N + 2 * N * V + 2 * N * D,
@@ -1955,8 +1956,8 @@ def _profile_steps(torch, run_step, n=3):
                                  if any(t in e.key for t in tags)) / 1e3 / n
     k2, k2b = per_step("ffn_fwd_gemm", "ffn_finalize"), per_step("ffn_bwd_gemm")
     # the LM-CE kernels: K7 or K9 (a projection and the merge), K8 (one
-    # launch, lm_ce_bwd_gemm) or K10 (its first pass and K8's kernel with
-    # the transform off, lm_ce_dh_gemm), each with the split vocab walk's
+    # launch, lm_ce_bwd_gemm) or K10 (its first pass and its dh pass,
+    # lm_ce_dh_gemm), each with the split vocab walk's
     # finalize; a step runs one pair, "fwdbwd" or "nomat", so the shared
     # merge and finalize go to the pair whose own kernel ran. K11, K3 (the
     # bf16 cache's kernel)

@@ -40,10 +40,20 @@
 //      ceil(V / 8) x 8] buffer (the wrapper returns the [:, :V] view; the
 //      store's map spans the pitch, so the pad columns get bf16(0 + 0) =
 //      0), and K8 reads them at that pitch;
-//   K9 is K7's launch with the epilogue's store turned off (store_c = 0,
-//      under its own kernel name, lm_ce_stats_gemm): the same accumulators,
-//      rounding, partials and merge, so its statistics equal K7's bit for
-//      bit, and no [N, V] tensor reaches memory;
+//   K9 is K7's projection and statistics with the store compiled out, on a
+//      layout of its own (lm_ce_stats_gemm on wgmma_gemm.cuh's StatsCoop:
+//      256 x 128 tiles, both consumer warpgroups on each, 128 rows apiece
+//      as K7's consumers take theirs; no tile buffers; ops/lm_ce.py
+//      coop_plan): the same accumulator chains, rounding, partials and
+//      merge, so its statistics equal K7's bit for bit, and no [N, V]
+//      tensor reaches memory. A W slice feeds 256 rows, so a 64-deep slice
+//      moves 48 KB for 2 M MACs where K7's moves 32 KB for 1 M: Legacy's
+//      main loop waited for data at every slice (a clock64 timeline on an
+//      H100: 945 cycles a slice for 512 of tensor work, the ring full of
+//      loads in flight), and neither seven stages (no buffers) nor keeping
+//      a unit's 128 rows of h in shared memory (192 KB, leaving the ring
+//      four 8 KB W slices, too few for their latency) changed it; the
+//      epilogue is no longer hidden under the other consumer's main loop;
 //   K8 is one launch of its own kernel (lm_ce_bwd.cu, its source note): the
 //      dlogits formed on chip from each logits slice, stored once by TMA
 //      into an [N, ceil(V / 8) x 8] buffer with zero pad columns (the dW
@@ -58,11 +68,18 @@
 //      EPI_DLOGITS epilogue, which rounds the logits as K7 does, forms the
 //      dlogits in registers with the function K8 uses (kmb_wg::dlogit) and
 //      stores them in bf16 by TMA into K8's padded buffer (the dW product
-//      needs them anyway, pallas_lm_ce.py:426-431), then K8's kernel with
-//      its transform off (the dlogits loaded as A) on K8's plan. K10's
-//      outputs thus equal K8's on K7's logits bit for bit. The price
-//      against one fused pass is a second read of the dlogits, N x V x 2
-//      bytes (0.93 GB, about 0.3 ms at N 9216).
+//      needs them anyway, pallas_lm_ce.py:426-431), then a dh pass of its
+//      own (lm_ce_bwd.cu dh_tiles: units of 128 rows by a 384-column half
+//      of D, the dlogits loaded as A, both MMA warpgroups on one W slice)
+//      on K8's vocab parts (ops/lm_ce.py dh_plan), each dh element the
+//      same wgmma chain K8's kernel runs for it. K10's outputs thus equal
+//      K8's on K7's logits bit for bit. The price against one fused pass is
+//      a second read of the dlogits, N x V x 2 bytes (0.93 GB, about 0.3 ms
+//      at N 9216). The first pass runs on K9's 256-row cooperative tiles
+//      (DlogitsCoop: its two tile buffers and three stages); its epilogue
+//      forms the dlogits in branch-free chunks and writes its tile buffer
+//      by shared address (wgmma_gemm.cuh dlogits_epilogue), and each
+//      tile's store is waited for before the next tile's writes.
 // The ragged vocab tail (50320 = 393 x 128 + 16) is masked: W rows past V
 // load as zero, and those columns take no part in the statistics and get
 // zero dlogits, as _masked_w (:93-102) and the NEG floor do on the TPU.
@@ -111,22 +128,26 @@ __global__ void __launch_bounds__(kmb_wg::THREADS, 1)
   kmb_wg::gemm_tiles<kmb_wg::EPI_STATS, false, true>(&tma_a, &tma_b, &out_c, &out_d, p);
 }
 
-// K9: K7's instantiation under its own name, launched with store_c = 0
+// K9: K7's projection and statistics on a layout of its own (256-row
+// cooperative tiles, no tile buffers), launched with store_c = 0
+using K9Layout = kmb_wg::StatsCoop;
 __global__ void __launch_bounds__(kmb_wg::THREADS, 1)
     lm_ce_stats_gemm(const __grid_constant__ CUtensorMap tma_a,
                      const __grid_constant__ CUtensorMap tma_b,
                      const __grid_constant__ CUtensorMap out_c,
                      const __grid_constant__ CUtensorMap out_d, const kmb_wg::GemmArgs p) {
-  kmb_wg::gemm_tiles<kmb_wg::EPI_STATS, false, true>(&tma_a, &tma_b, &out_c, &out_d, p);
+  kmb_wg::gemm_tiles<kmb_wg::EPI_STATS, false, true, K9Layout>(&tma_a, &tma_b, &out_c, &out_d, p);
 }
 
-// K10's first pass: K7's projection with the EPI_DLOGITS epilogue
+// K10's first pass: K7's projection with the EPI_DLOGITS epilogue, on
+// 256-row cooperative tiles
 __global__ void __launch_bounds__(kmb_wg::THREADS, 1)
     lm_ce_dlogits_gemm(const __grid_constant__ CUtensorMap tma_a,
                        const __grid_constant__ CUtensorMap tma_b,
                        const __grid_constant__ CUtensorMap out_c,
                        const __grid_constant__ CUtensorMap out_d, const kmb_wg::GemmArgs p) {
-  kmb_wg::gemm_tiles<kmb_wg::EPI_DLOGITS, false, true>(&tma_a, &tma_b, &out_c, &out_d, p);
+  kmb_wg::gemm_tiles<kmb_wg::EPI_DLOGITS, false, true, kmb_wg::DlogitsCoop>(&tma_a, &tma_b,
+                                                                             &out_c, &out_d, p);
 }
 
 }  // namespace
@@ -134,8 +155,9 @@ __global__ void __launch_bounds__(kmb_wg::THREADS, 1)
 // K7, or K9 when logits is null. logits: bf16 [N, V] at row pitch ldl (ldl %
 // 8 == 0, ldl >= V; unused for K9); parts: fp32 [3, N, ceil(V / 128)]
 // scratch (max, exp-sum, label logit); m, se, ll: fp32 [N]; ctas: the
-// persistent grid (ops/lm_ce.py logits_plan). h, w, logits 16-byte aligned;
-// D % 8 == 0. The projection, then the merge of its partials.
+// persistent grid (ops/lm_ce.py logits_plan, coop_plan for K9). h, w,
+// logits 16-byte aligned; D % 8 == 0. The projection, then the merge of its
+// partials.
 KMB_EXPORT int kmb_lm_ce_fwd(const void* h, const void* w, const void* bias,
                              const void* labels, void* logits, void* parts, void* m, void* se,
                              void* ll, int N, int V, int D, int ldl, int ctas, void* stream) {
@@ -148,9 +170,11 @@ KMB_EXPORT int kmb_lm_ce_fwd(const void* h, const void* w, const void* bias,
   p.store_c = store;
   p.labels = (const int*)labels;
   p.stats = (float*)parts;
-  cudaError_t err = kmb_wg::gemm_launch(store ? lm_ce_logits_gemm : lm_ce_stats_gemm,
-                                        configured[store], false, h, D, w, logits, nullptr, p,
-                                        D, ctas, s, ldl);
+  cudaError_t err =
+      store ? kmb_wg::gemm_launch(lm_ce_logits_gemm, configured[1], false, h, D, w, logits,
+                                  nullptr, p, D, ctas, s, ldl)
+            : kmb_wg::gemm_launch<K9Layout>(lm_ce_stats_gemm, configured[0], false, h, D, w,
+                                            nullptr, nullptr, p, D, ctas, s);
   if (err != cudaSuccess) return err;
   const int nvt = (V + kmb_wg::BN - 1) / kmb_wg::BN;
   const float* part = (const float*)parts;
@@ -177,6 +201,7 @@ KMB_EXPORT int kmb_lm_ce_recompute_dlogits(const void* h, const void* w, const v
   p.row_m = (const float*)m;
   p.row_inv_se = (const float*)inv_se;
   p.row_scale = (const float*)scale;
-  return kmb_wg::gemm_launch(lm_ce_dlogits_gemm, configured, false, h, D, w, dl, nullptr, p, D,
-                             ctas, (cudaStream_t)stream, ldo);
+  return kmb_wg::gemm_launch<kmb_wg::DlogitsCoop>(lm_ce_dlogits_gemm, configured, false, h, D, w,
+                                                  dl, nullptr, p, D, ctas, (cudaStream_t)stream,
+                                                  ldo);
 }

@@ -73,6 +73,22 @@
 // table of every bf16 a of magnitude in [2^-16, 16) (the formula for the
 // other a), which consumer 1 fills while consumer 0 runs the first main
 // loop, at one ring stage less. Both give Legacy's bits.
+//
+// K9 and K10's first pass (lm_ce.cu) run on COOP layouts with 128 rows a
+// consumer (H 2): both consumers on one 256 x 128 tile, each its own 128
+// rows as Legacy's consumers take theirs, so each element's sum is K7's
+// chain, bit for bit. A slice then moves 48 KB for 2 M MACs (Legacy: 32
+// KB for 1 M), which the main loop's feed wanted more than it wanted the
+// ping-pong's overlap: a clock64 timeline put Legacy's K9 at 945 cycles a
+// 64-deep slice (512 of tensor work), its consumers waiting for data at
+// every slice with the ring full of loads in flight, and seven stages
+// in the buffers' room did not change that. The epilogues no longer
+// hide under the other consumer's main loop. K9 (StatsCoop) stores
+// nothing and keeps no tile buffers (NOBUF), four stages in their room
+// (on DlogitsCoop's three it measured 3% slower on an H100); K10's first
+// pass (DlogitsCoop) keeps its two buffers and three stages, its dlogits
+// epilogue in branch-free chunks written by shared address
+// (dlogits_epilogue's note).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
@@ -125,7 +141,7 @@ constexpr int LUT_BYTES = 2 * LUT_HALF * 2;
 // the other layouts). FAST, LUT: the training layouts' first-GEMM
 // epilogues (the header note).
 template <int H_, bool COOP_, int MODE_, int STAGES_, bool DEPENDENT_ = false,
-          bool WIDE_ = false, bool FAST_ = false, bool LUT_ = false>
+          bool WIDE_ = false, bool FAST_ = false, bool LUT_ = false, bool NOBUF_ = false>
 struct Layout {
   static constexpr int H = H_;
   static constexpr bool COOP = COOP_;
@@ -146,11 +162,15 @@ struct Layout {
   static constexpr int STAGE_BYTES = A_BYTES + TILE_COLS * BK * 2;
   static constexpr int TILE_BYTES = WG_ROWS * BN * 2;  // a consumer's bf16 buffer: two 64-col boxes
   static constexpr int BOX_BYTES = TILE_BYTES / 2;
+  // NOBUF: the epilogue stores nothing (EPI_STATS without its store, K9), so
+  // the consumers keep no tile buffers and the ring has their room
+  static constexpr int BUFS = NOBUF_ ? 0 : 2;
   static constexpr int NBARS = 2 * STAGES + 4;
   static constexpr int SMEM_BYTES =
-      STAGES * STAGE_BYTES + 2 * TILE_BYTES + 8 * NBARS + (LUT ? LUT_BYTES : 0) + 1024;
+      STAGES * STAGE_BYTES + BUFS * TILE_BYTES + 8 * NBARS + (LUT ? LUT_BYTES : 0) + 1024;
   static constexpr int EMPTY_ARRIVES = SHARED ? 8 : 4;  // one arrive from each consumer warp
   static_assert(!LUT || (!SHARED && MODE == MODE_PLAIN), "consumer 1 builds the table");
+  static_assert(BUFS || (!FAST && MODE == MODE_PLAIN), "only the statistics epilogue goes without");
   // MODE_CLUSTER: each CTA's fp32 parts of its tile (one or two, p.ppc),
   // each row-major with the rows padded to PART_PITCH bytes (a warp's
   // paired stores then take two wavefronts), PART_BYTES apart, over the
@@ -159,7 +179,8 @@ struct Layout {
   static constexpr int PART_BYTES = TILE_ROWS * PART_PITCH;
   static_assert(MODE != MODE_SUM || H == 1, "a running sum needs a second accumulator's registers");
   static_assert(MODE != MODE_CLUSTER || H == 1, "a cluster's parts are kept in registers");
-  static_assert(!SHARED || H == 1, "a shared tile is two m64n128 shares");
+  static_assert(!SHARED || H == 1 || (COOP && MODE == MODE_PLAIN && !FAST),
+                "a shared tile is two m64n128 shares, or two 128-row ones (the LM head's)");
   static_assert(!(COOP && WIDE), "one way to share a tile");
   static_assert(MODE != MODE_CLUSTER || 2 * PART_BYTES <= STAGES * STAGE_BYTES,
                 "two parts over the ring");
@@ -179,6 +200,12 @@ using WideCluster = Layout<1, false, MODE_CLUSTER, 4, true, true>;
 // same with its GELU from a table, at one stage less (Table)
 using Fast = Layout<2, false, MODE_PLAIN, STAGES, false, false, true>;
 using Table = Layout<2, false, MODE_PLAIN, 4, false, false, true, true>;
+// K9 and K10's first pass: both consumers on one 256 x 128 tile, 128 rows
+// each (48 KB stages: a W slice feeds twice the rows it feeds in Legacy);
+// K9 with no tile buffers and four stages, K10's first pass with its two
+// buffers and three
+using StatsCoop = Layout<2, true, MODE_PLAIN, 4, false, false, false, false, true>;
+using DlogitsCoop = Layout<2, true, MODE_PLAIN, 3>;
 // the training layouts' codes (ops/ffn.py TRAIN_LAYOUTS): F1 takes Legacy
 // or Table, B1 Legacy or Fast, the second GEMMs Legacy
 enum { TRAIN_LEGACY = 0, TRAIN_FAST = 1, TRAIN_TABLE = 2 };
@@ -481,6 +508,46 @@ __device__ __forceinline__ void store_tile(const CUtensorMap* map, uint32_t buf,
   }
 }
 
+// shared-memory loads and stores by address: volatile, so they keep their
+// order among themselves (a load written before a store to the same place
+// stays before it), and never taken for global ones (generic ld/st)
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void sts32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void sts128(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// a table entry (the table is written once, before any read: plain asm,
+// free to move)
+__device__ __forceinline__ uint32_t lut_u16(uint32_t addr) {
+  uint16_t v;
+  asm("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 r = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
 // The LM-head epilogues' inputs from global memory, loaded before the tile's
 // main loop so that their latency hides behind it: the thread's bias pairs
 // (columns c0 + 8 j + {0, 1}; 0 past Ncols) and its four rows' labels, as
@@ -545,18 +612,20 @@ __device__ __forceinline__ RowIn bias_inputs(const GemmArgs& p, const Tile& tl) 
 // e, where expf took about ten instructions: the statistics' share of the
 // epilogue, which a clock64 timeline on an H100 put at about 4,200 of its
 // 9,200 cycles a tile, as long as the buffer's writes.
-__device__ __forceinline__ void stats_epilogue(float (&acc)[2][64], const RowIn& in,
-                                               const GemmArgs& p, const Tile& tl,
-                                               unsigned char* bufp, uint32_t buf,
-                                               const CUtensorMap* out_c) {
-  const int t = threadIdx.x % 128, cw = threadIdx.x / 128;
-  const bool leader = t == 0, store = p.store_c != 0;
+// That epilogue's work on one tile; MASK: some column lies past Ncols,
+// LABEL: some lane of the warp may hold its row's label column (else ll is
+// 0).
+template <bool MASK, bool LABEL>
+__device__ __forceinline__ void stats_tile(float (&acc)[2][64], const RowIn& in,
+                                           const GemmArgs& p, const Tile& tl, bool store,
+                                           unsigned char* bufp, uint32_t buf,
+                                           const CUtensorMap* out_c) {
+  const int t = threadIdx.x % 128;
   const int r0 = 16 * (t / 32) + (t % 32) / 4, c0 = 2 * (t % 4);
-  if (store) bar_sync(3 + cw, 128);  // the leader's last store has read the buffer
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     const int col = tl.col0 + c0 + 8 * j;
-    const bool in0 = col < p.Ncols, in1 = col + 1 < p.Ncols;
+    const bool in0 = !MASK || col < p.Ncols, in1 = !MASK || col + 1 < p.Ncols;
     const float b0 = in.bias[j].x, b1 = in.bias[j].y;
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf)
@@ -595,13 +664,13 @@ __device__ __forceinline__ void stats_epilogue(float (&acc)[2][64], const RowIn&
         const float v0 = acc[hf][4 * j + 2 * h], v1 = acc[hf][4 * j + 2 * h + 1];
         se += ex2_approx(fmaf(v0, LOG2E, -ml));
         se += ex2_approx(fmaf(v1, LOG2E, -ml));
-        if (label == 8 * j) ll = v0;
-        if (label == 8 * j + 1) ll = v1;
+        if (LABEL && label == 8 * j) ll = v0;
+        if (LABEL && label == 8 * j + 1) ll = v1;
       }
 #pragma unroll
       for (int o = 1; o <= 2; o <<= 1) {
         se += __shfl_xor_sync(0xffffffffu, se, o);
-        ll += __shfl_xor_sync(0xffffffffu, ll, o);
+        if (LABEL) ll += __shfl_xor_sync(0xffffffffu, ll, o);
       }
       if (row < p.M && t % 4 == 0) {
         const size_t i = static_cast<size_t>(row) * nvt + tl.col0 / BN;
@@ -610,6 +679,38 @@ __device__ __forceinline__ void stats_epilogue(float (&acc)[2][64], const RowIn&
         p.stats[2 * plane + i] = ll;
       }
     }
+}
+
+// K7's and K9's epilogue on a consumer's tile. K7 (HAS_BUF, the buffer
+// written and stored when store_c) runs every tile with the masks at Ncols
+// and the label compares; K9 (no buffer, no store) drops the masks in the
+// tiles that end before Ncols and the label compares in a warp whose rows'
+// labels all lie outside the tile (393 of 394 column tiles at V 50320 and,
+// for a warp's 16 rows, about 24 of 25 of them): the same values, fewer
+// instructions, as its epilogue no longer hides under a main loop.
+template <bool HAS_BUF>
+__device__ __forceinline__ void stats_epilogue(float (&acc)[2][64], const RowIn& in,
+                                               const GemmArgs& p, const Tile& tl,
+                                               unsigned char* bufp, uint32_t buf,
+                                               const CUtensorMap* out_c) {
+  const int t = threadIdx.x % 128, cw = threadIdx.x / 128;
+  const bool leader = t == 0, store = HAS_BUF && p.store_c != 0;
+  if (store) bar_sync(3 + cw, 128);  // the leader's last store has read the buffer
+  if constexpr (HAS_BUF) {
+    stats_tile<true, true>(acc, in, p, tl, store, bufp, buf, out_c);
+  } else {
+    const bool mask = tl.col0 + BN > p.Ncols;  // the same in every thread
+    bool mine = false;  // one of the thread's rows has its label in the tile
+#pragma unroll
+    for (int r = 0; r < 4; ++r) mine |= static_cast<unsigned>(in.label[r] + 2 * (t % 4)) < BN;
+    if (__any_sync(0xffffffffu, mine)) {
+      if (mask) stats_tile<true, true>(acc, in, p, tl, false, bufp, buf, out_c);
+      else stats_tile<false, true>(acc, in, p, tl, false, bufp, buf, out_c);
+    } else {
+      if (mask) stats_tile<true, false>(acc, in, p, tl, false, bufp, buf, out_c);
+      else stats_tile<false, false>(acc, in, p, tl, false, bufp, buf, out_c);
+    }
+  }
   if (store && leader) tma_store_wait_read();
 }
 
@@ -618,34 +719,84 @@ __device__ __forceinline__ void stats_epilogue(float (&acc)[2][64], const RowIn&
 // them, then dlogit of each with its row's statistics, 0 in the columns
 // past Ncols, into the tile buffer and out by TMA through out_c, whose map
 // spans the dlogits buffer's padded row, so its pad columns get zeros.
+// On DlogitsCoop both consumers run it at once, after their main loop, so
+// its length adds to the tile's. Each thread's 128 elements go in chunks
+// of eight of one row (four column pairs), every dlogit of a chunk formed
+// with no branch and then masked at Ncols, so that their exact expf chains
+// overlap (with a branch around each element they ran one after another:
+// a clock64 timeline on an H100 put that epilogue at 18,606 cycles a tile,
+// this one at about 9,200); the buffer is written by shared-memory address
+// (generic stores kept every access behind the store before it, as
+// fast_epilogue's note says), and the tile's TMA store is waited for only
+// before the next tile's writes. Only the last column tile masks at Ncols,
+// and a warp whose rows' labels all lie outside the tile passes false for
+// the label to every dlogit it forms (the same formula; the compiler drops
+// the compares).
+//
+// That epilogue's chunks, on the sums with the bias already added; MASK:
+// some column lies past Ncols, LABEL: some lane of the warp may hold its
+// row's label column (else every dlogit takes dlogit's no-label branch)
+template <bool MASK, bool LABEL>
+__device__ __forceinline__ void dlogits_tile(float (&acc)[2][64], const RowIn& in,
+                                             const GemmArgs& p, const Tile& tl, uint32_t buf) {
+  const int t = threadIdx.x % 128;
+  const int r0 = 16 * (t / 32) + (t % 32) / 4, c0 = 2 * (t % 4);
+  const int lim = p.Ncols - tl.col0 - c0;  // the thread's columns 8j + {0, 1} below it are live
+  constexpr int U = 4;                     // column pairs a chunk
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 2 * hf + h;
+#pragma unroll
+      for (int j0 = 0; j0 < BN / 8; j0 += U) {
+        uint32_t d[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int j = j0 + u;
+          const float2 f = __bfloat1622float2(
+              __floats2bfloat162_rn(acc[hf][4 * j + 2 * h], acc[hf][4 * j + 2 * h + 1]));
+          const float v0 = dlogit(f.x, in.m[r], in.inv_se[r], in.scale[r],
+                                  LABEL && in.label[r] == 8 * j);
+          const float v1 = dlogit(f.y, in.m[r], in.inv_se[r], in.scale[r],
+                                  LABEL && in.label[r] == 8 * j + 1);
+          d[u] = pack_bf16(!MASK || 8 * j < lim ? v0 : 0.f, !MASK || 8 * j + 1 < lim ? v1 : 0.f);
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          sts32(buf + tile_offset(64 * hf + r0 + 8 * h, c0 + 8 * (j0 + u)), d[u]);
+      }
+    }
+}
+
 __device__ __forceinline__ void dlogits_epilogue(float (&acc)[2][64], const RowIn& in,
-                                                 const GemmArgs& p, const Tile& tl,
-                                                 unsigned char* bufp, uint32_t buf,
+                                                 const GemmArgs& p, const Tile& tl, uint32_t buf,
                                                  const CUtensorMap* out_c) {
   const int t = threadIdx.x % 128, cw = threadIdx.x / 128;
-  const int r0 = 16 * (t / 32) + (t % 32) / 4, c0 = 2 * (t % 4);
-  bar_sync(3 + cw, 128);  // the leader's last store has read the buffer
+  // the bias first (the same fp32 sum an element), so that its 32 registers
+  // are free before the chunks' expf chains start (with them live, ptxas
+  // spilled 120 bytes)
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int col = tl.col0 + c0 + 8 * j;
-    const bool in0 = col < p.Ncols, in1 = col + 1 < p.Ncols;
+  for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int r = 2 * hf + h;
-        const float2 f = __bfloat1622float2(__floats2bfloat162_rn(
-            acc[hf][4 * j + 2 * h] + in.bias[j].x, acc[hf][4 * j + 2 * h + 1] + in.bias[j].y));
-        const float d0 = in0 ? dlogit(f.x, in.m[r], in.inv_se[r], in.scale[r],
-                                      in.label[r] == 8 * j) : 0.f;
-        const float d1 = in1 ? dlogit(f.y, in.m[r], in.inv_se[r], in.scale[r],
-                                      in.label[r] == 8 * j + 1) : 0.f;
-        *reinterpret_cast<__nv_bfloat162*>(bufp + tile_offset(64 * hf + r0 + 8 * h,
-                                                              c0 + 8 * j)) =
-            __floats2bfloat162_rn(d0, d1);
+        acc[hf][4 * j + 2 * h] += in.bias[j].x;
+        acc[hf][4 * j + 2 * h + 1] += in.bias[j].y;
       }
-  }
-  store_tile(out_c, buf, tl);
+  if (t == 0) tma_store_wait_read();  // the last tile's store has read the buffer
+  bar_sync(3 + cw, 128);
+  bool mine = false;  // one of the thread's rows has its label in the tile
+#pragma unroll
+  for (int r = 0; r < 4; ++r) mine |= static_cast<unsigned>(in.label[r] + 2 * (t % 4)) < BN;
+  if (tl.col0 + BN > p.Ncols)  // the last column tile (the same in every thread)
+    dlogits_tile<true, true>(acc, in, p, tl, buf);
+  else if (__any_sync(0xffffffffu, mine))
+    dlogits_tile<false, true>(acc, in, p, tl, buf);
+  else
+    dlogits_tile<false, false>(acc, in, p, tl, buf);
+  store_tile(out_c, buf, tl, false);  // read while the next main loop runs
 }
 
 // a bf16 a's entry in the LUT layouts' table (its bits u less LUT_E0 << 7,
@@ -684,46 +835,6 @@ __device__ __forceinline__ void gelu_pass2(unsigned char* bufp, int i, int strid
     }
     *chunk = v;
   }
-}
-
-// shared-memory loads and stores by address: volatile, so they keep their
-// order among themselves (a load written before a store to the same place
-// stays before it), and never taken for global ones (generic ld/st)
-__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
-  uint32_t v;
-  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
-  return v;
-}
-
-__device__ __forceinline__ void sts32(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ uint4 lds128(uint32_t addr) {
-  uint4 v;
-  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "r"(addr));
-  return v;
-}
-
-__device__ __forceinline__ void sts128(uint32_t addr, uint4 v) {
-  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
-               "r"(v.z), "r"(v.w)
-               : "memory");
-}
-
-// a table entry (the table is written once, before any read: plain asm,
-// free to move)
-__device__ __forceinline__ uint32_t lut_u16(uint32_t addr) {
-  uint16_t v;
-  asm("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(addr));
-  return v;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 r = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&r);
 }
 
 // the h pairs (bf16(gelu(a)), packed) of G pairs of bf16 a (u): by the
@@ -801,10 +912,10 @@ __device__ __forceinline__ void epilogue(float (&acc)[L::H][64], const RowIn& in
   const bool leader = t == 0;
   const int r0 = 16 * (t / 32) + (t % 32) / 4, c0 = 2 * (t % 4);
   if constexpr (EPI == EPI_STATS) {
-    stats_epilogue(acc, in, p, tl, bufp, buf, out_c);
+    stats_epilogue<L::BUFS != 0>(acc, in, p, tl, bufp, buf, out_c);
     return;
   } else if constexpr (EPI == EPI_DLOGITS) {
-    dlogits_epilogue(acc, in, p, tl, bufp, buf, out_c);
+    dlogits_epilogue(acc, in, p, tl, buf, out_c);
     return;
   }
   if (EPI == EPI_OUT && p.partial != nullptr) {
@@ -1043,7 +1154,7 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap* tma_a, const CUten
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   const uint32_t base = smem_u32(smem);
   const uint32_t bufs = base + NST * L::STAGE_BYTES;   // consumer cw's buffer at bufs + cw*TILE
-  const uint32_t full0 = bufs + 2 * L::TILE_BYTES;     // full[s] at full0 + 8s
+  const uint32_t full0 = bufs + L::BUFS * L::TILE_BYTES;  // full[s] at full0 + 8s
   const uint32_t empty0 = full0 + 8 * NST;             // empty[s] at empty0 + 8s
   const uint32_t aux_full0 = empty0 + 8 * NST;         // aux_full[cw] at aux_full0 + 8cw
   const uint32_t aux_empty0 = aux_full0 + 16;          // aux_empty[cw] at aux_empty0 + 8cw
@@ -1168,7 +1279,7 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap* tma_a, const CUten
       te.row0 += L::COOP ? cw * L::WG_ROWS : 0;
       te.col0 += L::WIDE ? cw * BN : 0;
       RowIn in;
-      if constexpr (EPI == EPI_STATS || EPI == EPI_DLOGITS) in = row_inputs<EPI>(p, tl);
+      if constexpr (EPI == EPI_STATS || EPI == EPI_DLOGITS) in = row_inputs<EPI>(p, te);
       if constexpr (L::H == 1 && L::MODE != MODE_CLUSTER && (EPI == EPI_GELU || EPI == EPI_OUT))
         in = bias_inputs(p, te);
       float acc[L::H][64];

@@ -21,8 +21,10 @@ the bf16 logits and one partial (max, exp-sum, label logit) per row and
 128-column tile, then a merge of each row's partials in a fixed order.
 TMA's row pitch is a multiple of 16 bytes, so the logits live in an [N,
 ``padded_vocab(V)``] buffer and K7 returns its [:, :V] view (the whole
-buffer when V % 8 == 0). K9 is the same launch with the store turned off,
-so its statistics equal K7's bit for bit. K8 is one launch of its own
+buffer when V % 8 == 0). K9 is the same projection and statistics with no
+store, on tiles of 256 rows that both consumer warpgroups share
+(``coop_plan``), each consumer's chains K7's, so its statistics equal K7's
+bit for bit. K8 is one launch of its own
 kernel (``csrc/lm_ce_bwd.cu``, laid out by ``bwd_plan``): a 64-row block
 across the whole of D keeps its fp32 dh sum in registers while it walks
 the vocab in 32-deep slices; each logits slice is turned into dlogits in
@@ -30,11 +32,13 @@ shared memory, stored once into an [N, ``padded_vocab(V)``] buffer (the pad
 columns are zero) and fed as A to the dh product, so the dlogits never
 come back from memory; the vocab walk splits into parts, summed in part
 order, when 64-row blocks alone would leave SMs idle. K10's first pass
-(``recompute_dlogits_pass``) is K7's projection with an epilogue that forms
-the same dlogits from the logits in registers and writes them into the same
-padded buffer; its second pass (``dh_gemm``) is K8's kernel with the
-transform off, on K8's plan. K10's outputs thus equal K8's on K7's logits
-bit for bit. Both return the [:, :V] view of the buffer as their dlogits.
+(``recompute_dlogits_pass``) is K7's projection on K9's tiles with an
+epilogue that forms the same dlogits from the logits in registers and
+writes them into the same padded buffer; its second pass (``dh_gemm``)
+loads them on units of 128 rows by 384 columns (``dh_plan``) over K8's
+vocab parts, each element the chain K8's kernel runs for it. K10's outputs
+thus equal K8's on K7's logits bit for bit. Both return the [:, :V] view
+of the buffer as their dlogits.
 
 ``fused_lm_ce`` is the differentiable loss, in one of the JAX package's
 modes (pallas_lm_ce.py:385-396): "fwdbwd" (K7 + K8, the default), "nomat"
@@ -112,10 +116,26 @@ def logits_plan(n_rows, d_model, vocab_size, sms):
     return gemm_plan(n_rows, vocab_size, d_model, sms, False)
 
 
+COOP_ROWS = 256   # csrc/wgmma_gemm.cuh StatsCoop, DlogitsCoop: a tile's rows (128 a consumer)
+
+
+def coop_plan(n_rows, d_model, vocab_size, sms):
+    """The launch plan of K9 and of K10's first pass on a card with ``sms``
+    SMs: ``logits_plan``'s tile order (rows fastest, no split) on tiles of
+    256 rows by 128 columns, both consumer warpgroups on each tile (128
+    rows each), so a W slice feeds twice the rows it feeds in K7; ``ctas``
+    the persistent blocks, at most one a tile. Each consumer's partials (or
+    dlogits) land where K7's consumer of those rows puts them."""
+    g = logits_plan(n_rows, d_model, vocab_size, sms)
+    row_tiles = -(-n_rows // COOP_ROWS)
+    return g._replace(row_tiles=row_tiles, tile_rows=COOP_ROWS,
+                      ctas=min(sms, row_tiles * g.col_tiles))
+
+
 def _project_stats(wrapper, h, w, fbias, labels, store):
     """The launch of K7 on CUDA tensors, or of K9 when not ``store``, counted
     on ``wrapper``: (the logits buffer [N, padded_vocab(V)] or None, m, se,
-    ll)."""
+    ll). K9's plan is ``coop_plan``."""
     name = wrapper.__name__
     dev, N, V, D = _check_fwd(name, h, w, fbias, labels)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -126,7 +146,7 @@ def _project_stats(wrapper, h, w, fbias, labels, store):
         return buf, m, se, ll
     parts = torch.empty((3, N, -(-V // TILE_V)), **f32)
     check_aligned(name, h, w, fbias, buf)
-    g = logits_plan(N, D, V, sm_count(dev))
+    g = (logits_plan if store else coop_plan)(N, D, V, sm_count(dev))
     lib, stream = _cuda.prepare(dev)
     _cuda.check(lib.kmb_lm_ce_fwd(
         h.data_ptr(), w.data_ptr(), fbias.data_ptr(), labels.data_ptr(),
@@ -199,8 +219,8 @@ class BwdPlan(NamedTuple):
 
 
 def bwd_plan(n_rows, d_model, vocab_size, sms, splits=None):
-    """The launch plan of K8's kernel (and K10's second pass, the same
-    kernel with its transform off) on a card with ``sms`` SMs. A unit is a
+    """The launch plan of K8's kernel (whose vocab parts K10's second pass
+    takes, ``dh_plan``) on a card with ``sms`` SMs. A unit is a
     64-row block across a 768-column group of D (one group at D 768) over
     one part of the vocab walk; units run parts slowest, then row blocks,
     then groups, block b taking units b, b + ctas, ... The vocab walk of
@@ -225,6 +245,26 @@ def bwd_plan(n_rows, d_model, vocab_size, sms, splits=None):
     _, parts, kper, units = best
     return BwdPlan(n_rows, d_model, vocab_size, row_blocks, groups, parts, kper,
                    min(sms, units))
+
+
+DH_ROWS = 128     # csrc/lm_ce_bwd.cu DH_ROWS: a unit's rows in K10's second pass
+DH_COLS = 384     # DH_COLS: its columns, half of D 768
+
+
+def dh_plan(n_rows, d_model, vocab_size, sms):
+    """The launch plan of K10's second pass on a card with ``sms`` SMs:
+    K8's vocab parts (``bwd_plan``'s splits and kper, so that every dh
+    element sums the same slices in the same parts as K8's kernel) on units
+    of 128 rows by a 384-column block of D (``groups``: two halves at D
+    768). Units run parts slowest, then row blocks, then column blocks, so
+    the halves of a row block run side by side and share its dlogits rows in
+    L2; block b takes units b, b + ctas, ... At the heads the unit count is
+    K8's (rows / 128 x 2 = rows / 64)."""
+    k8 = bwd_plan(n_rows, d_model, vocab_size, sms)
+    row_blocks = -(-n_rows // DH_ROWS)
+    groups = -(-d_model // DH_COLS)
+    return BwdPlan(n_rows, d_model, vocab_size, row_blocks, groups, k8.splits, k8.kper,
+                   min(sms, row_blocks * groups * k8.splits))
 
 
 def _check_stats(name, N, m, inv_se, scale, labels):
@@ -266,11 +306,11 @@ def _bwd_launch(name, logits, w, m, inv_se, scale, labels, splits=None):
 
 def dh_gemm(name, dl, V, w):
     """K10's second pass on CUDA tensors (checked by the caller): dh =
-    dl[:, :V] @ w on K8's kernel with the transform off, on K8's plan, so
-    its dh equals K8's bit for bit on the same dlogits."""
+    dl[:, :V] @ w on 128-row units (``dh_plan``), whose dh equals K8's bit
+    for bit on the same dlogits."""
     N, D = dl.shape[0], w.shape[1]
     dh = torch.empty((N, D), dtype=torch.bfloat16, device=dl.device)
-    g = bwd_plan(N, D, V, sm_count(dl.device))
+    g = dh_plan(N, D, V, sm_count(dl.device))
     partial = (torch.empty((g.splits, N, D), dtype=torch.float32, device=dl.device)
                if g.splits > 1 else None)
     check_aligned(name, dl, w, dh, partial)
@@ -338,12 +378,12 @@ def lm_ce_recompute_bwd_plain(h, w, fbias, m, inv_se, scale, labels):
 
 def recompute_dlogits_pass(h, w, fbias, m, inv_se, scale, labels):
     """K10's first pass on CUDA tensors (checked by the caller): K7's
-    projection with the dlogits epilogue, into an [N, padded_vocab(V)]
-    buffer with zero pad columns, as K8 writes it."""
+    projection with the dlogits epilogue on ``coop_plan``'s tiles, into an
+    [N, padded_vocab(V)] buffer with zero pad columns, as K8 writes it."""
     (N, D), V = h.shape, w.shape[0]
     dl = torch.empty((N, padded_vocab(V)), dtype=torch.bfloat16, device=h.device)
     check_aligned("lm_ce_recompute_bwd", h, w, fbias, dl)
-    g = logits_plan(N, D, V, sm_count(h.device))
+    g = coop_plan(N, D, V, sm_count(h.device))
     lib, stream = _cuda.prepare(h.device)
     _cuda.check(lib.kmb_lm_ce_recompute_dlogits(
         h.data_ptr(), w.data_ptr(), fbias.data_ptr(), m.data_ptr(), inv_se.data_ptr(),
@@ -355,9 +395,8 @@ def recompute_dlogits_pass(h, w, fbias, m, inv_se, scale, labels):
 def lm_ce_recompute_bwd(h, w, fbias, m, inv_se, scale, labels):
     """K10; same contract as ``lm_ce_recompute_bwd_plain`` except that on a
     CUDA device h and w must be bf16, fbias and the statistics fp32 and
-    labels int32. ``recompute_dlogits_pass``, then K8's kernel with the
-    transform off over its padded buffer (``dh_gemm``); the dlogits come
-    back as ``lm_ce_bwd`` returns them."""
+    labels int32. ``recompute_dlogits_pass``, then ``dh_gemm`` over its
+    padded buffer; the dlogits come back as ``lm_ce_bwd`` returns them."""
     if h.device.type == "cpu":
         return lm_ce_recompute_bwd_plain(h, w, fbias, m, inv_se, scale, labels)
     dev, N, V, D = _check_fwd("lm_ce_recompute_bwd", h, w, fbias, labels)

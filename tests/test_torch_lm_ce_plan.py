@@ -1,9 +1,11 @@
-"""K8's launch plan (kmbart_tpu_torch/ops/lm_ce.py bwd_plan), which K10's
-second pass shares, and the padded row pitch of their dlogits buffer; K7's
-projection plan (logits_plan, which K9 and K10's first pass share) with
-its rows-fastest tile order; emulations of K7's (and K9's) statistics
-epilogue and merge and of K10's dlogits epilogue against the JAX package's
-Pallas kernels.
+"""K8's launch plan (kmbart_tpu_torch/ops/lm_ce.py bwd_plan), whose vocab
+parts K10's second pass shares on units of its own (dh_plan), and the
+padded row pitch of their dlogits buffer; K7's projection plan
+(logits_plan, which K9 and K10's first pass share) with its rows-fastest
+tile order; the shared-memory and register budgets of K9's layout and of
+K10's second pass, read from their sources; emulations of K7's (and K9's)
+statistics epilogue and merge and of K10's dlogits epilogue against the
+JAX package's Pallas kernels.
 
 csrc/lm_ce_bwd.cu walks the vocab in 32-deep slices for 64-row units
 across 768-column groups of D, read through TMA maps whose row pitch must
@@ -15,6 +17,9 @@ persistent blocks walk it in step, and the pitch is the least multiple of
 8 bf16 columns that holds the vocab.
 """
 
+import os
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,7 +27,7 @@ import torch
 
 from kmbart_tpu.ops.pallas_lm_ce import (_fwd_project_stats_call, _fwd_stats_call,
                                          _recompute_bwd_call)
-from kmbart_tpu_torch.ops import ffn, lm_ce
+from kmbart_tpu_torch.ops import _cuda, ffn, lm_ce
 from tests._torch_port import bf16_tol, to_jax, to_np, to_torch
 from tests.test_torch_beam_plan import _bf16, _butterfly
 
@@ -124,6 +129,213 @@ def test_bwd_units_walk_the_vocab_in_step(n):
     for w0 in range(0, g.units, g.ctas):
         wave = sorted({s for s, _, _ in order[w0:w0 + g.ctas]})
         assert len(wave) <= 2 and wave == list(range(wave[0], wave[-1] + 1))
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("n,d,v", SHAPES)
+def test_coop_plan_covers_each_tile_once_rows_fastest(n, d, v, sms):
+    """The plan of K9 and K10's first pass: logits_plan's rows-fastest
+    order on 256 x 128 tiles, each consumer warpgroup on 128 of a tile's
+    rows; every (row tile, column tile) is one persistent block's once, and
+    each row's partial at column index col0 / 128 (or its dlogits in the
+    tile's columns) is written exactly once, by the consumer that holds the
+    row."""
+    g = lm_ce.coop_plan(n, d, v, sms)
+    assert (g.rows, g.cols, g.depth, g.splits) == (n, v, d, 1)
+    assert g.tile_rows == lm_ce.COOP_ROWS and g.row_tiles == -(-n // lm_ce.COOP_ROWS)
+    assert g.col_tiles == -(-v // lm_ce.TILE_V)
+    tiles = g.row_tiles * g.col_tiles
+    assert 1 <= g.ctas <= min(sms, tiles)
+    visits = np.zeros(tiles, np.int64)
+    for b in range(g.ctas):
+        visits[b::g.ctas] += 1
+    assert (visits == 1).all()
+    partial = np.zeros((n, g.col_tiles), np.uint8)
+    for t in range(tiles):
+        r, c = _tile_rows_first(t, g)
+        for cw in range(2):
+            row0 = r * lm_ce.COOP_ROWS + 128 * cw
+            partial[row0:min(n, row0 + 128), c] += 1
+    assert (partial == 1).all()
+
+
+def test_coop_plan_at_the_heads():
+    # pretraining head: 36 row tiles of 256 x 394 column tiles on every SM
+    g = lm_ce.coop_plan(9216, 768, 50320, 132)
+    assert (g.row_tiles, g.col_tiles, g.kper, g.ctas) == (36, 394, 12, 132)
+    # the edge: one row tile (24 rows, consumer 1's all past N), nine columns
+    g = lm_ce.coop_plan(24, 128, 1100, 132)
+    assert (g.row_tiles, g.col_tiles, g.ctas) == (1, 9, 9)
+    # K7's plan keeps 128-row tiles
+    assert lm_ce.logits_plan(9216, 768, 50320, 132).row_tiles == 72
+
+
+def dh_unit(t, g):
+    """K10's second-pass unit t as (part, row block, column block), decoded
+    as csrc/lm_ce_bwd.cu unit_at<DH_ROWS, DH_COLS> does: parts slowest, then
+    row blocks of 128, then the 384-column blocks of D."""
+    per = g.row_blocks * g.groups
+    return t // per, t % per // g.groups, t % g.groups
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("n,d,v", SHAPES)
+def test_dh_plan_covers_each_row_column_and_slice_once(n, d, v, sms):
+    """K10's second pass: every (row, column of D, vocab slice) is summed by
+    exactly one unit, whose part holds the slice, and every unit is one
+    persistent block's."""
+    g = lm_ce.dh_plan(n, d, v, sms)
+    assert (g.rows, g.cols, g.depth) == (n, d, v)
+    assert g.row_blocks == -(-n // lm_ce.DH_ROWS) and g.groups == -(-d // lm_ce.DH_COLS)
+    assert 1 <= g.ctas <= min(sms, g.units)
+    visits = np.zeros(g.units, np.int64)
+    for b in range(g.ctas):
+        visits[b::g.ctas] += 1
+    assert (visits == 1).all()
+    ksteps = -(-v // lm_ce.BWD_SLICE)
+    parts = bwd_parts(g)
+    assert parts[0][0] == 0 and parts[-1][1] == ksteps
+    assert all(a[1] == b[0] for a, b in zip(parts, parts[1:]))
+    # (row block, column block, slice) counts at the units' granularity,
+    # then each row and column of D through its blocks
+    count = np.zeros((g.row_blocks, g.groups, ksteps), np.uint8)
+    for t in range(g.units):
+        s, r, c = dh_unit(t, g)
+        assert r * lm_ce.DH_ROWS < n and c * lm_ce.DH_COLS < d
+        count[r, c, parts[s][0]:parts[s][1]] += 1
+    assert (count == 1).all()
+    rows = np.arange(n) // lm_ce.DH_ROWS
+    cols = np.arange(d) // lm_ce.DH_COLS
+    assert rows.max() == g.row_blocks - 1 and cols.max() == g.groups - 1
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("n,d,v", SHAPES + [(200, 768, 300), (70, 1024, 300)])
+def test_dh_plan_takes_k8s_parts(n, d, v, sms):
+    """K10's dh equals K8's bit for bit only if each element sums the same
+    slices in the same parts: dh_plan's splits and kper are bwd_plan's at
+    every shape (ragged rows over two 384-column halves and a 1024-wide head
+    at a one-slice-a-part vocab among them), and where the rows fill 128-row
+    blocks at D 768 (the fine-tune and pretraining heads) its unit count is
+    K8's too. Within a part the sum is the wgmma chain over the same 192
+    columns, which only the card can hold equal (chip_smoke.py's
+    equal_to_k8)."""
+    k8, dh = lm_ce.bwd_plan(n, d, v, sms), lm_ce.dh_plan(n, d, v, sms)
+    assert (dh.splits, dh.kper) == (k8.splits, k8.kper)
+    if n % lm_ce.DH_ROWS == 0 and d == 2 * lm_ce.DH_COLS:
+        assert (dh.units, dh.ctas) == (k8.units, k8.ctas)
+
+
+def test_dh_plan_at_the_heads():
+    # pretraining head: 72 row blocks x 2 halves in K8's seven parts
+    g = lm_ce.dh_plan(9216, 768, 50320, 132)
+    assert (g.row_blocks, g.groups, g.splits, g.kper, g.units, g.ctas) == (72, 2, 7, 225, 1008,
+                                                                          132)
+    # fine-tune head: K8's three parts, 240 units
+    g = lm_ce.dh_plan(5120, 768, 50320, 132)
+    assert (g.row_blocks, g.groups, g.splits, g.kper, g.units) == (40, 2, 3, 525, 240)
+    # the edge: one 128-row block, one column block, K8's 35 one-slice parts
+    g = lm_ce.dh_plan(24, 128, 1100, 132)
+    assert (g.row_blocks, g.groups, g.splits, g.kper, g.ctas) == (1, 1, 35, 1, 35)
+    # a 1024-wide head: three 384-column blocks, the last two thirds empty
+    g = lm_ce.dh_plan(136, 1024, 2100, 132)
+    assert (g.row_blocks, g.groups) == (2, 3)
+
+
+@pytest.mark.parametrize("n", [5120, 9216])
+def test_dh_units_put_the_halves_of_a_row_block_side_by_side(n):
+    """The two halves of each 128-row block are consecutive units (they
+    read the same dlogits rows, which then come from L2), and a wave of the
+    persistent grid spans at most two neighbouring parts."""
+    g = lm_ce.dh_plan(n, 768, 50320, 132)
+    order = [dh_unit(t, g) for t in range(g.units)]
+    for t in range(0, g.units, 2):
+        (s0, r0, c0), (s1, r1, c1) = order[t], order[t + 1]
+        assert (s0, r0) == (s1, r1) and (c0, c1) == (0, 1)
+    for w0 in range(0, g.units, g.ctas):
+        wave = sorted({s for s, _, _ in order[w0:w0 + g.ctas]})
+        assert len(wave) <= 2 and wave == list(range(wave[0], wave[-1] + 1))
+
+
+def _constants(path, env=None):
+    """The integer constexprs of a CUDA source, evaluated in order (``env``:
+    those of a header it includes, its ``kmb_wg::`` names)."""
+    env = dict(env or {})
+    with open(os.path.join(_cuda.CSRC_DIR, path)) as f:
+        text = f.read()
+    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", text):
+        try:
+            expr = expr.replace("kmb_wg::", "").replace("/", "//")
+            env[name] = int(eval(expr, {}, dict(env)))
+        except (NameError, SyntaxError):
+            pass
+    return env, text
+
+
+SMEM_LIMIT = 232448   # the 227 KB a block may use on an H100
+
+
+def _layout_smem(c, text, name):
+    """SMEM_BYTES of a Layout alias of csrc/wgmma_gemm.cuh, computed as the
+    Layout template computes it from the alias's arguments."""
+    m = re.search(rf"using {name} = Layout<([^>]*)>;", text)
+    args = [a.strip() for a in m.group(1).split(",")]
+    args += ["false"] * (9 - len(args))
+    h, coop, _, stages, _, wide, _, lut, nobuf = args
+    stages = c[stages] if stages in c else int(stages)
+    h = int(h)
+    wg_rows = 64 * h
+    tile_rows = wg_rows * (2 if coop == "true" else 1)
+    tile_cols = c["BN"] * (2 if wide == "true" else 1)
+    stage = tile_rows * c["BK"] * 2 + tile_cols * c["BK"] * 2
+    bufs = 0 if nobuf == "true" else 2
+    lut_bytes = c["LUT_BYTES"] if lut == "true" else 0
+    return stages, stage, stages * stage + bufs * wg_rows * c["BN"] * 2 + 8 * (
+        2 * stages + 4) + lut_bytes + 1024
+
+
+def test_coop_layouts_fit_and_their_registers_balance():
+    """The layouts of K9 (csrc/lm_ce.cu K9Layout) and K10's first pass:
+    256 x 128 tiles shared by both consumers, their stages within the 227
+    KB a block may use with no room for another (Legacy: five 32 KB stages
+    and two 32 KB buffers); and the producer's setmaxnreg gives back what
+    the two consumers take from the 168 registers a thread ptxas gives the
+    384 threads."""
+    c, text = _constants("wgmma_gemm.cuh")
+    with open(os.path.join(_cuda.CSRC_DIR, "lm_ce.cu")) as f:
+        name = re.search(r"using K9Layout = kmb_wg::(\w+);", f.read()).group(1)
+    assert name == "StatsCoop"
+    # K9 without buffers, K10's first pass with its two 32 KB buffers (a
+    # consumer's 128 rows of bf16), both with no room for another stage
+    for name, bufs in (("StatsCoop", 0), ("DlogitsCoop", 2)):
+        stages, stage, smem = _layout_smem(c, text, name)
+        assert smem <= SMEM_LIMIT < smem + stage
+        assert stage == (lm_ce.COOP_ROWS + lm_ce.TILE_V) * c["BK"] * 2
+        assert smem == stages * stage + bufs * 32768 + 8 * (2 * stages + 4) + 1024
+    _, _, legacy = _layout_smem(c, text, "Legacy")
+    assert legacy == c["SMEM_BYTES"]
+    assert 128 * (168 - c["PRODUCER_REGS"]) >= 256 * (c["CONSUMER_REGS"] - 168)
+    assert c["THREADS"] == 384 and 168 * c["THREADS"] <= 65536
+
+
+def test_dh_units_fit_and_their_registers_balance():
+    """K10's second pass: a stage of the [128, 32] dlogits slice and W's
+    [32, 384] (8 + 24 KB, K8's 4 + 48), DH_NST stages within 227 KB, the
+    stages 1024-byte aligned for the swizzled boxes, and setmaxnreg's counts
+    balancing exactly at 168 registers a thread, K8's and the dh pass's
+    (whose MMA warpgroups take 232: 192 accumulators and a slice's A
+    fragments)."""
+    c, _ = _constants("lm_ce_bwd.cu")
+    assert (c["DH_ROWS"], c["DH_COLS"]) == (lm_ce.DH_ROWS, lm_ce.DH_COLS)
+    assert (c["ROWS"], c["SK"], c["GROUP_COLS"]) == (lm_ce.BWD_ROWS, lm_ce.BWD_SLICE,
+                                                     lm_ce.BWD_GROUP)
+    assert c["DH_A_BYTES"] == 8192 and c["DH_STAGE_BYTES"] == 32768
+    assert c["DH_STAGE_BYTES"] < c["STAGE_BYTES"] == 53248
+    assert c["DH_STAGE_BYTES"] % 1024 == 0 and c["DH_NST"] >= 6
+    assert c["DH_SMEM_BYTES"] <= SMEM_LIMIT
+    assert 128 * (c["LAUNCH_REGS"] - c["AUX_REGS"]) == 256 * (c["MMA_REGS"] - c["LAUNCH_REGS"])
+    assert (128 * (c["LAUNCH_REGS"] - c["DH_AUX_REGS"])
+            == 256 * (c["DH_MMA_REGS"] - c["LAUNCH_REGS"]))
 
 
 def _tile_rows_first(t, g):
