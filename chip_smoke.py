@@ -41,12 +41,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                and K10's outputs held equal to K7's and K8's (on K7's
                logits) bit for bit, K11's error split into what its bf16
                p terms cost and the rest, and K2's and K2b's host time a
-               call (and K7's); K3 at cache positions 0, 15 and 31 with the
+               call (and K7's, beside its plan's 256 x 128 tiles and
+               blocks); K3 at cache positions 0, 15 and 31 with the
                bound of the rows its ancestry reads, and in ring mode at the
                serving pool's shape (windows 1..32 with most wrapping past
                column 0, all 32, all 1; each window's output equal bit for
                bit to the scalar mode's on the window rotated to columns
-               [0, n)); K4's statistics and top-k against the statistics'
+               [0, n)), with its plan (blocks, heads a block, shared memory
+               a block), the blocks an SM holds by the occupancy API and the
+               waves; K4's statistics and top-k against the statistics'
                plain version and the stable sort (values and int64 indices
                bit for bit) at the beam step's, sampling's, the serving
                pool's and the flat rows' shapes, at k 1024 (its largest) and
@@ -778,6 +781,22 @@ def check_kernels(torch, dev):
     # one slot ("shared") and each beam keeping its own ("distinct"), head_dim
     # 32 and 128 (two shared-memory chunks), tiny widths, and the fp32 q and
     # fp32 cache instantiations
+    def k3_plan(B, K, T, D, H, n, ring):
+        """K3's plan (ops/beam_attention.py beam_plan: a block of 256
+        threads per (sample, head), its positions in chunks), the blocks an
+        SM holds by the occupancy API, and the waves of the grid."""
+        import ctypes
+        from kmbart_tpu_torch.ops import _cuda
+        p = ba.beam_plan(K, n - 1, D // H)
+        held = ctypes.c_int(0)
+        _cuda.check(_cuda.lib().kmb_beam_attention_occupancy(
+            K, D, H, int(ring), n, p.chunk, ctypes.byref(held)), "beam_attention occupancy")
+        sms = ffn.sm_count(dev)
+        return {"plan": {"blocks": B * H, "heads_a_block": 1, "smem_a_block": p.smem,
+                         "threads": 256, "chunk": p.chunk, "nchunks": p.nchunks},
+                "blocks_per_sm": held.value, "sms": sms,
+                "waves": -(-B * H // (held.value * sms)) if held.value else None}
+
     def k3(B, K, T, D, H, cache_index, timed, ancestry="branching", q_dtype=bf16,
            cache_dtype=bf16):
         q = randn(B * K, D, dtype=q_dtype) * (D // H) ** -0.5
@@ -804,6 +823,7 @@ def check_kernels(torch, dev):
             res["plain_ms"] = _time_ms(torch, lambda: ba.beam_gather_attention_plain(q, kc, vc, anc, cache_index, **kw))
             res.update(_k3_bound(anc, B, K, D, cache_index))
             res["bound_all_rows_ms"] = _k3_bound(None, B, K, D, cache_index)["bound_ms"]
+            res.update(k3_plan(B, K, T, D, H, cache_index + 1, False))
         return res
 
     # K1 backward at K1's shapes (the generation encoder's row is forward
@@ -984,6 +1004,10 @@ def check_kernels(torch, dev):
         plan = lm_ce.bwd_plan(dl.shape[0], w.shape[1], V, ffn.sm_count(dev))
         bwd.update({"units": plan.units, "splits": plan.splits, "kper": plan.kper,
                     "ctas": plan.ctas})
+        # K7's plan: 256 x 128 tiles, both consumers on each, rows fastest
+        p7 = lm_ce.coop_plan(h.shape[0], w.shape[1], V, ffn.sm_count(dev))
+        fwd["plan"] = {"tile_rows": p7.tile_rows, "tile_cols": lm_ce.TILE_V,
+                       "row_tiles": p7.row_tiles, "col_tiles": p7.col_tiles, "ctas": p7.ctas}
 
     def _k7_bound(N, V, D):
         return _bound(2 * N * D + 2 * V * D + 4 * V + 4 * N + 2 * N * V + 12 * N,
@@ -1206,6 +1230,7 @@ def check_kernels(torch, dev):
         res["plain_ms"] = _time_ms(torch, lambda: ba.beam_gather_attention_plain(
             q, kc, vc, anc, ring_col, **kw))
         res.update(_k3_ring_bound(torch, anc, B, K, T, D, ring_col, valid))
+        res.update(k3_plan(B, K, T, D, H, T, True))
         return res
 
     spread = [1 + i % 32 for i in range(112)]
@@ -4192,6 +4217,7 @@ def main(argv=None):
         return parallel_worker()
     if args.parallel_generate_worker:
         return parallel_generate_worker()
+    run_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -4292,6 +4318,7 @@ def main(argv=None):
     k4_entry = next(e for e in line if e["name"] == "vocab_stats_topk")
     k4_entry.update(merge_launches=launches["vocab_topk_merge"],
                     sort_ms=rows["vocab_stats_topk"]["sort_ms"])
+    emit("total", seconds=time.perf_counter() - run_start)
     print(card)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

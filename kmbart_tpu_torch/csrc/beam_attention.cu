@@ -56,7 +56,24 @@
 //   5. P.V: a thread per (beam, column pair) walks the positions in order,
 //      gathering V rows from shared memory; the sums stay fp32.
 // The work is 63 MFLOP against 31 MB, so the CUDA cores suffice; the
-// tensor cores would buy nothing a byte-bound step can use. Any number of
+// tensor cores would buy nothing a byte-bound step can use.
+//
+// What bounds it, measured (tools/beam_attention_timeline.py, clock64 and
+// %globaltimer marks of every block on an H100, and the occupancy API): 5
+// blocks run on an SM (shared memory), so the generate step's 768 blocks
+// run in two waves (660, then 108) and the serving pool's 1,344 in three;
+// at position 0 a block spends a third of its 8,700 cycles before its first
+// copy (the prologue's K^2 global ancestry reads), at 31 most of its 17,900
+// in the scores and P.V. Grids that fit one wave
+// measured slower at position 31: this kernel at 192 threads, 6 blocks an
+// SM and 26-position chunks 0.0234 ms against 0.0190 (faster only at
+// position 0, 0.0068 against 0.0073), and a block per (sample, group of
+// heads) streaming 8- or 16-position stages through mbarriers, fed by one
+// producer warp (TMA bulk copies of 128-byte rows, then cp.async) or by
+// every thread, 0.021-0.036. With every SM full, a block's phases take
+// longer by as much as the one wave saves, and per-chunk waits and
+// bookkeeping add to them: the step is bound by each SM's execution of the
+// eight-lane dot products and the P.V chains, not by waves. Any number of
 // heads (the grid is B x H), any head_dim % 8 == 0 with 16-byte aligned rows.
 //
 // The fp32-cache instantiations keep a scalar kernel (one block per
@@ -388,4 +405,25 @@ KMB_EXPORT int kmb_beam_attention(const void* q, int q_dtype, const void* k_cach
                                   cache_index, s);
   }
   return cudaErrorInvalidValue;
+}
+
+// The blocks of the bf16 kernel (bf16 queries; ring: its ring mode) that
+// one SM holds at once for K beams, n positions and `chunk`
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into blocks (an int).
+KMB_EXPORT int kmb_beam_attention_occupancy(int K, int D, int H, int ring, int n, int chunk,
+                                            void* blocks) {
+  const int hd = D / H;
+  if (hd % 8 || chunk < 1 || n < 1) return cudaErrorInvalidValue;
+  const size_t smem = beam_smem_bytes(K, n, hd, chunk);
+  auto query = [&](auto kernel) {
+    cudaError_t err = kmb_allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(static_cast<int*>(blocks), kernel,
+                                                         kThreads, smem);
+  };
+  if (hd == 64)
+    return ring ? query(beam_attention_bf16<__nv_bfloat16, 8, true>)
+                : query(beam_attention_bf16<__nv_bfloat16, 8, false>);
+  return ring ? query(beam_attention_bf16<__nv_bfloat16, 0, true>)
+              : query(beam_attention_bf16<__nv_bfloat16, 0, false>);
 }

@@ -27,33 +27,38 @@
 // grid, so:
 //   K7 runs the [N, V] = h @ W^T product on the persistent wgmma + TMA main
 //      loop of wgmma_gemm.cuh (A = h K-major, B = W [V, D] K-major, K = D =
-//      768, 128 x 128 tiles) with its EPI_STATS epilogue: bias, bf16
-//      rounding, a TMA store of the logits tile, and from the same rounded
-//      values in registers one partial (max, exp-sum, label logit) per row
-//      and 128-column tile into [3, N, ceil(V / 128)]; a second pass merges
-//      a row's partials in a fixed order (as K4 does). The tiles walk rows
-//      fastest: W (77 MB) is larger than the 50 MB L2, and walked columns
-//      fastest each 128-row block would stream all of it from HBM (3 GB at N
-//      5120), where rows fastest reads each 196 KB W slice once while h
-//      (7.9 MB at N 5120) stays in L2. TMA wants 16-byte row pitches, so for
-//      a vocab that is not a multiple of 8 the logits live in an [N,
-//      ceil(V / 8) x 8] buffer (the wrapper returns the [:, :V] view; the
-//      store's map spans the pitch, so the pad columns get bf16(0 + 0) =
+//      768) on 256 x 128 tiles that both consumer warpgroups share, 128 rows
+//      apiece (LogitsCoop, ops/lm_ce.py coop_plan), with its EPI_STATS
+//      epilogue: bias, bf16 rounding, the logits tile out by TMA, and from
+//      the same rounded values in registers one partial (max, exp-sum, label
+//      logit) per row and 128-column tile into [3, N, ceil(V / 128)]; a
+//      second pass merges a row's partials in a fixed order (as K4 does).
+//      Each element's sum is the chain it had on 128-row tiles, so the
+//      outputs are those of that layout bit for bit. A 64-deep slice moves
+//      48 KB for 2 M MACs where 128 x 128 tiles moved 32 KB for 1 M: their
+//      main loop waited for data at every slice with the ring full (a
+//      clock64 timeline on an H100: a slice every 1,000 cycles for 512 of
+//      tensor work, the epilogue hidden under the other consumer's main
+//      loop). The cooperative epilogue is exposed (about 5,000 cycles of a
+//      22,000-cycle tile), and the ring keeps four 48 KB stages (with
+//      three it waited for data a third of the time, 19,400 cycles a
+//      tile's main loop against 16,500) only because each consumer's tile
+//      buffer is half a tile: the first 64 columns leave while the
+//      statistics are taken, the last 64 once that store has read the
+//      buffer. On an H100 that is 4% under the 128-row tiles at N 5120 and
+//      even at 9216, where the main loop slows beside the logits' stores.
+//      The tiles walk rows fastest: W (77 MB) is larger than the 50 MB L2,
+//      and walked columns fastest each row block would stream all of it from
+//      HBM (3 GB at N 5120), where rows fastest reads each 196 KB W slice
+//      once while h (7.9 MB at N 5120) stays in L2. TMA wants 16-byte row
+//      pitches, so for a vocab that is not a multiple of 8 the logits live in
+//      an [N, ceil(V / 8) x 8] buffer (the wrapper returns the [:, :V] view;
+//      the store's map spans the pitch, so the pad columns get bf16(0 + 0) =
 //      0), and K8 reads them at that pitch;
-//   K9 is K7's projection and statistics with the store compiled out, on a
-//      layout of its own (lm_ce_stats_gemm on wgmma_gemm.cuh's StatsCoop:
-//      256 x 128 tiles, both consumer warpgroups on each, 128 rows apiece
-//      as K7's consumers take theirs; no tile buffers; ops/lm_ce.py
-//      coop_plan): the same accumulator chains, rounding, partials and
-//      merge, so its statistics equal K7's bit for bit, and no [N, V]
-//      tensor reaches memory. A W slice feeds 256 rows, so a 64-deep slice
-//      moves 48 KB for 2 M MACs where K7's moves 32 KB for 1 M: Legacy's
-//      main loop waited for data at every slice (a clock64 timeline on an
-//      H100: 945 cycles a slice for 512 of tensor work, the ring full of
-//      loads in flight), and neither seven stages (no buffers) nor keeping
-//      a unit's 128 rows of h in shared memory (192 KB, leaving the ring
-//      four 8 KB W slices, too few for their latency) changed it; the
-//      epilogue is no longer hidden under the other consumer's main loop;
+//   K9 is K7's projection and statistics with no store, on the same tiles
+//      with no tile buffers (StatsCoop: four stages in their room): the same
+//      accumulator chains, rounding, partials and merge, so its statistics
+//      equal K7's bit for bit, and no [N, V] tensor reaches memory;
 //   K8 is one launch of its own kernel (lm_ce_bwd.cu, its source note): the
 //      dlogits formed on chip from each logits slice, stored once by TMA
 //      into an [N, ceil(V / 8) x 8] buffer with zero pad columns (the dW
@@ -119,17 +124,19 @@ __global__ void lm_ce_merge_kernel(const float* __restrict__ part_m,
 }
 
 // K7's projection on the shared main loop (wgmma_gemm.cuh): A = h [N, D]
-// K-major, B = W [V, D] K-major, the EPI_STATS epilogue, rows fastest
+// K-major, B = W [V, D] K-major, the EPI_STATS epilogue, rows fastest, on
+// 256-row cooperative tiles with two half buffers and four stages
+using K7Layout = kmb_wg::LogitsCoop;
 __global__ void __launch_bounds__(kmb_wg::THREADS, 1)
     lm_ce_logits_gemm(const __grid_constant__ CUtensorMap tma_a,
                       const __grid_constant__ CUtensorMap tma_b,
                       const __grid_constant__ CUtensorMap out_c,
                       const __grid_constant__ CUtensorMap out_d, const kmb_wg::GemmArgs p) {
-  kmb_wg::gemm_tiles<kmb_wg::EPI_STATS, false, true>(&tma_a, &tma_b, &out_c, &out_d, p);
+  kmb_wg::gemm_tiles<kmb_wg::EPI_STATS, false, true, K7Layout>(&tma_a, &tma_b, &out_c, &out_d, p);
 }
 
-// K9: K7's projection and statistics on a layout of its own (256-row
-// cooperative tiles, no tile buffers), launched with store_c = 0
+// K9: K7's projection and statistics on the same tiles with no tile
+// buffers (four stages in their room): the statistics alone
 using K9Layout = kmb_wg::StatsCoop;
 __global__ void __launch_bounds__(kmb_wg::THREADS, 1)
     lm_ce_stats_gemm(const __grid_constant__ CUtensorMap tma_a,
@@ -155,7 +162,7 @@ __global__ void __launch_bounds__(kmb_wg::THREADS, 1)
 // K7, or K9 when logits is null. logits: bf16 [N, V] at row pitch ldl (ldl %
 // 8 == 0, ldl >= V; unused for K9); parts: fp32 [3, N, ceil(V / 128)]
 // scratch (max, exp-sum, label logit); m, se, ll: fp32 [N]; ctas: the
-// persistent grid (ops/lm_ce.py logits_plan, coop_plan for K9). h, w,
+// persistent grid (ops/lm_ce.py coop_plan). h, w,
 // logits 16-byte aligned; D % 8 == 0. The projection, then the merge of its
 // partials.
 KMB_EXPORT int kmb_lm_ce_fwd(const void* h, const void* w, const void* bias,
@@ -167,12 +174,11 @@ KMB_EXPORT int kmb_lm_ce_fwd(const void* h, const void* w, const void* bias,
   const cudaStream_t s = (cudaStream_t)stream;
   static unsigned configured[2] = {0, 0};  // a bit per device, for each kernel
   kmb_wg::GemmArgs p = {(const float*)bias, nullptr, N, V, 0, 0, 1, 0};
-  p.store_c = store;
   p.labels = (const int*)labels;
   p.stats = (float*)parts;
   cudaError_t err =
-      store ? kmb_wg::gemm_launch(lm_ce_logits_gemm, configured[1], false, h, D, w, logits,
-                                  nullptr, p, D, ctas, s, ldl)
+      store ? kmb_wg::gemm_launch<K7Layout>(lm_ce_logits_gemm, configured[1], false, h, D, w,
+                                            logits, nullptr, p, D, ctas, s, ldl)
             : kmb_wg::gemm_launch<K9Layout>(lm_ce_stats_gemm, configured[0], false, h, D, w,
                                             nullptr, nullptr, p, D, ctas, s);
   if (err != cudaSuccess) return err;

@@ -74,19 +74,22 @@
 // other a), which consumer 1 fills while consumer 0 runs the first main
 // loop, at one ring stage less. Both give Legacy's bits.
 //
-// K9 and K10's first pass (lm_ce.cu) run on COOP layouts with 128 rows a
-// consumer (H 2): both consumers on one 256 x 128 tile, each its own 128
-// rows as Legacy's consumers take theirs, so each element's sum is K7's
-// chain, bit for bit. A slice then moves 48 KB for 2 M MACs (Legacy: 32
-// KB for 1 M), which the main loop's feed wanted more than it wanted the
-// ping-pong's overlap: a clock64 timeline put Legacy's K9 at 945 cycles a
-// 64-deep slice (512 of tensor work), its consumers waiting for data at
-// every slice with the ring full of loads in flight, and seven stages
-// in the buffers' room did not change that. The epilogues no longer
-// hide under the other consumer's main loop. K9 (StatsCoop) stores
-// nothing and keeps no tile buffers (NOBUF), four stages in their room
-// (on DlogitsCoop's three it measured 3% slower on an H100); K10's first
-// pass (DlogitsCoop) keeps its two buffers and three stages, its dlogits
+// K7, K9 and K10's first pass (lm_ce.cu) run on COOP layouts with 128 rows
+// a consumer (H 2): both consumers on one 256 x 128 tile, each its own 128
+// rows as Legacy's consumers take theirs, so each element's sum is the chain
+// it had on Legacy's tiles, bit for bit. A slice then moves 48 KB for 2 M
+// MACs (Legacy: 32 KB for 1 M), which the main loop's feed wanted more than
+// it wanted the ping-pong's overlap: a clock64 timeline put Legacy's K9 at
+// 945 cycles a 64-deep slice (512 of tensor work), its consumers waiting for
+// data at every slice with the ring full of loads in flight, and seven
+// stages in the buffers' room did not change that. The epilogues no longer
+// hide under the other consumer's main loop. K9 (StatsCoop) stores nothing
+// and keeps no tile buffers (NOBUF), four stages in their room (on
+// DlogitsCoop's three it measured 3% slower on an H100); K7 (LogitsCoop)
+// keeps four stages with half buffers (HALFBUF: 64 columns a consumer, the
+// tile's logits leaving in two halves; on three stages with whole buffers
+// its main loop waited for data a third of the time); K10's first pass
+// (DlogitsCoop) keeps its two whole buffers and three stages, its dlogits
 // epilogue in branch-free chunks written by shared address
 // (dlogits_epilogue's note).
 #pragma once
@@ -141,7 +144,8 @@ constexpr int LUT_BYTES = 2 * LUT_HALF * 2;
 // the other layouts). FAST, LUT: the training layouts' first-GEMM
 // epilogues (the header note).
 template <int H_, bool COOP_, int MODE_, int STAGES_, bool DEPENDENT_ = false,
-          bool WIDE_ = false, bool FAST_ = false, bool LUT_ = false, bool NOBUF_ = false>
+          bool WIDE_ = false, bool FAST_ = false, bool LUT_ = false, bool NOBUF_ = false,
+          bool HALFBUF_ = false>
 struct Layout {
   static constexpr int H = H_;
   static constexpr bool COOP = COOP_;
@@ -160,8 +164,11 @@ struct Layout {
   static constexpr int TILE_COLS = BN * (WIDE ? 2 : 1);       // columns its B slice covers
   static constexpr int A_BYTES = TILE_ROWS * BK * 2;
   static constexpr int STAGE_BYTES = A_BYTES + TILE_COLS * BK * 2;
-  static constexpr int TILE_BYTES = WG_ROWS * BN * 2;  // a consumer's bf16 buffer: two 64-col boxes
-  static constexpr int BOX_BYTES = TILE_BYTES / 2;
+  // a consumer's bf16 buffer: two 64-column boxes, or with HALFBUF one (the
+  // tile leaves it in two halves, K7's)
+  static constexpr bool HALFBUF = HALFBUF_;
+  static constexpr int TILE_BYTES = WG_ROWS * BN * (HALFBUF ? 1 : 2);
+  static constexpr int BOX_BYTES = HALFBUF ? TILE_BYTES : TILE_BYTES / 2;
   // NOBUF: the epilogue stores nothing (EPI_STATS without its store, K9), so
   // the consumers keep no tile buffers and the ring has their room
   static constexpr int BUFS = NOBUF_ ? 0 : 2;
@@ -200,12 +207,14 @@ using WideCluster = Layout<1, false, MODE_CLUSTER, 4, true, true>;
 // same with its GELU from a table, at one stage less (Table)
 using Fast = Layout<2, false, MODE_PLAIN, STAGES, false, false, true>;
 using Table = Layout<2, false, MODE_PLAIN, 4, false, false, true, true>;
-// K9 and K10's first pass: both consumers on one 256 x 128 tile, 128 rows
-// each (48 KB stages: a W slice feeds twice the rows it feeds in Legacy);
-// K9 with no tile buffers and four stages, K10's first pass with its two
-// buffers and three
+// K7, K9 and K10's first pass: both consumers on one 256 x 128 tile, 128
+// rows each (48 KB stages: a W slice feeds twice the rows it feeds in
+// Legacy); K9 with no tile buffers and four stages, K10's first pass with
+// its two buffers and three, K7 with two half buffers (16 KB, 64 columns
+// each) and four
 using StatsCoop = Layout<2, true, MODE_PLAIN, 4, false, false, false, false, true>;
 using DlogitsCoop = Layout<2, true, MODE_PLAIN, 3>;
+using LogitsCoop = Layout<2, true, MODE_PLAIN, 4, false, false, false, false, false, true>;
 // the training layouts' codes (ops/ffn.py TRAIN_LAYOUTS): F1 takes Legacy
 // or Table, B1 Legacy or Fast, the second GEMMs Legacy
 enum { TRAIN_LEGACY = 0, TRAIN_FAST = 1, TRAIN_TABLE = 2 };
@@ -222,7 +231,6 @@ struct GemmArgs {
   int ksteps;         // 64-deep K slices in all
   int kper, splits;   // the K walk in `splits` parts of kper slices (the last may be short)
   int store_d;        // EPI_GELU: also store a through the second output map
-  int store_c;        // EPI_STATS: store the bf16 tile (0: the statistics alone, K9)
   const int* labels;  // EPI_STATS, EPI_DLOGITS: each row's label column, [M]
   float* stats;       // EPI_STATS: fp32 [3, M, ceil(Ncols / BN)]: max, exp-sum, label logit
   const float* row_m;       // EPI_DLOGITS: each row's logit max, [M]
@@ -508,6 +516,16 @@ __device__ __forceinline__ void store_tile(const CUtensorMap* map, uint32_t buf,
   }
 }
 
+// store_tile for a one-box buffer: its 64 columns at (c0, r0)
+__device__ __forceinline__ void store_box(const CUtensorMap* map, uint32_t buf, int c0, int r0) {
+  fence_async_smem();
+  bar_sync(3 + threadIdx.x / 128, 128);
+  if (threadIdx.x % 128 == 0) {
+    tma_store(map, buf, c0, r0);
+    tma_store_commit();
+  }
+}
+
 // shared-memory loads and stores by address: volatile, so they keep their
 // order among themselves (a load written before a store to the same place
 // stays before it), and never taken for global ones (generic ld/st)
@@ -601,8 +619,8 @@ __device__ __forceinline__ RowIn bias_inputs(const GemmArgs& p, const Tile& tl) 
 }
 
 // K7's epilogue on a consumer's tile (register layout as in epilogue below):
-// logits = bf16(acc + bias), stored by TMA through out_c when store_c, and
-// from the same rounded values, for each row r < M of the tile, the partial
+// logits = bf16(acc + bias), stored by TMA through out_c (STORE), and from
+// the same rounded values, for each row r < M of the tile, the partial
 // (max, exp-sum about that max, label logit or 0) over the tile's columns
 // below Ncols, at stats[{0, 1, 2} M nvt + r nvt + col0 / BN]. A thread holds
 // 32 values of each of its four rows; the four lanes t % 4 of a row reduce
@@ -614,18 +632,19 @@ __device__ __forceinline__ RowIn bias_inputs(const GemmArgs& p, const Tile& tl) 
 // 9,200 cycles a tile, as long as the buffer's writes.
 // That epilogue's work on one tile; MASK: some column lies past Ncols,
 // LABEL: some lane of the warp may hold its row's label column (else ll is
-// 0).
-template <bool MASK, bool LABEL>
+// 0); STORE: the rounded pairs go out by TMA through the consumer's half
+// buffer (at shared address buf, 64 columns), written by shared-memory
+// address: the first 64 columns before the statistics are taken, so that
+// their store runs beside them, the last 64 after, once that store has
+// read the buffer; the next tile's writes wait for the second's read.
+template <bool MASK, bool LABEL, bool STORE>
 __device__ __forceinline__ void stats_tile(float (&acc)[2][64], const RowIn& in,
-                                           const GemmArgs& p, const Tile& tl, bool store,
-                                           unsigned char* bufp, uint32_t buf,
+                                           const GemmArgs& p, const Tile& tl, uint32_t buf,
                                            const CUtensorMap* out_c) {
-  const int t = threadIdx.x % 128;
+  const int t = threadIdx.x % 128, cw = threadIdx.x / 128;
   const int r0 = 16 * (t / 32) + (t % 32) / 4, c0 = 2 * (t % 4);
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
-    const int col = tl.col0 + c0 + 8 * j;
-    const bool in0 = !MASK || col < p.Ncols, in1 = !MASK || col + 1 < p.Ncols;
     const float b0 = in.bias[j].x, b1 = in.bias[j].y;
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf)
@@ -634,15 +653,19 @@ __device__ __forceinline__ void stats_tile(float (&acc)[2][64], const RowIn& in,
         float& v0 = acc[hf][4 * j + 2 * h];
         float& v1 = acc[hf][4 * j + 2 * h + 1];
         const __nv_bfloat162 r = __floats2bfloat162_rn(v0 + b0, v1 + b1);
-        if (store)
-          *reinterpret_cast<__nv_bfloat162*>(bufp + tile_offset(64 * hf + r0 + 8 * h,
-                                                                c0 + 8 * j)) = r;
+        if (STORE && j < BN / 16)
+          sts32(buf + tile_offset(64 * hf + r0 + 8 * h, c0 + 8 * j),
+                *reinterpret_cast<const uint32_t*>(&r));
         const float2 f = __bfloat1622float2(r);
-        v0 = in0 ? f.x : -INFINITY;
-        v1 = in1 ? f.y : -INFINITY;
+        v0 = f.x;
+        v1 = f.y;
       }
   }
-  if (store) store_tile(out_c, buf, tl, false);  // it runs while the statistics are taken
+  if constexpr (STORE) store_box(out_c, buf, tl.col0, tl.row0);  // read beside the statistics
+  // the columns past Ncols count as -inf
+  auto live = [&](int j, int e, float v) {
+    return !MASK || tl.col0 + c0 + 8 * j + e < p.Ncols ? v : -INFINITY;
+  };
   const int nvt = (p.Ncols + BN - 1) / BN;
   const size_t plane = static_cast<size_t>(p.M) * nvt;
 #pragma unroll
@@ -653,7 +676,8 @@ __device__ __forceinline__ void stats_tile(float (&acc)[2][64], const RowIn& in,
       float m = -INFINITY;
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j)
-        m = fmaxf(m, fmaxf(acc[hf][4 * j + 2 * h], acc[hf][4 * j + 2 * h + 1]));
+        m = fmaxf(m, fmaxf(live(j, 0, acc[hf][4 * j + 2 * h]),
+                           live(j, 1, acc[hf][4 * j + 2 * h + 1])));
       m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
       m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
       const int label = in.label[2 * hf + h];
@@ -661,7 +685,8 @@ __device__ __forceinline__ void stats_tile(float (&acc)[2][64], const RowIn& in,
       float se = 0.f, ll = 0.f;
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
-        const float v0 = acc[hf][4 * j + 2 * h], v1 = acc[hf][4 * j + 2 * h + 1];
+        const float v0 = live(j, 0, acc[hf][4 * j + 2 * h]);
+        const float v1 = live(j, 1, acc[hf][4 * j + 2 * h + 1]);
         se += ex2_approx(fmaf(v0, LOG2E, -ml));
         se += ex2_approx(fmaf(v1, LOG2E, -ml));
         if (LABEL && label == 8 * j) ll = v0;
@@ -679,39 +704,50 @@ __device__ __forceinline__ void stats_tile(float (&acc)[2][64], const RowIn& in,
         p.stats[2 * plane + i] = ll;
       }
     }
+  if constexpr (STORE) {
+    if (t == 0) tma_store_wait_read();  // the first half's store has read the buffer
+    bar_sync(3 + cw, 128);
+#pragma unroll
+    for (int j = BN / 16; j < BN / 8; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          sts32(buf + tile_offset(64 * hf + r0 + 8 * h, c0 + 8 * j - BN / 2),
+                pack_bf16(acc[hf][4 * j + 2 * h], acc[hf][4 * j + 2 * h + 1]));
+    store_box(out_c, buf, tl.col0 + BN / 2, tl.row0);  // read while the next main loop runs
+  }
 }
 
-// K7's and K9's epilogue on a consumer's tile. K7 (HAS_BUF, the buffer
-// written and stored when store_c) runs every tile with the masks at Ncols
-// and the label compares; K9 (no buffer, no store) drops the masks in the
-// tiles that end before Ncols and the label compares in a warp whose rows'
-// labels all lie outside the tile (393 of 394 column tiles at V 50320 and,
-// for a warp's 16 rows, about 24 of 25 of them): the same values, fewer
-// instructions, as its epilogue no longer hides under a main loop.
-template <bool HAS_BUF>
+// K7's and K9's epilogue on a consumer's tile: K7 (STORE: its layout keeps
+// tile buffers) stores the logits, K9 (no buffer) only takes the
+// statistics. Both run on 256-row cooperative tiles, where the epilogue no
+// longer hides under the other consumer's main loop, so both drop the
+// masks in the tiles that end before Ncols and the label compares in a
+// warp whose rows' labels all lie outside the tile (393 of 394 column tiles
+// at V 50320 and, for a warp's 16 rows, about 24 of 25 of them): the same
+// values, fewer instructions. K7 waits for its last tile's store to have
+// read the buffer before it writes the buffer again.
+template <bool STORE>
 __device__ __forceinline__ void stats_epilogue(float (&acc)[2][64], const RowIn& in,
-                                               const GemmArgs& p, const Tile& tl,
-                                               unsigned char* bufp, uint32_t buf,
+                                               const GemmArgs& p, const Tile& tl, uint32_t buf,
                                                const CUtensorMap* out_c) {
   const int t = threadIdx.x % 128, cw = threadIdx.x / 128;
-  const bool leader = t == 0, store = HAS_BUF && p.store_c != 0;
-  if (store) bar_sync(3 + cw, 128);  // the leader's last store has read the buffer
-  if constexpr (HAS_BUF) {
-    stats_tile<true, true>(acc, in, p, tl, store, bufp, buf, out_c);
-  } else {
-    const bool mask = tl.col0 + BN > p.Ncols;  // the same in every thread
-    bool mine = false;  // one of the thread's rows has its label in the tile
-#pragma unroll
-    for (int r = 0; r < 4; ++r) mine |= static_cast<unsigned>(in.label[r] + 2 * (t % 4)) < BN;
-    if (__any_sync(0xffffffffu, mine)) {
-      if (mask) stats_tile<true, true>(acc, in, p, tl, false, bufp, buf, out_c);
-      else stats_tile<false, true>(acc, in, p, tl, false, bufp, buf, out_c);
-    } else {
-      if (mask) stats_tile<true, false>(acc, in, p, tl, false, bufp, buf, out_c);
-      else stats_tile<false, false>(acc, in, p, tl, false, bufp, buf, out_c);
-    }
+  if constexpr (STORE) {
+    if (t == 0) tma_store_wait_read();  // the last tile's store has read the buffer
+    bar_sync(3 + cw, 128);
   }
-  if (store && leader) tma_store_wait_read();
+  const bool mask = tl.col0 + BN > p.Ncols;  // the same in every thread
+  bool mine = false;  // one of the thread's rows has its label in the tile
+#pragma unroll
+  for (int r = 0; r < 4; ++r) mine |= static_cast<unsigned>(in.label[r] + 2 * (t % 4)) < BN;
+  if (__any_sync(0xffffffffu, mine)) {
+    if (mask) stats_tile<true, true, STORE>(acc, in, p, tl, buf, out_c);
+    else stats_tile<false, true, STORE>(acc, in, p, tl, buf, out_c);
+  } else {
+    if (mask) stats_tile<true, false, STORE>(acc, in, p, tl, buf, out_c);
+    else stats_tile<false, false, STORE>(acc, in, p, tl, buf, out_c);
+  }
 }
 
 // K10's first pass on a consumer's tile (register layout as in epilogue
@@ -912,7 +948,9 @@ __device__ __forceinline__ void epilogue(float (&acc)[L::H][64], const RowIn& in
   const bool leader = t == 0;
   const int r0 = 16 * (t / 32) + (t % 32) / 4, c0 = 2 * (t % 4);
   if constexpr (EPI == EPI_STATS) {
-    stats_epilogue<L::BUFS != 0>(acc, in, p, tl, bufp, buf, out_c);
+    static_assert(L::COOP && L::H == 2 && (L::BUFS == 0 || L::HALFBUF),
+                  "K7 and K9 run on 256-row cooperative tiles, K7's with half buffers");
+    stats_epilogue<L::BUFS != 0>(acc, in, p, tl, buf, out_c);
     return;
   } else if constexpr (EPI == EPI_DLOGITS) {
     dlogits_epilogue(acc, in, p, tl, buf, out_c);
@@ -1543,7 +1581,7 @@ typedef void (*GemmKernel)(const CUtensorMap, const CUtensorMap, const CUtensorM
 // B_MN, ROWS_FIRST, L>; `configured` holds a bit per device whose kernel
 // attributes are set. A [M, K] K-major with row pitch lda; B = W [Ncols, K]
 // (K-major) or W [K, Ncols] (b_mn); C bf16 [M, ldc] (ldc 0: Ncols), or null
-// when the epilogue stores nothing (EPI_STATS with store_c 0, MODE_CLUSTER,
+// when the epilogue stores nothing (EPI_STATS on a layout without buffers, MODE_CLUSTER,
 // which stores through p.out); D bf16 [M, Ncols] (D: F1's a out or B1's a
 // in, or null). C's map spans its whole row, so an epilogue writes the
 // columns [Ncols, ldc) of the last tile as well. p.splits > 1 walks K in

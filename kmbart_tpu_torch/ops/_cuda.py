@@ -49,6 +49,7 @@ _SIGNATURES = {
     "kmb_lm_ce_dh": (_I, [_P] * 4 + [_I] * 7 + [_P]),
     "kmb_lm_ce_recompute_dlogits": (_I, [_P] * 8 + [_I] * 5 + [_P]),
     "kmb_beam_attention": (_I, [_P, _I, _P, _P, _I, _P, _P, _P] + [_I] * 7 + [_P]),
+    "kmb_beam_attention_occupancy": (_I, [_I] * 6 + [_P]),
     "kmb_flash_attention": (_I, [_P] * 5 + [_I] * 9 + [_F, _I, _P]),
     "kmb_vocab_stats_topk": (_I, [_P] * 4 + [_I] * 5 + [_P]),
     "kmb_topk_merge": (_I, [_P] * 4 + [_I] * 4 + [_P]),

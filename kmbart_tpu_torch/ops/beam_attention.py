@@ -14,7 +14,11 @@ it copies the sample's ancestry and the slab rows its beams descend
 through into shared memory, in chunks of positions that ``beam_plan``
 sizes, and gathers each beam's cache_index + 1 ancestor rows from there;
 the TPU kernel scored every (slot, position) pair and masked them with the
-one-hot ``sel`` that ``build_selection_mask`` builds. The plain version
+one-hot ``sel`` that ``build_selection_mask`` builds. On an H100 the
+generate step's 768 blocks run in two waves; layouts that fit one wave
+(fewer threads a block, or a block per group of heads streaming its slab
+through stages) measured slower, since every SM's share of the dot products
+and P·V chains, not the waves, bounds the step (the kernel's source note). The plain version
 keeps the TPU form (the one-hot mask and -1e9 fill), so the two are held
 against each other.
 

@@ -74,7 +74,7 @@ def supported(d, f):
 
 class GemmPlan(NamedTuple):
     """One GEMM of a K2 or K2b call (or the projection of K7, K9 and K10's
-    first pass, ops/lm_ce.py logits_plan): [rows, cols] = [rows, depth] @ [depth, cols] in ``tile_rows``
+    first pass, ops/lm_ce.py coop_plan): [rows, cols] = [rows, depth] @ [depth, cols] in ``tile_rows``
     x ``tile_cols`` output tiles, with the depth walk in ``splits`` parts of
     ``kper`` K_TILE-deep slices each (the last part may be shorter): split
     p covers depth [p·kper·K_TILE, min(depth, (p+1)·kper·K_TILE)), and the

@@ -15,16 +15,16 @@ each runs its plain version (``*_plain``); on CUDA tensors it launches its
 kernel or raises.
 
 On the card K7, K9 and K10's first pass run on the wgmma + TMA GEMM of
-``csrc/wgmma_gemm.cuh`` that K2 uses. K7 is the projection (``logits_plan``
-lays it out, its tiles walking rows fastest) with an epilogue that stores
-the bf16 logits and one partial (max, exp-sum, label logit) per row and
+``csrc/wgmma_gemm.cuh`` that K2 uses, on tiles of 256 rows that both
+consumer warpgroups share (``coop_plan``, tiles walking rows fastest), each
+consumer's chains those of the 128-row tiles K7 ran on before, so the three
+agree bit for bit. K7 is the projection with an epilogue that stores the
+bf16 logits and one partial (max, exp-sum, label logit) per row and
 128-column tile, then a merge of each row's partials in a fixed order.
 TMA's row pitch is a multiple of 16 bytes, so the logits live in an [N,
 ``padded_vocab(V)``] buffer and K7 returns its [:, :V] view (the whole
 buffer when V % 8 == 0). K9 is the same projection and statistics with no
-store, on tiles of 256 rows that both consumer warpgroups share
-(``coop_plan``), each consumer's chains K7's, so its statistics equal K7's
-bit for bit. K8 is one launch of its own
+store and no tile buffers. K8 is one launch of its own
 kernel (``csrc/lm_ce_bwd.cu``, laid out by ``bwd_plan``): a 64-row block
 across the whole of D keeps its fp32 dh sum in registers while it walks
 the vocab in 32-deep slices; each logits slice is turned into dlogits in
@@ -105,28 +105,21 @@ def _check_fwd(name, h, w, fbias, labels):
     return dev, N, V, D
 
 
-def logits_plan(n_rows, d_model, vocab_size, sms):
-    """The launch plan of K7's projection ([N, V] = [N, D] @ [D, V], depth
-    D) on a card with ``sms`` SMs: ``ffn.gemm_plan`` without a split (the
-    epilogue's statistics need whole sums). The kernel walks its tiles rows
-    fastest (tile t is row tile t % row_tiles of column tile t //
-    row_tiles), so the row tiles that share a W slice run together; tile
-    (r, c) writes the partials of rows [128 r, 128 r + 128) at index c =
-    col0 / 128."""
-    return gemm_plan(n_rows, vocab_size, d_model, sms, False)
-
-
-COOP_ROWS = 256   # csrc/wgmma_gemm.cuh StatsCoop, DlogitsCoop: a tile's rows (128 a consumer)
+COOP_ROWS = 256   # csrc/wgmma_gemm.cuh StatsCoop, LogitsCoop, DlogitsCoop: a tile's rows (128 a consumer)
 
 
 def coop_plan(n_rows, d_model, vocab_size, sms):
-    """The launch plan of K9 and of K10's first pass on a card with ``sms``
-    SMs: ``logits_plan``'s tile order (rows fastest, no split) on tiles of
-    256 rows by 128 columns, both consumer warpgroups on each tile (128
-    rows each), so a W slice feeds twice the rows it feeds in K7; ``ctas``
-    the persistent blocks, at most one a tile. Each consumer's partials (or
-    dlogits) land where K7's consumer of those rows puts them."""
-    g = logits_plan(n_rows, d_model, vocab_size, sms)
+    """The launch plan of K7's, K9's and K10's first pass's projection
+    ([N, V] = [N, D] @ [D, V], depth D) on a card with ``sms`` SMs:
+    ``ffn.gemm_plan``'s grid without a split (the statistics need whole
+    sums) on tiles of 256 rows by 128 columns, both consumer warpgroups on
+    each tile (128 rows each), ``ctas`` the persistent blocks, at most one a
+    tile. The kernel walks its tiles rows fastest (tile t is row tile t %
+    row_tiles of column tile t // row_tiles), so the row tiles that share a
+    W slice run together. Consumer cw of tile (r, c) writes the partials
+    (and logits, or dlogits) of rows [256 r + 128 cw, 256 r + 128 cw + 128)
+    at column index c = col0 / 128."""
+    g = gemm_plan(n_rows, vocab_size, d_model, sms, False)
     row_tiles = -(-n_rows // COOP_ROWS)
     return g._replace(row_tiles=row_tiles, tile_rows=COOP_ROWS,
                       ctas=min(sms, row_tiles * g.col_tiles))
@@ -135,7 +128,7 @@ def coop_plan(n_rows, d_model, vocab_size, sms):
 def _project_stats(wrapper, h, w, fbias, labels, store):
     """The launch of K7 on CUDA tensors, or of K9 when not ``store``, counted
     on ``wrapper``: (the logits buffer [N, padded_vocab(V)] or None, m, se,
-    ll). K9's plan is ``coop_plan``."""
+    ll), both on ``coop_plan``."""
     name = wrapper.__name__
     dev, N, V, D = _check_fwd(name, h, w, fbias, labels)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -146,7 +139,7 @@ def _project_stats(wrapper, h, w, fbias, labels, store):
         return buf, m, se, ll
     parts = torch.empty((3, N, -(-V // TILE_V)), **f32)
     check_aligned(name, h, w, fbias, buf)
-    g = (logits_plan if store else coop_plan)(N, D, V, sm_count(dev))
+    g = coop_plan(N, D, V, sm_count(dev))
     lib, stream = _cuda.prepare(dev)
     _cuda.check(lib.kmb_lm_ce_fwd(
         h.data_ptr(), w.data_ptr(), fbias.data_ptr(), labels.data_ptr(),

@@ -1,9 +1,9 @@
 """K8's launch plan (kmbart_tpu_torch/ops/lm_ce.py bwd_plan), whose vocab
 parts K10's second pass shares on units of its own (dh_plan), and the
-padded row pitch of their dlogits buffer; K7's projection plan
-(logits_plan, which K9 and K10's first pass share) with its rows-fastest
-tile order; the shared-memory and register budgets of K9's layout and of
-K10's second pass, read from their sources; emulations of K7's (and K9's)
+padded row pitch of their dlogits buffer; the projection plan of K7, K9
+and K10's first pass (coop_plan) with its rows-fastest tile order; the
+shared-memory and register budgets of their layouts and of K10's second
+pass, read from their sources; emulations of K7's (and K9's)
 statistics epilogue and merge and of K10's dlogits epilogue against the
 JAX package's Pallas kernels.
 
@@ -134,8 +134,8 @@ def test_bwd_units_walk_the_vocab_in_step(n):
 @pytest.mark.parametrize("sms", [132, 114])
 @pytest.mark.parametrize("n,d,v", SHAPES)
 def test_coop_plan_covers_each_tile_once_rows_fastest(n, d, v, sms):
-    """The plan of K9 and K10's first pass: logits_plan's rows-fastest
-    order on 256 x 128 tiles, each consumer warpgroup on 128 of a tile's
+    """The plan of K7, K9 and K10's first pass: the rows-fastest order on
+    256 x 128 tiles, each consumer warpgroup on 128 of a tile's
     rows; every (row tile, column tile) is one persistent block's once, and
     each row's partial at column index col0 / 128 (or its dlogits in the
     tile's columns) is written exactly once, by the consumer that holds the
@@ -166,8 +166,8 @@ def test_coop_plan_at_the_heads():
     # the edge: one row tile (24 rows, consumer 1's all past N), nine columns
     g = lm_ce.coop_plan(24, 128, 1100, 132)
     assert (g.row_tiles, g.col_tiles, g.ctas) == (1, 9, 9)
-    # K7's plan keeps 128-row tiles
-    assert lm_ce.logits_plan(9216, 768, 50320, 132).row_tiles == 72
+    # the fine-tune head (K7's): 20 row tiles of 256
+    assert lm_ce.coop_plan(5120, 768, 50320, 132).row_tiles == 20
 
 
 def dh_unit(t, g):
@@ -280,8 +280,8 @@ def _layout_smem(c, text, name):
     Layout template computes it from the alias's arguments."""
     m = re.search(rf"using {name} = Layout<([^>]*)>;", text)
     args = [a.strip() for a in m.group(1).split(",")]
-    args += ["false"] * (9 - len(args))
-    h, coop, _, stages, _, wide, _, lut, nobuf = args
+    args += ["false"] * (10 - len(args))
+    h, coop, _, stages, _, wide, _, lut, nobuf, halfbuf = args
     stages = c[stages] if stages in c else int(stages)
     h = int(h)
     wg_rows = 64 * h
@@ -289,29 +289,36 @@ def _layout_smem(c, text, name):
     tile_cols = c["BN"] * (2 if wide == "true" else 1)
     stage = tile_rows * c["BK"] * 2 + tile_cols * c["BK"] * 2
     bufs = 0 if nobuf == "true" else 2
+    buf_cols = c["BN"] // 2 if halfbuf == "true" else c["BN"]
     lut_bytes = c["LUT_BYTES"] if lut == "true" else 0
-    return stages, stage, stages * stage + bufs * wg_rows * c["BN"] * 2 + 8 * (
+    return stages, stage, stages * stage + bufs * wg_rows * buf_cols * 2 + 8 * (
         2 * stages + 4) + lut_bytes + 1024
 
 
 def test_coop_layouts_fit_and_their_registers_balance():
-    """The layouts of K9 (csrc/lm_ce.cu K9Layout) and K10's first pass:
-    256 x 128 tiles shared by both consumers, their stages within the 227
-    KB a block may use with no room for another (Legacy: five 32 KB stages
-    and two 32 KB buffers); and the producer's setmaxnreg gives back what
-    the two consumers take from the 168 registers a thread ptxas gives the
-    384 threads."""
+    """The layouts of K7 and K9 (csrc/lm_ce.cu K7Layout, K9Layout) and K10's
+    first pass: 256 x 128 tiles shared by both consumers, their stages
+    within the 227 KB a block may use with no room for another (Legacy:
+    five 32 KB stages and two 32 KB buffers); K7 with half buffers (a
+    consumer's 128 rows by 64 columns of bf16, its logits leaving in two
+    halves) and K9's four stages; and the producer's setmaxnreg gives back
+    what the two consumers take from the 168 registers a thread ptxas gives
+    the 384 threads."""
     c, text = _constants("wgmma_gemm.cuh")
     with open(os.path.join(_cuda.CSRC_DIR, "lm_ce.cu")) as f:
-        name = re.search(r"using K9Layout = kmb_wg::(\w+);", f.read()).group(1)
-    assert name == "StatsCoop"
+        src = f.read()
+    names = [re.search(rf"using K{k}Layout = kmb_wg::(\w+);", src).group(1) for k in (7, 9)]
+    assert names == ["LogitsCoop", "StatsCoop"]
     # K9 without buffers, K10's first pass with its two 32 KB buffers (a
-    # consumer's 128 rows of bf16), both with no room for another stage
-    for name, bufs in (("StatsCoop", 0), ("DlogitsCoop", 2)):
+    # consumer's 128 rows of bf16), K7 with two of 16 KB, all with no room
+    # for another stage
+    for name, buf_bytes in (("StatsCoop", 0), ("DlogitsCoop", 2 * 32768),
+                            ("LogitsCoop", 2 * 16384)):
         stages, stage, smem = _layout_smem(c, text, name)
         assert smem <= SMEM_LIMIT < smem + stage
         assert stage == (lm_ce.COOP_ROWS + lm_ce.TILE_V) * c["BK"] * 2
-        assert smem == stages * stage + bufs * 32768 + 8 * (2 * stages + 4) + 1024
+        assert smem == stages * stage + buf_bytes + 8 * (2 * stages + 4) + 1024
+    assert _layout_smem(c, text, "LogitsCoop")[0] == _layout_smem(c, text, "StatsCoop")[0] == 4
     _, _, legacy = _layout_smem(c, text, "Legacy")
     assert legacy == c["SMEM_BYTES"]
     assert 128 * (168 - c["PRODUCER_REGS"]) >= 256 * (c["CONSUMER_REGS"] - 168)
@@ -344,10 +351,23 @@ def _tile_rows_first(t, g):
     return t % g.row_tiles, t // g.row_tiles
 
 
+def _legacy_tiles(n, v):
+    """The 128 x 128 tiles K7 ran on before its cooperative layout, each as
+    (first row, rows below n, column tile)."""
+    return [(r * ffn.ROW_TILE, min(n, (r + 1) * ffn.ROW_TILE), c)
+            for c in range(-(-v // lm_ce.TILE_V)) for r in range(-(-n // ffn.ROW_TILE))]
+
+
 @pytest.mark.parametrize("sms", [132, 114])
 @pytest.mark.parametrize("n,d,v", SHAPES)
-def test_logits_plan_covers_each_tile_once_rows_fastest(n, d, v, sms):
-    g = lm_ce.logits_plan(n, d, v, sms)
+def test_k7_coop_tiles_write_what_its_128_row_tiles_wrote(n, d, v, sms):
+    """K7 on coop_plan: every 256 x 128 tile is one persistent block's once,
+    with whole depth sums (the statistics need them), and its two
+    consumers, 128 rows each, write the partials (column index col0 / 128)
+    and the logits columns [col0, col0 + 128) of exactly the rows each 128 x
+    128 tile of K7's earlier plan wrote: the same [n, col_tiles] partial
+    matrix and the same logits blocks, each once."""
+    g = lm_ce.coop_plan(n, d, v, sms)
     assert (g.rows, g.cols, g.depth) == (n, v, d)
     assert g.splits == 1 and g.kper == -(-d // ffn.K_TILE)   # whole sums for the statistics
     assert g.col_tiles == -(-v // lm_ce.TILE_V) and lm_ce.TILE_V == ffn.COL_TILE
@@ -357,35 +377,34 @@ def test_logits_plan_covers_each_tile_once_rows_fastest(n, d, v, sms):
     for b in range(g.ctas):
         visits[b::g.ctas] += 1
     assert (visits == 1).all()
-    # every (row tile, column tile) once; its partials land at column index
-    # col0 / 128 for rows [row0, row0 + 128) below n: the [n, col_tiles]
-    # partial matrix is written exactly once
-    partial = np.zeros((n, g.col_tiles), np.uint8)
-    seen = set()
+    written = []
     for t in range(tiles):
         r, c = _tile_rows_first(t, g)
-        seen.add((r, c))
-        row0, col0 = r * ffn.ROW_TILE, c * ffn.COL_TILE
+        col0 = c * lm_ce.TILE_V
         assert col0 < v
-        partial[row0:min(n, row0 + ffn.ROW_TILE), col0 // lm_ce.TILE_V] += 1
-    assert len(seen) == tiles and (partial == 1).all()
+        for cw in range(2):
+            row0 = r * lm_ce.COOP_ROWS + ffn.ROW_TILE * cw
+            if row0 < n:
+                written.append((row0, min(n, row0 + ffn.ROW_TILE), col0 // lm_ce.TILE_V))
+    assert sorted(written) == sorted(_legacy_tiles(n, v))
+    assert len(set(written)) == len(written)
 
 
 @pytest.mark.parametrize("n", [5120, 9216])
-def test_logits_tile_order_keeps_a_column_block_together(n):
+def test_k7_tile_order_keeps_a_column_block_together(n):
     """Rows fastest: the row tiles of one column block are consecutive, so a
     wave of the persistent grid spans a few column blocks and each 196 KB W
     slice is read from HBM about once while h stays in L2 (at 50320 / 128 =
     394 column blocks, columns fastest would stream all 77 MB of W once per
     row block)."""
-    g = lm_ce.logits_plan(n, 768, 50320, 132)
+    g = lm_ce.coop_plan(n, 768, 50320, 132)
     order = [_tile_rows_first(t, g) for t in range(g.row_tiles * g.col_tiles)]
     for c in range(g.col_tiles):
         assert order[c * g.row_tiles:(c + 1) * g.row_tiles] == [(r, c) for r in
                                                                 range(g.row_tiles)]
     wave = {c for _, c in order[:g.ctas]}
     assert len(wave) <= -(-g.ctas // g.row_tiles) + 1
-    assert (g.row_tiles, g.col_tiles, g.ctas) == (n // 128, 394, 132)
+    assert (g.row_tiles, g.col_tiles, g.ctas) == (n // lm_ce.COOP_ROWS, 394, 132)
 
 
 def emulate_k7_stats(logits, labels):

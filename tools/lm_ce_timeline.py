@@ -1,13 +1,14 @@
-"""clock64 timelines of block 0 of the "nomat" LM-CE kernels on the card.
+"""clock64 timelines of block 0 of the LM-CE kernels on the card.
 
-    python tools/lm_ce_timeline.py [--tree DIR] [--out DIR]
+    python tools/lm_ce_timeline.py [--tree DIR] [--out DIR] [--kernels k7,k9,k10]
 
 Copies ``DIR/kmbart_tpu_torch/csrc`` (default: this checkout's) into
 ``_exp/timeline/`` (git-ignored), patches clock64 marks into the copy,
-builds it with the package's own build, and runs K9 (``lm_ce_fwd_stats``)
-and K10 (``lm_ce_recompute_bwd``: its dlogits pass and its dh pass) once
-each at the pretraining head, N 9216, V 50320, D 768, with the marks armed
-after a warm-up call. Prints one JSON line a kernel: for each of block 0's
+builds it with the package's own build, and runs K7 (``lm_ce_fwd``) at the
+fine-tune head, N 5120, and at the pretraining head, N 9216, and K9
+(``lm_ce_fwd_stats``) and K10 (``lm_ce_recompute_bwd``: its dlogits pass
+and its dh pass) at N 9216 (V 50320, D 768), once each with the marks
+armed after a warm-up call. Prints one JSON line a kernel: for each of block 0's
 roles (the two consumer warpgroups' first threads, and the producer) the
 share of its span spent waiting for data (the ring's full barriers), for
 the other consumer (the ping-pong barrier), for free stages (the producer's
@@ -214,6 +215,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=".")
     ap.add_argument("--out", default=os.path.join("_exp", "timeline_out"))
+    ap.add_argument("--kernels", default="k7,k9,k10",
+                    help="which of k7 (at N 5120 and 9216), k9 and k10 to run")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -231,15 +234,17 @@ def main():
 
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
-    N, V, D = 9216, 50320, 768
-    h = torch.randn((N, D), generator=g, device=dev).to(torch.bfloat16)
+    V, D = 50320, 768
     w = (torch.randn((V, D), generator=g, device=dev) * 0.02).to(torch.bfloat16)
     fbias = torch.randn((V,), generator=g, device=dev) * 0.02
-    labels = torch.randint(0, V, (N,), generator=g, device=dev, dtype=torch.int32)
-    valid = torch.rand((N,), generator=g, device=dev) > 0.1
-    scale = (valid.float() / valid.sum()).contiguous()
 
-    def record(name, fn, tus):
+    def rows(N):
+        h = torch.randn((N, D), generator=g, device=dev).to(torch.bfloat16)
+        labels = torch.randint(0, V, (N,), generator=g, device=dev, dtype=torch.int32)
+        valid = torch.rand((N,), generator=g, device=dev) > 0.1
+        return h, labels, (valid.float() / valid.sum()).contiguous()
+
+    def record(name, N, fn, tus):
         fn()
         torch.cuda.synchronize()
         for s in tus:
@@ -254,17 +259,24 @@ def main():
             _cuda.check(getattr(lib, f"kmb_tl_arm_{s}")(0), "disarm")
             raw = np.zeros((3, 2 * CAP), np.uint64)
             _cuda.check(getattr(lib, f"kmb_tl_read_{s}")(raw.ctypes.data), "read")
-            np.save(os.path.join(args.out, f"timeline_{name}_{s}.npy"), raw)
+            np.save(os.path.join(args.out, f"timeline_{name}_{N}_{s}.npy"), raw)
             row[{"f": "projection", "b": "dh_pass"}[s]] = summarize(raw)
         print(json.dumps(row), flush=True)
 
     os.makedirs(args.out, exist_ok=True)
-    m, se, _ = lm_ce.lm_ce_fwd_stats(h, w, fbias, labels)
-    inv_se = (1.0 / se).contiguous()
-    record("k9", lambda: lm_ce.lm_ce_fwd_stats(h, w, fbias, labels), ("f",))
-    record("k10", lambda: lm_ce.lm_ce_recompute_bwd(h, w, fbias, m, inv_se, scale, labels),
-           ("f", "b"))
-
+    which = set(args.kernels.split(","))
+    if "k7" in which:
+        for N in (5120, 9216):
+            h, labels, _ = rows(N)
+            record("k7", N, lambda: lm_ce.lm_ce_fwd(h, w, fbias, labels), ("f",))
+    h, labels, scale = rows(9216)
+    if "k9" in which:
+        record("k9", 9216, lambda: lm_ce.lm_ce_fwd_stats(h, w, fbias, labels), ("f",))
+    if "k10" in which:
+        m, se, _ = lm_ce.lm_ce_fwd_stats(h, w, fbias, labels)
+        inv_se = (1.0 / se).contiguous()
+        record("k10", 9216, lambda: lm_ce.lm_ce_recompute_bwd(h, w, fbias, m, inv_se, scale,
+                                                             labels), ("f", "b"))
 
 if __name__ == "__main__":
     main()
