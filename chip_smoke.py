@@ -1477,7 +1477,6 @@ def partials_route():
             return fused(x, w1, b1, w2, b2, with_a=True)
         return ffn.fused_ffn_partials(x, w1, b1, w2, b2)
 
-    route.launches = 0   # the wrappers count into the name they find in ffn
     return _swapped([(ffn, "fused_ffn", route)])
 
 

@@ -21,6 +21,7 @@ so the sampled tokens are one process's at the same seed too.
 """
 
 import dataclasses
+import itertools
 from typing import Optional, Tuple
 
 import torch
@@ -30,6 +31,9 @@ from kmbart_tpu_torch.generation.beam import beam_search_loop
 from kmbart_tpu_torch.generation.decode import greedy_or_sample_loop
 from kmbart_tpu_torch.models import bart
 from kmbart_tpu_torch.parallel import distributed
+from kmbart_tpu_torch.utils.profiling import span
+
+_CALLS = itertools.count()   # the ids of generate()'s spans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,7 +132,8 @@ def generate_tokens(model, cfg, input_ids, attention_mask, image_features,
 def _decode(model, cfg, input_ids, attention_mask, image_features, opts, generator, tp,
             noise_rows=None):
     """Encode and decode the rows given on this rank's part of the model."""
-    enc = bart.encode(model.model, cfg, input_ids, image_features, attention_mask, tp=tp)
+    with span("encode"):
+        enc = bart.encode(model.model, cfg, input_ids, image_features, attention_mask, tp=tp)
     K = opts.num_beams
     mult = opts.num_return_sequences if opts.do_sample else 1
     # the beam axis is not materialised (a sample's beams share its encoder
@@ -167,19 +172,22 @@ def generate(model, cfg: MultiModalBartConfig, batch, *, trim=True, generator=No
     grid, seeded alike on every rank). ``grid``: a ``parallel/mesh.py
     Grid`` and ``model`` this rank's part of the model; every rank of the
     grid calls this with the whole batch and gets the whole output."""
-    opts = options_from_config(cfg, **kwargs)
-    dev = model.final_logits_bias.device
-    input_ids = torch.as_tensor(batch["input_ids"], device=dev).long()
-    attention_mask = batch.get("attention_mask")
-    if attention_mask is None:
-        attention_mask = ((input_ids != cfg.pad_token_id).long()
-                          if cfg.pad_token_id is not None else torch.ones_like(input_ids))
-    else:
-        attention_mask = torch.as_tensor(attention_mask, device=dev).long()
-    image_features = batch.get("image_features")
-    if image_features is not None:
-        image_features = torch.as_tensor(image_features, device=dev).float()
-    out, eff_len = generate_tokens(model, cfg, input_ids, attention_mask,
-                                   image_features, opts, generator, grid)
-    out = out.to(torch.int32).cpu().numpy()
-    return out[:, :eff_len] if trim else out
+    with span("generate", id=next(_CALLS)):
+        opts = options_from_config(cfg, **kwargs)
+        dev = model.final_logits_bias.device
+        with span("generate.inputs"):
+            input_ids = torch.as_tensor(batch["input_ids"], device=dev).long()
+            attention_mask = batch.get("attention_mask")
+            if attention_mask is None:
+                attention_mask = ((input_ids != cfg.pad_token_id).long()
+                                  if cfg.pad_token_id is not None else torch.ones_like(input_ids))
+            else:
+                attention_mask = torch.as_tensor(attention_mask, device=dev).long()
+            image_features = batch.get("image_features")
+            if image_features is not None:
+                image_features = torch.as_tensor(image_features, device=dev).float()
+        out, eff_len = generate_tokens(model, cfg, input_ids, attention_mask,
+                                       image_features, opts, generator, grid)
+        with span("sync.outputs"):
+            out = out.to(torch.int32).cpu().numpy()
+        return out[:, :eff_len] if trim else out

@@ -38,6 +38,7 @@ from kmbart_tpu_torch.generation import logits as lp
 from kmbart_tpu_torch.models import bart
 from kmbart_tpu_torch.ops.topk import top_k as sort_top_k
 from kmbart_tpu_torch.ops.vocab_stats import exact_top_k, logsumexp_from_stats, stats_top_k
+from kmbart_tpu_torch.utils.profiling import span
 
 NEG_1E9 = -1e9
 
@@ -198,80 +199,82 @@ def beam_search_loop(model, cfg, enc_hidden, enc_mask, generator=None, *, batch_
         return c if length_penalty == 1.0 else c ** length_penalty
 
     def going():
-        live = ~done.all()
-        return bool(live) if tp is None else tp.any(live)
+        with span("sync.stop_test"):
+            live = ~done.all()
+            return bool(live) if tp is None else tp.any(live)
 
     cur_len = 1
     while cur_len < L and going():
-        prev = tokens[:, cur_len - 1:cur_len]
-        # resolve each beam's history through its parent's ancestry (the
-        # cache never moves), then claim the own slot for this step's row
-        ancestry = ancestry[parent]
-        ancestry[:, cur_len - 1] = own_slot
-        hidden = bart.decode_step_stationary(trunk, cfg, prev, caches, cur_len - 1,
-                                             ancestry, enc_mask, num_beams=K, tp=tp)
-        logits = bart.lm_logits(trunk, cfg, hidden, model.final_logits_bias)[:, 0, :]
-        if do_sample:
-            if temperature != 1.0:
-                logits = logits / temperature
-        else:
-            # adjust_logits_during_generation: greedy beam search only
-            logits = lp.maybe_force_bos_eos(logits, cur_len, L, cfg.bos_token_id,
-                                            eos_token_id)
-        scores = None
-        if not (fast_select or fast_sample):
-            scores = torch.log_softmax(logits, dim=-1)
-            scores = lp.postprocess_scores(
-                scores, tokens, cur_len, repetition_penalty=repetition_penalty,
-                no_repeat_ngram_size=no_repeat_ngram_size, bad_words_ids=bad_words_ids,
-                min_length=min_length, eos_token_id=eos_token_id)
-        if fast_select:
-            cand_scores, cand_idx = fast_candidates(logits, beam_scores, K, trace=STEP_TRACE)
-        elif do_sample:
-            cand_scores, cand_idx = _sample_candidates(
-                logits, scores, beam_scores, generator, K=K, top_k=top_k, top_p=top_p,
-                fast=fast_sample, noise_rows=noise_rows)
-        else:
-            flat = (scores + beam_scores.reshape(BK, 1)).reshape(B, K * V)
-            cand_scores, cand_idx = exact_top_k(flat, 2 * K)
+        with span("beam.step"):
+            prev = tokens[:, cur_len - 1:cur_len]
+            # resolve each beam's history through its parent's ancestry (the
+            # cache never moves), then claim the own slot for this step's row
+            ancestry = ancestry[parent]
+            ancestry[:, cur_len - 1] = own_slot
+            hidden = bart.decode_step_stationary(trunk, cfg, prev, caches, cur_len - 1,
+                                                 ancestry, enc_mask, num_beams=K, tp=tp)
+            logits = bart.lm_logits(trunk, cfg, hidden, model.final_logits_bias)[:, 0, :]
+            if do_sample:
+                if temperature != 1.0:
+                    logits = logits / temperature
+            else:
+                # adjust_logits_during_generation: greedy beam search only
+                logits = lp.maybe_force_bos_eos(logits, cur_len, L, cfg.bos_token_id,
+                                                eos_token_id)
+            scores = None
+            if not (fast_select or fast_sample):
+                scores = torch.log_softmax(logits, dim=-1)
+                scores = lp.postprocess_scores(
+                    scores, tokens, cur_len, repetition_penalty=repetition_penalty,
+                    no_repeat_ngram_size=no_repeat_ngram_size, bad_words_ids=bad_words_ids,
+                    min_length=min_length, eos_token_id=eos_token_id)
+            if fast_select:
+                cand_scores, cand_idx = fast_candidates(logits, beam_scores, K, trace=STEP_TRACE)
+            elif do_sample:
+                cand_scores, cand_idx = _sample_candidates(
+                    logits, scores, beam_scores, generator, K=K, top_k=top_k, top_p=top_p,
+                    fast=fast_sample, noise_rows=noise_rows)
+            else:
+                flat = (scores + beam_scores.reshape(BK, 1)).reshape(B, K * V)
+                cand_scores, cand_idx = exact_top_k(flat, 2 * K)
 
-        cand_beam = cand_idx // V
-        cand_tok = cand_idx % V
-        is_eos = (cand_tok == eos_token_id) if eos_token_id is not None \
-            else torch.zeros_like(cand_tok, dtype=torch.bool)
-        lp_denorm = length_norm(cur_len)
+            cand_beam = cand_idx // V
+            cand_tok = cand_idx % V
+            is_eos = (cand_tok == eos_token_id) if eos_token_id is not None \
+                else torch.zeros_like(cand_tok, dtype=torch.bool)
+            lp_denorm = length_norm(cur_len)
 
-        # ---- commit finished hypotheses (rank < K EOS candidates) ----
-        if eos_token_id is not None:
-            eligible = is_eos[:, :K] & ~done[:, None]
-            hyp_cand_scores = torch.where(eligible, cand_scores[:, :K] / lp_denorm,
-                                          -float("inf"))
-            parent_tokens = torch.gather(tokens.reshape(B, K, L), 1,
-                                         cand_beam[:, :K, None].expand(-1, -1, L))
-            hyp_cand_lens = torch.where(eligible, cur_len, 0)
-            hyp = _merge_pool(hyp, hyp_cand_scores, parent_tokens, hyp_cand_lens, K)
-        hyp_count, worst = hyp[3], hyp[4]
+            # ---- commit finished hypotheses (rank < K EOS candidates) ----
+            if eos_token_id is not None:
+                eligible = is_eos[:, :K] & ~done[:, None]
+                hyp_cand_scores = torch.where(eligible, cand_scores[:, :K] / lp_denorm,
+                                              -float("inf"))
+                parent_tokens = torch.gather(tokens.reshape(B, K, L), 1,
+                                             cand_beam[:, :K, None].expand(-1, -1, L))
+                hyp_cand_lens = torch.where(eligible, cur_len, 0)
+                hyp = _merge_pool(hyp, hyp_cand_scores, parent_tokens, hyp_cand_lens, K)
+            hyp_count, worst = hyp[3], hyp[4]
 
-        # ---- the next beam front: the first K non-EOS candidates ----
-        nb_scores, nb_tokens, nb_parents = beam_front(cand_scores, cand_tok, cand_beam,
-                                                      is_eos, K)
-        # done batches emit (0, pad, 0)
-        nb_scores = torch.where(done[:, None], 0.0, nb_scores)
-        nb_tokens = torch.where(done[:, None], pad_token_id, nb_tokens)
-        nb_parents = torch.where(done[:, None], 0, nb_parents)
+            # ---- the next beam front: the first K non-EOS candidates ----
+            nb_scores, nb_tokens, nb_parents = beam_front(cand_scores, cand_tok, cand_beam,
+                                                          is_eos, K)
+            # done batches emit (0, pad, 0)
+            nb_scores = torch.where(done[:, None], 0.0, nb_scores)
+            nb_tokens = torch.where(done[:, None], pad_token_id, nb_tokens)
+            nb_parents = torch.where(done[:, None], 0, nb_parents)
 
-        best_sum = cand_scores[:, 0]
-        if early_stopping:
-            newly_done = hyp_count >= K
-        else:
-            newly_done = (hyp_count >= K) & (worst >= best_sum / lp_denorm)
-        done = done | newly_done
+            best_sum = cand_scores[:, 0]
+            if early_stopping:
+                newly_done = hyp_count >= K
+            else:
+                newly_done = (hyp_count >= K) & (worst >= best_sum / lp_denorm)
+            done = done | newly_done
 
-        parent = (b_idx[:, None] * K + nb_parents).reshape(BK)
-        tokens = tokens[parent]
-        tokens[:, cur_len] = nb_tokens.reshape(BK)
-        beam_scores = nb_scores
-        cur_len += 1
+            parent = (b_idx[:, None] * K + nb_parents).reshape(BK)
+            tokens = tokens[parent]
+            tokens[:, cur_len] = nb_tokens.reshape(BK)
+            beam_scores = nb_scores
+            cur_len += 1
 
     # ---- finalise: unfinished batches contribute their live beams ----
     lp_denorm = length_norm(cur_len)
@@ -290,5 +293,6 @@ def beam_search_loop(model, cfg, enc_hidden, enc_mask, generator=None, *, batch_
         append_eos = (pos == lens[:, None]) & (lens[:, None] < L)
         out = torch.where(append_eos, eos_token_id, out)
         out = torch.where(pos > lens[:, None], pad_token_id, out)
-    eff_len = min(int(lens.max()) + 1, L)
+    with span("sync.width"):
+        eff_len = min(int(lens.max()) + 1, L)
     return out, eff_len

@@ -19,6 +19,7 @@ import torch
 
 from kmbart_tpu_torch.generation import logits as lp
 from kmbart_tpu_torch.models import bart
+from kmbart_tpu_torch.utils.profiling import span
 
 
 def greedy_or_sample_loop(model, cfg, enc_hidden, enc_mask, generator=None, *, max_length,
@@ -39,8 +40,9 @@ def greedy_or_sample_loop(model, cfg, enc_hidden, enc_mask, generator=None, *, m
     cur_len = 1
 
     def going():
-        live = unfinished.max() > 0
-        return bool(live) if tp is None else tp.any(live)
+        with span("sync.stop_test"):
+            live = unfinished.max() > 0
+            return bool(live) if tp is None else tp.any(live)
 
     while cur_len < L and going():
         prev = tokens[:, cur_len - 1:cur_len]

@@ -35,8 +35,9 @@ newest column).
 
 ``beam_gather_attention`` is the wrapper: on CPU tensors it runs
 ``beam_gather_attention_plain``, on CUDA tensors it launches the kernel or
-raises. ``.launches`` counts every launch, ``.ring_launches`` those in ring
-mode.
+raises. It counts every launch as ``launch.beam_attention`` and those in
+ring mode also as ``launch.beam_attention_ring`` (utils/profiling.py
+``count``).
 """
 
 from typing import NamedTuple
@@ -44,6 +45,7 @@ from typing import NamedTuple
 import torch
 
 from kmbart_tpu_torch.ops import _cuda
+from kmbart_tpu_torch.utils.profiling import count
 
 NEG_INF = -1e9
 # the bf16 kernel's shared memory: a budget that keeps five blocks on an SM
@@ -194,10 +196,9 @@ def beam_gather_attention(q, k_cache, v_cache, ancestry, cache_index, *,
         q.data_ptr(), q_code, k_cache.data_ptr(), v_cache.data_ptr(), c_code,
         ancestry.data_ptr(), valid_counts.data_ptr() if ring else None, out.data_ptr(),
         B, K, T, D, H, int(cache_index), chunk, stream), "beam_gather_attention")
-    beam_gather_attention.launches += 1
-    beam_gather_attention.ring_launches += ring
+    count("launch.beam_attention")
+    if ring:
+        count("launch.beam_attention_ring")
     return out
 
 
-beam_gather_attention.launches = 0
-beam_gather_attention.ring_launches = 0

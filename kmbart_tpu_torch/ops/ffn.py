@@ -37,6 +37,7 @@ import torch
 
 from kmbart_tpu_torch.ops import _cuda
 from kmbart_tpu_torch.ops.layers import mm_f32
+from kmbart_tpu_torch.utils.profiling import count
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
@@ -397,7 +398,7 @@ def _fused_ffn_infer(x, w1, b1, w2, b2, mode=None):
         _cuda.check(_cuda.lib().kmb_ffn_infer(
             *ptrs, N, D, F, *_infer_args(N, D, F, dev, mode), index,
             torch._C._cuda_getCurrentRawStream(index)), "fused_ffn")
-        fused_ffn.launches += 1
+        count("launch.ffn")
     return y
 
 
@@ -421,12 +422,9 @@ def _fused_ffn_split(x, w1, b1, w2, b2, with_a, layout=None):
             xf.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
             y.data_ptr(), h.data_ptr(), _ptr(partial), _ptr(a), N, D, F, *plan_args, stream),
             "fused_ffn")
-        fused_ffn.launches += 1
+        count("launch.ffn")
     y = y.reshape(x.shape)
     return (y, a.reshape(*x.shape[:-1], F)) if with_a else y
-
-
-fused_ffn.launches = 0
 
 
 def _ptr(t):
@@ -475,11 +473,8 @@ def _fused_ffn_bwd(g, a, w1, w2, layout=None):
     _cuda.check(lib.kmb_ffn_bwd(
         g.data_ptr(), a.data_ptr(), w1.data_ptr(), w2.data_ptr(), da.data_ptr(),
         dx.data_ptr(), _ptr(partial), N, D, F, *plan_args, stream), "fused_ffn_bwd")
-    fused_ffn_bwd.launches += 1
+    count("launch.ffn_bwd")
     return da, dx
-
-
-fused_ffn_bwd.launches = 0
 
 
 class _FusedFFN(torch.autograd.Function):

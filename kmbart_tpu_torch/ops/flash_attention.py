@@ -26,6 +26,7 @@ import torch
 
 from kmbart_tpu_torch.ops import _cuda
 from kmbart_tpu_torch.ops.train_attention import _kernel_mask, _ptr, row_stride
+from kmbart_tpu_torch.utils.profiling import count
 
 NEG_INF = -1e9
 MIN_SCORES = 128 * 128   # pallas_attention.flash_supported: Tq·Tk floor
@@ -119,11 +120,8 @@ def flash_attention(q_flat, k_flat, v_flat, key_mask, *, num_heads, causal=False
         q_flat.data_ptr(), k_flat.data_ptr(), v_flat.data_ptr(), _ptr(mask),
         out.data_ptr(), B, Tq, Tk, D, num_heads, *lds, int(causal), hd ** -0.5, code, stream),
         "flash_attention")
-    flash_attention.launches += 1
+    count("launch.flash_attention")
     return out
-
-
-flash_attention.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -57,6 +57,7 @@ from kmbart_tpu_torch.ops import _cuda
 from kmbart_tpu_torch.ops.ffn import check_aligned, gemm_plan, sm_count
 from kmbart_tpu_torch.parallel.distributed import global_count
 from kmbart_tpu_torch.ops.layers import mm_f32
+from kmbart_tpu_torch.utils.profiling import count
 
 MIN_VOCAB = 1024   # pallas_lm_ce.DEFAULT_TILE_V: the JAX gate's vocab floor
 TILE_V = 128       # csrc/lm_ce.cu BN: vocab columns per K7 block
@@ -146,7 +147,7 @@ def _project_stats(wrapper, h, w, fbias, labels, store):
         None if buf is None else buf.data_ptr(), parts.data_ptr(), m.data_ptr(),
         se.data_ptr(), ll.data_ptr(), N, V, D, 0 if buf is None else buf.shape[1], g.ctas,
         stream), name)
-    wrapper.launches += 1
+    count("launch." + name)
     return buf, m, se, ll
 
 
@@ -159,9 +160,6 @@ def lm_ce_fwd(h, w, fbias, labels):
         return lm_ce_fwd_plain(h, w, fbias, labels)
     buf, m, se, ll = _project_stats(lm_ce_fwd, h, w, fbias, labels, True)
     return buf[:, :w.shape[0]], m, se, ll
-
-
-lm_ce_fwd.launches = 0
 
 
 def lm_ce_bwd_plain(logits, w, m, inv_se, scale, labels):
@@ -335,11 +333,8 @@ def lm_ce_bwd(logits, w, m, inv_se, scale, labels):
     if N == 0:
         return torch.empty_like(logits), torch.empty((0, D), dtype=w.dtype, device=w.device)
     dl, dh = _bwd_launch("lm_ce_bwd", logits, w, m, inv_se, scale, labels)
-    lm_ce_bwd.launches += 1
+    count("launch.lm_ce_bwd")
     return dl[:, :V], dh
-
-
-lm_ce_bwd.launches = 0
 
 
 def lm_ce_fwd_stats_plain(h, w, fbias, labels):
@@ -356,9 +351,6 @@ def lm_ce_fwd_stats(h, w, fbias, labels):
         return lm_ce_fwd_stats_plain(h, w, fbias, labels)
     _, m, se, ll = _project_stats(lm_ce_fwd_stats, h, w, fbias, labels, False)
     return m, se, ll
-
-
-lm_ce_fwd_stats.launches = 0
 
 
 def lm_ce_recompute_bwd_plain(h, w, fbias, m, inv_se, scale, labels):
@@ -399,11 +391,9 @@ def lm_ce_recompute_bwd(h, w, fbias, m, inv_se, scale, labels):
                 torch.empty((0, D), dtype=torch.bfloat16, device=dev))
     dl = recompute_dlogits_pass(h, w, fbias, m, inv_se, scale, labels)
     dh = dh_gemm("lm_ce_recompute_bwd", dl, V, w)
-    lm_ce_recompute_bwd.launches += 1
+    count("launch.lm_ce_recompute_bwd")
     return dl[:, :V], dh
 
-
-lm_ce_recompute_bwd.launches = 0
 
 MODES = ("fwdbwd", "nomat", "bwd")
 

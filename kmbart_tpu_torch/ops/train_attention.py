@@ -28,6 +28,7 @@ from collections import namedtuple
 import torch
 
 from kmbart_tpu_torch.ops import _cuda, ffn
+from kmbart_tpu_torch.utils.profiling import count
 
 NEG_INF = -1e9
 MAX_LEN = 256  # whole score rows stay on chip
@@ -264,13 +265,10 @@ def _fwd_launch(q_flat, k_flat, v_flat, key_mask, num_heads, causal, kernel=None
     else:
         err = lib.kmb_train_attention_fwd(*ptrs, code, stream)
     _cuda.check(err, "train_attention_flat")
-    train_attention_flat.launches += 1
-    train_attention_flat.legacy_launches += int(p.kernel == "legacy")
+    count("launch.train_attention")
+    if p.kernel == "legacy":
+        count("launch.train_attention_legacy")
     return out
-
-
-train_attention_flat.launches = 0
-train_attention_flat.legacy_launches = 0  # of those, on PR 4's kernels
 
 
 def train_attention_bwd_plain(q_flat, k_flat, v_flat, key_mask, g_flat, *, num_heads,
@@ -342,13 +340,10 @@ def _bwd_launch(q_flat, k_flat, v_flat, key_mask, g_flat, num_heads, causal, ker
     else:
         err = lib.kmb_train_attention_bwd(*ptrs, code, stream)
     _cuda.check(err, "train_attention_bwd")
-    train_attention_bwd.launches += 1
-    train_attention_bwd.legacy_launches += int(p.kernel == "legacy")
+    count("launch.train_attention_bwd")
+    if p.kernel == "legacy":
+        count("launch.train_attention_bwd_legacy")
     return dq, dk, dv
-
-
-train_attention_bwd.launches = 0
-train_attention_bwd.legacy_launches = 0  # of those, on PR 4's kernels
 
 
 class _TrainAttention(torch.autograd.Function):

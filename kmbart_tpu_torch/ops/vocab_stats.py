@@ -28,6 +28,7 @@ import torch
 
 from kmbart_tpu_torch.ops import _cuda
 from kmbart_tpu_torch.ops.topk import CHUNK, pad_to_chunks, top_k
+from kmbart_tpu_torch.utils.profiling import count
 
 # Finite floor for the exp-shift: an entirely -inf chunk (forced BOS/EOS
 # steps) has cm == -inf, and exp(-inf - -inf) would be NaN; shifting by
@@ -81,17 +82,13 @@ def chunk_stats_topk(logits, k, stats=True):
     lib, stream = _cuda.prepare(dev)
     _cuda.check(lib.kmb_vocab_stats_topk(logits.data_ptr(), ptr(cm), ptr(es), ptr(keys),
                                          R, N, CHUNK, k, vec4, stream), "chunk_stats_topk")
-    chunk_stats_topk.launches += 1
+    count("launch.vocab_stats_topk")
     if k:
         _cuda.check(lib.kmb_topk_merge(logits.data_ptr(), keys.data_ptr(), values.data_ptr(),
                                        indices.data_ptr(), R, N, C, k, stream),
                     "chunk_stats_topk merge")
-        chunk_stats_topk.merge_launches += 1
+        count("launch.vocab_topk_merge")
     return cm, es, values, indices
-
-
-chunk_stats_topk.launches = 0        # stage 1: statistics and chunk candidates
-chunk_stats_topk.merge_launches = 0  # stage 2: the rows' top-k from the candidates
 
 
 def chunk_stats(logits):

@@ -41,6 +41,7 @@ import torch
 
 from kmbart_tpu_torch.parallel import distributed
 from kmbart_tpu_torch.training.state import TrainState, model_tensors
+from kmbart_tpu_torch.utils.profiling import span
 
 _MASK = (1 << 63) - 1
 
@@ -103,6 +104,10 @@ def build_train_step(loss_fn, optimizer, skip_nonfinite=True, grad_accum_steps=1
         return votes > 0
 
     def step(state: TrainState, batch, seed):
+        with span("train.step", id=state.step):
+            return _step(state, batch, seed)
+
+    def _step(state, batch, seed):
         model = state.params
         tensors = model_tensors(model)
         device = next(iter(tensors.values())).device
@@ -116,8 +121,10 @@ def build_train_step(loss_fn, optimizer, skip_nonfinite=True, grad_accum_steps=1
             for i, mb in enumerate(micro):
                 gen = torch.Generator(device=device).manual_seed(
                     step_seed(seed, state.step, i, rank))
-                loss, metrics = loss_fn(model, mb, gen)
-                loss.backward()
+                with span("train.forward"):
+                    loss, metrics = loss_fn(model, mb, gen)
+                with span("train.backward"):
+                    loss.backward()
                 losses.append(loss.detach())
                 per_micro.append(metrics)
         grads = {n: None if t.grad is None else (t.grad if G == 1 else t.grad / G)
@@ -136,20 +143,23 @@ def build_train_step(loss_fn, optimizer, skip_nonfinite=True, grad_accum_steps=1
                                         if grads.get(ids[i]) is not None], axis=tp.axis)
         ok = None
         if skip_nonfinite:
-            finite = [torch.isfinite(loss).reshape(())]
-            finite += [torch.isfinite(g).all() for g in grads.values() if g is not None]
-            ok = torch.stack(finite).all()
-            if split:
-                bad = (~ok).to(torch.float32).reshape(1)
-                distributed.all_reduce_axis(bad, grid.world)
-                ok = bad[0] == 0
-            metrics["skipped"] = 1.0 - ok.float()
+            with span("train.guard"):
+                finite = [torch.isfinite(loss).reshape(())]
+                finite += [torch.isfinite(g).all() for g in grads.values() if g is not None]
+                ok = torch.stack(finite).all()
+                if split:
+                    bad = (~ok).to(torch.float32).reshape(1)
+                    distributed.all_reduce_axis(bad, grid.world)
+                    ok = bad[0] == 0
+                metrics["skipped"] = 1.0 - ok.float()
         # the guard is fused into the optimizer's update (adamw.py ``ok``)
         extra = {"any_over": any_over} if split and grid.feed.size > 1 else {}
-        if zero1 is not None:
-            opt_state = zero1.update(optimizer, grads, state.opt_state, tensors, ok=ok, **extra)
-        else:
-            opt_state = optimizer.update(grads, state.opt_state, tensors, ok=ok, **extra)
+        with span("train.optimizer"):
+            if zero1 is not None:
+                opt_state = zero1.update(optimizer, grads, state.opt_state, tensors, ok=ok,
+                                         **extra)
+            else:
+                opt_state = optimizer.update(grads, state.opt_state, tensors, ok=ok, **extra)
         model.zero_grad(set_to_none=True)
         metrics["loss"] = loss
         return TrainState(params=model, opt_state=opt_state, step=state.step + 1), metrics

@@ -16,6 +16,8 @@ from datetime import datetime
 import numpy as np
 import torch
 
+from kmbart_tpu_torch.utils.profiling import span
+
 
 def to_device(batch, device):
     """The array fields of a collated batch as tensors on ``device``
@@ -48,7 +50,9 @@ def prefetch_to_device(loader, device, depth=4):
             if device.type == "cuda":
                 torch.cuda.set_device(device)
             for b in loader:
-                q.put(to_device(b, device))
+                with span("feed.stage"):
+                    staged = to_device(b, device)
+                q.put(staged)
         except BaseException as e:  # surfaced on the consumer side
             errs.append(e)
         finally:
@@ -56,7 +60,8 @@ def prefetch_to_device(loader, device, depth=4):
 
     threading.Thread(target=worker, daemon=True).start()
     while True:
-        item = q.get()
+        with span("feed.wait"):
+            item = q.get()
         if item is stop:
             if errs:
                 raise errs[0]

@@ -4,8 +4,7 @@ which the card's serve phase runs), and to the JAX package's engine on the
 same requests; the near-tie test the card applies to requests that differ
 from ``generate()`` at another batch (``chip_smoke.near_ties``); K2's
 inference split, the same at every row count; and ``utils.profiling``
-(``StepTimer`` equal to the JAX package's on a fake clock, ``trace``
-writing a Chrome trace). CPU, fp32; tokens compare exactly.
+(``trace`` writing a Chrome trace). CPU, fp32; tokens compare exactly.
 """
 
 import json
@@ -19,7 +18,6 @@ import torch
 
 from kmbart_tpu.models.conditional import init_conditional_params
 from kmbart_tpu.serving.engine import GenerationEngine as JaxEngine
-from kmbart_tpu.utils import profiling as jax_profiling
 from kmbart_tpu_torch.generation import beam
 from kmbart_tpu_torch.generation.api import generate
 from kmbart_tpu_torch.ops import ffn
@@ -156,23 +154,6 @@ def test_k2_inference_split_is_the_same_at_every_row_count(sms):
     assert ffn.plan(37, 32, 64, sms, invariant=True)[1].splits == 1
     adaptive = {ffn.plan(n, 768, 3072, sms)[1].splits for n in (160, 560)}
     assert len(adaptive) == 2        # what the decode step used to do
-
-
-def test_step_timer_matches_jax(monkeypatch):
-    ticks = [1.0, 1.5, 2.0, 2.25, 3.0, 3.0]
-    results = {}
-    for name, mod in (("port", profiling), ("jax", jax_profiling)):
-        it = iter(ticks)
-        monkeypatch.setattr(mod.time, "perf_counter", lambda it=it: next(it))
-        timer = mod.StepTimer(ema=0.8)
-        out = []
-        for items in (4, 8, 2):
-            timer.start()
-            out.append(timer.stop(items))
-        results[name] = (out, timer.avg_seconds)
-        monkeypatch.undo()
-    assert results["port"] == results["jax"]
-    assert results["port"][0][2] == (0.0, float("inf"))
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):

@@ -23,7 +23,7 @@ from kmbart_tpu.ops.pallas_attention import flash_self_attention as jax_flash_se
 from kmbart_tpu.ops.pallas_lm_ce import _fwd_stats_call, _recompute_bwd_call
 from kmbart_tpu.ops.pallas_lm_ce import fused_lm_ce as jax_lm_ce
 from kmbart_tpu_torch.models.bart import Attention
-from kmbart_tpu_torch.ops import attention, lm_ce
+from kmbart_tpu_torch.ops import attention, launch_counts, lm_ce
 from kmbart_tpu_torch.ops import flash_attention as fa
 from tests._torch_port import bf16_tol, to_jax, to_np, to_torch
 
@@ -285,7 +285,7 @@ def test_multi_head_attention_long_matches_jax(kind):
     want, _ = jax_mha(jparams, jnp.asarray(x), None if src is None else jnp.asarray(src),
                       dtype=jnp.float32, **{**kw, "key_mask": None if kw["key_mask"] is None
                                              else jnp.asarray(mask)})
-    before = fa.flash_attention.launches
+    before = launch_counts()["flash_attention"]
     calls = []
     orig = fa.flash_attention
     fa.flash_attention = lambda *a, **k: calls.append(1) or orig(*a, **k)
@@ -296,7 +296,7 @@ def test_multi_head_attention_long_matches_jax(kind):
                                     else torch.from_numpy(mask)})
     finally:
         fa.flash_attention = orig
-    assert calls and fa.flash_attention.launches == before   # plain version on the CPU
+    assert calls and launch_counts()["flash_attention"] == before   # plain version on the CPU
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **FP32)
 
 
