@@ -7,7 +7,7 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases, each printing one JSON line; any failure raises and exits non-zero:
   1. device    the card's name and power limit (needs a CUDA device);
-  2. build     nvcc builds the eleven kernels from kmbart_tpu_torch/csrc (one
+  2. build     nvcc builds the twelve kernels from kmbart_tpu_torch/csrc (one
                nvcc per source, all started together);
   3. kernels   each kernel against its plain PyTorch version on the card, at
                the generation, fine-tune and pretraining paths' shapes and at
@@ -56,6 +56,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                on tie-heavy rows, with torch.topk's and the sort's times; at
                k 2000 the wrapper refuses and the route (stats_top_k,
                exact_top_k) equals the plain version; a planted-tie top-k;
+               K12 (AdamW) against the plain per-tensor path over five
+               steps at the fine-tune and pretraining tensors and at odd
+               shapes on narrow parts (moments and step counts bit for bit,
+               parameters within 2 ulps), its device time, byte bound,
+               the plain path's time and the host's time a call;
   4. generate  beam-5 VCG generation at BART-base width (config/vcg_base.json,
                random weights from a seed, batch 64): every generation kernel
                must have launched (K4 and its merge once a step), outputs
@@ -83,8 +88,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                three steps (device-busy share, top device kernels, the
                shares of K1, K1b, K2, K2b, K7 and K8);
   7. train_cli ``python -m kmbart_tpu_torch.vcg_train --device cuda`` trains one
-               epoch on the fixture dataset, and the generate twin decodes
-               from its model0/;
+               epoch on the fixture dataset, resumes from its model0/ with
+               --continue_training for a second (the loaded moments on K12:
+               its launches counted), and the generate twin decodes from
+               model0/;
   8. pretrain  multi-task pretraining at full width and depth
                (config/pretrain_base.json, batch 128 at the collator's default
                lengths: 96 encoder and 72 decoder tokens, 30 image slots, 80
@@ -215,6 +222,8 @@ TRAIN_GRAD_NORM_RTOL = 5e-2
 # 6 cross attentions, K2 over 12 FFNs, K7/K8 once
 TRAIN_LAUNCHES = {"train_attention": 18, "train_attention_bwd": 18, "ffn": 12,
                   "ffn_bwd": 12, "lm_ce_fwd": 1, "lm_ce_bwd": 1,
+                  # K12: the "used" test, the steps kernel and the update
+                  "adamw": 3,
                   # of those, on PR 4's kernels (ops/train_attention.py plan): none
                   "train_attention_legacy": 0, "train_attention_bwd_legacy": 0}
 GENERATE_KERNELS = ("train_attention", "ffn", "beam_attention", "vocab_stats_topk",
@@ -476,6 +485,157 @@ def _check(name, err, tol):
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
+
+# K12 against AdamW's plain per-tensor path (training/adamw.py update_plain):
+# the same arithmetic in the same order, so the moments and step counts are
+# equal bit for bit; the step size's powf may round apart, by an ulp or two
+# of the parameters
+ADAMW_PARAM_ULPS = 2
+
+
+def _ulps(torch, a, b):
+    """The largest distance between fp32 tensors in units in the last place
+    (through the ordered integer view, so across zero too)."""
+    def ordered(t):
+        i = t.view(torch.int32).long()
+        return torch.where(i >= 0, i, -(i & 0x7FFFFFFF))
+    return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
+
+
+def _adamw_sets(torch):
+    """{set: (shapes {name: shape}, groups)} of the fine-tune and the
+    pretraining models' tensors (config/vcg_base.json, pretrain_base.json),
+    read on the meta device."""
+    from kmbart_tpu_torch.checkpoint.io import jax_leaf_groups
+    from kmbart_tpu_torch.config import MultiModalBartConfig
+    from kmbart_tpu_torch.models.conditional import MultiModalBartForConditionalGeneration
+    from kmbart_tpu_torch.models.pretraining import MultiModalBartForPreTraining
+    from kmbart_tpu_torch.training.state import model_tensors
+    out = {}
+    for name, path, cls, heads in (
+            ("finetune", "config/vcg_base.json", MultiModalBartForConditionalGeneration, False),
+            ("pretrain", "config/pretrain_base.json", MultiModalBartForPreTraining, True)):
+        cfg = MultiModalBartConfig.from_json(os.path.join(REPO, path))
+        with torch.device("meta"):
+            model = cls(cfg)
+        out[name] = ({n: tuple(t.shape) for n, t in model_tensors(model).items()},
+                     jax_leaf_groups(cfg, heads=heads))
+    return out
+
+
+def _adamw_compare(torch, opt, params, grads_of, oks, part=None, label=""):
+    """K12 (``opt.update`` on CUDA tensors) against ``opt.update_plain`` over
+    len(oks) steps from copies of one start; ``grads_of(i)`` the step's
+    gradients, ``oks[i]`` its guard (None: no guard). Returns the largest
+    parameter distance in ulps and in value; raises on any moment or step
+    count that differs."""
+    from kmbart_tpu_torch.ops import launch_counts, reset_launch_counts
+    pk = {n: t.clone() for n, t in params.items()}
+    pp = {n: t.clone() for n, t in params.items()}
+
+    def start(ps):
+        return opt.init({n: t if part is None else part(n, t) for n, t in ps.items()})
+    sk, sp = start(pk), start(pp)
+    reset_launch_counts()
+    for i, ok in enumerate(oks):
+        grads = grads_of(i)
+        okt = None if ok is None else torch.tensor(ok, device=next(iter(params.values())).device)
+        sk = opt.update(grads, sk, pk, ok=okt, part=part)
+        sp = opt.update_plain(grads, sp, pp, ok=okt, part=part)
+    torch.cuda.synchronize()
+    launches = launch_counts()["adamw"]
+    if launches != 3 * len(oks):
+        raise AssertionError(f"adamw {label}: {launches} K12 launches in {len(oks)} steps")
+    if int(sk.step) != int(sp.step):
+        raise AssertionError(f"adamw {label}: global step {int(sk.step)} != {int(sp.step)}")
+    if (sk.leaf_steps is None) != (sp.leaf_steps is None) or any(
+            int(sk.leaf_steps[k]) != int(v) for k, v in (sp.leaf_steps or {}).items()):
+        raise AssertionError(f"adamw {label}: per-group step counts differ")
+    for field in ("mu", "nu"):
+        a, b = getattr(sk, field), getattr(sp, field)
+        bad = [n for n in b if not torch.equal(a[n], b[n])]
+        if bad:
+            raise AssertionError(f"adamw {label}: {field} differs from the plain path in {bad[:5]}")
+    ulps = max(_ulps(torch, pk[n], pp[n]) for n in params)
+    _check(f"adamw {label}: parameters in fp32 ulps", ulps, ADAMW_PARAM_ULPS)
+    return ulps, max(float((pk[n] - pp[n]).abs().max()) for n in params)
+
+
+def check_adamw(torch, dev):
+    """K12 against the plain path over five steps at the fine-tune and the
+    pretraining tensors (a group whose gradients are all zero at step 2, a
+    None gradient in a used group at step 3, the guard false at step 4), and
+    at small odd shapes with weight decay, without bias correction and
+    without the per-group test, on ``narrow`` parts on dimension 1; then
+    K12's device time, its byte bound, the plain path's time and the host's
+    time a call at both full sets. Returns [fine-tune row, pretraining row,
+    edge rows]."""
+    from kmbart_tpu_torch.training.adamw import AdamW
+    g = torch.Generator(device=dev).manual_seed(12)
+    out = []
+    for set_name, (shapes, groups) in _adamw_sets(torch).items():
+        params = {n: torch.randn(s, generator=g, device=dev) * 0.02 for n, s in shapes.items()}
+        zero_group = next(k for k, names in groups.items() if len(names) > 1)
+        none_name = next(names[0] for k, names in groups.items()
+                         if len(names) > 1 and k != zero_group)
+        draws = [{n: torch.randn(s, generator=g, device=dev) * 1e-3 for n, s in shapes.items()}
+                 for _ in range(2)]
+
+        def grads_of(i):
+            grads = dict(draws[i % 2])
+            grads["final_logits_bias"] = None      # a buffer: never a gradient
+            if i == 2:
+                grads.update({n: torch.zeros_like(grads[n]) for n in groups[zero_group]})
+            if i == 3:
+                grads[none_name] = None
+            return grads
+        opt = AdamW(lr=1e-4, groups=groups)
+        ulps, err = _adamw_compare(torch, opt, params, grads_of,
+                                   [True, True, True, True, False], label=set_name)
+        # timing: each path carries its own state from call to call
+        grads = grads_of(0)
+        ok = torch.tensor(True, device=dev)
+        states = {True: opt.init(params), False: opt.init(params)}
+
+        def call(plain=False):
+            update = opt.update_plain if plain else opt.update
+            states[plain] = update(grads, states[plain], params, ok=ok)
+        n = sum(t.numel() for t in params.values())
+        res = {"set": set_name, "tensors": len(params), "groups": len(groups),
+               "parameters": n, "param_ulps_max": ulps, "max_abs_err": err,
+               "launches_a_step": 3,
+               "ms": _time_ms(torch, call), "host_us": _host_us(torch, call),
+               "plain_ms": _time_ms(torch, lambda: call(True), iters=3, warmup=1, reps=3),
+               "plain_host_us": _host_us(torch, lambda: call(True), iters=3)}
+        res.update(_bound(28 * n))
+        res["bound_with_used_ms"] = 1e3 * 32 * n / HBM_BYTES_PER_S
+        res["roofline_pct"] = 100 * res["bound_ms"] / res["ms"]
+        out.append(res)
+        del params, draws, grads, states
+    # small odd shapes: sizes that no 16-byte load covers whole, parts on dim 1
+    shapes = {"a": (37, 13), "b": (5,), "c": (3, 7, 11), "d": (64, 96), "e": (6, 10)}
+    params = {n: torch.randn(s, generator=g, device=dev) for n, s in shapes.items()}
+    draws = [{n: torch.randn(s, generator=g, device=dev) for n, s in shapes.items()}
+             for _ in range(5)]
+    part = lambda n, t: t.narrow(1, 2, 5) if t.dim() > 1 else t
+
+    def small_grads(i):
+        grads = dict(draws[i])
+        if i == 1:
+            grads["b"] = None
+        return grads
+    edges = {}
+    for kw in (dict(weight_decay=0.01, correct_bias=False, skip_unused=False),
+               dict(weight_decay=0.01), dict(correct_bias=False)):
+        opt = AdamW(lr=1e-2, groups={"x": ["a", "c"], "b": ["b"], "d": ["d", "e"]}, **kw)
+        for label, p in (("whole", None), ("narrow", part)):
+            edges[f"{label} {kw}"] = _adamw_compare(
+                torch, opt, params, small_grads, [True, None, False, True, True], part=p,
+                label=f"{label} {kw}")[0]
+    out.append({"set": "edges", "param_ulps_max": edges})
+    return out
+
+
 
 def _max_err(got, ref):
     return float((got.float() - ref.float()).abs().max())
@@ -1356,6 +1516,7 @@ def check_kernels(torch, dev):
         if got != want:
             raise AssertionError(f"top_k tie order row {row}: {got} != {want}")
     results["topk_ties"] = "lowest index first"
+    results["adamw"] = check_adamw(torch, dev)
     return results
 
 
@@ -2053,6 +2214,24 @@ def run_train_cli(card):
         for name in ("config.json", "params.npz", "training_data.npz"):
             if not os.path.exists(os.path.join(model0, name)):
                 raise AssertionError(f"train CLI wrote no model0/{name}")
+        # a resume from model0/: the moments checkpoint/io.py loads, updated by K12
+        resume = ["--data_dir", paths["vcg"], "--checkpoint_dir", os.path.join(tmp, "resume"),
+                  "--tokenizer_dir", paths["tokenizer"], "--epochs", "2", "--batch_size", "6",
+                  "--checkpoint", model0, "--continue_training", "--device", "cuda"]
+        code = ("import json\n"
+                "from kmbart_tpu_torch import vcg_train\n"
+                "from kmbart_tpu_torch.ops import launch_counts\n"
+                f"run = vcg_train.main(vcg_train.parse_args({resume!r}))\n"
+                "print(json.dumps({'run': run, 'adamw': launch_counts()['adamw']}))\n")
+        proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, timeout=600,
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"train CLI resume failed ({proc.returncode}):\n"
+                               f"{proc.stderr[-4000:]}")
+        resumed = json.loads(proc.stdout.strip().splitlines()[-1])
+        if not resumed["adamw"] or resumed["adamw"] % 3 or not os.path.exists(
+                os.path.join(resumed["run"], "model1", "training_data.npz")):
+            raise AssertionError(f"train CLI resume: {resumed}, no model1/ or not on K12")
         out_file = os.path.join(tmp, "gen.json")
         cmd = [sys.executable, "-m", "kmbart_tpu_torch.vcg_generate",
                "--data_dir", paths["vcg"], "--output_file", out_file, "--checkpoint", model0,
@@ -2066,7 +2245,8 @@ def run_train_cli(card):
             gen = json.load(f)
     if len(gen) != 18:
         raise AssertionError(f"generate from model0 wrote {len(gen)} entries, expected 18")
-    emit("train_cli", card=card, train_seconds=train_s, generated_entries=len(gen))
+    emit("train_cli", card=card, train_seconds=train_s, generated_entries=len(gen),
+         resumed_adamw_launches=resumed["adamw"])
 
 # ---------------------------------------------------------------------------
 # phases 8-10: multi-task pretraining
@@ -4182,6 +4362,8 @@ KERNEL_INFO = {
                             "kmbart_tpu/ops/pallas_beam_attention.py:214"),
     "vocab_stats_topk": ("kmbart_tpu_torch/csrc/vocab_stats.cu",
                          "kmbart_tpu/ops/pallas_vocab_stats.py:60"),
+    "adamw": ("kmbart_tpu_torch/csrc/adamw.cu",
+              "none: kmbart_tpu/training/adamw.py is plain jitted JAX"),
     "lm_ce_fwd": ("kmbart_tpu_torch/csrc/lm_ce.cu", "kmbart_tpu/ops/pallas_lm_ce.py:250"),
     "lm_ce_bwd": ("kmbart_tpu_torch/csrc/lm_ce_bwd.cu", "kmbart_tpu/ops/pallas_lm_ce.py:289"),
     "lm_ce_fwd_stats": ("kmbart_tpu_torch/csrc/lm_ce.cu",

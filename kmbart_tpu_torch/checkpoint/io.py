@@ -123,7 +123,8 @@ def params_from_jax(flat, cfg: MultiModalBartConfig):
         arr = arr.T if transpose else arr
         if name == "final_logits_bias":
             arr = arr.reshape(1, -1)
-        sd[name] = torch.from_numpy(np.array(arr, dtype=np.float32))
+        # row-major, as the port's tensors are (K12 takes no transposed moment)
+        sd[name] = torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
     if "model.shared.weight" in sd:
         for tied in _TIED_COPIES:
             sd[tied] = sd["model.shared.weight"]

@@ -1,4 +1,4 @@
-"""Tensor ops of the port. Eleven of them wrap hand-written Hopper kernels
+"""Tensor ops of the port. Twelve of them wrap hand-written Hopper kernels
 (``csrc/``); each wrapper counts its kernel launches in the program's
 counters (utils/profiling.py ``count``) as ``launch.<name>``, K1's wrappers
 those on their plan's "legacy" route also as ``launch.<name>_legacy``,
@@ -10,10 +10,11 @@ from kmbart_tpu_torch.utils import profiling
 
 # K1 and K2 forward and backward, K3 and K4 (statistics and top-k) of the
 # generation path, K7 and K8 (mode "fwdbwd") and K9 and K10 (mode "nomat")
-# of the LM loss, K11 for long sequences; then the launches counted apart
+# of the LM loss, K11 for long sequences, K12 (AdamW); then the launches
+# counted apart
 LAUNCHES = ("train_attention", "train_attention_bwd", "ffn", "ffn_bwd", "beam_attention",
             "vocab_stats_topk", "lm_ce_fwd", "lm_ce_bwd", "lm_ce_fwd_stats",
-            "lm_ce_recompute_bwd", "flash_attention", "train_attention_legacy",
+            "lm_ce_recompute_bwd", "flash_attention", "adamw", "train_attention_legacy",
             "train_attention_bwd_legacy", "beam_attention_ring", "vocab_topk_merge")
 
 

@@ -53,6 +53,10 @@ _SIGNATURES = {
     "kmb_flash_attention": (_I, [_P] * 5 + [_I] * 9 + [_F, _I, _P]),
     "kmb_vocab_stats_topk": (_I, [_P] * 4 + [_I] * 5 + [_P]),
     "kmb_topk_merge": (_I, [_P] * 4 + [_I] * 4 + [_P]),
+    "kmb_adamw_table_bytes": (ctypes.c_size_t, []),
+    "kmb_adamw_used": (_I, [_P, _I, _I, _P, _I, _I, _P]),
+    "kmb_adamw_steps": (_I, [_P] * 5 + [_I] * 3 + [_F] * 3 + [_P]),
+    "kmb_adamw_update": (_I, [_P, _I, _I, _P, _P] + [_F] * 6 + [_I, _P]),
     "kmb_error_string": (ctypes.c_char_p, [_I]),
     "kmb_set_device": (_I, [_I]),
 }

@@ -17,11 +17,23 @@ kept per port tensor, in fp32.
 
 Everything runs on the tensors' device with no host sync: ``ok`` and the
 per-group "used" flags stay device booleans. Parameters are updated in
-place (JAX returns new arrays); moments are new tensors each step.
+place (JAX returns new arrays).
+
+Two versions of one update. On CUDA tensors ``update`` launches K12
+(ops/adamw.py, csrc/adamw.cu): a few launches a step over every tensor,
+with the same arithmetic in the same order. There the moments are updated
+in place, and the returned state's ``step`` and ``leaf_steps`` are views
+of one int32 vector that each later update advances in place: a state
+handed to ``update`` on the card is spent, and a caller that wants one
+kept copies it first. The optimizer caches K12's launch tables for the
+tensors and moments it saw last (rebuilt when another state, model or
+``part`` comes). On other devices ``update_plain`` runs, the per-tensor
+version (new moments each step), which K12 is held to.
 """
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 
@@ -45,6 +57,7 @@ class AdamW:
         self.correct_bias = correct_bias
         self.skip_unused = skip_unused
         self.groups = groups
+        self._kernel = None
 
     def groups_for(self, params):
         """The groups over the tensors of ``params``: a rank of a split model
@@ -66,6 +79,14 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads, state, params, lr=None, ok=None, part=None, any_over=None):
+        """Update ``params`` in place; return the new state: K12 on CUDA
+        tensors, ``update_plain`` on others (the module docstring)."""
+        if next(iter(params.values())).device.type == "cuda":
+            return self._update_kernel(grads, state, params, lr, ok, part, any_over)
+        return self.update_plain(grads, state, params, lr, ok, part, any_over)
+
+    @torch.no_grad()
+    def update_plain(self, grads, state, params, lr=None, ok=None, part=None, any_over=None):
         """Update ``params`` in place; return the new state. ``part(name,
         tensor)``, when given, is the part of a tensor this process updates
         (ZeRO-1, parallel/zero1.py; None: a tensor another rank owns), and
@@ -127,3 +148,70 @@ class AdamW:
                 p.copy_(new_p)
                 mu[name], nu[name] = new_m, new_v
         return AdamWState(step=step, mu=mu, nu=nu, leaf_steps=leaf_steps)
+
+    def _update_kernel(self, grads, state, params, lr, ok, part, any_over):
+        lr = self.lr if lr is None else lr
+        per_leaf = self.skip_unused and state.leaf_steps is not None
+        run = self._kernel
+        if run is None or not run.serves(state, params, part, per_leaf):
+            run = self._kernel = _KernelRun(self, grads, state, params, part, per_leaf)
+        return run.step(grads, state, ok, any_over, lr)
+
+
+class _KernelRun:
+    """K12's plan for one state, model and ``part`` (ops/adamw.py
+    ``Plan``), and the state it hands back."""
+
+    def __init__(self, opt, grads, state, params, part, per_leaf):
+        from kmbart_tpu_torch.ops import _cuda
+        from kmbart_tpu_torch.ops.adamw import Plan, rows_of
+
+        self.opt, self.part, self.per_leaf = opt, part, per_leaf
+        self.mu, self.nu = state.mu, state.nu
+        self.tensors = list(params.items())
+        self.groups = opt.groups_for(params)
+        dev = _cuda.require_cuda("AdamW", *params.values(), *state.mu.values(),
+                                 *state.nu.values(), contiguous=False)
+        used, update, self.names, self.update_index = [], [], [], []
+        for grp, names in enumerate(self.groups.values()):
+            for name in names:
+                p, g = params[name], grads.get(name)
+                q = p if part is None else part(name, p)
+                moments = () if q is None else (state.mu[name], state.nu[name])
+                if any(t is not None and t.dtype != torch.float32 for t in (p, g, *moments)):
+                    raise TypeError(f"AdamW kernel takes fp32 tensors and moments ({name})")
+                if g is not None and any(a != b for a, b, n in zip(g.stride(), p.stride(), p.shape)
+                                         if n != 1):
+                    raise ValueError(f"AdamW kernel: {name}'s gradient is laid out unlike it")
+                rows, cols, (stride,) = rows_of(p)
+                used.append((rows, cols, stride, grp))
+                if q is not None:
+                    update.append((q, *moments, grp, q.data_ptr() - p.data_ptr()))
+                    self.update_index.append(len(self.names))
+                self.names.append(name)
+        self.update_index = np.array(self.update_index, np.intp)
+        self.plan = Plan(used, update, len(self.groups), dev)
+        self.step_view = self.plan.steps[0]
+        self.leaf_views = None
+
+    def serves(self, state, params, part, per_leaf):
+        """Whether this plan's tables still describe the call's tensors."""
+        return (state.mu is self.mu and state.nu is self.nu and part == self.part
+                and per_leaf == self.per_leaf and len(params) == len(self.tensors)
+                and all(params.get(n) is t for n, t in self.tensors))
+
+    def step(self, grads, state, ok, any_over, lr):
+        opt, plan = self.opt, self.plan
+        if state.step is not self.step_view:
+            self.step_view.copy_(state.step)
+        if self.per_leaf and state.leaf_steps is not self.leaf_views:
+            plan.steps[1:].copy_(torch.stack([state.leaf_steps[k] for k in self.groups]))
+            self.leaf_views = {**state.leaf_steps,
+                               **{k: plan.steps[1 + i] for i, k in enumerate(self.groups)}}
+        addresses = np.fromiter((0 if g is None else g.data_ptr()
+                                 for g in map(grads.get, self.names)),
+                                np.uint64, len(self.names))
+        plan.launch(addresses, self.update_index, ok, any_over, self.per_leaf,
+                    opt.correct_bias, lr, opt.b1, opt.b2, opt.eps, opt.weight_decay)
+        return AdamWState(step=self.step_view, mu=state.mu, nu=state.nu,
+                          leaf_steps=self.leaf_views if self.per_leaf else state.leaf_steps)
